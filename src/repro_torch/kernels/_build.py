@@ -1,0 +1,185 @@
+"""Build the CUDA kernels at first use, from the repository's sources only.
+
+Each source under ``kernels/csrc`` is compiled by its own ``nvcc`` (all
+started together) into a shared library with a plain C interface, for
+Hopper (``sm_90a``), and bound with ``ctypes``.  The libraries go into
+``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  A failed build raises with nvcc's output;
+the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed
+once, to stderr, when the kernels are built.
+
+Nothing here runs at import: machines without a card import every
+module, and only a wrapper handed a CUDA tensor builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["SOURCES", "BUILD_ROOT", "build", "function", "check",
+           "dtype_code", "require_cuda", "stream"]
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# kernel name (its C entry point is repro_<name>) -> source csrc/<source>.cu
+SOURCES = {"rank1_update": "condense_step", "panel_update": "panel_update",
+           "fused_step": "fused_step", "panel_factor": "panel_factor"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "rank1_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _P),
+    "panel_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P),
+    "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+}
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+_lock = threading.Lock()
+_functions: dict = {}
+_report: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if nvcc is None or not os.path.exists(nvcc):
+        raise RuntimeError(
+            "cannot build the repro_torch CUDA kernels: nvcc not found "
+            f"(CUDA_HOME={CUDA_HOME!r}); CUDA tensors need the kernels, "
+            "CPU tensors run the plain versions")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _ptxas_summary(log: str) -> dict:
+    """Largest register count, shared memory and spill over the
+    template instances in one source's ``-Xptxas -v`` log."""
+    def most(pattern):
+        return max((int(v) for v in re.findall(pattern, log)), default=0)
+    return {"registers": most(r"Used (\d+) registers"),
+            "smem_bytes": most(r"(\d+) bytes smem"),
+            "spill_bytes": max(most(r"(\d+) bytes spill stores"),
+                               most(r"(\d+) bytes spill loads")),
+            "instances": len(re.findall(r"Compiling entry function", log))}
+
+
+def _compile(out_dir: Path) -> None:
+    """Run one nvcc per source, all at once, into ``out_dir``."""
+    nvcc = _nvcc()
+    tmp = BUILD_ROOT / f"{out_dir.name}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = {
+        name: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o",
+             str(tmp / f"lib{name}.so"), str(CSRC / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, src in SOURCES.items()}
+    logs = {name: p.communicate()[0] for name, p in procs.items()}
+    failed = [name for name, p in procs.items() if p.returncode != 0]
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    for name, log in logs.items():
+        (tmp / f"{name}.ptxas.txt").write_text(log)
+    (tmp / "build_seconds.txt").write_text(f"{time.perf_counter() - t0}\n")
+    try:
+        os.replace(tmp, out_dir)
+    except OSError:             # another process finished the same build
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def build() -> dict:
+    """Build (or load the cached build of) every kernel; returns the
+    report: ``{"dir", "cached", "nvcc_seconds", "kernels": {name: ptxas}}``."""
+    with _lock:
+        if _functions:
+            return _report
+        out_dir = BUILD_ROOT / _digest()
+        cached = all((out_dir / f"lib{n}.so").exists() for n in SOURCES)
+        if not cached:
+            _compile(out_dir)
+        for name in SOURCES:
+            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            fn = getattr(lib, f"repro_{name}")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _functions[name] = fn
+        _report.update(
+            dir=str(out_dir), cached=cached,
+            nvcc_seconds=float((out_dir / "build_seconds.txt").read_text()),
+            kernels={n: _ptxas_summary((out_dir / f"{n}.ptxas.txt")
+                                       .read_text()) for n in SOURCES})
+        if not cached:
+            print(f"repro_torch: built {len(SOURCES)} kernels in "
+                  f"{_report['nvcc_seconds']:.1f}s into {out_dir}",
+                  file=sys.stderr)
+            for name, s in _report["kernels"].items():
+                print(f"  {name}: {s['registers']} registers, "
+                      f"{s['smem_bytes']} B smem, {s['spill_bytes']} B "
+                      f"spill ({s['instances']} instances)", file=sys.stderr)
+        return _report
+
+
+def function(name: str):
+    """The bound C entry point of kernel ``name`` (builds on first use)."""
+    build()
+    return _functions[name]
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    return _DTYPE_CODES[dtype]
+
+
+def require_cuda(name: str, buffer: torch.Tensor, operands=()) -> None:
+    """Raise unless the launch is one the kernel takes: every tensor
+    contiguous on one CUDA device, the buffer f32/f64, the operands in
+    the buffer's dtype or all bf16."""
+    tensors = (buffer, *operands)
+    dev = buffer.device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every tensor must lie on one CUDA "
+                             f"device, got {[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if buffer.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: buffer dtype {buffer.dtype} unsupported "
+                        "(float32 or float64)")
+    op_dtypes = {t.dtype for t in operands}
+    if len(op_dtypes) > 1 or not op_dtypes <= {buffer.dtype, torch.bfloat16}:
+        raise TypeError(f"{name}: operands must all be {buffer.dtype} or "
+                        f"all bfloat16, got {sorted(map(str, op_dtypes))}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the pointer the C side takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")

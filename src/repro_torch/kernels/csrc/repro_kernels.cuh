@@ -1,0 +1,95 @@
+// Shared header of the condensation kernels K1-K4 (sm_90a).
+//
+// The C interface below is what the Python wrappers bind with ctypes
+// (kernels/_build.py): every pointer and the stream are `void*`, every
+// size is `long long`, every dtype is one of the codes below, and every
+// function returns cudaGetLastError() after its launch (0 on success).
+//
+// The device helpers pin the rounding of every multiply, subtract and
+// divide (`__fmul_rn`, `__fsub_rn`, `__fdiv_rn` and their f64 forms), so
+// nvcc cannot contract `a - pc * pr` into an FMA: the plain PyTorch
+// versions (kernels/ref.py) materialize the product before subtracting,
+// and the kernels reproduce them bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+// dtype codes shared with kernels/_build.py
+#define REPRO_F32 0
+#define REPRO_F64 1
+#define REPRO_BF16 2
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// K1: out = a - outer(pc, pr); a, out (m, n) in dtype; pc (m,), pr (n,) in op_dtype.
+int repro_rank1_update(int dtype, int op_dtype, const void* a, const void* pc,
+                       const void* pr, void* out, long long m, long long n,
+                       void* stream);
+
+// K2: out = a - c @ r; a, out (m, n) in dtype; c (m, k), r (k, n) in op_dtype.
+int repro_panel_update(int dtype, int op_dtype, const void* a, const void* c,
+                       const void* r, void* out, long long m, long long n,
+                       long long k, void* stream);
+
+// K3: out = swap_select(a; l <-> last) - outer(pc, pr); l is a device int64.
+int repro_fused_step(int dtype, int op_dtype, const void* a, const void* l,
+                     long long last, const void* pc, const void* pr,
+                     const void* col_l, const void* col_last, void* out,
+                     long long m, long long n, void* stream);
+
+// K4: factorize a (k, n) panel; r (k, n) out, ls (k,) int64 out,
+// sign_logdet (2,) out in dtype.
+int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
+                       void* sign_logdet, long long k, long long n,
+                       long long m0, long long r_pos, void* stream);
+
+#ifdef __cplusplus
+}
+#endif
+
+#ifdef __CUDACC__
+namespace repro {
+
+__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
+__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
+__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
+__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
+__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
+__device__ __forceinline__ float fma_rn(float x, float y, float z) { return __fmaf_rn(x, y, z); }
+__device__ __forceinline__ double fma_rn(double x, double y, double z) { return __fma_rn(x, y, z); }
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+__device__ __forceinline__ float log_(float x) { return logf(x); }
+__device__ __forceinline__ double log_(double x) { return log(x); }
+
+template <typename T>
+__device__ __forceinline__ T widen(T x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// pc * pr rounded in the operand type, then widened to the buffer type T:
+// a bf16 product is exact in f32 and rounds once to bf16, as PyTorch's
+// bf16 multiply does.
+template <typename T, typename OpT>
+__device__ __forceinline__ T product(OpT x, OpT y) {
+  if constexpr (std::is_same<OpT, __nv_bfloat16>::value) {
+    float p = __fmul_rn(__bfloat162float(x), __bfloat162float(y));
+    return static_cast<T>(__bfloat162float(__float2bfloat16_rn(p)));
+  } else {
+    return mul_rn(x, y);
+  }
+}
+
+// 16-byte vector of a buffer type, for coalesced loads and stores
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
+template <> struct Vec16<double> { using type = double2; static constexpr int n = 2; };
+
+}  // namespace repro
+#endif
