@@ -10,20 +10,34 @@ it is not next to the repository's ``src/repro_torch``.  Phases, one
 printed line each, any failure ends the run:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
-2. build    nvcc builds K1-K4 from ``src/repro_torch/kernels/csrc``
-            (sm_90a), with each kernel's registers, shared memory, spills;
+2. build    nvcc builds the seven kernels K1-K4 and K6-K8 from
+            ``src/repro_torch/kernels/csrc`` (sm_90a), with each kernel's
+            registers, shared memory, stack frame, spills;
 3. kernels  every kernel against its plain PyTorch version on the card,
-            at the main path's shapes, in f32, f64 and with bf16 operands:
-            bitwise for K1, K3 and K4's R and ls, K4's sign exactly, K4's
-            logdet and K2 to the tolerances stated below; then each
-            kernel's time beside its plain version, its bound and, where
-            one PyTorch call computes the same function, that call;
+            at the main paths' shapes, in f32 and f64 (and bf16 operands
+            for K1-K3): bitwise for K1, K3, K8 and K4's R and ls, K4's
+            sign exactly, K4's logdet and K2 to the tolerances stated
+            below; K6 and K7, on their routes' own operands, and their
+            plain versions against the same step in f64, within its
+            probabilistic rounding bound (`ref.cheb_step_bound`,
+            `ref.cg_step_bound`), which three planted faults must break;
+            then each kernel's time beside its plain version, its bound
+            and, where one PyTorch call computes the same function, that
+            call;
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
             fused, and staged x panel with bf16 operands: sign exact,
             log|det| against an f64 reference, fused bitwise equal to
-            unfused, and the launch counts of K1-K4 equal to the schedule.
+            unfused, and the launch counts of K1-K4 equal to the schedule;
+5. estimators ``repro_torch.plan(x, method="chebyshev"|"slq")`` and
+            ``estimators.cg_solve(x, b)`` on a dense SPD N = 16384 f32
+            matrix and on the 1024 x 1024 lattice precision of a Matern
+            (SPDE) field (the constants EST_N, SIDE, DEGREE, NUM_STEPS,
+            PROBES below): estimates against exact f64 references, each
+            route against the same route through the plain versions on
+            the card (same probes and bounds), CG's true residual, and
+            the launch counts of K6-K8 equal to the route's formula.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,7 +71,30 @@ KERNEL_META = {
                    "src/repro/kernels/fused_step.py:40"),
     "panel_factor": ("src/repro_torch/kernels/csrc/panel_factor.cu",
                      "src/repro/kernels/panel_factor.py:31"),
+    "cheb_step": ("src/repro_torch/kernels/csrc/cheb_step.cu",
+                  "src/repro/kernels/fused_est.py:40"),
+    "cg_step": ("src/repro_torch/kernels/csrc/cg_step.cu",
+                "src/repro/kernels/fused_est.py:85"),
+    "stencil_mv": ("src/repro_torch/kernels/csrc/stencil_mv.cu",
+                   "src/repro/kernels/stencil_mv.py:34"),
 }
+# the estimator cells: a dense SPD matrix of side EST_N and the SPDE
+# (Matern, alpha = 1) lattice precision kappa^2 I + L_2D on SIDE x SIDE
+# nodes; Chebyshev of degree DEGREE, SLQ of NUM_STEPS steps, PROBES probes
+# (and CG right-hand sides)
+EST_N, SIDE, KAPPA2 = 16384, 1024, 0.1
+DEGREE, NUM_STEPS, PROBES = 64, 25, 32
+# estimate against its exact reference: N_SEM standard errors of the
+# probe noise plus a relative allowance for truncation bias and f32
+# rounding (f32 against f64 with the same probes measured up to 2.5e-4
+# on the lattice, CPU: inside 5 sem, which is 6.6e-4 there)
+N_SEM, EST_RTOL = 5.0, 1e-4
+# a route through a kernel against the same route through the plain
+# versions, same probes and bounds: K6 sums A @ w in another order (f32);
+# routes without a summation-order difference must agree to 1e-6
+ROUTE_RTOL = {"dense|chebyshev": 1e-4, "dense|slq": 1e-6,
+              "lattice|chebyshev": 1e-6, "lattice|slq": 1e-6}
+CG_TOL, CG_RESIDUAL, CG_X_RTOL = 1e-6, 1e-5, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -225,6 +262,167 @@ def kernel_phase(n: int, k: int, gen) -> dict:
     return timings
 
 
+def cheb_step_inputs(a, gen):
+    """K6's operands at the dense Chebyshev route's second step: ``(w,
+    w_prev, v, center, width)`` with ``v`` the Rademacher probes, ``w = B
+    v`` and the route's bracket from `spectral_bounds`."""
+    from repro_torch import estimators as est
+    lo, hi = est.spectral_bounds(est.DenseOperator(a), gen)
+    v = est.make_probes(gen, a.shape[0], PROBES, dtype=a.dtype,
+                        device=a.device)
+    c, wd = (hi + lo).reshape(1), (hi - lo).reshape(1)
+    return (2.0 * (a @ v) - c * v) / wd, v, v, c, wd
+
+
+def cg_step_inputs(a, gen):
+    """K7's operands at the dense CG route's first step (Jacobi, x0 = 0,
+    seeded right-hand sides): ``(p, x, r, rz)``."""
+    import torch
+    r = torch.randn(a.shape[0], PROBES, generator=gen, device=a.device,
+                    dtype=torch.float64).to(a.dtype)
+    z = r / torch.diagonal(a)[:, None]
+    return z, torch.zeros_like(r), r, (r * z).sum(0)
+
+
+def held(step, bound, args, outs) -> float:
+    """max over the outputs of |out - exact| / bound: ``exact`` is ``step``
+    evaluated in f64 on the same operands, ``bound`` the rounding bound of
+    one evaluation in their dtype (`ref.cheb_step_bound` /
+    `ref.cg_step_bound`), doubled for f64 operands, where the f64
+    evaluation is itself one.  Above 1 is a failure."""
+    import torch
+    want = step(*(t.double() for t in args))
+    factor = 2.0 if args[0].dtype == torch.float64 else 1.0
+    tiny = torch.finfo(torch.float64).tiny
+    return max(((o.double() - w).abs()
+                / (factor * t.double()).clamp_min(tiny)).max().item()
+               for o, w, t in zip(outs, want, bound(*args)))
+
+
+def planted_faults(kind: str, args, outs) -> dict:
+    """Outputs of a broken K6/K7 on the same operands, each of which
+    `held` must reject: one 32-column chunk of A skipped (the exact step
+    without it), the dots zeroed (K6), alpha negated (K7)."""
+    import torch
+    from repro_torch.kernels import ref
+    a = args[0]
+    c0 = (a.shape[1] // 2) // 32 * 32
+    skipped = a.to(torch.float64, copy=True)
+    skipped[:, c0:c0 + 32] = 0
+    step = ref.cheb_step_ref if kind == "cheb_step" else ref.cg_step_ref
+    faults = {"chunk_skipped": tuple(
+        o.to(a.dtype) for o in step(skipped, *(t.double() for t in args[1:])))}
+    del skipped
+    if kind == "cheb_step":
+        faults["dots_zeroed"] = (outs[0], torch.zeros_like(outs[1]))
+    else:
+        p, x, r, _ = args[1:]
+        faults["alpha_negated"] = (2 * x - outs[0], 2 * r - outs[1])
+    return faults
+
+
+def estimator_kernel_phase(n: int, side: int, gen) -> dict:
+    """K6 and K7 at the dense cell's shape (n, n) x (n, PROBES) on the
+    route's own operands, K8 at the lattice's, each in f32 and f64:
+    parity, then times.  Returns ``{kernel: {dtype: fields}}``."""
+    import torch
+    from repro_torch.kernels import fused_est, ref
+    from repro_torch.kernels import stencil_mv as k8
+
+    k = PROBES
+    out = {"cheb_step": {}, "cg_step": {}, "stencil_mv": {}}
+    kernels = {"cheb_step": (fused_est.cheb_step, ref.cheb_step_ref,
+                             ref.cheb_step_bound, cheb_step_inputs),
+               "cg_step": (fused_est.cg_step, ref.cg_step_ref,
+                           ref.cg_step_bound, cg_step_inputs)}
+    for dt in (torch.float32, torch.float64):
+        name_dt = str(dt)[6:]
+        size = torch.finfo(dt).bits // 8
+        a = dense_spd(n, gen, dt)
+        fields, operands = {}, {}
+        for name, (kernel, plain, bound, inputs) in kernels.items():
+            # K6 / K7 against the f64 step, within the probabilistic
+            # rounding bound; the plain version too; each planted fault
+            # outside it; a repeated call bitwise equal
+            args = (a, *inputs(a, gen))
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            rel, plain_rel = (held(plain, bound, args, o) for o in (got, want))
+            faults = {f: held(plain, bound, args, o)
+                      for f, o in planted_faults(name, args, got).items()}
+            require(rel <= 1.0, f"{name} {name_dt}: {rel} of its bound")
+            require(plain_rel <= 1.0, f"{name} {name_dt}: the plain version "
+                    f"is at {plain_rel} of the bound")
+            require(min(faults.values()) > 1.0,
+                    f"{name} {name_dt}: a planted fault passes: {faults}")
+            again = kernel(*args)
+            require(all(torch.equal(g, h) for g, h in zip(got, again)),
+                    f"{name} {name_dt}: a repeated call differs")
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            say("kernels", kernel=name, variant=name_dt, n=n, k=k,
+                max_abs_err=err, max_rel_to_bound=rel,
+                plain_max_rel_to_bound=plain_rel,
+                planted_faults_rel_to_bound=faults, repeat_bitwise=True,
+                error_lambda=ref.ERROR_LAMBDA)
+            fields[name] = err
+            operands[name] = args
+            del got, want, again
+
+        # K8 bitwise, slab and vector form, at the lattice's shape
+        op = lattice_operator(side, dt)
+        xs = torch.randn(op.n, k, generator=gen, device="cuda",
+                         dtype=torch.float64).to(dt)
+        y8 = k8.stencil_mv(op.bands, xs, op.offsets)
+        y80 = ref.stencil_mv_ref(op.bands, xs, offsets=op.offsets)
+        xv = xs[:, 0].contiguous()
+        torch.cuda.synchronize()
+        err8 = (y8 - y80).abs().max().item()
+        require(torch.equal(y8, y80), f"K8 {name_dt}: not bitwise, {err8}")
+        require(torch.equal(k8.stencil_mv(op.bands, xv, op.offsets),
+                            ref.stencil_mv_ref(op.bands, xv,
+                                               offsets=op.offsets)),
+                f"K8 {name_dt}: vector form not bitwise")
+        say("kernels", kernel="stencil_mv", variant=name_dt,
+            lattice=[side, side], k=k, bitwise=True)
+
+        nn, nb = op.n, len(op.offsets)
+        a6, a7 = operands["cheb_step"], operands["cg_step"]
+        timings = {
+            "cheb_step": dict(
+                max_abs_err=fields["cheb_step"],
+                ms=time_ms(lambda: fused_est.cheb_step(*a6)),
+                plain_ms=time_ms(lambda: ref.cheb_step_ref(*a6)),
+                library_ms=None, matmul_ms=time_ms(lambda: a @ a6[1]),
+                bound=bound_ms((n * n + 4 * n * k + k) * size,
+                               2 * n * n * k + 8 * n * k, name_dt)),
+            "cg_step": dict(
+                max_abs_err=fields["cg_step"],
+                ms=time_ms(lambda: fused_est.cg_step(*a7)),
+                plain_ms=time_ms(lambda: ref.cg_step_ref(*a7)),
+                library_ms=None, matmul_ms=time_ms(lambda: a @ a7[1]),
+                bound=bound_ms((n * n + 5 * n * k + k) * size,
+                               2 * n * n * k + 6 * n * k, name_dt)),
+            "stencil_mv": dict(
+                max_abs_err=err8,
+                ms=time_ms(lambda: k8.stencil_mv(op.bands, xs, op.offsets)),
+                plain_ms=time_ms(lambda: ref.stencil_mv_ref(
+                    op.bands, xs, offsets=op.offsets)),
+                library_ms=None, matmul_ms=None,
+                bound=bound_ms((2 * nn * k + nb * nn) * size,
+                               2 * nb * nn * k, name_dt)),
+        }
+        for name, t in timings.items():
+            out[name][name_dt] = t
+            say("timing", kernel=name, dtype=name_dt,
+                shape=[nn, k] if name == "stencil_mv" else [n, n, k],
+                ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], matmul_ms=t["matmul_ms"],
+                bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        del a, a6, a7, operands, op, xs, y8, y80
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path, end to end
 # --------------------------------------------------------------------------
@@ -242,7 +440,8 @@ def expected_launches(n: int, k: int, update: str, fused: bool) -> dict:
             rank1 += steps
     return {"rank1_update": 0 if fused else rank1,
             "fused_step": rank1 if fused else 0,
-            "panel_update": panels, "panel_factor": panels}
+            "panel_update": panels, "panel_factor": panels,
+            "cheb_step": 0, "cg_step": 0, "stencil_mv": 0}
 
 
 def main_path_phase(n: int, k: int, gen) -> dict:
@@ -322,6 +521,200 @@ def main_path_phase(n: int, k: int, gen) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 5: the estimators, end to end
+# --------------------------------------------------------------------------
+
+def lattice_operator(side: int, dtype, device="cuda"):
+    """Q = kappa^2 I + T (x) I + I (x) T, T = tridiag(-1, 2, -1): the
+    precision of a Matern (SPDE, alpha = 1) field on a side x side lattice
+    with Dirichlet boundary, as five bands (row-major nodes)."""
+    import torch
+    from repro_torch.estimators import StencilOperator
+    n = side * side
+    i = torch.arange(n, device=device)
+    bands = torch.full((5, n), -1.0, dtype=dtype, device=device)
+    bands[2] = 4.0 + KAPPA2
+    bands[1] = torch.where(i % side == 0, 0.0, -1.0)
+    bands[3] = torch.where(i % side == side - 1, 0.0, -1.0)
+    return StencilOperator((-side, -1, 0, 1, side), bands)
+
+
+def lattice_logdet(side: int) -> float:
+    """log|Q| in closed form (f64, host): the sum over eigenvalue pairs
+    kappa^2 + (2 - 2 cos(i pi / (side + 1))) + (2 - 2 cos(j pi / ...))."""
+    import numpy as np
+    ev = 2.0 - 2.0 * np.cos(np.arange(1, side + 1) * np.pi / (side + 1))
+    return float(np.log(KAPPA2 + ev[:, None] + ev[None, :]).sum())
+
+
+class PlainOperator:
+    """The same operator with every product through the plain PyTorch
+    version on the card -- the comparison route, never the main path.
+    A duck-typed operator, so Chebyshev and CG run their inline chains
+    (the plain versions of K6 and K7) on it."""
+
+    def __init__(self, op):
+        self.op, self.shape, self.dtype = op, op.shape, op.dtype
+        self.device = op.device
+
+    def mm(self, v):
+        from repro_torch.kernels import ref
+        if hasattr(self.op, "bands"):
+            return ref.stencil_mv_ref(self.op.bands, v,
+                                      offsets=self.op.offsets)
+        return self.op.a @ v
+
+    def diag(self):
+        return self.op.diag()
+
+
+def expected_estimator_launches(route: str, iters: int = 0) -> dict:
+    """K6-K8 launches of one estimator route; K1-K4 launch none."""
+    counts = dict.fromkeys(KERNEL_META, 0)
+    power = 2 * (32 + 1)        # spectral_bounds: two power iterations
+    name = {"dense|chebyshev": ("cheb_step", DEGREE - 1),
+            "dense|cg": ("cg_step", iters),
+            "lattice|chebyshev": ("stencil_mv", power + 1 + DEGREE - 1),
+            "lattice|slq": ("stencil_mv", NUM_STEPS),
+            "lattice|cg": ("stencil_mv", iters)}.get(route)
+    if name is not None:
+        counts[name[0]] = name[1]
+    return counts
+
+
+def estimator_phase(n: int, side: int, seed: int) -> dict:
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.kernels import ops, ref
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    cheb_kw = dict(degree=DEGREE, num_probes=PROBES)
+    slq_kw = dict(num_steps=NUM_STEPS, num_probes=PROBES)
+
+    def run_routes(dense, lattice, count: bool) -> dict:
+        """The six routes; with ``count`` each is checked in full."""
+        launches = {}
+        for kind, x in (("dense", dense), ("lattice", lattice)):
+            op = est.as_operator(x)
+            nn = op.shape[0]
+            plain = PlainOperator(op)
+            if kind == "dense":
+                ref_ld = (2.0 * torch.linalg.cholesky(x.double())
+                          .diagonal().log().sum()).item()
+            else:
+                ref_ld = lattice_logdet(int(round(nn ** 0.5)))
+            v = est.make_probes(gen, nn, PROBES, dtype=op.dtype)
+            for method, kw in (("chebyshev", cheb_kw), ("slq", slq_kw)):
+                route = f"{kind}|{method}"
+                p = repro_torch.plan(x, method=method, device=dev, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                res = p(probes=v)
+                counts = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+                if not count:
+                    continue
+                est_v, sem = res.logabsdet.item(), res.sem.item()
+                tol = N_SEM * sem + EST_RTOL * abs(ref_ld)
+                # the plain route: same probes, same bounds (the power
+                # iteration of the plan, repeated on the plain operator
+                # from the same seed)
+                if method == "chebyshev":
+                    lo, hi = est.spectral_bounds(
+                        plain, est.chebyshev.default_generator(dev, 0))
+                    pres = est.logdet_chebyshev(plain, probes=v, lmin=lo,
+                                                lmax=hi, device=dev,
+                                                **cheb_kw)
+                else:
+                    pres = est.logdet_slq(plain, probes=v, device=dev,
+                                          **slq_kw)
+                plain_v = pres.est.item()
+                route_rel = abs(est_v - plain_v) / abs(plain_v)
+                want = expected_estimator_launches(route)
+                say("estimators", route=route, n=nn, estimate=est_v, sem=sem,
+                    ref_logabsdet=ref_ld, abs_err=abs(est_v - ref_ld),
+                    tol=tol, plain_estimate=plain_v, plain_rel=route_rel,
+                    plain_rtol=ROUTE_RTOL[route],
+                    plain_bitwise=bool(torch.equal(res.logabsdet, pres.est)),
+                    wall_s=res.diagnostics.wall_time_s, peak_mem_bytes=peak,
+                    launches=counts, expected_launches=want)
+                require(abs(est_v - ref_ld) <= tol,
+                        f"{route}: estimate {est_v} vs exact {ref_ld}, "
+                        f"tolerance {tol}")
+                require(route_rel <= ROUTE_RTOL[route],
+                        f"{route}: kernel route {est_v} vs plain {plain_v}")
+                require(counts == want,
+                        f"{route}: launches {counts} != {want}")
+                launches[route] = counts
+
+            route = f"{kind}|cg"
+            b = torch.randn(nn, PROBES, generator=gen, device=dev,
+                            dtype=op.dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = est.cg_solve(x, b, tol=CG_TOL, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            if not count:
+                continue
+            b64, x64 = b.double(), res.x.double()
+            if kind == "dense":
+                ax = x.double() @ x64
+            else:
+                ax = ref.stencil_mv_ref(op.bands.double(), x64,
+                                        offsets=op.offsets)
+            true_res = (torch.linalg.vector_norm(b64 - ax, dim=0)
+                        / torch.linalg.vector_norm(b64, dim=0)).max().item()
+            rec_res = (res.resnorm / torch.linalg.vector_norm(b, dim=0)) \
+                .max().item()
+            pres = est.cg_solve(plain, b, tol=CG_TOL, device=dev)
+            x_rel = (torch.linalg.vector_norm(res.x - pres.x)
+                     / torch.linalg.vector_norm(pres.x)).item()
+            want = expected_estimator_launches(route, res.iters)
+            say("estimators", route=route, n=nn, iters=res.iters,
+                converged=bool(res.converged), recursive_rel_residual=rec_res,
+                true_rel_residual_f64=true_res, plain_iters=pres.iters,
+                plain_x_rel=x_rel, plain_bitwise=bool(torch.equal(res.x,
+                                                                  pres.x)),
+                wall_s=wall, peak_mem_bytes=peak, launches=counts,
+                expected_launches=want)
+            require(bool(res.converged), f"{route}: not converged")
+            require(true_res <= CG_RESIDUAL,
+                    f"{route}: true residual {true_res}")
+            require(x_rel <= CG_X_RTOL, f"{route}: x differs from the plain "
+                    f"route by {x_rel}")
+            require(counts == want, f"{route}: launches {counts} != {want}")
+            launches[route] = counts
+        return launches
+
+    # warm-up at a small size of the same two families (handles, cuSOLVER,
+    # the allocator); its launches are not counted
+    run_routes(dense_spd(512, gen, torch.float32),
+               lattice_operator(32, torch.float32), count=False)
+    a = dense_spd(n, gen, torch.float32)
+    launches = run_routes(a, lattice_operator(side, torch.float32),
+                          count=True)
+    return launches
+
+
+def dense_spd(n: int, gen, dtype):
+    """x x^T / n + 2 I, made in f64 on the card and stored in ``dtype``."""
+    import torch
+    x = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    a = x @ x.T / n
+    del x
+    a.diagonal().add_(2.0)
+    return a.to(dtype)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192,
@@ -364,20 +757,35 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     # phase 3: kernels against their plain versions, and their times
     timings = kernel_phase(args.n, args.k, gen)
+    est_timings = estimator_kernel_phase(EST_N, SIDE, gen)
+    for name, by_dtype in est_timings.items():
+        timings[name] = dict(by_dtype["float32"],
+                             float64=by_dtype["float64"])
     # phase 4: the main path
     launches = main_path_phase(args.n, args.k, gen)
+    # phase 5: the estimators
+    launches.update(estimator_phase(EST_N, SIDE, args.seed))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         t = timings[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(c[name] for c in launches.values()),
             "launches_by_route": {r: c[name] for r, c in launches.items()},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+        if "float64" in t:
+            f64 = t["float64"]
+            entry["float64"] = {
+                "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
+                "plain_ms": f64["plain_ms"], "bound_ms": f64["bound"][0],
+                "bound_by": f64["bound"][1]}
+        if t.get("matmul_ms") is not None:
+            entry["matmul_ms"] = t["matmul_ms"]
+        kernels.append(entry)
     say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

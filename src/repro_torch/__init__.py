@@ -1,19 +1,29 @@
 """repro_torch -- the PyTorch / CUDA port of `repro` for NVIDIA Hopper.
 
-The exact log-determinant path of the JAX package (`repro.plan(a,
-method="exact")` -> `ExactConfig` -> `engine.build_serial` ->
-`staged_full`), in PyTorch, with its four Pallas kernels rewritten by
-hand in CUDA C++ for ``sm_90a`` (``kernels/csrc``, built at first use).
+Two paths of the JAX package, in PyTorch, with their Pallas kernels
+rewritten by hand in CUDA C++ for ``sm_90a`` (``kernels/csrc``, built at
+first use):
+
+- the exact log-determinant (`repro.plan(a, method="exact")` ->
+  `ExactConfig` -> `engine.build_serial` -> `staged_full`), through
+  K1-K4;
+- the estimators on one device (``method="chebyshev"|"slq"`` on a dense
+  SPD matrix or a `estimators.StencilOperator`, and
+  `estimators.cg_solve`), through K6 (dense Chebyshev), K7 (dense CG)
+  and K8 (every stencil product).
+
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.
 
     import repro_torch
     sign, logabsdet = repro_torch.plan(a, method="exact")()
+    res = repro_torch.plan(a, method="slq")(generator=g)   # res.sem too
 
 This package imports ``torch`` and never ``jax`` or ``repro``.
 """
-from repro_torch.core import (EngineConfig, ExactConfig, LogdetPlan,
-                              LogdetResult, plan)
+from repro_torch import estimators
+from repro_torch.core import (ChebyshevConfig, EngineConfig, ExactConfig,
+                              LogdetPlan, LogdetResult, SLQConfig, plan)
 
-__all__ = ["plan", "LogdetPlan", "ExactConfig", "EngineConfig",
-           "LogdetResult"]
+__all__ = ["plan", "LogdetPlan", "ExactConfig", "ChebyshevConfig",
+           "SLQConfig", "EngineConfig", "LogdetResult", "estimators"]

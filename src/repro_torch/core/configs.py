@@ -1,23 +1,23 @@
-"""Typed configuration of the exact family for `repro_torch.plan`.
+"""Typed configuration for `repro_torch.plan`.
 
-Counterpart of `repro.core.configs`, exact family only: `ExactConfig`
-keeps the JAX package's fields and validation, so one dict describes a
-route in both packages.  `from_jax_config` carries a resolved JAX plan's
-config across (the matrix itself crosses as a numpy array).
-
-The estimator configs wait for their port (ROADMAP Queue 1 item 7).
+Counterpart of `repro.core.configs`: `ExactConfig`, `ChebyshevConfig` and
+`SLQConfig` keep the JAX package's fields and validation, so one dict
+describes a route in both packages.  `from_jax_config` carries a JAX
+plan's config across (the matrix, a band table or a probe slab cross as
+numpy arrays).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 from repro_torch.core.engine import (
     EngineConfig, SCHEDULES as _ENGINE_SCHEDULES, UPDATES as _ENGINE_UPDATES,
 )
 
-__all__ = ["ExactConfig", "EngineConfig", "config_for", "config_to_dict",
+__all__ = ["ExactConfig", "ChebyshevConfig", "SLQConfig", "LogdetConfig",
+           "EngineConfig", "config_for", "config_to_dict",
            "config_from_dict", "from_jax_config"]
 
 # the JAX package's kernel backends; the port accepts them only in a dict
@@ -108,52 +108,153 @@ class ExactConfig:
                             precision=self.precision)
 
 
-def config_for(method: str, kwargs: dict) -> ExactConfig:
+@dataclass(frozen=True)
+class ChebyshevConfig:
+    """Knobs of the stochastic Chebyshev estimator (SPD input).
+
+    ``degree``       expansion degree -- truncation bias decays ~rho^-degree
+    ``num_probes``   Hutchinson probes -- noise shrinks ~1/sqrt(num_probes)
+    ``probe_kind``   "rademacher" (variance-minimizing) or "gaussian"
+    ``seed``         seed of the plan's generator when none is passed at
+                     call time
+    ``lmin``/``lmax`` spectral bounds; None -> power-iteration bracket
+    ``grad_cg_tol``/``grad_cg_maxiter`` backward-pass CG solve control
+                     (kept for the config dict; gradients are not ported)
+    """
+    degree: int = 64
+    num_probes: int = 32
+    probe_kind: str = "rademacher"
+    seed: int = 0
+    lmin: Optional[float] = None
+    lmax: Optional[float] = None
+    grad_cg_tol: float = 1e-8
+    grad_cg_maxiter: Optional[int] = None
+
+    def __post_init__(self):
+        _require(int(self.degree) >= 1,
+                 f"degree must be >= 1, got {self.degree}")
+        _require(int(self.num_probes) >= 1,
+                 f"num_probes must be >= 1, got {self.num_probes}")
+        _require(self.probe_kind in ("rademacher", "gaussian"),
+                 f"unknown probe_kind {self.probe_kind!r}")
+        for name in ("lmin", "lmax"):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            try:
+                # a hashable float: configs key the plan cache
+                object.__setattr__(self, name, float(v))
+            except (TypeError, ValueError, RuntimeError):
+                raise TypeError(
+                    f"{name} in the config must be a scalar; pass tensor "
+                    f"bounds at execution time instead (plan(a)({name}="
+                    f"...))") from None
+        if self.lmin is not None and self.lmax is not None:
+            _require(float(self.lmax) > float(self.lmin),
+                     f"need lmax > lmin, got [{self.lmin}, {self.lmax}]")
+
+    def estimator_kwargs(self) -> dict:
+        """Keywords for `repro_torch.estimators.estimate_logdet`."""
+        kw = dict(degree=self.degree, num_probes=self.num_probes,
+                  probe_kind=self.probe_kind, seed=self.seed)
+        if self.lmin is not None:
+            kw["lmin"] = self.lmin
+        if self.lmax is not None:
+            kw["lmax"] = self.lmax
+        return kw
+
+
+@dataclass(frozen=True)
+class SLQConfig:
+    """Knobs of the stochastic Lanczos quadrature estimator (SPD input).
+
+    ``num_steps``    Lanczos steps -- quadrature error ~exp(-4m/sqrt(cond))
+    ``num_probes``   Hutchinson probes -- noise shrinks ~1/sqrt(num_probes)
+    ``seed``         seed of the plan's generator when none is passed at
+                     call time
+    ``grad_cg_tol``/``grad_cg_maxiter`` backward-pass CG solve control
+                     (kept for the config dict; gradients are not ported)
+    """
+    num_steps: int = 25
+    num_probes: int = 32
+    seed: int = 0
+    grad_cg_tol: float = 1e-8
+    grad_cg_maxiter: Optional[int] = None
+
+    def __post_init__(self):
+        _require(int(self.num_steps) >= 1,
+                 f"num_steps must be >= 1, got {self.num_steps}")
+        _require(int(self.num_probes) >= 1,
+                 f"num_probes must be >= 1, got {self.num_probes}")
+
+    def estimator_kwargs(self) -> dict:
+        """Keywords for `repro_torch.estimators.estimate_logdet`."""
+        return dict(num_steps=self.num_steps, num_probes=self.num_probes,
+                    seed=self.seed)
+
+
+LogdetConfig = Union[ExactConfig, ChebyshevConfig, SLQConfig]
+_CONFIG_CLS = {"exact": ExactConfig, "chebyshev": ChebyshevConfig,
+               "slq": SLQConfig}
+_BY_NAME = {cls.__name__: cls for cls in _CONFIG_CLS.values()}
+_ESTIMATOR_KW = ({f.name for f in dataclasses.fields(ChebyshevConfig)}
+                 | {f.name for f in dataclasses.fields(SLQConfig)})
+
+
+def config_for(method: str, kwargs: dict) -> LogdetConfig:
     """Build the typed config for ``method`` from keywords; unknown
-    keywords raise by name."""
-    if method != "exact":
+    keywords raise by name (estimator keywords on ``exact`` as a
+    TypeError saying so)."""
+    cls = _CONFIG_CLS.get(method)
+    if cls is None:
         raise ValueError(f"unknown method {method!r}")
-    names = {f.name for f in dataclasses.fields(ExactConfig)}
+    names = {f.name for f in dataclasses.fields(cls)}
     extra = set(kwargs) - names
     if extra:
+        if cls is ExactConfig and extra & _ESTIMATOR_KW:
+            raise TypeError(f"method {method!r} takes no estimator "
+                            f"keywords: {sorted(extra)}")
         raise TypeError(
-            f"unknown keywords for method 'exact': {sorted(extra)} "
+            f"unknown keywords for method {method!r}: {sorted(extra)} "
             f"(valid: {sorted(names)})")
-    return ExactConfig(**kwargs)
+    return cls(**kwargs)
 
 
-def config_to_dict(config: ExactConfig) -> dict:
+def config_to_dict(config: LogdetConfig) -> dict:
     """JSON-safe dict encoding of a config, tagged with its class (the
     same encoding as `repro.core.configs.config_to_dict`)."""
-    if not isinstance(config, ExactConfig):
-        raise TypeError(f"not an exact config: {type(config).__name__}")
+    if not isinstance(config, tuple(_CONFIG_CLS.values())):
+        raise TypeError(f"not a logdet config: {type(config).__name__}")
     return {"type": type(config).__name__, **dataclasses.asdict(config)}
 
 
-def config_from_dict(d: dict) -> ExactConfig:
+def config_from_dict(d: dict) -> LogdetConfig:
     """Rebuild a config from `config_to_dict` output (validating)."""
     d = dict(d)
     name = d.pop("type", None)
-    if name != "ExactConfig":
-        raise ValueError(f"unknown config type {name!r}; repro_torch has "
-                         "ExactConfig only (estimators: ROADMAP Queue 1 "
-                         "item 7)")
-    names = {f.name for f in dataclasses.fields(ExactConfig)}
+    cls = _BY_NAME.get(name)
+    if cls is None:
+        raise ValueError(f"unknown config type {name!r}; one of "
+                         f"{sorted(_BY_NAME)}")
+    names = {f.name for f in dataclasses.fields(cls)}
     extra = set(d) - names
     if extra:
         raise ValueError(f"unknown fields for {name}: {sorted(extra)}")
-    return ExactConfig(**d)
+    return cls(**d)
 
 
-def from_jax_config(d: dict) -> ExactConfig:
+def from_jax_config(d: dict) -> LogdetConfig:
     """The port's config for the route a JAX plan's config names.
 
-    ``d`` is `repro.core.configs.config_to_dict` of a (resolved)
-    `repro.core.configs.ExactConfig`.  Its kernel backend maps to
-    ``"auto"``, because in the port the kernel follows the tensor's
-    device; the mesh schedule and lookahead are rejected (not ported).
+    ``d`` is `repro.core.configs.config_to_dict` of a JAX config.  An
+    `ExactConfig`'s kernel backend maps to ``"auto"``, because in the port
+    the kernel follows the tensor's device; the mesh schedule and
+    lookahead are rejected (not ported).  The estimator configs cross
+    field for field.
     """
     d = dict(d)
+    if d.get("type") != "ExactConfig":
+        return config_from_dict(d)
     backend = d.get("backend", "auto")
     if backend not in _JAX_BACKENDS:
         raise ValueError(f"unknown JAX kernel backend {backend!r}")

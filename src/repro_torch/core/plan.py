@@ -1,28 +1,34 @@
-"""``repro_torch.plan()`` -- the plan/execute log-determinant API, exact
-family.
+"""``repro_torch.plan()`` -- the plan/execute log-determinant API.
 
 Counterpart of `repro.core.plan`: the decision of what to run is made
 once, at plan time, and the plan is then called on data::
 
     p = repro_torch.plan(a, method="exact", update="panel")
     sign, logabsdet = p(a)          # LogdetResult, tensors on the card
+    res = repro_torch.plan(op, method="slq", num_steps=25)(generator=g)
+    res.logabsdet, res.sem          # estimate and its standard error
 
-Plans run on the card unless the caller asks for the CPU: ``device=None``
-resolves to ``"cuda"`` and raises when there is none; ``device="cpu"``
-runs the plain PyTorch versions of the kernels.  An input on another
-device is moved to the plan's device; the caller's tensor is never
-modified.
+``method`` is ``"exact"`` (the condensation engine) or an estimator,
+``"chebyshev"`` or ``"slq"``, on a dense SPD matrix or on an operator
+(`repro_torch.estimators.StencilOperator`, or any object with ``shape``,
+``dtype`` and ``mm``).  Plans run on the card unless the caller asks for
+the CPU: ``device=None`` resolves to ``"cuda"`` and raises when there is
+none; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+An input on another device is moved to the plan's device, an operator
+through its ``to`` when the plan is built (one without ``to`` raises);
+the caller's tensor or operator is never modified.
 
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``method="auto"`` and the cost model (Queue 1 item 4), gradients (item 5),
-the Gaussian-elimination baseline (item 6), the estimators (item 7), the
-mesh schedule, ``pge`` and ``plu`` (item 8), ``explain`` (item 9),
-``export`` (item 10), ``audit`` (item 11), the legacy route strings
-(item 12), and batched stacks (item 3's remainder).
+``method="auto"`` and the cost model (Queue 1 item 4), gradients (items
+5 and 7), the Gaussian-elimination baseline (item 6), the mesh schedule,
+``pge`` and ``plu`` (item 8), ``explain`` (item 9), ``export`` (item
+10), ``audit`` (item 11), the legacy route strings (item 12), and batched
+stacks (items 3 and 7).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -32,9 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import pad_to_multiple
-from repro_torch.core.configs import ExactConfig, config_for
+from repro_torch.core.configs import (
+    ChebyshevConfig, ExactConfig, LogdetConfig, config_for,
+)
 from repro_torch.core.engine import build_serial
 from repro_torch.core.result import Diagnostics, LogdetResult
+from repro_torch.estimators import (
+    ESTIMATOR_METHODS, estimate_logdet, is_operator, operator_on,
+)
+from repro_torch.estimators.operators.base import resolve_device
 
 __all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of",
            "clear_plan_cache"]
@@ -43,17 +55,19 @@ __all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of",
 _NOT_PORTED = {
     "auto": "method='auto' and the cost model (ROADMAP Queue 1 item 4)",
     "ge": "the Gaussian-elimination baseline (ROADMAP Queue 1 item 6)",
-    "chebyshev": "the estimators (ROADMAP Queue 1 item 7)",
-    "slq": "the estimators (ROADMAP Queue 1 item 7)",
     "pge": "the parallel baselines (ROADMAP Queue 1 item 8)",
     "plu": "the parallel baselines (ROADMAP Queue 1 item 8)",
     **{m: "the legacy route strings (ROADMAP Queue 1 item 12); use "
           "method='exact' with schedule=/update="
        for m in ("mc", "mc_staged", "mc_blocked", "pmc", "pmc_blocked")},
 }
-_BATCHED_TODO = ("batched (B, n, n) stacks (ROADMAP Queue 1 item 3, "
-                 "still open)")
+_BATCHED_TODO = ("batched (B, n, n) stacks (ROADMAP Queue 1 items 3 and "
+                 "7, still open)")
 _DTYPES = (torch.float32, torch.float64)
+_METHODS = ("exact", *ESTIMATOR_METHODS)
+# single-column matvecs of the power-iteration bounds (two runs of 32
+# iterations plus their Rayleigh quotients), as in the JAX package
+_BOUNDS_COLS = 2 * (32 + 1)
 
 
 def _not_ported(what: str):
@@ -66,12 +80,16 @@ def _not_ported(what: str):
 
 @dataclass(frozen=True)
 class ProblemSpec:
-    """What a plan is built for: ``kind`` "dense" | "batched", the matrix
-    side ``n``, the stack size ``batch`` (or None), and the dtype name."""
+    """What a plan is built for: ``kind`` "dense" | "batched" |
+    "operator", the matrix side ``n``, the stack size ``batch`` (or
+    None), the dtype name, the operator's ``structure`` tag ("dense" for
+    arrays) and the FLOPs ``matvec_flops`` of one matvec column."""
     kind: str
     n: int
     batch: Optional[int]
     dtype: str
+    structure: str = "dense"
+    matvec_flops: float = 0.0
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -83,11 +101,24 @@ def _torch_dtype(d) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=np.dtype(d))).dtype
 
 
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
 def spec_of(x, dtype=None) -> ProblemSpec:
-    """Coerce an int N, a shape tuple, an array or a tensor (or an
-    existing spec) into a `ProblemSpec`."""
+    """Coerce an int N, a shape tuple, an array, a tensor or an operator
+    (or an existing spec) into a `ProblemSpec`."""
     if isinstance(x, ProblemSpec):
         return x
+    if is_operator(x):
+        hints = x.plan_hints() if hasattr(x, "plan_hints") else None
+        n = int(x.shape[-1])
+        return ProblemSpec(
+            kind="operator", n=n, batch=getattr(x, "batch", None),
+            dtype=_dtype_name(_torch_dtype(x.dtype)),
+            structure=hints.structure if hints else "implicit",
+            matvec_flops=float(hints.matvec_flops) if hints
+            else 2.0 * n * n)
     if isinstance(x, int):
         shape = (x, x)
     elif isinstance(x, tuple):
@@ -107,25 +138,8 @@ def spec_of(x, dtype=None) -> ProblemSpec:
     else:
         raise ValueError(
             f"expected square matrix (n, n) or stack (B, n, n), got {shape}")
-    return ProblemSpec(kind=kind, n=n, batch=batch,
-                       dtype=str(dt).removeprefix("torch."))
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` -> the card; a card must exist unless the CPU is asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch plans run on a CUDA device by default and none "
-                "is available; pass device=\"cpu\" to run the plain PyTorch "
-                "versions on the CPU")
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {dev} unsupported (cuda or cpu)")
-    return dev
+    return ProblemSpec(kind=kind, n=n, batch=batch, dtype=_dtype_name(dt),
+                       structure=kind, matvec_flops=2.0 * n * n)
 
 
 # --------------------------------------------------------------------------
@@ -142,19 +156,58 @@ def _serial_exact_core(cfg: ExactConfig) -> Callable:
     return fn
 
 
-def _build_forward(spec: ProblemSpec, cfg: ExactConfig,
+def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
                    device: torch.device) -> Tuple[Callable, int]:
-    """(fwd, padded_n): fwd maps an input to ``(sign, logabsdet)``."""
-    padded_n = spec.n
-    if cfg.update == "panel" and spec.n:
-        padded_n = -(-spec.n // cfg.k) * cfg.k
-    core = _serial_exact_core(cfg)
+    """(fwd, padded_n): fwd maps an input (and, for an estimator, the
+    call-time ``generator``/``probes``/``lmin``/``lmax``) to ``(sign,
+    logabsdet, sem)`` on ``device``."""
     dtype = getattr(torch, spec.dtype)
+    if method == "exact":
+        padded_n = spec.n
+        if cfg.update == "panel" and spec.n:
+            padded_n = -(-spec.n // cfg.k) * cfg.k
+        core = _serial_exact_core(cfg)
 
-    def fwd(a):
-        return core(torch.as_tensor(a, dtype=dtype, device=device))
+        def fwd(a):
+            sign, ld = core(torch.as_tensor(a).to(device=device,
+                                                  dtype=dtype))
+            return sign, ld, torch.zeros_like(ld)
 
-    return fwd, padded_n
+        return fwd, padded_n
+
+    est_kw = cfg.estimator_kwargs()
+
+    def fwd(x, generator=None, probes=None, lmin=None, lmax=None):
+        if spec.kind == "operator":
+            op = operator_on(x, device)
+        else:
+            op = torch.as_tensor(x).to(device=device, dtype=dtype)
+        kw = dict(est_kw)
+        if lmin is not None:
+            kw["lmin"] = lmin
+        if lmax is not None:
+            kw["lmax"] = lmax
+        if probes is not None:
+            probes = torch.as_tensor(probes).to(device=device, dtype=dtype)
+        res = estimate_logdet(op, method=method, device=device,
+                              generator=generator, probes=probes, **kw)
+        return torch.ones_like(res.est), res.est, res.sem
+
+    return fwd, spec.n
+
+
+def _flops_est(method: str, spec: ProblemSpec,
+               cfg: LogdetConfig) -> Tuple[Optional[int], float]:
+    """(matvec_cols, flops_est) diagnostics for the resolved path."""
+    if method == "exact":
+        return None, (2.0 / 3.0) * spec.n ** 3
+    if isinstance(cfg, ChebyshevConfig):
+        cols = cfg.degree * cfg.num_probes
+        if cfg.lmin is None or cfg.lmax is None:
+            cols += _BOUNDS_COLS
+    else:
+        cols = min(cfg.num_steps, spec.n) * cfg.num_probes
+    return cols, cols * spec.matvec_flops
 
 
 # --------------------------------------------------------------------------
@@ -167,36 +220,50 @@ class LogdetPlan:
     the forward callable.  Build with `repro_torch.plan`; call with data."""
     spec: ProblemSpec
     method: str
-    config: ExactConfig
+    config: LogdetConfig
     device: torch.device
+    validate: bool = True
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     _fwd: Callable = field(default=None, repr=False, compare=False)
     _bound: Any = field(default=None, repr=False, compare=False)
 
-    def __call__(self, a=None) -> LogdetResult:
+    def __call__(self, a=None, *, generator=None, probes=None, lmin=None,
+                 lmax=None) -> LogdetResult:
         """Execute the plan -> `LogdetResult` (``wall_time_s`` is taken
-        after the card has finished)."""
+        after the card has finished).
+
+        ``generator``/``probes``/``lmin``/``lmax`` are estimator inputs of
+        this call: a `torch.Generator` in place of the config's ``seed``,
+        a pre-drawn (n, k) probe slab, spectral bounds (numbers or
+        tensors) in place of the power-iteration bracket.
+        """
         x = self._input(a)
+        x = self._check(x, generator, probes, lmin, lmax)
         t0 = time.perf_counter()
-        sign, ld = self._fwd(x)
+        sign, ld, sem = self._run(x, generator, probes, lmin, lmax)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         diags = dataclasses.replace(self.diagnostics, wall_time_s=wall)
-        return LogdetResult(sign=sign, logabsdet=ld,
-                            sem=torch.zeros_like(ld),
+        return LogdetResult(sign=sign, logabsdet=ld, sem=sem,
                             method_used=self.method, diagnostics=diags)
 
-    def slogdet(self, a=None):
-        """Raw ``(sign, logabsdet)`` pair, no diagnostics, no sync."""
-        return self._fwd(self._input(a))
+    def slogdet(self, a=None, *, generator=None, probes=None, lmin=None,
+                lmax=None):
+        """Raw ``(sign, logabsdet)`` pair: no validation, no diagnostics,
+        no sync."""
+        sign, ld, _ = self._run(self._input(a), generator, probes, lmin,
+                                lmax)
+        return sign, ld
 
-    def logdet(self, a=None) -> torch.Tensor:
+    def logdet(self, a=None, *, generator=None, probes=None, lmin=None,
+               lmax=None) -> torch.Tensor:
         """``log|det|`` alone."""
-        return self.slogdet(a)[1]
+        return self.slogdet(a, generator=generator, probes=probes,
+                            lmin=lmin, lmax=lmax)[1]
 
-    def value_and_grad(self, a=None, *, key=None):
-        raise _not_ported("gradients (ROADMAP Queue 1 item 5)")
+    def value_and_grad(self, a=None, *, generator=None):
+        raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
 
     def audit(self, passes=None, include_grad: bool = False):
         raise _not_ported("the plan audit (ROADMAP Queue 1 item 11)")
@@ -207,17 +274,71 @@ class LogdetPlan:
     def explain(self) -> str:
         raise _not_ported("plan explain (ROADMAP Queue 1 item 9)")
 
+    def _run(self, x, generator, probes, lmin, lmax):
+        if self.method == "exact":
+            return self._fwd(x)
+        return self._fwd(x, generator=generator, probes=probes, lmin=lmin,
+                         lmax=lmax)
+
     def _input(self, a):
         if a is None:
             a = self._bound
         if a is None:
             raise TypeError("this plan was built from a shape spec; pass "
-                            "the matrix to execute on")
-        shape = tuple(getattr(a, "shape", ()))
-        if shape != (self.spec.n, self.spec.n):
-            raise ValueError(f"plan was built for shape "
-                             f"{(self.spec.n, self.spec.n)}, got {shape}")
+                            "the matrix (or operator) to execute on")
+        if self.spec.kind != "operator":
+            shape = tuple(getattr(a, "shape", ()))
+            if shape != (self.spec.n, self.spec.n):
+                raise ValueError(f"plan was built for shape "
+                                 f"{(self.spec.n, self.spec.n)}, got {shape}")
         return a
+
+    def _check(self, x, generator, probes, lmin, lmax):
+        """Reject estimator inputs on an exact plan; screen a dense
+        estimator input (moved to the plan's device first)."""
+        if self.method == "exact":
+            if any(v is not None for v in (generator, probes, lmin, lmax)):
+                raise TypeError("exact method takes no generator/probes/"
+                                "bounds")
+            return x
+        if self.spec.kind == "operator":
+            return x
+        x = torch.as_tensor(x).to(device=self.device,
+                                  dtype=getattr(torch, self.spec.dtype))
+        if self.validate:
+            _validate_spd_like(x, self.method)
+        return x
+
+
+def _validate_spd_like(a: torch.Tensor, method: str) -> None:
+    """Necessary-condition SPD screen for a dense estimator input:
+    symmetry and a positive diagonal.  The estimators compute tr(log A),
+    which is meaningless for non-SPD input; this turns that silent garbage
+    into an error.  O(n^2) reductions on the tensor's device; the three
+    scalars cross to the host in one read."""
+    if a.numel() == 0:
+        return
+    stats = torch.stack([a.abs().max(), (a - a.transpose(-1, -2)).abs().max(),
+                         torch.diagonal(a, dim1=-2, dim2=-1).min()])
+    scale, asym, dmin = stats.tolist()                    # the one host read
+    scale = scale or 1.0
+    # sqrt(eps) * scale: far above the rounding asymmetry of a symmetric
+    # product (~n eps), far below any structural asymmetry
+    tol = math.sqrt(torch.finfo(a.dtype).eps) * scale
+    if asym > tol:
+        raise ValueError(
+            f"estimator method {method!r} computes tr(log A) and assumes "
+            f"symmetric positive-definite input, but the matrix is not "
+            f"symmetric (max |A - A^T| = {asym:.3g}). Use method='exact' "
+            f"for general matrices, pass validate=False to "
+            f"repro_torch.plan to skip this check, or symmetrize the input.")
+    if dmin <= 0:
+        raise ValueError(
+            f"estimator method {method!r} assumes positive-definite input, "
+            f"but the diagonal has non-positive entries (min = {dmin:.3g}) "
+            f"-- tr(log A) is undefined. Use method='exact' for indefinite "
+            f"matrices, or pass validate=False to repro_torch.plan to skip "
+            f"this check.")
 
 
 # --------------------------------------------------------------------------
@@ -234,79 +355,107 @@ def clear_plan_cache():
 
 
 def plan(x, *, method: str = "auto", device=None, precision=None,
-         config: Optional[ExactConfig] = None, mesh=None,
-         grad: bool = False, **kwargs) -> LogdetPlan:
+         config: Optional[LogdetConfig] = None, mesh=None,
+         grad: bool = False, validate: bool = True,
+         **kwargs) -> LogdetPlan:
     """Build a log-determinant plan for a problem.
 
-    ``x``          an int N, a shape tuple, or a concrete array / tensor
-                   (which stays bound to the plan, so ``plan(a)()`` works).
-    ``method``     ``"exact"``, the condensation engine (the only method
-                   ported so far).
+    ``x``          an int N, a shape tuple, a concrete array / tensor, or an
+                   operator (concrete inputs stay bound to the plan, so
+                   ``plan(a)()`` works).
+    ``method``     ``"exact"`` (the condensation engine, any square
+                   matrix), ``"chebyshev"`` or ``"slq"`` (estimators, SPD
+                   input; the only methods an operator takes).
     ``device``     where the plan runs; ``None`` is the card and raises
                    when there is none; ``"cpu"`` runs the plain versions.
-    ``precision``  a dtype name casts the input (``"float64"``, ...);
-                   ``"bf16"``/``"bfloat16"`` selects the mixed-precision
-                   route instead (bf16 GEMM operands, input-dtype buffer
-                   and accumulators) and leaves the input dtype alone.
-    ``config``     an explicit `ExactConfig`, exclusive with ``**kwargs``.
-    ``**kwargs``   the `ExactConfig` fields (``schedule=``, ``update=``,
-                   ``k=``, ``fused=``, ...).
+    ``precision``  a dtype name casts an array input (``"float64"``,
+                   ...); ``"bf16"``/``"bfloat16"`` selects the exact
+                   engine's mixed-precision route instead (bf16 GEMM
+                   operands, input-dtype buffer and accumulators).
+    ``config``     an explicit `ExactConfig` | `ChebyshevConfig` |
+                   `SLQConfig`, exclusive with ``**kwargs``.
+    ``validate``   screen a dense estimator input for symmetry and a
+                   positive diagonal at call time.
+    ``**kwargs``   the config's fields (``update=``, ``k=``, ``degree=``,
+                   ``num_probes=``, ``seed=``, ...).
 
-    Plans are cached on ``(spec, method, config, device)``.
+    Plans for arrays are cached on ``(spec, method, config, device)``.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     engine_precision = None
     if precision in ("bf16", "bfloat16"):
         engine_precision = "bf16"
         precision = None
     spec = spec_of(x, dtype=precision)
-    if spec.kind == "batched":
+    if spec.kind == "operator" and (precision is not None
+                                    or engine_precision is not None):
+        raise ValueError("precision overrides apply to array inputs; cast "
+                         "the operator's parameters instead")
+    if spec.kind == "batched" or spec.batch is not None:
         raise _not_ported(_BATCHED_TODO)
     if getattr(torch, spec.dtype) not in _DTYPES:
-        raise TypeError(f"the exact engine takes float32 or float64 input, "
+        raise TypeError(f"repro_torch plans take float32 or float64 input, "
                         f"got {spec.dtype}")
     if mesh is not None:
         raise _not_ported("the mesh schedule (ROADMAP Queue 1 item 8)")
     if grad:
-        raise _not_ported("gradients (ROADMAP Queue 1 item 5)")
+        raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
     if method in _NOT_PORTED:
         raise _not_ported(_NOT_PORTED[method])
-    if method != "exact":
+    if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; repro_torch runs "
-                         "'exact'")
+                         f"{_METHODS}")
 
     if config is not None:
         if kwargs:
             raise TypeError(
                 f"pass knobs either via config= or keywords, not both "
                 f"(got config and {sorted(kwargs)})")
-        if not isinstance(config, ExactConfig):
-            raise TypeError(f"method 'exact' needs an ExactConfig, got "
-                            f"{type(config).__name__}")
+        want = type(config_for(method, {}))
+        if not isinstance(config, want):
+            raise TypeError(f"method {method!r} needs a {want.__name__}, "
+                            f"got {type(config).__name__}")
         cfg = config
     else:
         cfg = config_for(method, kwargs)
     if engine_precision is not None:
+        if method != "exact":
+            raise ValueError(
+                f"precision='bf16' is the exact engine's mixed-precision "
+                f"route; method {method!r} has no quantized-GEMM path")
         if cfg.precision not in (None, engine_precision):
             raise ValueError(f"precision='bf16' conflicts with config "
                              f"precision {cfg.precision!r}")
         cfg = dataclasses.replace(cfg, precision=engine_precision)
-    cfg = cfg.resolved()
+    if method == "exact":
+        cfg = cfg.resolved()
+    if spec.kind == "operator" and method not in ESTIMATOR_METHODS:
+        raise TypeError(f"method {method!r} needs a materialized matrix; "
+                        f"operator inputs take an estimator method "
+                        f"{ESTIMATOR_METHODS}")
 
-    key = (spec, method, cfg, str(dev))
-    cached = _PLAN_CACHE.get(key)
-    if cached is not None:
-        _PLAN_CACHE.move_to_end(key)
-        return _bind(cached, x)
-    fwd, padded_n = _build_forward(spec, cfg, dev)
+    key = None
+    if spec.kind != "operator":
+        key = (spec, method, cfg, str(dev))
+        cached = _PLAN_CACHE.get(key)
+        if cached is not None:
+            _PLAN_CACHE.move_to_end(key)
+            if cached.validate != validate:
+                cached = dataclasses.replace(cached, validate=validate)
+            return _bind(cached, x)
+    if spec.kind == "operator" and not isinstance(x, ProblemSpec):
+        x = operator_on(x, dev)         # raises if it cannot be moved
+    fwd, padded_n = _build_forward(spec, method, cfg, dev)
+    cols, flops = _flops_est(method, spec, cfg)
     p = LogdetPlan(
-        spec=spec, method=method, config=cfg, device=dev,
-        diagnostics=Diagnostics(flops_est=(2.0 / 3.0) * spec.n ** 3,
+        spec=spec, method=method, config=cfg, device=dev, validate=validate,
+        diagnostics=Diagnostics(matvec_cols=cols, flops_est=flops,
                                 padded_n=padded_n, device_count=1),
         _fwd=fwd)
-    _PLAN_CACHE[key] = p
-    while len(_PLAN_CACHE) > _PLAN_CACHE_SIZE:
-        _PLAN_CACHE.popitem(last=False)
+    if key is not None:
+        _PLAN_CACHE[key] = p
+        while len(_PLAN_CACHE) > _PLAN_CACHE_SIZE:
+            _PLAN_CACHE.popitem(last=False)
     return _bind(p, x)
 
 

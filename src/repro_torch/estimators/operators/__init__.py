@@ -1,0 +1,97 @@
+"""Linear-operator backends for the matrix-free estimators.
+
+Counterpart of `repro.estimators.operators`.  Every estimator and solver
+in `repro_torch.estimators` touches the matrix only through the
+`LinearOperator` protocol (base.py).  Ported backends:
+
+  DenseOperator      in-memory (n, n) tensor
+  StencilOperator    banded product through K8 -- O(nb n) memory
+
+plus `cg_solve` (solve.py), Jacobi-preconditioned conjugate gradient on
+either.  Not ported yet, each raising `NotImplementedError` with its
+ROADMAP item when constructed: `BatchedOperator`, `KroneckerOperator`,
+`ToeplitzOperator` (Queue 1 item 7) and `ShardedOperator` (item 8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.estimators.operators.base import (
+    LinearOperator, PlanHints, check_square, device_of, is_operator,
+    resolve_device,
+)
+from repro_torch.estimators.operators.dense import DenseOperator
+from repro_torch.estimators.operators.stencil import StencilOperator
+
+__all__ = [
+    "LinearOperator", "PlanHints", "DenseOperator", "StencilOperator",
+    "BatchedOperator", "KroneckerOperator", "ToeplitzOperator",
+    "ShardedOperator", "as_operator", "operator_on", "is_operator",
+    "check_square", "device_of", "resolve_device", "CGResult", "cg_solve",
+]
+
+_BATCHED_TODO = ("batched (B, n, n) stacks and BatchedOperator (ROADMAP "
+                 "Queue 1 item 7)")
+_MESH_TODO = "the mesh and ShardedOperator (ROADMAP Queue 1 item 8)"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"repro_torch does not run {what} yet")
+
+
+def _unported_backend(name: str, what: str):
+    def __init__(self, *args, **kwargs):
+        raise _not_ported(what)
+    return type(name, (LinearOperator,), {
+        "__init__": __init__,
+        "__doc__": f"Not ported yet: constructing one raises "
+                   f"NotImplementedError naming {what}."})
+
+
+BatchedOperator = _unported_backend("BatchedOperator", _BATCHED_TODO)
+KroneckerOperator = _unported_backend(
+    "KroneckerOperator", "KroneckerOperator (ROADMAP Queue 1 item 7)")
+ToeplitzOperator = _unported_backend(
+    "ToeplitzOperator", "ToeplitzOperator (ROADMAP Queue 1 item 7)")
+ShardedOperator = _unported_backend("ShardedOperator", _MESH_TODO)
+
+
+def as_operator(a, *, mesh=None) -> LinearOperator:
+    """Coerce a matrix or an operator to the estimator protocol.
+
+    An (n, n) tensor or array becomes a `DenseOperator` (a tensor keeps
+    its device); an existing operator, including a duck-typed one, passes
+    through untouched.  A (B, n, n) stack and a ``mesh`` raise
+    `NotImplementedError`.
+    """
+    if mesh is not None:
+        raise _not_ported(_MESH_TODO)
+    if is_operator(a):
+        return a
+    a = torch.as_tensor(a)
+    if a.dim() == 3:
+        raise _not_ported(_BATCHED_TODO)
+    return DenseOperator(a)
+
+
+def operator_on(a, device, *, mesh=None) -> LinearOperator:
+    """`as_operator` of ``a`` on ``device`` (`resolve_device`: ``None`` is
+    the card).  An array or tensor is moved there; an operator on another
+    device through its ``to``, and one without ``to`` raises.  The
+    caller's tensor or operator is left alone."""
+    if mesh is not None:
+        raise _not_ported(_MESH_TODO)
+    dev = resolve_device(device)
+    if not is_operator(a):
+        a = torch.as_tensor(a).to(dev)
+    op = as_operator(a)
+    if device_of(op) == dev:
+        return op
+    if not hasattr(op, "to"):
+        raise ValueError(
+            f"the operator runs on {device_of(op)} and has no .to() to move "
+            f"it to {dev}; build it there or pass device={str(device_of(op))!r}")
+    return op.to(dev)
+
+
+from repro_torch.estimators.operators.solve import CGResult, cg_solve  # noqa: E402

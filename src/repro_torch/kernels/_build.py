@@ -34,7 +34,9 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # kernel name (its C entry point is repro_<name>) -> source csrc/<source>.cu
 SOURCES = {"rank1_update": "condense_step", "panel_update": "panel_update",
-           "fused_step": "fused_step", "panel_factor": "panel_factor"}
+           "fused_step": "fused_step", "panel_factor": "panel_factor",
+           "cheb_step": "cheb_step", "cg_step": "cg_step",
+           "stencil_mv": "stencil_mv"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +46,9 @@ _ARGTYPES = {
     "panel_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
+    "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
+    "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
@@ -72,12 +77,14 @@ def _digest() -> str:
 
 
 def _ptxas_summary(log: str) -> dict:
-    """Largest register count, shared memory and spill over the
-    template instances in one source's ``-Xptxas -v`` log."""
+    """Largest register count, shared memory, stack frame (local memory)
+    and spill over the template instances in one source's ``-Xptxas -v``
+    log."""
     def most(pattern):
         return max((int(v) for v in re.findall(pattern, log)), default=0)
     return {"registers": most(r"Used (\d+) registers"),
             "smem_bytes": most(r"(\d+) bytes smem"),
+            "stack_bytes": most(r"(\d+) bytes stack frame"),
             "spill_bytes": max(most(r"(\d+) bytes spill stores"),
                                most(r"(\d+) bytes spill loads")),
             "instances": len(re.findall(r"Compiling entry function", log))}
@@ -138,8 +145,9 @@ def build() -> dict:
                   file=sys.stderr)
             for name, s in _report["kernels"].items():
                 print(f"  {name}: {s['registers']} registers, "
-                      f"{s['smem_bytes']} B smem, {s['spill_bytes']} B "
-                      f"spill ({s['instances']} instances)", file=sys.stderr)
+                      f"{s['smem_bytes']} B smem, {s['stack_bytes']} B "
+                      f"stack, {s['spill_bytes']} B spill "
+                      f"({s['instances']} instances)", file=sys.stderr)
         return _report
 
 

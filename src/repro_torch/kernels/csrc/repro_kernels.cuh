@@ -1,4 +1,4 @@
-// Shared header of the condensation kernels K1-K4 (sm_90a).
+// Shared header of the port's kernels K1-K4 and K6-K8 (sm_90a).
 //
 // The C interface below is what the Python wrappers bind with ctypes
 // (kernels/_build.py): every pointer and the stream are `void*`, every
@@ -9,7 +9,7 @@
 // divide (`__fmul_rn`, `__fsub_rn`, `__fdiv_rn` and their f64 forms), so
 // nvcc cannot contract `a - pc * pr` into an FMA: the plain PyTorch
 // versions (kernels/ref.py) materialize the product before subtracting,
-// and the kernels reproduce them bit for bit.
+// and the kernels reproduce their elementwise arithmetic bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +49,29 @@ int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
                        void* sign_logdet, long long k, long long n,
                        long long m0, long long r_pos, void* stream);
 
+// K6: one Chebyshev step on a (n, n), w / w_prev / v (n, k) in dtype;
+// w_next (n, k) out, dots (k,) out, partials (ceil(n / 32), k) scratch;
+// center and width are one-element device buffers in dtype.
+int repro_cheb_step(int dtype, const void* a, const void* w,
+                    const void* w_prev, const void* v, const void* center,
+                    const void* width, void* w_next, void* dots,
+                    void* partials, long long n, long long k, void* stream);
+
+// K7: one CG step on a (n, n), p / x / r (n, k), rz (k,) in dtype;
+// x_new, r_new (n, k) out, ap (n, k) and partials (ceil(n / 32), k) scratch.
+int repro_cg_step(int dtype, const void* a, const void* p, const void* x,
+                  const void* r, const void* rz, void* x_new, void* r_new,
+                  void* ap, void* partials, long long n, long long k,
+                  void* stream);
+
+// K8: y (n, k) = sum_d bands[d, :] * x[. + offsets[d], :], zero outside
+// [0, n); bands (nb, n), x (n, k) in dtype; offsets is a host array of nb
+// values, nb <= REPRO_MAX_BANDS.
+#define REPRO_MAX_BANDS 16
+int repro_stencil_mv(int dtype, const void* bands, const long long* offsets,
+                     int nb, const void* x, void* y, long long n, long long k,
+                     void* stream);
+
 #ifdef __cplusplus
 }
 #endif
@@ -60,6 +83,8 @@ __device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, 
 __device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
 __device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
 __device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
+__device__ __forceinline__ float add_rn(float x, float y) { return __fadd_rn(x, y); }
+__device__ __forceinline__ double add_rn(double x, double y) { return __dadd_rn(x, y); }
 __device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
 __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
 __device__ __forceinline__ float fma_rn(float x, float y, float z) { return __fmaf_rn(x, y, z); }

@@ -6,10 +6,17 @@ tensor takes the plain PyTorch version in `kernels.ref`, any other device
 raises.  No path sends a CUDA tensor to a plain version, so a launch
 count of zero on the card means the path did not run.
 
-The engine (core/engine.py) calls these four operations and
+The engine (core/engine.py) calls the four condensation operations and
 `fused_condense_step`; the O(n) pivot bookkeeping around the rank-1
 kernels (`pivot_operands`) stays in PyTorch on the tensor's device, with
-no host synchronization.
+no host synchronization.  The estimators call `fused_cheb_step` (dense
+Chebyshev), `fused_cg_step` (dense CG) and `stencil_mv` (every
+`StencilOperator` product).
+
+Deliberate difference from `repro.kernels.ops`: the JAX package sends
+K6/K7 operands above an 8 MiB VMEM budget, and batched ``a.ndim == 3``
+operands, to the jnp reference.  Here a CUDA tensor runs K6/K7 at every n,
+and a batched operand raises.
 """
 from __future__ import annotations
 
@@ -18,28 +25,37 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import condense_step as _k1
+from repro_torch.kernels import fused_est as _k67
 from repro_torch.kernels import fused_step as _k3
 from repro_torch.kernels import panel_factor as _k4
 from repro_torch.kernels import panel_update as _k2
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import stencil_mv as _k8
 
 __all__ = ["rank1_update", "panel_update", "fused_condense_step",
-           "panel_factor", "pivot_operands", "launch_counts",
+           "panel_factor", "pivot_operands", "fused_cheb_step",
+           "fused_cg_step", "stencil_mv", "launch_counts",
            "reset_launch_counts", "KERNELS"]
 
-# kernel name -> wrapper module holding its launch counter
-KERNELS = {"rank1_update": _k1, "panel_update": _k2, "fused_step": _k3,
-           "panel_factor": _k4}
+# kernel name -> (wrapper module, name of its launch counter there)
+KERNELS = {"rank1_update": (_k1, "launches"),
+           "panel_update": (_k2, "launches"),
+           "fused_step": (_k3, "launches"),
+           "panel_factor": (_k4, "launches"),
+           "cheb_step": (_k67, "cheb_step_launches"),
+           "cg_step": (_k67, "cg_step_launches"),
+           "stencil_mv": (_k8, "launches")}
 
 
 def launch_counts() -> dict:
     """Kernel launches on the card since the last reset, by kernel name."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -136,3 +152,46 @@ def fused_condense_step(buf: torch.Tensor, t: int, *,
     else:
         out = _ref.fused_step_ref(buf, l, last, pc, pr, col_l, col_last)
     return out, l, p
+
+
+def _unbatched(op: str, a: torch.Tensor) -> None:
+    if a.dim() != 2:
+        raise NotImplementedError(
+            f"{op}: batched (B, n, n) operands are not ported yet (ROADMAP "
+            "Queue 1 item 7, BatchedOperator)")
+
+
+def fused_cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
+                    v: torch.Tensor, center, width):
+    """One Chebyshev three-term step, one pass over ``a`` -> ``(w_next,
+    dots)`` (K6 on the card).
+
+    ``w_next = 2 (2 a w - center w) / width - w_prev`` and ``dots = (v *
+    w_next).sum(-2)``.  On the card ``center`` and ``width`` must be
+    one-element tensors there; on the CPU they may be numbers.
+    """
+    _unbatched("fused_cheb_step", a)
+    if _on_card(a, "fused_cheb_step"):
+        return _k67.cheb_step(a, w, w_prev, v, center, width)
+    return _ref.cheb_step_ref(a, w, w_prev, v, center, width)
+
+
+def fused_cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
+                  r: torch.Tensor, rz: torch.Tensor):
+    """One CG matvec-and-axpy chain, one pass over ``a`` -> ``(x_new,
+    r_new)`` (K7 on the card): ``ap = a p; alpha = rz / (p . ap)``
+    (guarded 0/0 -> 0), ``x + alpha p``, ``r - alpha ap``."""
+    _unbatched("fused_cg_step", a)
+    if _on_card(a, "fused_cg_step"):
+        return _k67.cg_step(a, p, x, r, rz)
+    return _ref.cg_step_ref(a, p, x, r, rz)
+
+
+def stencil_mv(bands: torch.Tensor, x: torch.Tensor, *,
+               offsets) -> torch.Tensor:
+    """Banded product ``y[i] = sum_d bands[d, i] * x[i + offsets[d]]``,
+    zero outside ``[0, n)``, for ``x (n,)`` or ``(n, k)`` (K8 on the
+    card)."""
+    if _on_card(bands, "stencil_mv"):
+        return _k8.stencil_mv(bands, x, offsets)
+    return _ref.stencil_mv_ref(bands, x, offsets=offsets)

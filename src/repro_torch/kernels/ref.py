@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the condensation kernels K1-K4.
+"""Plain PyTorch versions of the kernels K1-K4 and K6-K8.
 
 Each function is the numerical ground truth for one hand-written CUDA
 kernel (``kernels/csrc``): the CPU runs these, and ``chip_smoke.py`` holds
 every kernel against its plain version on the card, on the same inputs.
 They repeat the kernels' arithmetic exactly -- every product is
-materialized before it is subtracted, so no multiply-subtract is ever
-contracted into an FMA -- which is what makes K1, K3 and K4 bitwise
-comparable with them.
+materialized before it is added or subtracted, so no multiply-add is
+ever contracted into an FMA -- which is what makes K1, K3, K4 and K8
+bitwise comparable with them.  K6 and K7 sum ``A @ w`` and their column
+dots in another order than the kernels, so they agree to a tolerance:
+`cheb_step_bound` / `cg_step_bound`.
 
-Counterparts: `repro.kernels.ref` (K1-K3) and `repro.core.engine
+Counterparts: `repro.kernels.ref` (K1-K3, K6-K8) and `repro.core.engine
 .panel_factor` (K4).
 """
 from __future__ import annotations
@@ -16,7 +18,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["rank1_update_ref", "panel_update_ref", "fused_step_ref",
-           "panel_factor_ref", "accumulator_dtype", "guarded_pivot",
+           "panel_factor_ref", "cheb_step_ref", "cg_step_ref",
+           "stencil_mv_ref", "cheb_step_bound", "cg_step_bound",
+           "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot",
            "swap_positions"]
 
 
@@ -114,3 +118,135 @@ def panel_factor_ref(panel: torch.Tensor, m0: int, r_pos: int = 0):
         sign = sign * torch.sign(pv) * swap_sign * parity
         logdet = logdet + torch.log(torch.abs(pv))
     return buf, ls, sign, logdet
+
+
+def cheb_step_ref(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
+                  v: torch.Tensor, center, width):
+    """One Chebyshev three-term step -> ``(w_next, dots)``.
+
+    ``w_next = 2 (2 a w - center w) / width - w_prev`` and ``dots =
+    (v * w_next).sum(-2)``, op for op the loop body of
+    `estimators.chebyshev.logdet_chebyshev`; ``center`` and ``width`` may
+    be device tensors (broadcast against the (n, k) slab).
+    """
+    mv = (2.0 * (a @ w) - center * w) / width
+    w_next = 2.0 * mv - w_prev
+    return w_next, (v * w_next).sum(-2)
+
+
+def cg_step_ref(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
+                r: torch.Tensor, rz: torch.Tensor):
+    """One CG matvec-and-axpy chain -> ``(x_new, r_new)``.
+
+    ``ap = a p; alpha = rz / (p . ap)``, with 0/0 -> 0 for a column whose
+    denominator is not above ``finfo.tiny`` (a converged column takes an
+    exact no-op), then ``x + alpha p`` and ``r - alpha ap``: op for op the
+    hot half of `estimators.operators.solve.cg_solve`'s loop body.
+    """
+    ap = a @ p
+    den = (p * ap).sum(-2)
+    tiny = torch.finfo(den.dtype).tiny
+    big = den.abs() > tiny
+    safe = torch.where(big, den, torch.ones_like(den))
+    alpha = torch.where(big, rz / safe, torch.zeros_like(rz))[..., None, :]
+    return x + alpha * p, r - alpha * ap
+
+
+# lambda of the probabilistic rounding-error model (Higham & Mary, SIAM
+# J. Sci. Comput. 41(5), 2019): rounding errors independent, zero-mean and
+# at most u = eps / 2 each, an n-term sum in any order lies within
+# lam sqrt(n) u sum|terms| of the exact sum but with a probability that
+# falls like exp(-lam^2 / 2); the worst case is n u sum|terms|
+ERROR_LAMBDA = 4.0
+
+
+def _sum_error(n: int, dtype: torch.dtype, abs_sum: torch.Tensor):
+    """``lam sqrt(n) u abs_sum``: the rounding error of an n-term sum."""
+    return (ERROR_LAMBDA * n ** 0.5 * torch.finfo(dtype).eps / 2) * abs_sum
+
+
+def _spread(abs_err: torch.Tensor) -> torch.Tensor:
+    """``lam sqrt(sum abs_err^2)`` over the rows: a sum of independent
+    errors, each at most ``abs_err``."""
+    return ERROR_LAMBDA * torch.linalg.vector_norm(abs_err, dim=-2)
+
+
+def cheb_step_bound(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
+                    v: torch.Tensor, center, width):
+    """Elementwise bounds ``(on w_next, on dots)`` of the rounding error of
+    one evaluation of `cheb_step_ref` in ``a.dtype``, its sums in any
+    order, against the exact step; K6 and this plain version, each such
+    an evaluation, differ by at most twice these.
+
+    ``a @ w`` is within ``delta = lam sqrt(n) u |a| @ |w|`` (`ERROR_LAMBDA`).
+    Carried through the epilogue, with one rounding of each product,
+    subtract and divide (a factor 2 to spare): ``4 delta / |width| + 2 eps
+    (|center w| / |width| + 2 |mv| + |w_next|)`` on ``w_next``.  The rows'
+    errors are independent, so ``dots`` gets ``lam sqrt(sum (v tol_w)^2)``
+    from them, plus its own sum's ``lam sqrt(n) u sum |v w_next|``.
+    """
+    eps = torch.finfo(a.dtype).eps
+    n = a.shape[-1]
+    width = torch.as_tensor(width, dtype=a.dtype, device=a.device)
+    delta = _sum_error(n, a.dtype, a.abs() @ w.abs())
+    mv = (2.0 * (a @ w) - center * w) / width
+    w_next = 2.0 * mv - w_prev
+    tol_w = 4 * delta / width.abs() + 2 * eps * (
+        (center * w).abs() / width.abs() + 2 * mv.abs() + w_next.abs())
+    tol_d = _spread(v * tol_w) + _sum_error(n, a.dtype,
+                                            (v * w_next).abs().sum(-2))
+    return tol_w, tol_d
+
+
+def cg_step_bound(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
+                  r: torch.Tensor, rz: torch.Tensor):
+    """Elementwise bounds ``(on x_new, on r_new)`` of the rounding error of
+    one evaluation of `cg_step_ref` in ``a.dtype``, its sums in any order,
+    against the exact step; K7 and this plain version differ by at most
+    twice these.
+
+    ``ap`` is within ``delta = lam sqrt(n) u |a| @ |p|`` (`ERROR_LAMBDA`),
+    the denominator within ``lam sqrt(sum (p delta)^2) + lam sqrt(n) u sum
+    |p ap|`` (independent row errors, then its own sum), alpha within
+    ``|alpha| (d_den / |den| + 2 eps)`` to first order; the axpys add one
+    rounding of the product and one of the sum, counted twice.  A column
+    with a zero denominator takes alpha = 0 in both, exactly.
+    """
+    eps = torch.finfo(a.dtype).eps
+    n = a.shape[-1]
+    ap = a @ p
+    delta = _sum_error(n, a.dtype, a.abs() @ p.abs())
+    den = (p * ap).sum(-2)
+    d_den = _spread(p * delta) + _sum_error(n, a.dtype,
+                                            (p * ap).abs().sum(-2))
+    big = den.abs() > torch.finfo(den.dtype).tiny
+    safe = torch.where(big, den, torch.ones_like(den))
+    alpha = torch.where(big, rz / safe, torch.zeros_like(rz))
+    d_alpha = alpha.abs() * (d_den / safe.abs() + 2 * eps)
+    alpha, d_alpha = alpha[None, :], d_alpha[None, :]
+    x_new, r_new = x + alpha * p, r - alpha * ap
+    tol_x = d_alpha * p.abs() + 2 * eps * ((alpha * p).abs() + x_new.abs())
+    tol_r = (d_alpha * ap.abs() + alpha.abs() * delta
+             + 2 * eps * ((alpha * ap).abs() + r_new.abs()))
+    return tol_x, tol_r
+
+
+def stencil_mv_ref(bands: torch.Tensor, x: torch.Tensor, *,
+                   offsets) -> torch.Tensor:
+    """``y[i] = sum_d bands[d, i] * x[i + offsets[d]]``, zero outside
+    ``[0, n)`` (Dirichlet boundary); ``x`` is (n,) or (n, k).
+
+    The bands are summed in order from a zero accumulator, each product
+    materialized before it is added -- the arithmetic K8 repeats.
+    """
+    vec = x.dim() == 1
+    x2 = (x[:, None] if vec else x).to(bands.dtype)
+    n = x2.shape[0]
+    lo = min(min(offsets), 0)
+    hi = max(max(offsets), 0)
+    xp = torch.nn.functional.pad(x2, (0, 0, -lo, hi))
+    y = torch.zeros_like(x2)
+    for d, off in enumerate(offsets):
+        start = off - lo
+        y = y + bands[d][:, None] * xp[start:start + n]
+    return y[:, 0] if vec else y

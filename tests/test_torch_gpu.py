@@ -7,10 +7,13 @@ conftest imports jax, which such a machine need not have):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Kernels against their plain versions at non-tile-multiple shapes: K1, K3
-and K4's R and ls bitwise, K4's sign exactly, K4's logdet within 1e-6
+Kernels against their plain versions at non-tile-multiple shapes: K1, K3,
+K8 and K4's R and ls bitwise, K4's sign exactly, K4's logdet within 1e-6
 (f32) / 1e-14 (f64) relative (the card's log against PyTorch's), K2
-within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out|.
+within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out|, K6 and K7
+within twice the rounding bound of one evaluation (`ref.cheb_step_bound`,
+`ref.cg_step_bound`).  The estimators on the card against the same calls
+on the CPU, with the same probes and bounds, and their launch counts.
 """
 import numpy as np
 import pytest
@@ -18,9 +21,11 @@ import torch
 
 import repro_torch
 from repro_torch.core.engine import EngineConfig, build_serial, stage_schedule
-from repro_torch.kernels import condense_step, fused_step, ops, ref
+from repro_torch import estimators as est
+from repro_torch.kernels import condense_step, fused_est, fused_step, ops, ref
 from repro_torch.kernels import panel_factor as k4
 from repro_torch.kernels import panel_update as k2
+from repro_torch.kernels import stencil_mv as k8
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +146,157 @@ def test_plan_defaults_to_the_card(cuda):
     s_np, ld_np = np.linalg.slogdet(a.numpy())
     assert res.sign.item() == s_np
     assert abs(res.logabsdet.item() - ld_np) <= 1e-10 * abs(ld_np)
+
+
+EST_DTYPES = [torch.float32, torch.float64]
+EST_SHAPES = [(1, 1), (37, 5), (130, 7), (257, 33), (1000, 32)]
+
+
+@pytest.mark.parametrize("n,k", EST_SHAPES)
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_cheb_step_within_bound(cuda, n, k, dt):
+    gen = torch.Generator().manual_seed(3)
+    a, w, wp, v = (_randn(gen, *s, dtype=dt, device=cuda)
+                   for s in ((n, n), (n, k), (n, k), (n, k)))
+    c = torch.tensor([1.7], dtype=dt, device=cuda)
+    wd = torch.tensor([3.1], dtype=dt, device=cuda)
+    wn, d = fused_est.cheb_step(a, w, wp, v, c, wd)
+    wn0, d0 = ref.cheb_step_ref(a, w, wp, v, c, wd)
+    tol_w, tol_d = ref.cheb_step_bound(a, w, wp, v, c, wd)
+    assert bool(((wn - wn0).abs() <= 2 * tol_w).all())
+    assert bool(((d - d0).abs() <= 2 * tol_d).all())
+    wn2, d2 = fused_est.cheb_step(a, w, wp, v, c, wd)
+    assert torch.equal(wn, wn2) and torch.equal(d, d2)   # no atomics
+
+
+@pytest.mark.parametrize("n,k", EST_SHAPES)
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_cg_step_within_bound(cuda, n, k, dt):
+    gen = torch.Generator().manual_seed(4)
+    a, p, x, r = (_randn(gen, *s, dtype=dt, device=cuda)
+                  for s in ((n, n), (n, k), (n, k), (n, k)))
+    rz = _randn(gen, k, dtype=dt, device=cuda)
+    p[:, 0] = 0                          # a converged column: den = 0
+    x1, r1 = fused_est.cg_step(a, p, x, r, rz)
+    x0, r0 = ref.cg_step_ref(a, p, x, r, rz)
+    tol_x, tol_r = ref.cg_step_bound(a, p, x, r, rz)
+    assert bool(((x1 - x0).abs() <= 2 * tol_x).all())
+    assert bool(((r1 - r0).abs() <= 2 * tol_r).all())
+    assert torch.equal(x1[:, 0], x[:, 0]) and torch.equal(r1[:, 0], r[:, 0])
+    x2, r2 = fused_est.cg_step(a, p, x, r, rz)
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
+
+
+@pytest.mark.parametrize("n,offsets,k", [
+    (1, (0,), 3), (11, (-1, 0, 1), 4), (37, (-5, 0, 5), 1),
+    (300, (-3, -1, 0, 2, 7), 5), (1024, (-32, -1, 0, 1, 32), 32)])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_stencil_mv_bitwise(cuda, n, offsets, k, dt):
+    gen = torch.Generator().manual_seed(5)
+    bands = _randn(gen, len(offsets), n, dtype=dt, device=cuda)
+    x = _randn(gen, n, k, dtype=dt, device=cuda)
+    assert torch.equal(k8.stencil_mv(bands, x, offsets),
+                       ref.stencil_mv_ref(bands, x, offsets=offsets))
+    v = x[:, 0].contiguous()                          # the vector form
+    assert torch.equal(k8.stencil_mv(bands, v, offsets),
+                       ref.stencil_mv_ref(bands, v, offsets=offsets))
+    xs = _randn(gen, n * k + 1, dtype=dt, device=cuda)[1:].view(n, k)
+    assert torch.equal(k8.stencil_mv(bands, xs, offsets),   # not 16-B aligned
+                       ref.stencil_mv_ref(bands, xs, offsets=offsets))
+
+
+def test_estimator_wrappers_check_their_operands(cuda):
+    a = torch.zeros((8, 8), device=cuda)
+    w = torch.zeros((8, 2), device=cuda)
+    one = torch.ones(1, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        fused_est.cheb_step(a, w, w, w.double(), one, one)
+    with pytest.raises(ValueError, match="slabs"):
+        fused_est.cg_step(a, w, w, w[:4].contiguous(),
+                          torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="offsets"):
+        k8.stencil_mv(a[:2].contiguous(), w, (0, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.stencil_mv(a[:1].contiguous(), w.t(), (0,))
+
+
+def _lattice(side, dt, device):
+    n = side * side
+    i = torch.arange(n, device=device)
+    bands = torch.full((5, n), -1.0, dtype=dt, device=device)
+    bands[2] = 4.1
+    bands[1] = torch.where(i % side == 0, 0.0, -1.0)
+    bands[3] = torch.where(i % side == side - 1, 0.0, -1.0)
+    return est.StencilOperator((-side, -1, 0, 1, side), bands)
+
+
+def _dense(n, dt):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((n, n))
+    return torch.from_numpy(x @ x.T / n + 2 * np.eye(n)).to(dt)
+
+
+@pytest.mark.parametrize("kind", ["dense", "lattice"])
+@pytest.mark.parametrize("method", ["chebyshev", "slq"])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_estimator_plans_on_the_card(cuda, kind, method, dt):
+    """The card agrees with the CPU with the same probes and bounds; the
+    launch counts show which kernel carried each route."""
+    x = _dense(200, dt) if kind == "dense" else _lattice(16, dt, "cpu")
+    probes = est.make_probes(torch.Generator().manual_seed(8), 200 if
+                             kind == "dense" else 256, 16, dtype=dt)
+    kw = (dict(degree=24, num_probes=16, lmin=0.05, lmax=9.0)
+          if method == "chebyshev" else dict(num_steps=12, num_probes=16))
+    cpu = repro_torch.plan(x, method=method, device="cpu", **kw)(
+        probes=probes)
+    ops.reset_launch_counts()
+    card = repro_torch.plan(x, method=method, **kw)(probes=probes)
+    counts = ops.launch_counts()
+    assert card.logabsdet.device.type == "cuda"
+    rtol = 1e-4 if dt == torch.float32 else 1e-10
+    assert abs(card.logabsdet.item() - cpu.logabsdet.item()) <= rtol * abs(
+        cpu.logabsdet.item())
+    want = dict.fromkeys(counts, 0)
+    if kind == "lattice":
+        want["stencil_mv"] = kw["degree"] if method == "chebyshev" else 12
+    elif method == "chebyshev":
+        want["cheb_step"] = kw["degree"] - 1
+    assert counts == want
+
+
+@pytest.mark.parametrize("kind", ["dense", "lattice"])
+def test_cg_solve_on_the_card(cuda, kind):
+    dt = torch.float64
+    a = _dense(150, dt) if kind == "dense" else _lattice(12, dt, "cpu")
+    n = a.shape[0]
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal((n, 4)))
+    ops.reset_launch_counts()
+    res = est.cg_solve(a.to(cuda), b, tol=1e-10)
+    counts = ops.launch_counts()
+    assert res.x.device.type == "cuda" and bool(res.converged)
+    name = "cg_step" if kind == "dense" else "stencil_mv"
+    assert counts[name] == res.iters > 0
+    cpu = est.cg_solve(a, b, tol=1e-10, device="cpu")
+    assert torch.allclose(res.x.cpu(), cpu.x, rtol=1e-8, atol=1e-10)
+    if kind == "dense":             # a strided view, and the default device
+        wide = torch.zeros((n, 2 * n), dtype=dt)
+        wide[:, :n] = a
+        view = est.cg_solve(wide.to(cuda)[:, :n], b, tol=1e-10)
+        assert torch.equal(view.x, res.x)
+
+
+def test_cg_step_splits_wide_slabs(cuda):
+    """More columns than K7 keeps alphas for: one call per column block,
+    each counted, the same result as the plain version."""
+    n, k = 64, fused_est.MAX_CG_COLUMNS + 5
+    gen = torch.Generator().manual_seed(6)
+    a, p, x, r = (_randn(gen, *s, dtype=torch.float32, device=cuda)
+                  for s in ((n, n), (n, k), (n, k), (n, k)))
+    rz = _randn(gen, k, dtype=torch.float32, device=cuda)
+    ops.reset_launch_counts()
+    x1, r1 = fused_est.cg_step(a, p, x, r, rz)
+    assert ops.launch_counts()["cg_step"] == 2
+    x0, r0 = ref.cg_step_ref(a, p, x, r, rz)
+    tol_x, tol_r = ref.cg_step_bound(a, p, x, r, rz)
+    assert bool(((x1 - x0).abs() <= 2 * tol_x).all())
+    assert bool(((r1 - r0).abs() <= 2 * tol_r).all())

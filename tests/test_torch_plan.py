@@ -121,9 +121,8 @@ def test_from_jax_config_rejects_what_is_not_ported():
     d = jax_config_to_dict(repro.core.configs.ExactConfig(lookahead=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from_jax_config(d)
-    d = jax_config_to_dict(repro.core.configs.ChebyshevConfig())
-    with pytest.raises(ValueError, match="ChebyshevConfig"):
-        from_jax_config(d)
+    with pytest.raises(ValueError, match="KroneckerConfig"):
+        from_jax_config({"type": "KroneckerConfig"})
 
 
 def test_config_dict_round_trip_and_shape():
@@ -151,9 +150,9 @@ def test_pad_to_multiple_keeps_dtype(dtype):
     np.testing.assert_array_equal(p.double().numpy(), jp)
 
 
-@pytest.mark.parametrize("method", ["auto", "chebyshev", "slq", "ge", "pge",
-                                    "plu", "mc", "mc_staged", "mc_blocked",
-                                    "pmc", "pmc_blocked"])
+@pytest.mark.parametrize("method", ["auto", "ge", "pge", "plu", "mc",
+                                    "mc_staged", "mc_blocked", "pmc",
+                                    "pmc_blocked"])
 def test_unported_methods_name_their_roadmap_item(method):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         repro_torch.plan(_matrix(), method=method, device="cpu")
@@ -284,3 +283,220 @@ def test_public_surface():
                  "LogdetResult"):
         assert hasattr(repro_torch, name)
     assert dataclasses.is_dataclass(repro_torch.ExactConfig)
+
+
+def test_import_check_covers_the_estimators():
+    """The static check above walks src/repro_torch recursively, so the
+    estimator modules, operators included, are among the files it reads."""
+    files = set((ROOT / "src" / "repro_torch").rglob("*.py"))
+    est_dir = ROOT / "src" / "repro_torch" / "estimators"
+    for name in ("chebyshev.py", "slq.py", "hutchinson.py", "grad.py",
+                 "operators/solve.py", "operators/stencil.py"):
+        assert est_dir / name in files
+    assert "torch" in set(_imports(est_dir / "operators" / "stencil.py")) | {
+        n.split(".")[0] for n in _imports(est_dir / "slq.py")}
+
+
+# ------------------------------------------------------------ estimators
+
+def _lattice_op(side=6, dt=np.float64):
+    from repro_torch.estimators import StencilOperator
+    from repro.estimators import StencilOperator as JStencil
+    n = side * side
+    i = np.arange(n)
+    bands = np.full((5, n), -1.0)
+    bands[2] = 4.1
+    bands[1][i % side == 0] = 0.0
+    bands[3][i % side == side - 1] = 0.0
+    offsets = (-side, -1, 0, 1, side)
+    bands = bands.astype(dt)
+    return (StencilOperator(offsets, torch.from_numpy(bands)),
+            JStencil(offsets, jnp.asarray(bands)))
+
+
+EST_ROUTES = [("chebyshev", {"degree": 16, "num_probes": 8}),
+              ("chebyshev", {"degree": 20, "num_probes": 8,
+                             "probe_kind": "gaussian"}),
+              ("slq", {"num_steps": 10, "num_probes": 8})]
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float64", 1e-10),
+                                        ("float32", 1e-4)])
+@pytest.mark.parametrize("kind", ["dense", "stencil"])
+@pytest.mark.parametrize("method,kw", EST_ROUTES,
+                         ids=["cheb", "cheb_gauss", "slq"])
+def test_estimator_plan_matches_jax_plan(method, kw, kind, dtype, rtol):
+    if kind == "dense":
+        x = jx = _matrix(n=36, neg_row=False).astype(dtype)
+    else:
+        x, jx = _lattice_op(dt=np.dtype(dtype).type)
+    n = 36
+    rng = np.random.default_rng(11)
+    probes = (rng.standard_normal((n, 8)) if kw.get("probe_kind")
+              else rng.choice([-1.0, 1.0], (n, 8))).astype(dtype)
+    bounds = ({"lmin": 0.05, "lmax": 8.5} if method == "chebyshev" else {})
+    jres = repro.plan(jx, method=method, **kw)(probes=jnp.asarray(probes),
+                                               **bounds)
+    res = repro_torch.plan(x, method=method, device="cpu", **kw)(
+        probes=probes, **bounds)
+    assert isinstance(res, LogdetResult) and res.method_used == method
+    assert res.logabsdet.dtype == getattr(torch, dtype)
+    assert float(res.sign) == float(jres.sign) == 1.0
+    np.testing.assert_allclose(float(res.logabsdet), float(jres.logabsdet),
+                               rtol=rtol)
+    np.testing.assert_allclose(float(res.sem), float(jres.sem),
+                               rtol=10 * rtol)
+
+
+@pytest.mark.parametrize("method,kw", EST_ROUTES[::2], ids=["cheb", "slq"])
+def test_estimator_diagnostics_match_jax(method, kw):
+    for x, jx in ((_matrix(n=36, neg_row=False),) * 2, _lattice_op()):
+        d = repro_torch.plan(x, method=method, device="cpu", **kw).diagnostics
+        jd = repro.plan(jx, method=method, **kw).diagnostics
+        assert d.matvec_cols == jd.matvec_cols
+        assert d.flops_est == pytest.approx(jd.flops_est)
+        assert d.padded_n == 36
+
+
+@pytest.mark.parametrize("method,kw", EST_ROUTES[::2], ids=["cheb", "slq"])
+def test_from_jax_config_estimators(method, kw):
+    a = _matrix(n=30, neg_row=False)
+    jplan = repro.plan(a, method=method, seed=3, **kw)
+    d = jax_config_to_dict(jplan.config)
+    cfg = from_jax_config(d)
+    assert config_to_dict(cfg) == d
+    assert config_from_dict(config_to_dict(cfg)) == cfg
+    p = repro_torch.plan(a, method=method, device="cpu", config=cfg)
+    assert p.config == cfg
+    probes = np.random.default_rng(12).choice([-1.0, 1.0], (30, 8))
+    bounds = {"lmin": 0.5, "lmax": 6.0} if method == "chebyshev" else {}
+    np.testing.assert_allclose(
+        float(p(probes=probes, **bounds).logabsdet),
+        float(jplan(probes=jnp.asarray(probes), **bounds).logabsdet),
+        rtol=1e-10)
+    with pytest.raises(TypeError, match="needs a"):
+        repro_torch.plan(a, method="exact", device="cpu", config=cfg)
+
+
+def test_estimator_configs_validate():
+    from repro_torch.core import ChebyshevConfig, SLQConfig
+    with pytest.raises(ValueError, match="degree"):
+        ChebyshevConfig(degree=0)
+    with pytest.raises(ValueError, match="probe_kind"):
+        ChebyshevConfig(probe_kind="sobol")
+    with pytest.raises(ValueError, match="lmax > lmin"):
+        ChebyshevConfig(lmin=2.0, lmax=1.0)
+    with pytest.raises(TypeError, match="scalar"):
+        ChebyshevConfig(lmin=np.ones(3))
+    assert ChebyshevConfig(lmin=np.float32(0.5)).lmin == 0.5
+    with pytest.raises(ValueError, match="num_steps"):
+        SLQConfig(num_steps=0)
+    with pytest.raises(TypeError, match="unknown keywords"):
+        repro_torch.plan(_matrix(), method="slq", device="cpu", degree=3)
+
+
+@pytest.mark.parametrize("method", ["chebyshev", "slq"])
+def test_validate_spd_like_rejects(method):
+    a = _matrix(n=20, neg_row=False)
+    bad = a.copy()
+    bad[0, 1] += 1.0
+    with pytest.raises(ValueError, match="not symmetric"):
+        repro_torch.plan(bad, method=method, device="cpu")()
+    neg = a.copy()
+    neg[2, 2] = -1.0
+    with pytest.raises(ValueError, match="positive-definite"):
+        repro_torch.plan(neg, method=method, device="cpu")()
+    res = repro_torch.plan(bad, method=method, device="cpu",
+                           validate=False)()
+    assert np.isfinite(float(res.logabsdet))
+
+
+@pytest.mark.parametrize("x,kw,exc", [
+    ("dense", {"method": "auto"}, NotImplementedError),
+    ("dense", {"method": "slq", "grad": True}, NotImplementedError),
+    ("dense", {"method": "chebyshev", "mesh": object()}, NotImplementedError),
+    ("batched", {"method": "slq"}, NotImplementedError),
+    ("stencil", {"method": "exact"}, TypeError),
+    ("stencil", {"method": "slq", "precision": "float64"}, ValueError),
+    ("dense", {"method": "chebyshev", "precision": "bf16"}, ValueError),
+])
+def test_estimator_plans_reject(x, kw, exc):
+    inputs = {"dense": _matrix(n=12, neg_row=False), "batched": (2, 8, 8),
+              "stencil": _lattice_op(side=3)[0]}
+    with pytest.raises(exc):
+        repro_torch.plan(inputs[x], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", ["KroneckerOperator", "ToeplitzOperator"])
+def test_structured_backends_raise(name):
+    from repro_torch import estimators
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        getattr(estimators, name)(torch.eye(2), torch.eye(2))
+
+
+def test_estimator_plan_rejects_runtime_inputs_on_exact():
+    p = repro_torch.plan(_matrix(), method="exact", device="cpu")
+    with pytest.raises(TypeError, match="no generator"):
+        p(probes=np.ones((50, 2)))
+    p = repro_torch.plan(_matrix(n=20, neg_row=False), method="slq",
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="gradients"):
+        p.value_and_grad()
+
+
+@pytest.mark.parametrize("method", ["chebyshev", "slq"])
+def test_seed_repeats_and_generator_overrides(method):
+    a = _matrix(n=24, neg_row=False)
+    kw = dict(num_probes=4)
+    r1 = repro_torch.plan(a, method=method, device="cpu", seed=3, **kw)()
+    r2 = repro_torch.plan(a, method=method, device="cpu", seed=3, **kw)()
+    assert torch.equal(r1.logabsdet, r2.logabsdet)
+    g = torch.Generator().manual_seed(5)
+    r3 = repro_torch.plan(a, method=method, device="cpu", seed=3, **kw)(
+        generator=g)
+    r5 = repro_torch.plan(a, method=method, device="cpu", seed=5, **kw)()
+    assert not torch.equal(r3.logabsdet, r1.logabsdet)
+    assert torch.equal(r3.logabsdet, r5.logabsdet)
+    p = repro_torch.plan(a, method=method, device="cpu", seed=3, **kw)
+    s, ld = p.slogdet()
+    assert float(s) == 1.0 and torch.equal(ld, r1.logabsdet)
+    assert torch.equal(p.logdet(), ld)
+
+
+def test_estimator_plan_leaves_operator_and_tensor_alone():
+    op, _ = _lattice_op()
+    bands = op.bands.clone()
+    res = repro_torch.plan(op, method="slq", device="cpu", num_probes=4)()
+    assert torch.equal(op.bands, bands) and op._bands_t is None
+    assert res.diagnostics.matvec_cols == 25 * 4
+    a = torch.from_numpy(_matrix(n=20, neg_row=False))
+    before = a.clone()
+    repro_torch.plan(a, method="chebyshev", device="cpu", degree=8,
+                     num_probes=4)()
+    assert torch.equal(a, before)
+
+
+def test_estimator_launch_counts_stay_zero_on_the_cpu():
+    ops.reset_launch_counts()
+    op, _ = _lattice_op()
+    repro_torch.plan(op, method="chebyshev", device="cpu", degree=8,
+                     num_probes=4)()
+    repro_torch.plan(_matrix(n=20, neg_row=False), method="chebyshev",
+                     device="cpu", degree=8, num_probes=4)()
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_plan_rejects_an_operator_it_cannot_move():
+    """An operator on another device than the plan's is moved through its
+    ``to``; one without ``to`` raises when the plan is built."""
+    class Duck:
+        shape, dtype, device = (4, 4), torch.float64, torch.device("meta")
+
+        def mm(self, v):
+            return v
+
+    with pytest.raises(ValueError, match="no .to"):
+        repro_torch.plan(Duck(), method="slq", device="cpu")
+    op, _ = _lattice_op()
+    p = repro_torch.plan(op, method="slq", device="cpu", num_probes=2)
+    assert p._bound is op
