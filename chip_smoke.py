@@ -10,20 +10,21 @@ it is not next to the repository's ``src/repro_torch``.  Phases, one
 printed line each, any failure ends the run:
 
 1. device   the card's name, and its name and power limit from nvidia-smi;
-2. build    nvcc builds the seven kernels K1-K4 and K6-K8 from
-            ``src/repro_torch/kernels/csrc`` (sm_90a), with each kernel's
-            registers, shared memory, stack frame, spills;
+2. build    nvcc builds the eight kernels K1-K8 from
+            ``src/repro_torch/kernels/csrc`` (sm_90a), once, in this
+            process, with each kernel's registers, shared memory, stack
+            frame, spills;
 3. kernels  every kernel against its plain PyTorch version on the card,
             at the main paths' shapes, in f32 and f64 (and bf16 operands
             for K1-K3): bitwise for K1, K3, K8 and K4's R and ls, K4's
             sign exactly, K4's logdet and K2 to the tolerances stated
-            below; K6 and K7, on their routes' own operands, and their
-            plain versions against the same step in f64, within its
-            probabilistic rounding bound (`ref.cheb_step_bound`,
-            `ref.cg_step_bound`), which three planted faults must break;
-            then each kernel's time beside its plain version, its bound
-            and, where one PyTorch call computes the same function, that
-            call;
+            below; K5, K6 and K7 (on their routes' own operands) and
+            their plain versions against the same function in f64,
+            within its probabilistic rounding bound (`ref.matvec_bound`,
+            `ref.cheb_step_bound`, `ref.cg_step_bound`), which planted
+            faults must break; then each kernel's time beside its plain
+            version, its bound and, where one PyTorch call computes the
+            same function, that call;
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
@@ -37,7 +38,19 @@ printed line each, any failure ends the run:
             PROBES below): estimates against exact f64 references, each
             route against the same route through the plain versions on
             the card (same probes and bounds), CG's true residual, and
-            the launch counts of K6-K8 equal to the route's formula.
+            the launch counts of K6-K8 equal to the route's formula;
+6. mesh     the paper's parallel condensation and the sharded estimators
+            through ``repro_torch.plan(..., mesh=...)`` and
+            ``estimators.cg_solve(ShardedOperator(...))``, on one rank
+            under NCCL and on MESH_RANKS ranks sharing the card under
+            gloo (spawned processes, `core.mesh.run_ranks`): mesh x
+            rank1 and mesh x panel, plain and lookahead, on the exact
+            cell (sign exact, log|det| against the f64 slogdet,
+            lookahead bitwise equal to plain), sharded Chebyshev, SLQ
+            and CG on the dense estimator cell (against the exact f64
+            reference and the same route through the plain product, CG's
+            true residual), the launch counts of every rank, and every
+            rank's result equal to rank 0's.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +84,8 @@ KERNEL_META = {
                    "src/repro/kernels/fused_step.py:40"),
     "panel_factor": ("src/repro_torch/kernels/csrc/panel_factor.cu",
                      "src/repro/kernels/panel_factor.py:31"),
+    "matvec": ("src/repro_torch/kernels/csrc/matvec.cu",
+               "src/repro/kernels/matvec.py:34"),
     "cheb_step": ("src/repro_torch/kernels/csrc/cheb_step.cu",
                   "src/repro/kernels/fused_est.py:40"),
     "cg_step": ("src/repro_torch/kernels/csrc/cg_step.cu",
@@ -95,6 +110,8 @@ N_SEM, EST_RTOL = 5.0, 1e-4
 ROUTE_RTOL = {"dense|chebyshev": 1e-4, "dense|slq": 1e-6,
               "lattice|chebyshev": 1e-6, "lattice|slq": 1e-6}
 CG_TOL, CG_RESIDUAL, CG_X_RTOL = 1e-6, 1e-5, 1e-5
+# phase 6: ranks of the shared-card mesh, and each run's time limit (s)
+MESH_RANKS, MESH_TIMEOUT = 4, 600
 
 
 class SmokeFailure(RuntimeError):
@@ -423,6 +440,81 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
     return out
 
 
+def matvec_phase(n: int, ranks: int, gen) -> dict:
+    """K5 at the sharded estimators' shapes: the full (n, n) block (one
+    rank) and one rank's (n / ranks, n) block, against a slab of PROBES
+    columns and a single column, in f32 and f64.  Kernel and plain
+    version each within `ref.matvec_bound` of the f64 product (twice it
+    for f64 input, itself one evaluation); two planted faults (one
+    32-column chunk of A skipped, a block of output rows zeroed) must
+    break it; a repeated call bitwise equal; then times.  Returns
+    ``{"<dtype>|<rows>|<k>": fields}``."""
+    import torch
+    from repro_torch.kernels import matvec as k5
+    from repro_torch.kernels import ref
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        name_dt = str(dt)[6:]
+        size = torch.finfo(dt).bits // 8
+        factor = 2.0 if dt == torch.float64 else 1.0
+        full = torch.randn(n, n, generator=gen, device="cuda",
+                           dtype=torch.float64).to(dt)
+        for rows in (n, n // ranks):
+            a = full[:rows]
+            a64 = a.double()
+            c0 = (n // 2) // 32 * 32
+            skipped = a64.clone()
+            skipped[:, c0:c0 + 32] = 0
+            for k in (PROBES, 1):
+                x = torch.randn(n, k, generator=gen, device="cuda",
+                                dtype=torch.float64).to(dt)
+                exact = a64 @ x.double()
+                bound = factor * ref.matvec_bound(a, x).double()
+                tiny = torch.finfo(torch.float64).tiny
+
+                def rel(o):
+                    return ((o.double() - exact).abs()
+                            / bound.clamp_min(tiny)).max().item()
+
+                got, want = k5.matvec(a, x), ref.matvec_ref(a, x)
+                zeroed = got.clone()
+                zeroed[rows // 2:rows // 2 + 32] = 0
+                faults = {"chunk_skipped": rel(skipped @ x.double()),
+                          "rows_zeroed": rel(zeroed)}
+                torch.cuda.synchronize()
+                r_k, r_p = rel(got), rel(want)
+                tag = f"{name_dt}|{rows}|{k}"
+                require(r_k <= 1.0, f"K5 {tag}: {r_k} of its bound")
+                require(r_p <= 1.0, f"K5 {tag}: plain at {r_p} of its bound")
+                require(min(faults.values()) > 1.0,
+                        f"K5 {tag}: a planted fault passes: {faults}")
+                require(torch.equal(k5.matvec(a, x), got),
+                        f"K5 {tag}: a repeated call differs")
+                plain_ms = time_ms(lambda: ref.matvec_ref(a, x))
+                t = dict(max_abs_err=(got - want).abs().max().item(),
+                         ms=time_ms(lambda: k5.matvec(a, x)),
+                         plain_ms=plain_ms, library_ms=plain_ms,
+                         bound=bound_ms((rows * n + n * k + rows * k) * size,
+                                        2 * rows * n * k, name_dt),
+                         max_rel_to_bound=r_k, plain_max_rel_to_bound=r_p,
+                         planted_faults_rel_to_bound=faults)
+                out[tag] = t
+                say("kernels", kernel="matvec", variant=name_dt,
+                    shape=[rows, n, k], max_rel_to_bound=r_k,
+                    plain_max_rel_to_bound=r_p,
+                    planted_faults_rel_to_bound=faults, repeat_bitwise=True,
+                    error_lambda=ref.ERROR_LAMBDA)
+                say("timing", kernel="matvec", dtype=name_dt,
+                    shape=[rows, n, k], ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1])
+            del a64, skipped
+        del full
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path, end to end
 # --------------------------------------------------------------------------
@@ -440,7 +532,7 @@ def expected_launches(n: int, k: int, update: str, fused: bool) -> dict:
             rank1 += steps
     return {"rank1_update": 0 if fused else rank1,
             "fused_step": rank1 if fused else 0,
-            "panel_update": panels, "panel_factor": panels,
+            "panel_update": panels, "panel_factor": panels, "matvec": 0,
             "cheb_step": 0, "cg_step": 0, "stencil_mv": 0}
 
 
@@ -706,13 +798,257 @@ def estimator_phase(n: int, side: int, seed: int) -> dict:
 
 
 def dense_spd(n: int, gen, dtype):
-    """x x^T / n + 2 I, made in f64 on the card and stored in ``dtype``."""
+    """x x^T / n + 2 I, made in f64 on the generator's card and stored in
+    ``dtype``."""
     import torch
-    x = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    x = torch.randn(n, n, generator=gen, device=gen.device,
+                    dtype=torch.float64)
     a = x @ x.T / n
     del x
     a.diagonal().add_(2.0)
     return a.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# phase 6: the mesh, end to end
+# --------------------------------------------------------------------------
+
+def mesh_launches(L: int, P: int, rank: int, k: int, route: str) -> dict:
+    """Kernel launches of one mesh route on ``rank``, L rows per rank.
+
+    rank1: K1 = (L - 1) P steps + the P x P tail's P - 1.  panel: R = (L -
+    1) // k panels per rank, K4 = R on the owner, K2 = R P on every rank,
+    K1 = rem P + P - 1 for the rem = L - 1 - R k remainder rows.  With
+    lookahead the owner early-applies every step (K1 on one row) or panel
+    (K2 on k rows) after the first that it owns: L - 1 or R, less one on
+    rank 0.  The sharded estimators: K5 once per product, 2 (32 + 1) for
+    Chebyshev's bounds plus DEGREE, NUM_STEPS for SLQ, one per CG
+    iteration.
+    """
+    counts = dict.fromkeys(KERNEL_META, 0)
+    update, _, extra = route.partition("|")
+    if update in ("chebyshev", "slq", "cg"):
+        counts["matvec"] = {"chebyshev": 2 * (32 + 1) + DEGREE,
+                            "slq": NUM_STEPS}.get(update, int(extra or 0))
+        return counts
+    lookahead = extra == "lookahead"
+    r = (L - 1) // k
+    if update == "rank1":
+        counts["rank1_update"] = (L - 1) * P + P - 1 + lookahead * (
+            L - 1 - (rank == 0))
+    else:
+        counts["panel_factor"] = r
+        counts["panel_update"] = r * P + lookahead * (r - (rank == 0))
+        counts["rank1_update"] = (L - 1 - r * k) * P + P - 1
+    return counts
+
+
+class PlainShardedOperator:
+    """A `ShardedOperator` whose local product is the plain version
+    (`torch.matmul`) -- the comparison route, never the main path."""
+
+    def __init__(self, op):
+        self.op, self.shape, self.dtype = op, op.shape, op.dtype
+        self.device = op.device
+
+    def mm(self, v):
+        import torch
+        from repro_torch.core import mesh as M
+        from repro_torch.kernels import ref
+        out = torch.empty((self.shape[0], v.shape[1]), dtype=self.dtype,
+                          device=self.device)
+        return M.gather_rows(self.op.mesh, ref.matvec_ref(self.op.local, v),
+                             out)
+
+    def diag(self):
+        return self.op.diag()
+
+
+def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
+    """One rank of phase 6 (a spawned process): the four exact mesh routes
+    on the exact cell's N = n matrix, then sharded Chebyshev, SLQ and CG
+    on the dense estimator cell's EST_N matrix, every check of the phase
+    made here; returns the numbers to print, in plain Python."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, P, me = mesh.device, mesh.size, mesh.rank
+    out = {"device": str(dev), "exact": {}, "estimators": {}}
+
+    def same_on_every_rank(a, what):
+        """The ranks built ``a`` from one seed: an all_reduce of each
+        rank's checksums, compared with rank 0's."""
+        a64 = a.double()
+        rows = torch.arange(a.shape[0], device=dev, dtype=torch.float64)
+        sums = torch.zeros((P, 2), dtype=torch.float64, device=dev)
+        sums[me, 0] = a64.sum()
+        sums[me, 1] = (a64.sum(1) * rows).sum()
+        M.all_sum(mesh, sums)
+        require(bool((sums == sums[0]).all()),
+                f"rank {me}: the ranks' {what} matrices differ: "
+                f"{sums.tolist()}")
+
+    def sync():
+        M.all_sum(mesh, torch.zeros(1, device=dev))
+        torch.cuda.synchronize(dev)
+
+    def run(fn):
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return (res, time.perf_counter() - t0, ops.launch_counts(),
+                torch.cuda.max_memory_allocated(dev))
+
+    routes = [(u, la) for u in ("rank1", "panel") for la in (False, True)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    # warm-up of every route at a small size (handles, allocator)
+    small = torch.randn(64 * P, 64 * P, generator=gen, device=dev,
+                        dtype=torch.float64)
+    small = small + 16.0 * P * torch.eye(64 * P, device=dev,
+                                         dtype=torch.float64)
+    for update, la in routes:
+        repro_torch.plan(small, method="exact", update=update, k=k,
+                         lookahead=la, mesh=mesh)()
+
+    x = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    a64 = x @ x.T / n + 2.0 * torch.eye(n, device=dev, dtype=torch.float64)
+    a64[3] = -a64[3]
+    a = a64.to(torch.float32)
+    del x, a64
+    same_on_every_rank(a, "exact")
+    s_ref, ld_ref = (v.item() for v in torch.linalg.slogdet(a.double()))
+    require(s_ref == -1.0, f"reference sign {s_ref}, expected -1")
+    results = {}
+    for update, la in routes:
+        name = update + ("|lookahead" if la else "")
+        plan = repro_torch.plan(a, method="exact", update=update, k=k,
+                                lookahead=la, mesh=mesh)
+        res, wall, counts, peak = run(plan)
+        s, ld = res.sign.item(), res.logabsdet.item()
+        rel = abs(ld - ld_ref) / abs(ld_ref)
+        want = mesh_launches(n // P, P, me, k, name)
+        out["exact"][name] = dict(
+            sign=s, logabsdet=ld, ref_logabsdet=ld_ref, rel_err=rel,
+            wall_s=wall, peak_mem_bytes=peak, launches=counts,
+            device_count=plan.diagnostics.device_count)
+        require(s == s_ref, f"rank {me} mesh {name}: sign {s} != {s_ref}")
+        require(rel <= E2E_RTOL[None], f"rank {me} mesh {name}: rel {rel}")
+        require(counts == want,
+                f"rank {me} mesh {name}: launches {counts} != {want}")
+        results[name] = (s, ld)
+    for update in ("rank1", "panel"):
+        require(results[update] == results[f"{update}|lookahead"],
+                f"rank {me} mesh {update}: lookahead "
+                f"{results[update + '|lookahead']} != plain "
+                f"{results[update]}")
+    del a
+    torch.cuda.empty_cache()
+
+    # the sharded estimators on the dense estimator cell
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    a = dense_spd(EST_N, gen, torch.float32)
+    same_on_every_rank(a, "estimator")
+    ref_ld = (2.0 * torch.linalg.cholesky(a.double()).diagonal().log()
+              .sum()).item()
+    v = est.make_probes(gen, EST_N, PROBES, dtype=a.dtype, device=dev)
+    b = torch.randn(EST_N, PROBES, generator=gen, device=dev,
+                    dtype=torch.float64).to(a.dtype)
+    op = est.ShardedOperator(a, mesh)
+    plain = PlainShardedOperator(op)
+    for method, kw in (("chebyshev", dict(degree=DEGREE, num_probes=PROBES)),
+                       ("slq", dict(num_steps=NUM_STEPS,
+                                    num_probes=PROBES))):
+        plan = repro_torch.plan(a, method=method, mesh=mesh, **kw)
+        res, wall, counts, peak = run(lambda: plan(probes=v))
+        if method == "chebyshev":
+            lo, hi = est.spectral_bounds(
+                plain, est.chebyshev.default_generator(dev, 0))
+            pres = est.logdet_chebyshev(plain, probes=v, lmin=lo, lmax=hi,
+                                        device=dev, **kw)
+        else:
+            pres = est.logdet_slq(plain, probes=v, device=dev, **kw)
+        est_v, sem, plain_v = (res.logabsdet.item(), res.sem.item(),
+                               pres.est.item())
+        tol = N_SEM * sem + EST_RTOL * abs(ref_ld)
+        route_rel = abs(est_v - plain_v) / abs(plain_v)
+        want = mesh_launches(EST_N // P, P, me, k, method)
+        out["estimators"][method] = dict(
+            estimate=est_v, sem=sem, ref_logabsdet=ref_ld,
+            abs_err=abs(est_v - ref_ld), tol=tol, plain_estimate=plain_v,
+            plain_rel=route_rel, wall_s=wall, peak_mem_bytes=peak,
+            launches=counts, device_count=plan.diagnostics.device_count)
+        require(abs(est_v - ref_ld) <= tol, f"rank {me} sharded {method}: "
+                f"{est_v} vs exact {ref_ld}, tolerance {tol}")
+        require(route_rel <= EST_RTOL, f"rank {me} sharded {method}: "
+                f"{est_v} vs plain {plain_v}")
+        require(counts == want, f"rank {me} sharded {method}: launches "
+                f"{counts} != {want}")
+    res, wall, counts, peak = run(lambda: est.cg_solve(op, b, tol=CG_TOL,
+                                                       device=dev))
+    b64, x64 = b.double(), res.x.double()
+    true_res = (torch.linalg.vector_norm(b64 - a.double() @ x64, dim=0)
+                / torch.linalg.vector_norm(b64, dim=0)).max().item()
+    pres = est.cg_solve(plain, b, tol=CG_TOL, device=dev)
+    x_rel = (torch.linalg.vector_norm(res.x - pres.x)
+             / torch.linalg.vector_norm(pres.x)).item()
+    want = mesh_launches(EST_N // P, P, me, k, f"cg|{res.iters}")
+    out["estimators"]["cg"] = dict(
+        iters=res.iters, converged=bool(res.converged),
+        true_rel_residual_f64=true_res, plain_iters=pres.iters,
+        plain_x_rel=x_rel, wall_s=wall, peak_mem_bytes=peak, launches=counts)
+    require(bool(res.converged), f"rank {me} sharded cg: not converged")
+    require(true_res <= CG_RESIDUAL,
+            f"rank {me} sharded cg: true residual {true_res}")
+    require(x_rel <= CG_X_RTOL, f"rank {me} sharded cg: x differs from the "
+            f"plain route by {x_rel}")
+    require(counts == want,
+            f"rank {me} sharded cg: launches {counts} != {want}")
+    return out
+
+
+def mesh_phase(n: int, k: int, seed: int) -> dict:
+    """Phase 6: `mesh_rank` on one rank under NCCL, then on MESH_RANKS
+    ranks sharing the card under gloo (collectives staged through host
+    memory); every rank must return the same results.  Prints each
+    rank's routes; returns rank 0's launch counts by route."""
+    from repro_torch.core.mesh import run_ranks
+
+    launches = {}
+    for size, backend in ((1, "nccl"), (MESH_RANKS, "gloo")):
+        t0 = time.perf_counter()
+        results = run_ranks(mesh_rank, size, backend=backend, device="cuda",
+                            timeout=MESH_TIMEOUT, args=(n, k, seed))
+        seconds = time.perf_counter() - t0
+        for rank, res in enumerate(results):
+            for part in ("exact", "estimators"):
+                for route, fields in res[part].items():
+                    say("mesh", ranks=size, backend=backend, rank=rank,
+                        device=res["device"], route=route, **fields)
+        first = results[0]
+        for rank, res in enumerate(results[1:], 1):
+            for part in ("exact", "estimators"):
+                for route, fields in res[part].items():
+                    for key in ("sign", "logabsdet", "estimate", "sem",
+                                "iters"):
+                        require(fields.get(key) == first[part][route]
+                                .get(key), f"mesh P={size} {route}: rank "
+                                f"{rank} {key} differs from rank 0's")
+        say("mesh", ranks=size, backend=backend, seconds=seconds,
+            ranks_agree=True,
+            note=("several ranks share one card; their collectives pass "
+                  "through host memory: not a scaling figure")
+            if size > 1 else "one rank, NCCL")
+        for part in ("exact", "estimators"):
+            for route, fields in first[part].items():
+                launches[f"mesh{size}|{route}"] = fields["launches"]
+    return launches
 
 
 def main(argv=None) -> int:
@@ -761,10 +1097,19 @@ def main(argv=None) -> int:
     for name, by_dtype in est_timings.items():
         timings[name] = dict(by_dtype["float32"],
                              float64=by_dtype["float64"])
+    mv = matvec_phase(EST_N, MESH_RANKS, gen)
+    timings["matvec"] = dict(mv[f"float32|{EST_N}|{PROBES}"],
+                             float64=mv[f"float64|{EST_N}|{PROBES}"],
+                             shapes={t: {f: v[f] for f in (
+                                 "ms", "plain_ms", "max_rel_to_bound")}
+                                 | {"bound_ms": v["bound"][0]}
+                                 for t, v in mv.items()})
     # phase 4: the main path
     launches = main_path_phase(args.n, args.k, gen)
     # phase 5: the estimators
     launches.update(estimator_phase(EST_N, SIDE, args.seed))
+    # phase 6: the mesh (the ranks are spawned: CUDA is initialized here)
+    launches.update(mesh_phase(args.n, args.k, args.seed))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -785,6 +1130,8 @@ def main(argv=None) -> int:
                 "bound_by": f64["bound"][1]}
         if t.get("matmul_ms") is not None:
             entry["matmul_ms"] = t["matmul_ms"]
+        if "shapes" in t:
+            entry["shapes"] = t["shapes"]
         kernels.append(entry)
     say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

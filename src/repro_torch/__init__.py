@@ -1,6 +1,6 @@
 """repro_torch -- the PyTorch / CUDA port of `repro` for NVIDIA Hopper.
 
-Two paths of the JAX package, in PyTorch, with their Pallas kernels
+Three paths of the JAX package, in PyTorch, with their Pallas kernels
 rewritten by hand in CUDA C++ for ``sm_90a`` (``kernels/csrc``, built at
 first use):
 
@@ -10,7 +10,10 @@ first use):
 - the estimators on one device (``method="chebyshev"|"slq"`` on a dense
   SPD matrix or a `estimators.StencilOperator`, and
   `estimators.cg_solve`), through K6 (dense Chebyshev), K7 (dense CG)
-  and K8 (every stencil product).
+  and K8 (every stencil product);
+- the mesh (``mesh=`` a `core.mesh.Mesh`, one process per rank): the
+  paper's parallel condensation (`engine.build_mesh`, K1, K2, K4) and
+  the row-sharded estimators (`estimators.ShardedOperator`, K5).
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.
@@ -21,9 +24,11 @@ runs the kernels' plain PyTorch versions.
 
 This package imports ``torch`` and never ``jax`` or ``repro``.
 """
-from repro_torch import estimators
+# core first: its mesh module must exist before the estimators' sharded
+# backend imports it (core.plan imports the estimators in turn)
 from repro_torch.core import (ChebyshevConfig, EngineConfig, ExactConfig,
                               LogdetPlan, LogdetResult, SLQConfig, plan)
+from repro_torch import estimators
 
 __all__ = ["plan", "LogdetPlan", "ExactConfig", "ChebyshevConfig",
            "SLQConfig", "EngineConfig", "LogdetResult", "estimators"]

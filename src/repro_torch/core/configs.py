@@ -34,13 +34,16 @@ def _require(cond: bool, msg: str):
 class ExactConfig:
     """Knobs of the exact condensation engine (``method="exact"``).
 
-    ``schedule`` -- "serial" | "staged" ("mesh": not ported yet); ``None``
-                   resolves to "staged" at plan time.
+    ``schedule`` -- "serial" | "staged" | "mesh"; ``None`` resolves at plan
+                   time ("mesh" when a mesh is supplied, else "staged").
     ``update``   -- "rank1" | "panel"; ``None`` resolves to "rank1".
     ``backend``  -- "auto" only: the kernel follows the tensor's device.
     ``k``        -- panel width of the rank-K update.
     ``shrink``/``min_size`` -- staged-schedule geometry.
-    ``lookahead`` -- mesh-only (not ported yet).
+    ``lookahead`` -- mesh-only: pipeline the next pivot row / panel so its
+                   broadcast overlaps the current bulk update
+                   (bit-identical results).  Requires ``schedule`` unset
+                   (mesh resolves when a mesh is present) or ``"mesh"``.
     ``fused``    -- one-pass condensation steps and one composed-
                    permutation gather per panel (bit-identical results).
     ``precision`` -- ``None`` or ``"bf16"``: bf16 GEMM / outer-product
@@ -85,13 +88,18 @@ class ExactConfig:
                  f"unknown precision {self.precision!r}; "
                  "one of (None, 'bf16')")
 
-    def resolved(self) -> "ExactConfig":
+    def resolved(self, *, mesh_present: bool = False) -> "ExactConfig":
         """Pin the engine axes (plan-time resolution of the defaults)."""
-        if self.schedule == "mesh" or self.lookahead:
-            raise NotImplementedError(
-                "the mesh schedule and lookahead are not ported to "
-                "repro_torch yet (ROADMAP Queue 1 item 8)")
-        sched = self.schedule or "staged"
+        sched = self.schedule or ("mesh" if mesh_present else "staged")
+        if self.lookahead and sched != "mesh":
+            raise ValueError(
+                "lookahead requires the mesh schedule: pass a mesh (or "
+                f"schedule='mesh'); resolution chose {sched!r}")
+        if self.fused and sched == "mesh":
+            raise ValueError(
+                "fused one-pass steps are a serial/staged optimization "
+                "(the mesh schedule pipelines via lookahead); drop the "
+                "mesh or pass schedule='serial'/'staged' explicitly")
         upd = self.update or "rank1"
         if sched == self.schedule and upd == self.update:
             return self
@@ -248,9 +256,9 @@ def from_jax_config(d: dict) -> LogdetConfig:
 
     ``d`` is `repro.core.configs.config_to_dict` of a JAX config.  An
     `ExactConfig`'s kernel backend maps to ``"auto"``, because in the port
-    the kernel follows the tensor's device; the mesh schedule and
-    lookahead are rejected (not ported).  The estimator configs cross
-    field for field.
+    the kernel follows the tensor's device; every other field, the mesh
+    schedule and lookahead included, crosses as it is, as do the
+    estimator configs.
     """
     d = dict(d)
     if d.get("type") != "ExactConfig":
@@ -258,9 +266,5 @@ def from_jax_config(d: dict) -> LogdetConfig:
     backend = d.get("backend", "auto")
     if backend not in _JAX_BACKENDS:
         raise ValueError(f"unknown JAX kernel backend {backend!r}")
-    if d.get("schedule") == "mesh" or d.get("lookahead"):
-        raise NotImplementedError(
-            "the mesh schedule and lookahead are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 8)")
     d["backend"] = "auto"
     return config_from_dict(d)

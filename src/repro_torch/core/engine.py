@@ -1,4 +1,4 @@
-"""The condensation engine in PyTorch: serial and staged schedules.
+"""The condensation engine in PyTorch: serial, staged and mesh schedules.
 
 Counterpart of `repro.core.engine`: one implementation of the paper's
 step -- pivot-column argmax (§2.2), row normalization (§2.3), column swap
@@ -6,14 +6,21 @@ step -- pivot-column argmax (§2.2), row normalization (§2.3), column swap
 
   schedule   "serial"  one buffer, one rank per step
              "staged"  geometric stages over shrinking buffers
+             "mesh"    round-robin block rows over a 1-D mesh of ranks
+                       (`core.mesh`; the paper's parallel schedule)
   update     "rank1"   the outer-product subtract (kernel K1, or K3 fused)
              "panel"   K-row panels: factorize K rows (K4), then ONE
                        trailing GEMM (K2)
 
-plus ``fused=True`` (one-pass steps, one composed-permutation gather per
-panel) and ``precision="bf16"`` (bf16 multiply operands, full-precision
-buffer and accumulators).  The mesh schedule and ``lookahead`` are not
-ported yet (ROADMAP Queue 1 item 8).
+plus ``fused=True`` (serial/staged: one-pass steps, one composed-
+permutation gather per panel), ``lookahead=True`` (mesh: the next
+step's or panel's broadcast overlaps the current bulk update) and
+``precision="bf16"`` (bf16 multiply operands, full-precision buffer and
+accumulators).
+
+The mesh schedule runs in every rank's process (`torch.distributed` has
+no single controller): each rank calls the same function on the same
+full matrix, keeps its own row block and gets the same result.
 
 Each step is a Python loop iteration over device work: no ``.item()``,
 ``float()`` or ``bool()`` of a device tensor inside the loops, so the
@@ -38,14 +45,16 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import mesh as _mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import guarded_pivot, swap_positions
 
 __all__ = [
     "EngineConfig", "SCHEDULES", "UPDATES", "BACKENDS", "build_serial",
-    "condense_steps", "condense_full", "panel_factor", "apply_panel",
-    "panel_rounds_serial", "blocked_full", "staged_full", "stage_schedule",
-    "combine_slogdet", "guarded_pivot",
+    "build_mesh", "engine_slogdet", "condense_steps", "condense_full",
+    "panel_factor", "apply_panel", "panel_rounds_serial",
+    "blocked_full", "staged_full", "stage_schedule", "mc_local_phase",
+    "mesh_tail", "combine_slogdet", "guarded_pivot",
 ]
 
 SCHEDULES = ("serial", "staged", "mesh")
@@ -54,10 +63,6 @@ UPDATES = ("rank1", "panel")
 # backend is "auto"
 BACKENDS = ("auto",)
 
-_MESH_TODO = ("the mesh schedule and lookahead are not ported to "
-              "repro_torch yet (ROADMAP Queue 1 item 8)")
-
-
 @dataclass(frozen=True)
 class EngineConfig:
     """One point in the schedule x update design space.
@@ -65,7 +70,9 @@ class EngineConfig:
     ``panel_k``   panel width of the rank-K update (ignored for rank1).
     ``shrink``    geometric stage ratio of the staged schedule.
     ``min_size``  size below which the staged schedule stops staging.
-    ``lookahead`` mesh-only pipelining (not ported: ROADMAP Queue 1 item 8).
+    ``lookahead`` mesh-only: the next pivot row / panel is factored from
+                  an early-applied copy and its broadcast issued before
+                  the bulk update of the current one; bit-identical.
     ``fused``     serial/staged-only: one-pass condensation steps (K3)
                   and one composed-permutation gather per panel instead
                   of K column swaps; bit-identical results.
@@ -222,17 +229,16 @@ def swap_positions(x: torch.Tensor, dim: int, l: torch.Tensor,
     x.narrow(dim, last, 1).copy_(at_l)
 
 
-def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
-                m0: int, row_mask: torch.Tensor, *, fused: bool = False,
-                precision: Optional[str] = None) -> torch.Tensor:
-    """Apply a factorized panel to the trailing block -> ``block - C @ R``.
+def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
+                  m0: int, *, fused: bool = False) -> torch.Tensor:
+    """Replay a factorized panel's K column swaps on ``block`` (Lb, N), in
+    place, and return its multipliers ``C`` (Lb, K): ``C @ T = Pc``.
 
-    ``block`` (Lb, N) is the engine's own buffer; its K column swaps are
-    replayed in place.  ``fused=True`` composes the K swaps on an index
-    vector and applies them as ONE gather restricted to the 2K columns
-    the swaps can move (every other column is a fixed point), so the
-    gather touches O(K * Lb) elements, not the whole block; the result is
-    the same data movement, bit for bit.  The trailing GEMM is K2.
+    ``fused=True`` composes the K swaps on an index vector and applies
+    them as ONE gather restricted to the 2K columns the swaps can move
+    (every other column is a fixed point), so the gather touches O(K *
+    Lb) elements, not the whole block; the result is the same data
+    movement, bit for bit.
     """
     n = block.shape[1]
     k = R.shape[0]
@@ -252,10 +258,22 @@ def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
     # T[j', j] = R[j', pos(pivot j)] -- unit upper-triangular
     tri = R[:, m0 - k:m0].flip(1)                         # (K, K)
     # C @ T = Pc
-    c = torch.linalg.solve_triangular(tri, pc_cols, upper=True, left=False,
-                                      unitriangular=True)
-    c = c * row_mask[:, None]
-    return ops.panel_update(block, c.contiguous(), R, precision=precision)
+    return torch.linalg.solve_triangular(tri, pc_cols, upper=True,
+                                         left=False, unitriangular=True)
+
+
+def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
+                m0: int, row_mask: torch.Tensor, *, fused: bool = False,
+                precision: Optional[str] = None) -> torch.Tensor:
+    """Apply a factorized panel to the trailing block -> ``block - C @ R``.
+
+    ``block`` (Lb, N) is the engine's own buffer; its K column swaps are
+    replayed in place (`_panel_operand`).  Rows where ``row_mask`` is 0
+    are left alone.  The trailing GEMM is K2.
+    """
+    c = _panel_operand(block, R, ls, m0, fused=fused)
+    return ops.panel_update(block, (c * row_mask[:, None]).contiguous(), R,
+                            precision=precision)
 
 
 def panel_rounds_serial(buf: torch.Tensor, n_panels: int, k: int, *,
@@ -379,13 +397,256 @@ def staged_full(a: torch.Tensor, *, shrink: float = 0.75, min_size: int = 64,
 
 
 # --------------------------------------------------------------------------
+# mesh schedule (round-robin block rows, one process per rank)
+# --------------------------------------------------------------------------
+#
+# Rank p owns rows [p L, (p + 1) L).  Global step t = i P + p eliminates
+# rank p's local row i: the owner picks the pivot column in its own row
+# and normalizes it (no communication), ONE broadcast carries the
+# normalized row and the column index to every rank, every rank swaps the
+# columns l <-> last of its block (the redundant §2.4 swaps) and applies
+# the rank-1 update to its live rows.  After (L - 1) P steps each rank
+# holds one live row; the P x P tail is reduced on every rank
+# (`mesh_tail`).  Owner tests and parities are host arithmetic on ints;
+# the pivot index stays on the device (a host int would wait on every
+# step).
+
+def _pack(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One broadcast buffer: ``rows`` flattened, then the column indices
+    ``idx`` as floats, exact below 2**24 columns in f32."""
+    return torch.cat([rows.reshape(-1), idx.to(rows.dtype).reshape(-1)])
+
+
+def _unpack(buf: torch.Tensor, shape):
+    n = math.prod(shape)
+    return buf[:n].view(shape), buf[n:].to(torch.int64)
+
+
+def _select_pivot(row: torch.Tensor, m: int):
+    """Owner-local pivot choice in ``row[:m]`` and the §2.3/§2.4 row
+    normalization -> ``(pr, l, p)``: the row with columns l and m - 1
+    swapped, divided by the pivot (``pr[m - 1] == 1``; all zero for a
+    zero pivot), the pivot column as a (1,) int64 tensor, the pivot."""
+    last = m - 1
+    l = row[:m].abs().argmax().view(1)
+    p = row.index_select(0, l)[0]
+    r = row.clone()
+    r.index_copy_(0, l, row[last:last + 1])
+    r[last] = p
+    return torch.where(p == 0, torch.zeros_like(r), r / guarded_pivot(p)), l, p
+
+
+def _step_sign(p, l, m: int, r_pos: int, sign, logdet):
+    """Fold one pivot into the owner's partial (sign, logdet): its sign,
+    the swap's, and the Laplace parity (-1)^(r_pos + m - 1), where
+    ``r_pos`` counts the live rows above the pivot row."""
+    swap_sign = torch.where(l[0] == m - 1, 1.0, -1.0).to(sign.dtype)
+    parity = 1.0 if (r_pos + m - 1) % 2 == 0 else -1.0
+    return (sign * torch.sign(p) * swap_sign * parity,
+            logdet + torch.log(torch.abs(p)))
+
+
+def _mesh_update(local: torch.Tensor, pr_b, l_b, last: int, dead: int,
+                 precision: Optional[str]) -> torch.Tensor:
+    """Every rank: swap columns ``l_b`` <-> ``last`` of its block in place,
+    then the rank-1 update (K1) of its rows from ``dead`` on."""
+    swap_positions(local, 1, l_b, last)
+    pc = local[:, last].clone()
+    pc[:dead] = 0
+    return ops.rank1_update(local, pc, pr_b, precision=precision)
+
+
+def _empty(local: torch.Tensor, size: int) -> torch.Tensor:
+    return torch.empty(size, dtype=local.dtype, device=local.device)
+
+
+def mc_local_phase(local: torch.Tensor, mesh, *, t0: int = 0,
+                   n_steps: Optional[int] = None,
+                   precision: Optional[str] = None):
+    """The distributed rank-1 phase on this rank's block (L, N): global
+    steps ``[t0, t0 + n_steps)`` (default: all ``(L - 1) P``).  Returns
+    ``(local, sign, logdet)``, the partials of the steps this rank owned.
+    """
+    L, N = local.shape
+    P, me = mesh.size, mesh.rank
+    if n_steps is None:
+        n_steps = (L - 1) * P - t0
+    sign, logdet = _unit(local)
+    for t in range(t0, t0 + n_steps):
+        i, p = divmod(t, P)
+        m = N - t
+        if me == p:
+            pr, l, pv = _select_pivot(local[i], m)
+            buf = _pack(pr, l)
+            sign, logdet = _step_sign(pv, l, m, p * (L - 1 - i), sign, logdet)
+        else:
+            buf = _empty(local, N + 1)
+        _mesh.broadcast(mesh, buf, p)
+        pr_b, l_b = _unpack(buf, (N,))
+        local = _mesh_update(local, pr_b, l_b, m - 1, i + (me <= p),
+                             precision)
+    return local, sign, logdet
+
+
+def mesh_tail(local: torch.Tensor, sign, logdet, mesh):
+    """The P x P tail (paper pseudocode steps 5-8), the same on every rank.
+
+    Each rank's last row is its one live row, live in columns [0, P).
+    ONE all_reduce of a zero-filled (P, P + 2) buffer, row p holding rank
+    p's live prefix, partial sign and partial logdet, gathers the tail
+    and the partials exactly (each sum adds zeros to one value); every
+    rank then condenses the tail (K1 on the card) and combines.
+    """
+    L, N = local.shape
+    P = mesh.size
+    buf = torch.zeros((P, P + 2), dtype=local.dtype, device=local.device)
+    buf[mesh.rank, :P] = local[L - 1, :P]
+    buf[mesh.rank, P] = sign
+    buf[mesh.rank, P + 1] = logdet
+    _mesh.all_sum(mesh, buf)
+    tsign, tlogdet = condense_full(buf[:, :P])
+    return torch.prod(buf[:, P]) * tsign, buf[:, P + 1].sum() + tlogdet
+
+
+def _mesh_rank1(local, mesh, precision):
+    local, sign, logdet = mc_local_phase(local, mesh, precision=precision)
+    return mesh_tail(local, sign, logdet, mesh)
+
+
+def _mesh_rank1_lookahead(local, mesh, precision):
+    """Rank-1 mesh schedule with single-row lookahead.
+
+    Each iteration waits for the broadcast of step t, early-applies it to
+    the NEXT pivot row on that row's owner (a 1 x N copy through the same
+    K1 as the bulk update, so every element sees the same rounded
+    operations), selects and normalizes that row's pivot, issues its
+    broadcast asynchronously, and only then runs the bulk update of step
+    t: the collective of step t + 1 overlaps the update of step t.
+    Bit-identical to `_mesh_rank1`.
+    """
+    L, N = local.shape
+    P, me = mesh.size, mesh.rank
+    n_steps = (L - 1) * P
+    sign, logdet = _unit(local)
+    if n_steps:
+        if me == 0:
+            pr, l, pv = _select_pivot(local[0], N)
+            buf = _pack(pr, l)
+            sign, logdet = _step_sign(pv, l, N, 0, sign, logdet)
+        else:
+            buf = _empty(local, N + 1)
+        work = _mesh.broadcast(mesh, buf, 0, async_op=True)
+    for t in range(n_steps):
+        i, p = divmod(t, P)
+        m = N - t
+        last = m - 1
+        work.wait()
+        pr_b, l_b = _unpack(buf, (N,))
+        if t + 1 < n_steps:
+            i1, p1 = divmod(t + 1, P)
+            if me == p1:
+                row = local[i1:i1 + 1].clone()
+                swap_positions(row, 1, l_b, last)
+                row = ops.rank1_update(row, row[:, last].clone(), pr_b,
+                                       precision=precision)
+                pr, l, pv = _select_pivot(row[0], m - 1)
+                nbuf = _pack(pr, l)
+                sign, logdet = _step_sign(pv, l, m - 1, p1 * (L - 1 - i1),
+                                          sign, logdet)
+            else:
+                nbuf = _empty(local, N + 1)
+            nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
+        local = _mesh_update(local, pr_b, l_b, last, i + (me <= p), precision)
+        if t + 1 < n_steps:
+            buf, work = nbuf, nwork
+    return mesh_tail(local, sign, logdet, mesh)
+
+
+def _dead_mask(local, me: int, r: int, p: int, k: int) -> torch.Tensor:
+    """1 for the rows of this rank that panel (r, p) updates."""
+    dead = (r + 1) * k if me <= p else r * k
+    return (torch.arange(local.shape[0], device=local.device)
+            >= dead).to(local.dtype)
+
+
+def _mesh_panel(local, mesh, k: int, precision, lookahead: bool):
+    """Round-robin K-panel mesh schedule.
+
+    The owner of global panel g = r P + p factorizes K of its own rows
+    (K4; MC's local pivoting, no global pivot search), ONE broadcast
+    carries ``(R, ls)``, and every rank applies the rank-K update (K2) to
+    its live rows.  Remainder rows take the rank-1 schedule, then the
+    P x P tail.
+
+    ``lookahead``: each iteration replays panel g's swaps and solves its
+    multipliers for the whole block, then the owner of panel g + 1
+    early-applies panel g to its K next rows (K2 on the K-row slice: K2
+    sums every element in the same order whatever the row count, so the
+    rows equal the bulk update's bit for bit), factors them and issues
+    their broadcast asynchronously before the bulk K2 of panel g.
+    """
+    L, N = local.shape
+    P, me = mesh.size, mesh.rank
+    n_rounds = (L - 1) // k
+    n_panels = n_rounds * P
+    sign, logdet = _unit(local)
+    size = k * N + k
+
+    def factor(block, g):
+        nonlocal sign, logdet
+        r, p = divmod(g, P)
+        R, ls, ps, pld = panel_factor(block, N - g * k,
+                                      r_pos=p * (L - (r + 1) * k))
+        sign, logdet = sign * ps, logdet + pld
+        return _pack(R, ls)
+
+    if lookahead and n_panels:
+        buf = factor(local[:k], 0) if me == 0 else _empty(local, size)
+        work = _mesh.broadcast(mesh, buf, 0, async_op=True)
+    for g in range(n_panels):
+        r, p = divmod(g, P)
+        m0 = N - g * k
+        if lookahead:
+            work.wait()
+        else:
+            buf = factor(local[r * k:(r + 1) * k], g) if me == p \
+                else _empty(local, size)
+            _mesh.broadcast(mesh, buf, p)
+        R_b, ls_b = _unpack(buf, (k, N))
+        c = _panel_operand(local, R_b, ls_b, m0)
+        if lookahead and g + 1 < n_panels:
+            r1, p1 = divmod(g + 1, P)
+            if me == p1:
+                rows = slice(r1 * k, (r1 + 1) * k)
+                nxt = ops.panel_update(local[rows], c[rows].contiguous(), R_b,
+                                       precision=precision)
+                nbuf = factor(nxt, g + 1)
+            else:
+                nbuf = _empty(local, size)
+            nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
+        mask = _dead_mask(local, me, r, p, k)
+        local = ops.panel_update(local, (c * mask[:, None]).contiguous(), R_b,
+                                 precision=precision)
+        if lookahead and g + 1 < n_panels:
+            buf, work = nbuf, nwork
+
+    rem = (L - 1) - n_rounds * k
+    if rem > 0:
+        local, rsign, rlogdet = mc_local_phase(
+            local, mesh, t0=n_rounds * k * P, n_steps=rem * P,
+            precision=precision)
+        sign, logdet = sign * rsign, logdet + rlogdet
+    return mesh_tail(local, sign, logdet, mesh)
+
+
+# --------------------------------------------------------------------------
 # engine entry point
 # --------------------------------------------------------------------------
 
 def build_serial(cfg: EngineConfig) -> Callable:
     """``a -> (sign, logabsdet)`` for the serial / staged schedules."""
-    if cfg.schedule == "mesh" or cfg.lookahead:
-        raise NotImplementedError(_MESH_TODO)
+    if cfg.schedule == "mesh":
+        raise ValueError("mesh schedule needs build_mesh(cfg, mesh)")
     kw = dict(fused=cfg.fused, precision=cfg.precision)
     if cfg.schedule == "serial":
         if cfg.update == "rank1":
@@ -394,3 +655,42 @@ def build_serial(cfg: EngineConfig) -> Callable:
     return lambda a: staged_full(
         a, shrink=cfg.shrink, min_size=cfg.min_size, update=cfg.update,
         k=cfg.panel_k, **kw)
+
+
+def build_mesh(cfg: EngineConfig, mesh) -> Callable:
+    """``a -> (sign, logabsdet)`` over a 1-D mesh (`core.mesh.Mesh`).
+
+    Every rank calls the function on the same full (N, N) matrix, N
+    divisible by the mesh size; each copies its row block to
+    ``mesh.device`` and all return the same result.
+    """
+    if cfg.schedule != "mesh":
+        raise ValueError(
+            f"build_mesh needs schedule='mesh', got {cfg.schedule!r}")
+
+    def run(a):
+        n = a.shape[0]
+        if a.dim() != 2 or a.shape[1] != n:
+            raise ValueError(f"expected square matrix, got {tuple(a.shape)}")
+        if n >= 2 ** 24 and a.dtype == torch.float32:
+            raise ValueError("the broadcast carries column indices as f32, "
+                             f"exact below 2**24 columns; got N={n}")
+        local = a[mesh.block(n)].to(mesh.device, copy=True).contiguous()
+        if cfg.update == "rank1":
+            kernel = _mesh_rank1_lookahead if cfg.lookahead else _mesh_rank1
+            return kernel(local, mesh, cfg.precision)
+        return _mesh_panel(local, mesh, cfg.panel_k, cfg.precision,
+                           cfg.lookahead)
+
+    return run
+
+
+def engine_slogdet(a: torch.Tensor, cfg: EngineConfig = EngineConfig(), *,
+                   mesh=None):
+    """One-shot engine execution (tests / exploration); plans build once
+    through `build_serial` / `build_mesh` and reuse."""
+    if cfg.schedule == "mesh":
+        if mesh is None:
+            raise ValueError("mesh schedule requires a mesh")
+        return build_mesh(cfg, mesh)(a)
+    return build_serial(cfg)(a)

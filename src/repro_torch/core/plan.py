@@ -18,12 +18,20 @@ An input on another device is moved to the plan's device, an operator
 through its ``to`` when the plan is built (one without ``to`` raises);
 the caller's tensor or operator is never modified.
 
+With ``mesh=`` (a `repro_torch.core.mesh.Mesh`, one process per rank)
+the exact method runs the paper's parallel schedule (``schedule``
+resolves to ``"mesh"``) and the estimators a row-sharded operator
+(`estimators.ShardedOperator`); the matrix is padded to a multiple of
+the mesh size with diag(A, I).  Every rank builds and calls the same
+plan on the same full matrix and gets the same result, on
+``mesh.device``.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
 ``method="auto"`` and the cost model (Queue 1 item 4), gradients (items
-5 and 7), the Gaussian-elimination baseline (item 6), the mesh schedule,
-``pge`` and ``plu`` (item 8), ``explain`` (item 9), ``export`` (item
-10), ``audit`` (item 11), the legacy route strings (item 12), and batched
-stacks (items 3 and 7).
+5 and 7), the Gaussian-elimination baselines ``ge``, ``pge`` and ``plu``
+(items 6 and 8), ``explain`` (item 9), ``export`` (item 10), ``audit``
+(item 11), the legacy route strings (item 12), and batched stacks (items
+3 and 7).
 """
 from __future__ import annotations
 
@@ -41,10 +49,12 @@ from repro_torch.core.api import pad_to_multiple
 from repro_torch.core.configs import (
     ChebyshevConfig, ExactConfig, LogdetConfig, config_for,
 )
-from repro_torch.core.engine import build_serial
+from repro_torch.core.engine import build_mesh, build_serial
+from repro_torch.core.mesh import Mesh
 from repro_torch.core.result import Diagnostics, LogdetResult
 from repro_torch.estimators import (
-    ESTIMATOR_METHODS, estimate_logdet, is_operator, operator_on,
+    ESTIMATOR_METHODS, ShardedOperator, estimate_logdet, is_operator,
+    operator_on,
 )
 from repro_torch.estimators.operators.base import resolve_device
 
@@ -55,8 +65,10 @@ __all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of",
 _NOT_PORTED = {
     "auto": "method='auto' and the cost model (ROADMAP Queue 1 item 4)",
     "ge": "the Gaussian-elimination baseline (ROADMAP Queue 1 item 6)",
-    "pge": "the parallel baselines (ROADMAP Queue 1 item 8)",
-    "plu": "the parallel baselines (ROADMAP Queue 1 item 8)",
+    "pge": "the parallel baselines pge/plu (ROADMAP Queue 1 item 8, with "
+           "the serial ge of item 6)",
+    "plu": "the parallel baselines pge/plu (ROADMAP Queue 1 item 8, with "
+           "the serial ge of item 6)",
     **{m: "the legacy route strings (ROADMAP Queue 1 item 12); use "
           "method='exact' with schedule=/update="
        for m in ("mc", "mc_staged", "mc_blocked", "pmc", "pmc_blocked")},
@@ -156,12 +168,36 @@ def _serial_exact_core(cfg: ExactConfig) -> Callable:
     return fn
 
 
+def _widen_bounds_for_padding(kw: dict) -> dict:
+    """diag(A, I) padding adds unit eigenvalues: Chebyshev bounds must be
+    widened to bracket 1, else T_j blows up outside [-1, 1] on the padded
+    directions."""
+    kw = dict(kw)
+    for name, bound in (("lmin", {"max": 1.0}), ("lmax", {"min": 1.0})):
+        if kw.get(name) is not None:
+            kw[name] = torch.as_tensor(kw[name],
+                                       dtype=torch.float64).clamp(**bound)
+    return kw
+
+
 def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
-                   device: torch.device) -> Tuple[Callable, int]:
+                   device: torch.device,
+                   mesh: Optional[Mesh]) -> Tuple[Callable, int]:
     """(fwd, padded_n): fwd maps an input (and, for an estimator, the
     call-time ``generator``/``probes``/``lmin``/``lmax``) to ``(sign,
     logabsdet, sem)`` on ``device``."""
     dtype = getattr(torch, spec.dtype)
+    if method == "exact" and cfg.schedule == "mesh":
+        size = mesh.size
+        core = build_mesh(cfg.engine_config(), mesh)
+
+        def fwd(a):
+            a = torch.as_tensor(a).to(device=device, dtype=dtype)
+            sign, ld = core(pad_to_multiple(a, size))
+            return sign, ld, torch.zeros_like(ld)
+
+        return fwd, -(-spec.n // size) * size
+
     if method == "exact":
         padded_n = spec.n
         if cfg.update == "panel" and spec.n:
@@ -176,38 +212,46 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
         return fwd, padded_n
 
     est_kw = cfg.estimator_kwargs()
+    # on a mesh (dense input only) a ShardedOperator of diag(A, I)
+    size = mesh.size if mesh is not None else 1
+    padded_n = -(-spec.n // size) * size
 
     def fwd(x, generator=None, probes=None, lmin=None, lmax=None):
         if spec.kind == "operator":
             op = operator_on(x, device)
         else:
             op = torch.as_tensor(x).to(device=device, dtype=dtype)
+            if mesh is not None:
+                op = ShardedOperator(pad_to_multiple(op, size), mesh)
         kw = dict(est_kw)
         if lmin is not None:
             kw["lmin"] = lmin
         if lmax is not None:
             kw["lmax"] = lmax
+        if padded_n != spec.n:
+            kw = _widen_bounds_for_padding(kw)
         if probes is not None:
             probes = torch.as_tensor(probes).to(device=device, dtype=dtype)
         res = estimate_logdet(op, method=method, device=device,
                               generator=generator, probes=probes, **kw)
         return torch.ones_like(res.est), res.est, res.sem
 
-    return fwd, spec.n
+    return fwd, padded_n
 
 
-def _flops_est(method: str, spec: ProblemSpec,
-               cfg: LogdetConfig) -> Tuple[Optional[int], float]:
-    """(matvec_cols, flops_est) diagnostics for the resolved path."""
+def _flops_est(method: str, spec: ProblemSpec, cfg: LogdetConfig,
+               devices: int) -> Tuple[Optional[int], float]:
+    """(matvec_cols, flops_est) diagnostics for the resolved path, per
+    device."""
     if method == "exact":
-        return None, (2.0 / 3.0) * spec.n ** 3
+        return None, (2.0 / 3.0) * spec.n ** 3 / devices
     if isinstance(cfg, ChebyshevConfig):
         cols = cfg.degree * cfg.num_probes
         if cfg.lmin is None or cfg.lmax is None:
             cols += _BOUNDS_COLS
     else:
         cols = min(cfg.num_steps, spec.n) * cfg.num_probes
-    return cols, cols * spec.matvec_flops
+    return cols, cols * spec.matvec_flops / devices
 
 
 # --------------------------------------------------------------------------
@@ -368,20 +412,35 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                    input; the only methods an operator takes).
     ``device``     where the plan runs; ``None`` is the card and raises
                    when there is none; ``"cpu"`` runs the plain versions.
+                   With a mesh, ``None`` is ``mesh.device``, and another
+                   device raises.
     ``precision``  a dtype name casts an array input (``"float64"``,
                    ...); ``"bf16"``/``"bfloat16"`` selects the exact
                    engine's mixed-precision route instead (bf16 GEMM
                    operands, input-dtype buffer and accumulators).
     ``config``     an explicit `ExactConfig` | `ChebyshevConfig` |
                    `SLQConfig`, exclusive with ``**kwargs``.
+    ``mesh``       a `repro_torch.core.mesh.Mesh`: distribute one dense
+                   matrix over its ranks (exact: the mesh schedule;
+                   estimators: a `ShardedOperator`).  Every rank builds
+                   and calls the same plan.
     ``validate``   screen a dense estimator input for symmetry and a
                    positive diagonal at call time.
     ``**kwargs``   the config's fields (``update=``, ``k=``, ``degree=``,
                    ``num_probes=``, ``seed=``, ...).
 
-    Plans for arrays are cached on ``(spec, method, config, device)``.
+    Plans for arrays are cached on ``(spec, method, config, device, mesh)``.
     """
-    dev = resolve_device(device)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.core.mesh.Mesh "
+                        f"(make_mesh), got {type(mesh).__name__}")
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device!r} is not the mesh's device "
+                             f"{dev} on this rank")
     engine_precision = None
     if precision in ("bf16", "bfloat16"):
         engine_precision = "bf16"
@@ -391,13 +450,16 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                                     or engine_precision is not None):
         raise ValueError("precision overrides apply to array inputs; cast "
                          "the operator's parameters instead")
+    if mesh is not None and spec.batch is not None:
+        raise TypeError(
+            "mesh sharding applies to a single (n, n) matrix; batched "
+            "stacks run one device per matrix -- drop mesh, or map a "
+            "single-matrix plan over the stack")
     if spec.kind == "batched" or spec.batch is not None:
         raise _not_ported(_BATCHED_TODO)
     if getattr(torch, spec.dtype) not in _DTYPES:
         raise TypeError(f"repro_torch plans take float32 or float64 input, "
                         f"got {spec.dtype}")
-    if mesh is not None:
-        raise _not_ported("the mesh schedule (ROADMAP Queue 1 item 8)")
     if grad:
         raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
     if method in _NOT_PORTED:
@@ -428,15 +490,26 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                              f"precision {cfg.precision!r}")
         cfg = dataclasses.replace(cfg, precision=engine_precision)
     if method == "exact":
-        cfg = cfg.resolved()
-    if spec.kind == "operator" and method not in ESTIMATOR_METHODS:
-        raise TypeError(f"method {method!r} needs a materialized matrix; "
-                        f"operator inputs take an estimator method "
-                        f"{ESTIMATOR_METHODS}")
+        cfg = cfg.resolved(mesh_present=mesh is not None)
+    if spec.kind == "operator":
+        if method not in ESTIMATOR_METHODS:
+            raise TypeError(f"method {method!r} needs a materialized "
+                            f"matrix; operator inputs take an estimator "
+                            f"method {ESTIMATOR_METHODS}")
+        if mesh is not None:
+            raise TypeError("operator inputs carry their own distribution; "
+                            "mesh is only accepted for dense array inputs")
+    mesh_exact = method == "exact" and cfg.schedule == "mesh"
+    if mesh_exact and mesh is None:
+        raise ValueError("engine schedule 'mesh' requires a mesh")
+    # a mesh spans its devices only on the routes that distribute: a
+    # serial or staged schedule chosen explicitly runs on this rank alone
+    run_mesh = mesh if mesh_exact or method in ESTIMATOR_METHODS else None
+    devices = run_mesh.size if run_mesh is not None else 1
 
     key = None
     if spec.kind != "operator":
-        key = (spec, method, cfg, str(dev))
+        key = (spec, method, cfg, str(dev), run_mesh)
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
             _PLAN_CACHE.move_to_end(key)
@@ -445,12 +518,12 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
             return _bind(cached, x)
     if spec.kind == "operator" and not isinstance(x, ProblemSpec):
         x = operator_on(x, dev)         # raises if it cannot be moved
-    fwd, padded_n = _build_forward(spec, method, cfg, dev)
-    cols, flops = _flops_est(method, spec, cfg)
+    fwd, padded_n = _build_forward(spec, method, cfg, dev, run_mesh)
+    cols, flops = _flops_est(method, spec, cfg, devices)
     p = LogdetPlan(
         spec=spec, method=method, config=cfg, device=dev, validate=validate,
         diagnostics=Diagnostics(matvec_cols=cols, flops_est=flops,
-                                padded_n=padded_n, device_count=1),
+                                padded_n=padded_n, device_count=devices),
         _fwd=fwd)
     if key is not None:
         _PLAN_CACHE[key] = p

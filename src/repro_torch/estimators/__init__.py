@@ -1,19 +1,20 @@
 """Stochastic log-determinant estimators (matrix-free, SPD input).
 
-Counterpart of `repro.estimators`, single device:
+Counterpart of `repro.estimators`:
 
   hutchinson   probe generation + trace estimation with variance tracking
   chebyshev    stochastic Chebyshev expansion of log on a spectral interval
                (dense operators through the fused step K6)
   slq          stochastic Lanczos quadrature (no spectral bounds needed)
-  operators    the `LinearOperator` protocol, the dense and stencil (K8)
-               backends, and conjugate gradient `cg_solve` (dense: K7)
+  operators    the `LinearOperator` protocol, the dense, stencil (K8)
+               and mesh-sharded (K5) backends, and conjugate gradient
+               `cg_solve` (dense: K7)
   grad         `estimate_logdet`, the forward half of the JAX package's
                differentiable dispatch
 
 Randomness comes from explicit `torch.Generator`s (``generator=``) or a
-``seed``.  Not ported yet: the batched, Kronecker, Toeplitz and sharded
-backends, the gradients and `hutchinson_pullback`, and `logdet_batched`.
+``seed``.  Not ported yet: the batched, Kronecker and Toeplitz backends,
+the gradients and `hutchinson_pullback`, and `logdet_batched`.
 """
 from repro_torch.estimators.chebyshev import (
     chebyshev_coeffs_log, logdet_chebyshev, spectral_bounds,

@@ -6,11 +6,12 @@ in `repro_torch.estimators` touches the matrix only through the
 
   DenseOperator      in-memory (n, n) tensor
   StencilOperator    banded product through K8 -- O(nb n) memory
+  ShardedOperator    row block per rank of a mesh, products through K5
 
 plus `cg_solve` (solve.py), Jacobi-preconditioned conjugate gradient on
-either.  Not ported yet, each raising `NotImplementedError` with its
-ROADMAP item when constructed: `BatchedOperator`, `KroneckerOperator`,
-`ToeplitzOperator` (Queue 1 item 7) and `ShardedOperator` (item 8).
+any of them.  Not ported yet, each raising `NotImplementedError` with its
+ROADMAP item when constructed: `BatchedOperator`, `KroneckerOperator` and
+`ToeplitzOperator` (Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.estimators.operators.base import (
     resolve_device,
 )
 from repro_torch.estimators.operators.dense import DenseOperator
+from repro_torch.estimators.operators.sharded import ShardedOperator
 from repro_torch.estimators.operators.stencil import StencilOperator
 
 __all__ = [
@@ -32,7 +34,6 @@ __all__ = [
 
 _BATCHED_TODO = ("batched (B, n, n) stacks and BatchedOperator (ROADMAP "
                  "Queue 1 item 7)")
-_MESH_TODO = "the mesh and ShardedOperator (ROADMAP Queue 1 item 8)"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -53,24 +54,24 @@ KroneckerOperator = _unported_backend(
     "KroneckerOperator", "KroneckerOperator (ROADMAP Queue 1 item 7)")
 ToeplitzOperator = _unported_backend(
     "ToeplitzOperator", "ToeplitzOperator (ROADMAP Queue 1 item 7)")
-ShardedOperator = _unported_backend("ShardedOperator", _MESH_TODO)
 
 
 def as_operator(a, *, mesh=None) -> LinearOperator:
     """Coerce a matrix or an operator to the estimator protocol.
 
     An (n, n) tensor or array becomes a `DenseOperator` (a tensor keeps
-    its device); an existing operator, including a duck-typed one, passes
-    through untouched.  A (B, n, n) stack and a ``mesh`` raise
-    `NotImplementedError`.
+    its device), or with a ``mesh`` of more than one rank a
+    `ShardedOperator` (this rank's rows on ``mesh.device``), as in the JAX
+    package; an existing operator, including a duck-typed one, passes
+    through untouched.  A (B, n, n) stack raises `NotImplementedError`.
     """
-    if mesh is not None:
-        raise _not_ported(_MESH_TODO)
     if is_operator(a):
         return a
     a = torch.as_tensor(a)
     if a.dim() == 3:
         raise _not_ported(_BATCHED_TODO)
+    if mesh is not None and mesh.size > 1:
+        return ShardedOperator(a, mesh)
     return DenseOperator(a)
 
 
@@ -78,9 +79,15 @@ def operator_on(a, device, *, mesh=None) -> LinearOperator:
     """`as_operator` of ``a`` on ``device`` (`resolve_device`: ``None`` is
     the card).  An array or tensor is moved there; an operator on another
     device through its ``to``, and one without ``to`` raises.  The
-    caller's tensor or operator is left alone."""
-    if mesh is not None:
-        raise _not_ported(_MESH_TODO)
+    caller's tensor or operator is left alone.  With a ``mesh`` of more
+    than one rank an array or tensor becomes a `ShardedOperator` on
+    ``mesh.device``, which ``device`` must then name (or leave ``None``).
+    """
+    if mesh is not None and mesh.size > 1 and not is_operator(a):
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device!r} is not the mesh's device "
+                             f"{mesh.device} on this rank")
+        return ShardedOperator(a, mesh)
     dev = resolve_device(device)
     if not is_operator(a):
         a = torch.as_tensor(a).to(dev)

@@ -3,8 +3,8 @@
 ``ops`` dispatches by device: CUDA tensors launch the kernels
 (``csrc/*.cu``, built at first use by ``_build``), CPU tensors run
 ``ref``.  K1 ``condense_step``, K2 ``panel_update``, K3 ``fused_step``,
-K4 ``panel_factor`` and K8 ``stencil_mv`` hold one wrapper and one
-launch counter each; ``fused_est`` holds K6 and K7.
+K4 ``panel_factor``, K5 ``matvec`` and K8 ``stencil_mv`` hold one wrapper
+and one launch counter each; ``fused_est`` holds K6 and K7.
 """
 from repro_torch.kernels import ops, ref
 

@@ -9,6 +9,13 @@ unchanged one loads at once.  A failed build raises with nvcc's output;
 the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed
 once, to stderr, when the kernels are built.
 
+Several processes may load or build the same hash at once (the ranks of
+a mesh do): each builds into a fresh temporary directory beside the
+final one and renames it into place with `os.replace`, which is atomic.
+A directory of that hash therefore exists only complete; the process
+that loses the race discards its copy and loads the winner's.  Within a
+process a `threading.Lock` guards the loaded functions.
+
 Nothing here runs at import: machines without a card import every
 module, and only a wrapper handed a CUDA tensor builds.
 """
@@ -21,14 +28,15 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_ROOT", "build", "function", "check",
-           "dtype_code", "require_cuda", "stream"]
+__all__ = ["SOURCES", "BUILD_ROOT", "build", "ensure_built", "function",
+           "check", "dtype_code", "require_cuda", "stream"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -36,7 +44,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 SOURCES = {"rank1_update": "condense_step", "panel_update": "panel_update",
            "fused_step": "fused_step", "panel_factor": "panel_factor",
            "cheb_step": "cheb_step", "cg_step": "cg_step",
-           "stencil_mv": "stencil_mv"}
+           "stencil_mv": "stencil_mv", "matvec": "matvec"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +57,7 @@ _ARGTYPES = {
     "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),
+    "matvec": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
@@ -90,32 +99,52 @@ def _ptxas_summary(log: str) -> dict:
             "instances": len(re.findall(r"Compiling entry function", log))}
 
 
-def _compile(out_dir: Path) -> None:
-    """Run one nvcc per source, all at once, into ``out_dir``."""
+def _complete(out_dir: Path) -> bool:
+    return all((out_dir / f"lib{n}.so").exists() for n in SOURCES)
+
+
+def _compile(out_dir: Path) -> bool:
+    """Run one nvcc per source, all at once, into a temporary directory,
+    and rename it to ``out_dir``.  Returns False when another process
+    renamed a complete build there first (this one is then discarded)."""
     nvcc = _nvcc()
-    tmp = BUILD_ROOT / f"{out_dir.name}.tmp{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir(parents=True)
-    t0 = time.perf_counter()
-    procs = {
-        name: subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o",
-             str(tmp / f"lib{name}.so"), str(CSRC / f"{src}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, src in SOURCES.items()}
-    logs = {name: p.communicate()[0] for name, p in procs.items()}
-    failed = [name for name, p in procs.items() if p.returncode != 0]
-    if failed:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    for name, log in logs.items():
-        (tmp / f"{name}.ptxas.txt").write_text(log)
-    (tmp / "build_seconds.txt").write_text(f"{time.perf_counter() - t0}\n")
+    out_dir.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=f"{out_dir.name}.", dir=out_dir.parent))
     try:
-        os.replace(tmp, out_dir)
-    except OSError:             # another process finished the same build
+        t0 = time.perf_counter()
+        procs = {
+            name: subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                 str(tmp / f"lib{name}.so"), str(CSRC / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, src in SOURCES.items()}
+        logs = {name: p.communicate()[0] for name, p in procs.items()}
+        failed = [name for name, p in procs.items() if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs[n] for n in failed))
+        for name, log in logs.items():
+            (tmp / f"{name}.ptxas.txt").write_text(log)
+        (tmp / "build_seconds.txt").write_text(
+            f"{time.perf_counter() - t0}\n")
+        try:
+            os.replace(tmp, out_dir)
+            return True
+        except OSError:
+            # the target exists and is not empty: another process won
+            if not _complete(out_dir):
+                raise
+            return False
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ensure_built(out_dir: Path) -> bool:
+    """Make ``out_dir`` hold every kernel's library; True when they were
+    there already (or another process finished them first)."""
+    if _complete(out_dir):
+        return True
+    return not _compile(out_dir)
 
 
 def build() -> dict:
@@ -125,9 +154,7 @@ def build() -> dict:
         if _functions:
             return _report
         out_dir = BUILD_ROOT / _digest()
-        cached = all((out_dir / f"lib{n}.so").exists() for n in SOURCES)
-        if not cached:
-            _compile(out_dir)
+        cached = ensure_built(out_dir)
         for name in SOURCES:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             fn = getattr(lib, f"repro_{name}")

@@ -37,7 +37,7 @@ cheb_step_kernel(const T* __restrict__ a, const T* __restrict__ w,
   const long long row0 = (long long)blockIdx.x * kGemmBM;
   const long long col0 = (long long)blockIdx.y * kGemmBN;
   T acc[2][4];
-  skinny_gemm_tile<T>(a, w, n, k, row0, col0, acc);
+  skinny_gemm_tile<T>(a, w, n, n, k, row0, col0, acc);
 
   const int tx = threadIdx.x % 8;
   const int ty = threadIdx.x / 8;

@@ -1,4 +1,4 @@
-// Shared header of the port's kernels K1-K4 and K6-K8 (sm_90a).
+// Shared header of the port's kernels K1-K8 (sm_90a).
 //
 // The C interface below is what the Python wrappers bind with ctypes
 // (kernels/_build.py): every pointer and the stream are `void*`, every
@@ -48,6 +48,10 @@ int repro_fused_step(int dtype, int op_dtype, const void* a, const void* l,
 int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
                        void* sign_logdet, long long k, long long n,
                        long long m0, long long r_pos, void* stream);
+
+// K5: o (m, k) = a (m, n) @ x (n, k), every tensor in dtype.
+int repro_matvec(int dtype, const void* a, const void* x, void* o, long long m,
+                 long long n, long long k, void* stream);
 
 // K6: one Chebyshev step on a (n, n), w / w_prev / v (n, k) in dtype;
 // w_next (n, k) out, dots (k,) out, partials (ceil(n / 32), k) scratch;

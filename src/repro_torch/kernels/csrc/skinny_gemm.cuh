@@ -1,12 +1,14 @@
-// The skinny GEMM tile shared by K6 (cheb_step) and K7 (cg_step).
+// The skinny GEMM tile shared by K5 (matvec), K6 (cheb_step) and K7
+// (cg_step).
 //
-// Both kernels compute `A @ w` for a square A (n, n) and a slab w (n, k)
-// of a few dozen probe columns, then finish an elementwise epilogue on
-// the (32 x 32) output tile while it is still in registers.  A is read
-// from device memory exactly once per 32 columns of the slab (once in
-// all for k <= 32), so at k = 32 an f32 call moves 4 bytes of A per 64
-// FLOP: near the card's f32 ridge, and bound by the FFMA rate of this
-// plain shared-memory GEMM rather than by bytes.
+// Each computes `A @ w` for A (m, n) -- square for K6/K7, a rank's row
+// block for K5 -- and a slab w (n, k) of a few dozen probe columns; K6
+// and K7 then finish an elementwise epilogue on the (32 x 32) output tile
+// while it is still in registers.  A is read from device memory exactly
+// once per 32 columns of the slab (once in all for k <= 32), so at k = 32
+// an f32 call moves 4 bytes of A per 64 FLOP: near the card's f32 ridge,
+// and bound by the FFMA rate of this plain shared-memory GEMM rather than
+// by bytes.
 //
 // Each 128-thread block owns 32 rows and 32 columns of the output.  It
 // streams its rows of A in chunks of 32 columns through shared memory
@@ -36,12 +38,14 @@ template <typename T> __device__ __forceinline__ T tiny();
 template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
 template <> __device__ __forceinline__ double tiny<double>() { return DBL_MIN; }
 
-// acc[i][j] = sum_c a[row0 + 2*ty + i, c] * w[c, col0 + 4*tx + j]
-// (zero where the row or column lies outside the matrix).
+// acc[i][j] = sum_c a[row0 + 2*ty + i, c] * w[c, col0 + 4*tx + j] for a
+// (m, n) and w (n, k), both row-major (zero where the row or column lies
+// outside the matrix: no size need be a multiple of the tile).
 template <typename T>
 __device__ __forceinline__ void skinny_gemm_tile(const T* __restrict__ a,
                                                  const T* __restrict__ w,
-                                                 long long n, long long k,
+                                                 long long m, long long n,
+                                                 long long k,
                                                  long long row0, long long col0,
                                                  T (&acc)[2][4]) {
   __shared__ __align__(16) T as[kGemmBK][kGemmBM + 2];
@@ -64,7 +68,7 @@ __device__ __forceinline__ void skinny_gemm_tile(const T* __restrict__ a,
       const int kk = idx % kGemmBK;
       const long long gi = row0 + rr;
       const long long gc = k0 + kk;
-      ra[e] = (gi < n && gc < n) ? a[gi * n + gc] : T(0);
+      ra[e] = (gi < m && gc < n) ? a[gi * n + gc] : T(0);
       const int wk = idx / kGemmBN;
       const int wc = idx % kGemmBN;
       const long long gk = k0 + wk;

@@ -10,8 +10,9 @@ The engine (core/engine.py) calls the four condensation operations and
 `fused_condense_step`; the O(n) pivot bookkeeping around the rank-1
 kernels (`pivot_operands`) stays in PyTorch on the tensor's device, with
 no host synchronization.  The estimators call `fused_cheb_step` (dense
-Chebyshev), `fused_cg_step` (dense CG) and `stencil_mv` (every
-`StencilOperator` product).
+Chebyshev), `fused_cg_step` (dense CG), `stencil_mv` (every
+`StencilOperator` product) and `matvec` (the local product of every
+`ShardedOperator` product).
 
 Deliberate difference from `repro.kernels.ops`: the JAX package sends
 K6/K7 operands above an 8 MiB VMEM budget, and batched ``a.ndim == 3``
@@ -27,13 +28,14 @@ import torch
 from repro_torch.kernels import condense_step as _k1
 from repro_torch.kernels import fused_est as _k67
 from repro_torch.kernels import fused_step as _k3
+from repro_torch.kernels import matvec as _k5
 from repro_torch.kernels import panel_factor as _k4
 from repro_torch.kernels import panel_update as _k2
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import stencil_mv as _k8
 
 __all__ = ["rank1_update", "panel_update", "fused_condense_step",
-           "panel_factor", "pivot_operands", "fused_cheb_step",
+           "panel_factor", "pivot_operands", "matvec", "fused_cheb_step",
            "fused_cg_step", "stencil_mv", "launch_counts",
            "reset_launch_counts", "KERNELS"]
 
@@ -42,6 +44,7 @@ KERNELS = {"rank1_update": (_k1, "launches"),
            "panel_update": (_k2, "launches"),
            "fused_step": (_k3, "launches"),
            "panel_factor": (_k4, "launches"),
+           "matvec": (_k5, "launches"),
            "cheb_step": (_k67, "cheb_step_launches"),
            "cg_step": (_k67, "cg_step_launches"),
            "stencil_mv": (_k8, "launches")}
@@ -159,6 +162,14 @@ def _unbatched(op: str, a: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{op}: batched (B, n, n) operands are not ported yet (ROADMAP "
             "Queue 1 item 7, BatchedOperator)")
+
+
+def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a (m, n) @ x (n,) or (n, k)``, ``x`` cast to ``a``'s dtype (K5 on
+    the card)."""
+    if _on_card(a, "matvec"):
+        return _k5.matvec(a, x)
+    return _ref.matvec_ref(a, x)
 
 
 def fused_cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels K1-K4 and K6-K8.
+"""Plain PyTorch versions of the kernels K1-K8.
 
 Each function is the numerical ground truth for one hand-written CUDA
 kernel (``kernels/csrc``): the CPU runs these, and ``chip_smoke.py`` holds
@@ -6,11 +6,11 @@ every kernel against its plain version on the card, on the same inputs.
 They repeat the kernels' arithmetic exactly -- every product is
 materialized before it is added or subtracted, so no multiply-add is
 ever contracted into an FMA -- which is what makes K1, K3, K4 and K8
-bitwise comparable with them.  K6 and K7 sum ``A @ w`` and their column
-dots in another order than the kernels, so they agree to a tolerance:
-`cheb_step_bound` / `cg_step_bound`.
+bitwise comparable with them.  K5, K6 and K7 sum ``A @ w`` (and K6/K7
+their column dots) in another order than the kernels, so they agree to a
+tolerance: `matvec_bound`, `cheb_step_bound`, `cg_step_bound`.
 
-Counterparts: `repro.kernels.ref` (K1-K3, K6-K8) and `repro.core.engine
+Counterparts: `repro.kernels.ref` (K1-K3, K5-K8) and `repro.core.engine
 .panel_factor` (K4).
 """
 from __future__ import annotations
@@ -18,8 +18,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["rank1_update_ref", "panel_update_ref", "fused_step_ref",
-           "panel_factor_ref", "cheb_step_ref", "cg_step_ref",
-           "stencil_mv_ref", "cheb_step_bound", "cg_step_bound",
+           "panel_factor_ref", "matvec_ref", "cheb_step_ref", "cg_step_ref",
+           "stencil_mv_ref", "matvec_bound", "cheb_step_bound",
+           "cg_step_bound",
            "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot",
            "swap_positions"]
 
@@ -120,6 +121,11 @@ def panel_factor_ref(panel: torch.Tensor, m0: int, r_pos: int = 0):
     return buf, ls, sign, logdet
 
 
+def matvec_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a (M, N) @ x (N,) or (N, K)``, ``x`` cast to ``a``'s dtype."""
+    return a @ x.to(a.dtype)
+
+
 def cheb_step_ref(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
                   v: torch.Tensor, center, width):
     """One Chebyshev three-term step -> ``(w_next, dots)``.
@@ -169,6 +175,15 @@ def _spread(abs_err: torch.Tensor) -> torch.Tensor:
     """``lam sqrt(sum abs_err^2)`` over the rows: a sum of independent
     errors, each at most ``abs_err``."""
     return ERROR_LAMBDA * torch.linalg.vector_norm(abs_err, dim=-2)
+
+
+def matvec_bound(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound ``lam sqrt(n) u |a| @ |x|`` (`ERROR_LAMBDA`) of
+    the rounding error of one evaluation of `matvec_ref` in ``a.dtype``,
+    its sums in any order, against the exact product; K5 and this plain
+    version differ by at most twice it."""
+    x = x.to(a.dtype)
+    return _sum_error(a.shape[-1], a.dtype, a.abs() @ x.abs())
 
 
 def cheb_step_bound(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,

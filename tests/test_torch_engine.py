@@ -40,6 +40,7 @@ from repro.core.engine import engine_slogdet, stage_schedule as jax_schedule
 from repro_torch.core import engine
 from repro_torch.core.api import pad_to_multiple
 from repro_torch.core.engine import EngineConfig, build_serial
+from repro_torch.core.mesh import Mesh
 
 PANEL_K, MIN_SIZE = 8, 16
 
@@ -188,11 +189,22 @@ def test_engine_config_validation():
         EngineConfig(precision="fp8")
 
 
-def test_mesh_schedule_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_mesh_schedule_needs_build_mesh_and_a_mesh():
+    """As in the JAX package: `build_serial` rejects the mesh schedule,
+    `engine_slogdet` needs a mesh for it, and `build_mesh` needs it (the
+    mesh routes themselves run in tests/test_torch_mesh.py)."""
+    mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="build_mesh"):
         build_serial(EngineConfig(schedule="mesh"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="build_mesh"):
         build_serial(EngineConfig(schedule="mesh", lookahead=True))
+    with pytest.raises(ValueError, match="requires a mesh"):
+        engine.engine_slogdet(torch.eye(4), EngineConfig(schedule="mesh"))
+    with pytest.raises(ValueError, match="schedule='mesh'"):
+        engine.build_mesh(EngineConfig(schedule="staged"), mesh)
+    run = engine.build_mesh(EngineConfig(schedule="mesh"), mesh)
+    with pytest.raises(ValueError, match="square"):
+        run(torch.zeros(4, 3))
 
 
 def test_shared_sign_helpers():

@@ -11,6 +11,8 @@ CG solutions (the frameworks sum in other orders; the recurrences carry
 the difference a few dozen steps); f32 relative 1e-4; the stencil
 operator's materialization and products 1e-12 in f64.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,7 @@ import torch
 import repro.estimators as jest
 
 from repro_torch import estimators as est
+from repro_torch.core.mesh import Mesh
 from repro_torch.estimators.operators.stencil import _transpose_bands
 
 
@@ -377,17 +380,33 @@ def test_dense_operator_surface():
 
 
 @pytest.mark.parametrize("name", ["BatchedOperator", "KroneckerOperator",
-                                  "ToeplitzOperator", "ShardedOperator"])
+                                  "ToeplitzOperator"])
 def test_unported_backends_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         getattr(est, name)(torch.eye(2))
 
 
-def test_as_operator_rejects_stacks_and_meshes():
+def test_as_operator_rejects_stacks_and_shards_on_a_mesh():
+    """A stack raises; with a mesh of more than one rank a matrix becomes
+    a `ShardedOperator` of this rank's rows, and with one rank a
+    `DenseOperator`, as in the JAX package (the sharded products run in
+    tests/test_torch_mesh.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         est.as_operator(torch.zeros(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.as_operator(torch.eye(3), mesh=object())
+    a = torch.arange(16.0).reshape(4, 4)
+    two = Mesh(group=None, size=2, rank=1, device=torch.device("cpu"))
+    op = est.as_operator(a, mesh=two)
+    assert isinstance(op, est.ShardedOperator)
+    assert torch.equal(op.local, a[2:]) and op.shape == (4, 4)
+    assert op.plan_hints() == ("sharded", 16.0, True, 2)
+    assert isinstance(est.operator_on(a, "cpu", mesh=two),
+                      est.ShardedOperator)
+    one = dataclasses.replace(two, size=1, rank=0)
+    assert isinstance(est.as_operator(a, mesh=one), est.DenseOperator)
+    with pytest.raises(ValueError, match="divisible"):
+        est.ShardedOperator(torch.eye(5), two)
+    with pytest.raises(ValueError, match="square"):
+        est.ShardedOperator(torch.zeros(4, 5), two)
 
 
 # ---------------------------------------------------------- dispatch

@@ -12,8 +12,9 @@ K8 and K4's R and ls bitwise, K4's sign exactly, K4's logdet within 1e-6
 (f32) / 1e-14 (f64) relative (the card's log against PyTorch's), K2
 within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out|, K6 and K7
 within twice the rounding bound of one evaluation (`ref.cheb_step_bound`,
-`ref.cg_step_bound`).  The estimators on the card against the same calls
-on the CPU, with the same probes and bounds, and their launch counts.
+`ref.cg_step_bound`), K5 within `ref.matvec_bound`.  The estimators on
+the card against the same calls on the CPU, with the same probes and
+bounds, and their launch counts; the mesh routes on one rank under NCCL.
 """
 import numpy as np
 import pytest
@@ -300,3 +301,53 @@ def test_cg_step_splits_wide_slabs(cuda):
     tol_x, tol_r = ref.cg_step_bound(a, p, x, r, rz)
     assert bool(((x1 - x0).abs() <= 2 * tol_x).all())
     assert bool(((r1 - r0).abs() <= 2 * tol_r).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (37, 1001, 1), (300, 512, 3),
+                                   (129, 257, 33), (64, 128, 64),
+                                   (100, 96, None)])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_matvec_within_bound(cuda, shape, dt):
+    """K5 and its plain version each within `ref.matvec_bound` of the f64
+    product (twice it for f64 input, itself one evaluation); the GEMV
+    path (k <= 4, aligned or not), the tile path and a vector x."""
+    from repro_torch.kernels import matvec as k5
+    gen = torch.Generator().manual_seed(10)
+    m, n, k = shape
+    a = _randn(gen, m, n, dtype=dt, device=cuda)
+    x = _randn(gen, *((n,) if k is None else (n, k)), dtype=dt, device=cuda)
+    exact = a.double() @ x.double()
+    bound = (2.0 if dt == torch.float64 else 1.0) * ref.matvec_bound(a, x)
+    ops.reset_launch_counts()
+    got = ops.matvec(a, x)
+    assert ops.launch_counts()["matvec"] == 1 and got.shape == exact.shape
+    for out in (got, ref.matvec_ref(a, x)):
+        assert bool(((out.double() - exact).abs() <= bound.double()).all())
+    assert torch.equal(k5.matvec(a, x), got)      # repeatable
+
+
+def test_mesh_routes_on_the_card(cuda):
+    """One rank under NCCL: the four mesh routes agree with the CPU's
+    mesh routes, lookahead equals plain bit for bit, and the launch
+    counts are the schedule's; a sharded Chebyshev launches K5 for every
+    product (66 for the bounds, then the degree)."""
+    import test_torch_ranks as ranks
+    from repro_torch.core.mesh import run_ranks
+    n, k, degree = 200, 16, 12
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((n, n)) + n ** 0.5 * np.eye(n)
+    card = run_ranks(ranks.card_routes, 1, backend="nccl", device="cuda",
+                     timeout=600, args=(a, k, degree))[0]
+    cpu = run_ranks(ranks.exact_routes, 1, backend="gloo", device="cpu",
+                    timeout=600, args=({"a": a},))[0]
+    s_np, ld_np = np.linalg.slogdet(a)
+    for update in ("rank1", "panel"):
+        (s, ld), counts = card[f"{update}|0"]
+        assert card[f"{update}|1"][0] == (s, ld)
+        assert s == s_np and abs(ld - ld_np) <= 1e-10 * abs(ld_np)
+        assert abs(ld - cpu[f"a|float64|{update}|0"][1]) <= 1e-10 * abs(ld)
+        for la in (0, 1):
+            assert card[f"{update}|{la}"][1] == ranks.mesh_launches(
+                n, 1, 0, k, update, bool(la))
+    value, counts = card["chebyshev"]
+    assert np.isfinite(value) and counts["matvec"] == 66 + degree

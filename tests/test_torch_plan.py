@@ -28,6 +28,7 @@ import repro_torch
 from repro_torch.core import (ExactConfig, LogdetResult, clear_plan_cache,
                               config_from_dict, config_to_dict,
                               from_jax_config, pad_to_multiple)
+from repro_torch.core.mesh import Mesh
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -115,12 +116,13 @@ def test_from_jax_config_builds_the_same_route(kw):
 
 
 def test_from_jax_config_rejects_what_is_not_ported():
-    d = jax_config_to_dict(repro.core.configs.ExactConfig(schedule="mesh"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_jax_config(d)
-    d = jax_config_to_dict(repro.core.configs.ExactConfig(lookahead=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_jax_config(d)
+    # the mesh schedule and lookahead are ported: they cross as they are
+    for kw in ({"schedule": "mesh"}, {"lookahead": True},
+               {"schedule": "mesh", "lookahead": True, "update": "panel"}):
+        cfg = from_jax_config(jax_config_to_dict(
+            repro.core.configs.ExactConfig(**kw)))
+        assert all(getattr(cfg, f) == v for f, v in kw.items())
+        assert cfg.resolved(mesh_present=True).schedule == "mesh"
     with pytest.raises(ValueError, match="KroneckerConfig"):
         from_jax_config({"type": "KroneckerConfig"})
 
@@ -159,10 +161,10 @@ def test_unported_methods_name_their_roadmap_item(method):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object()}, TypeError),
     ({"grad": True}, NotImplementedError),
-    ({"schedule": "mesh"}, NotImplementedError),
-    ({"lookahead": True}, NotImplementedError),
+    ({"schedule": "mesh"}, ValueError),
+    ({"lookahead": True}, ValueError),
     ({"backend": "xla"}, ValueError),
     ({"backend": "interpret"}, ValueError),
     ({"num_probes": 4}, TypeError),
@@ -174,6 +176,27 @@ def test_unported_methods_name_their_roadmap_item(method):
 def test_rejected_knobs_raise(kw, exc):
     with pytest.raises(exc):
         repro_torch.plan(_matrix(), method="exact", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("x,kw", [
+    ("dense", {"fused": True}),
+    ("dense", {"fused": True, "update": "panel"}),
+    ("dense", {"lookahead": True, "mesh": None}),
+    ("batched", {}),
+])
+def test_mesh_rejections_match_jax(mesh1, x, kw):
+    """fused with a mesh and lookahead without one raise ValueError, a
+    batched stack with a mesh TypeError, in both packages."""
+    kw = dict(kw)
+    with_mesh = kw.pop("mesh", True)
+    inputs = {"dense": _matrix(), "batched": (2, 8, 8)}
+    with pytest.raises((TypeError, ValueError)) as jax_err:
+        repro.plan(inputs[x], method="exact",
+                   mesh=mesh1 if with_mesh else None, **kw)
+    mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(jax_err.type):
+        repro_torch.plan(inputs[x], method="exact", device="cpu",
+                         mesh=mesh if with_mesh else None, **kw)
 
 
 def test_rejected_inputs_raise():
@@ -414,7 +437,7 @@ def test_validate_spd_like_rejects(method):
 @pytest.mark.parametrize("x,kw,exc", [
     ("dense", {"method": "auto"}, NotImplementedError),
     ("dense", {"method": "slq", "grad": True}, NotImplementedError),
-    ("dense", {"method": "chebyshev", "mesh": object()}, NotImplementedError),
+    ("dense", {"method": "chebyshev", "mesh": object()}, TypeError),
     ("batched", {"method": "slq"}, NotImplementedError),
     ("stencil", {"method": "exact"}, TypeError),
     ("stencil", {"method": "slq", "precision": "float64"}, ValueError),

@@ -1,0 +1,277 @@
+"""The ranks of the port's mesh, on the CPU, and what they run.
+
+`repro_torch.core.mesh.run_ranks` spawns one process per rank and pickles
+the function it runs by name, so the functions that tests/test_torch_mesh.py
+and tests/test_torch_gpu.py run on their ranks live here, in a module the
+ranks can import without importing JAX.  Each takes the rank's mesh and
+numpy inputs and returns plain Python values.
+
+The tests here: `run_ranks` reports a failing or hanging rank and stops
+every process, `make_mesh` and `rank_device` resolve devices as
+documented, and several processes that build the same kernel hash at
+once (`kernels._build.ensure_built`, with a stand-in for nvcc) leave one
+complete build and no debris.
+"""
+from __future__ import annotations
+
+import os
+import stat
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import estimators as est
+from repro_torch.core.api import pad_to_multiple
+from repro_torch.core import mesh as M
+from repro_torch.core.engine import EngineConfig, build_mesh
+from repro_torch.core.plan import clear_plan_cache
+from repro_torch.kernels import _build
+
+PANEL_K = 8
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _pair(res):
+    sign, logabsdet = res
+    return float(sign), float(logabsdet)
+
+
+def exact_routes(mesh, cases: dict, bf16_case: str = None) -> dict:
+    """``{"case|dtype|update|la": (sign, logabsdet)}`` of the mesh engine
+    (f64 for every case, f32 for every case but near_singular), each
+    matrix padded to a multiple of the mesh size; with ``bf16_case`` also
+    ``"case|float32|update|la|bf16"``, that case's f32 routes with bf16
+    operands."""
+    torch.set_num_threads(1)
+    out = {}
+    for case, a in cases.items():
+        for dname, dt in DTYPES.items():
+            if dname == "float32" and case == "near_singular":
+                continue
+            at = pad_to_multiple(torch.from_numpy(a).to(dt), mesh.size)
+            precisions = [None]
+            if case == bf16_case and dname == "float32":
+                precisions.append("bf16")
+            for update in ("rank1", "panel"):
+                for la in (False, True):
+                    for prec in precisions:
+                        cfg = EngineConfig(schedule="mesh", update=update,
+                                           panel_k=PANEL_K, lookahead=la,
+                                           precision=prec)
+                        key = f"{case}|{dname}|{update}|{int(la)}" + (
+                            f"|{prec}" if prec else "")
+                        out[key] = _pair(build_mesh(cfg, mesh)(at))
+    return out
+
+
+def sharded(mesh, a: np.ndarray, probes: np.ndarray, bounds, v: np.ndarray,
+            degree: int, num_steps: int) -> dict:
+    """A `ShardedOperator` of ``a``: its products against ``v``, diagonal,
+    trace and dense form; Chebyshev and SLQ on ``probes`` (Chebyshev on
+    ``bounds``); a CG solve against ``v``."""
+    torch.set_num_threads(1)
+    at = torch.from_numpy(a)
+    op = est.ShardedOperator(at, mesh)
+    vt = torch.from_numpy(v)
+    pt = torch.from_numpy(probes)
+    cheb = est.logdet_chebyshev(op, probes=pt, lmin=bounds[0],
+                                lmax=bounds[1], degree=degree, device="cpu")
+    slq = est.logdet_slq(op, probes=pt, num_steps=num_steps, device="cpu")
+    cg = est.cg_solve(op, vt, tol=1e-12, device="cpu")
+    return {"mm": op.mm(vt).numpy(), "mv": op.mv(vt[:, 0]).numpy(),
+            "rmm": op.rmm(vt).numpy(), "diag": op.diag().numpy(),
+            "trace": float(op.trace_hint()), "dense": op.to_dense().numpy(),
+            "hints": tuple(op.plan_hints()),
+            "local_rows": op.local.shape[0],
+            "cheb": (float(cheb.est), float(cheb.sem)),
+            "slq": (float(slq.est), float(slq.sem)),
+            "cg_x": cg.x.numpy(), "cg_iters": cg.iters,
+            "cg_converged": bool(cg.converged)}
+
+
+def plans(mesh, a_exact: np.ndarray, a_spd: np.ndarray,
+          probes: np.ndarray, bounds) -> dict:
+    """`repro_torch.plan` with a mesh: the resolved schedule, padding,
+    device count and results of exact and estimator plans (``probes`` has
+    at least the padded side's rows), and the rejections that depend on
+    the mesh."""
+    torch.set_num_threads(1)
+    clear_plan_cache()
+    out = {}
+    for update in ("rank1", "panel"):
+        p = repro_torch.plan(a_exact, method="exact", update=update,
+                             k=PANEL_K, mesh=mesh)
+        res = p()
+        out[f"exact|{update}"] = (p.config.schedule, p.diagnostics.padded_n,
+                                  p.diagnostics.device_count,
+                                  _pair(res), str(res.sign.device))
+    p = repro_torch.plan(a_exact, method="exact", schedule="staged",
+                         mesh=mesh)
+    out["exact|staged"] = (p.config.schedule, p.diagnostics.device_count,
+                           _pair(p()))
+    padded = -(-a_spd.shape[0] // mesh.size) * mesh.size
+    for method, kw in (("chebyshev", dict(degree=16, lmin=bounds[0],
+                                          lmax=bounds[1])),
+                       ("slq", dict(num_steps=12))):
+        p = repro_torch.plan(a_spd, method=method, num_probes=probes.shape[1],
+                             mesh=mesh, **kw)
+        res = p(probes=torch.from_numpy(probes[:padded]))
+        out[method] = (p.diagnostics.padded_n, p.diagnostics.device_count,
+                       float(res.logabsdet), float(res.sem))
+    p = repro_torch.plan(a_spd, method="chebyshev", degree=16, num_probes=4,
+                         seed=3, mesh=mesh)
+    out["chebyshev|seeded"] = float(p().logabsdet)
+    rejected = {}
+    for name, kw in (("fused", dict(method="exact", fused=True)),
+                     ("batched", dict(method="exact")),
+                     ("operator", dict(method="slq"))):
+        x = {"batched": np.zeros((2, 4, 4)),
+             "operator": est.DenseOperator(torch.eye(4))}.get(name, a_exact)
+        try:
+            repro_torch.plan(x, mesh=mesh, **kw)
+            rejected[name] = None
+        except (TypeError, ValueError) as e:
+            rejected[name] = type(e).__name__
+    out["rejected"] = rejected
+    return out
+
+
+def everything(mesh, payload: dict) -> dict:
+    """One spawn per mesh size: the parts ``payload`` names."""
+    out = {"exact": exact_routes(mesh, payload["cases"],
+                                 payload.get("bf16_case"))}
+    if "sharded" in payload:
+        out["sharded"] = sharded(mesh, **payload["sharded"])
+    if "plans" in payload:
+        out["plans"] = plans(mesh, **payload["plans"])
+    return out
+
+
+def fail_on_rank(mesh, bad: int):
+    """Rank ``bad`` raises; the others wait for it in a collective."""
+    if mesh.rank == bad:
+        raise ValueError(f"planted failure on rank {bad}")
+    torch.distributed.barrier()
+
+
+def hang(mesh, seconds: float):
+    """Every rank sleeps past the caller's timeout."""
+    time.sleep(seconds)
+
+
+def build_race(root: str, fake_nvcc: str) -> bool:
+    """`_build.ensure_built` of one kernel hash under ``root`` with
+    ``fake_nvcc`` standing in for nvcc; returns whether it found the
+    build done (by another process)."""
+    _build._nvcc = lambda: fake_nvcc
+    return _build.ensure_built(Path(root) / "hash")
+
+
+def mesh_launches(L: int, P: int, rank: int, k: int, update: str,
+                  lookahead: bool) -> dict:
+    """The kernel launches of one mesh route on rank ``rank``, L rows per
+    rank: rank-1 steps (L - 1) P plus the P x P tail's P - 1; panels R =
+    (L - 1) // k per rank (K4 on the owner, K2 on every rank) and the
+    rank-1 remainder; lookahead early-applies every step (K1) or panel
+    (K2) after the first that the rank owns."""
+    counts = dict.fromkeys(("rank1_update", "panel_update", "fused_step",
+                            "panel_factor", "matvec", "cheb_step",
+                            "cg_step", "stencil_mv"), 0)
+    early = (L - 1 if update == "rank1" else (L - 1) // k) - (rank == 0)
+    if update == "rank1":
+        counts["rank1_update"] = (L - 1) * P + P - 1 + lookahead * early
+    else:
+        r = (L - 1) // k
+        counts["panel_factor"] = r
+        counts["panel_update"] = r * P + lookahead * early
+        counts["rank1_update"] = ((L - 1) - r * k) * P + P - 1
+    return counts
+
+
+def card_routes(mesh, a: np.ndarray, k: int, degree: int) -> dict:
+    """On the card: the four mesh routes with their launch counts, and a
+    sharded Chebyshev estimate with its K5 count."""
+    from repro_torch.kernels import ops
+    at = torch.from_numpy(a).to(mesh.device)
+    out = {}
+    for update in ("rank1", "panel"):
+        for la in (False, True):
+            cfg = EngineConfig(schedule="mesh", update=update, panel_k=k,
+                               lookahead=la)
+            ops.reset_launch_counts()
+            res = build_mesh(cfg, mesh)(at)
+            out[f"{update}|{int(la)}"] = (_pair(res), ops.launch_counts())
+    op = est.ShardedOperator(at, mesh)
+    ops.reset_launch_counts()
+    res = est.logdet_chebyshev(op, degree=degree, num_probes=8, seed=1,
+                               device=mesh.device)
+    out["chebyshev"] = (float(res.est), ops.launch_counts())
+    return out
+
+
+# ------------------------------------------------------------------ tests
+
+FAKE_NVCC = """#!{python}
+import random, sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+time.sleep(random.uniform(0.0, 0.3))
+with open(out, "w") as f:
+    f.write("not a library")
+print("ptxas info    : Used 10 registers, 0 bytes smem")
+"""
+
+
+def test_run_ranks_reports_the_failing_rank():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="planted failure on rank 1"):
+        M.run_ranks(fail_on_rank, 3, backend="gloo", device="cpu",
+                    timeout=120, args=(1,))
+    assert time.monotonic() - t0 < 100
+
+
+def test_run_ranks_times_out_and_stops_the_ranks():
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="unfinished"):
+        M.run_ranks(hang, 2, backend="gloo", device="cpu", timeout=8,
+                    args=(300.0,))
+    assert time.monotonic() - t0 < 60
+
+
+def test_mesh_devices_and_helpers_without_a_group():
+    assert M.rank_device(3, "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported"):
+        M.rank_device(0, "meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            M.rank_device(0, None)
+    if not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            M.make_mesh(device="cpu")
+    mesh = M.Mesh(group=None, size=4, rank=2, device=torch.device("cpu"))
+    assert mesh.block(12) == slice(6, 9)
+    with pytest.raises(ValueError, match="divisible"):
+        mesh.block(10)
+
+
+def test_concurrent_builds_of_one_hash(tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    root = tmp_path / "build"
+    ctx = torch.multiprocessing.get_context("spawn")
+    with ctx.Pool(4) as pool:
+        found = pool.starmap(build_race, [(str(root), str(nvcc))] * 4,
+                             chunksize=1)
+    out = root / "hash"
+    assert found.count(False) >= 1, found     # somebody built it
+    assert sorted(os.listdir(root)) == ["hash"]  # no temporary debris
+    for name in _build.SOURCES:
+        assert (out / f"lib{name}.so").read_text() == "not a library"
+        assert "Used 10 registers" in (out / f"{name}.ptxas.txt").read_text()
+    assert float((out / "build_seconds.txt").read_text()) >= 0
+    assert _build.ensure_built(out) is True   # a later load finds it done
