@@ -66,9 +66,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, no sparsity)
+# H100 SXM peaks (NVIDIA data sheet, dense, no sparsity); f64 at the FP64
+# tensor cores' rate (K5 runs on them; DFMA alone peaks at 34e12)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 67e12}
 
 # K4 logdet: the card's log against PyTorch's log, summed over K pivots
 LOGDET_RTOL = {"float32": 1e-6, "float64": 1e-14}
@@ -443,17 +444,22 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
 def matvec_phase(n: int, ranks: int, gen) -> dict:
     """K5 at the sharded estimators' shapes: the full (n, n) block (one
     rank) and one rank's (n / ranks, n) block, against a slab of PROBES
-    columns and a single column, in f32 and f64.  Kernel and plain
-    version each within `ref.matvec_bound` of the f64 product (twice it
-    for f64 input, itself one evaluation); two planted faults (one
-    32-column chunk of A skipped, a block of output rows zeroed) must
-    break it; a repeated call bitwise equal; then times.  Returns
+    columns, of 64 columns (the widest block of the tile path) and a
+    single column, in f32 and f64.  Kernel and plain version each within
+    `ref.matvec_bound` of the f64 product (twice it for f64 input, itself
+    one evaluation); two planted faults (one 32-column chunk of A
+    skipped, a block of output rows zeroed) must break it; a repeated
+    call bitwise equal; then times: the kernel's beside cuBLAS's ``a @
+    x`` (the plain version and the library call at once), timed in turns
+    (library, kernel, kernel, library) and averaged.  Each shape's line
+    names its launch plan (`matvec.plan`: tile, split).  Returns
     ``{"<dtype>|<rows>|<k>": fields}``."""
     import torch
     from repro_torch.kernels import matvec as k5
     from repro_torch.kernels import ref
 
     out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt in (torch.float32, torch.float64):
         name_dt = str(dt)[6:]
         size = torch.finfo(dt).bits // 8
@@ -466,7 +472,7 @@ def matvec_phase(n: int, ranks: int, gen) -> dict:
             c0 = (n // 2) // 32 * 32
             skipped = a64.clone()
             skipped[:, c0:c0 + 32] = 0
-            for k in (PROBES, 1):
+            for k in (PROBES, 64, 1):
                 x = torch.randn(n, k, generator=gen, device="cuda",
                                 dtype=torch.float64).to(dt)
                 exact = a64 @ x.double()
@@ -491,17 +497,22 @@ def matvec_phase(n: int, ranks: int, gen) -> dict:
                         f"K5 {tag}: a planted fault passes: {faults}")
                 require(torch.equal(k5.matvec(a, x), got),
                         f"K5 {tag}: a repeated call differs")
-                plain_ms = time_ms(lambda: ref.matvec_ref(a, x))
+                plan = k5.plan(rows, n, k, dt, sms)._asdict()
+                lib1, ms1, ms2, lib2 = (
+                    time_ms(f) for f in (lambda: ref.matvec_ref(a, x),
+                                         lambda: k5.matvec(a, x),
+                                         lambda: k5.matvec(a, x),
+                                         lambda: ref.matvec_ref(a, x)))
                 t = dict(max_abs_err=(got - want).abs().max().item(),
-                         ms=time_ms(lambda: k5.matvec(a, x)),
-                         plain_ms=plain_ms, library_ms=plain_ms,
+                         ms=(ms1 + ms2) / 2, plain_ms=(lib1 + lib2) / 2,
+                         library_ms=(lib1 + lib2) / 2, plan=plan,
                          bound=bound_ms((rows * n + n * k + rows * k) * size,
                                         2 * rows * n * k, name_dt),
                          max_rel_to_bound=r_k, plain_max_rel_to_bound=r_p,
                          planted_faults_rel_to_bound=faults)
                 out[tag] = t
                 say("kernels", kernel="matvec", variant=name_dt,
-                    shape=[rows, n, k], max_rel_to_bound=r_k,
+                    shape=[rows, n, k], plan=plan, max_rel_to_bound=r_k,
                     plain_max_rel_to_bound=r_p,
                     planted_faults_rel_to_bound=faults, repeat_bitwise=True,
                     error_lambda=ref.ERROR_LAMBDA)
@@ -1101,7 +1112,8 @@ def main(argv=None) -> int:
     timings["matvec"] = dict(mv[f"float32|{EST_N}|{PROBES}"],
                              float64=mv[f"float64|{EST_N}|{PROBES}"],
                              shapes={t: {f: v[f] for f in (
-                                 "ms", "plain_ms", "max_rel_to_bound")}
+                                 "ms", "library_ms", "max_rel_to_bound",
+                                 "plan")}
                                  | {"bound_ms": v["bound"][0]}
                                  for t, v in mv.items()})
     # phase 4: the main path

@@ -57,7 +57,8 @@ _ARGTYPES = {
     "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),
-    "matvec": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
+    "matvec": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+               _P),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 

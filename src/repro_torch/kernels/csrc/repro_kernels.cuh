@@ -49,9 +49,13 @@ int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
                        void* sign_logdet, long long k, long long n,
                        long long m0, long long r_pos, void* stream);
 
-// K5: o (m, k) = a (m, n) @ x (n, k), every tensor in dtype.
-int repro_matvec(int dtype, const void* a, const void* x, void* o, long long m,
-                 long long n, long long k, void* stream);
+// K5: o (m, k) = a (m, n) @ x (n, k), every tensor in dtype; the cut
+// (bm, bn, chunk, splits, split_len) is kernels/matvec.py:plan's, and
+// partials (splits, m, k) is scratch when splits > 1 (else may be null).
+int repro_matvec(int dtype, const void* a, const void* x, void* o,
+                 void* partials, long long m, long long n, long long k,
+                 long long bm, long long bn, long long chunk, long long splits,
+                 long long split_len, void* stream);
 
 // K6: one Chebyshev step on a (n, n), w / w_prev / v (n, k) in dtype;
 // w_next (n, k) out, dots (k,) out, partials (ceil(n / 32), k) scratch;

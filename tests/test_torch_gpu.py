@@ -305,16 +305,26 @@ def test_cg_step_splits_wide_slabs(cuda):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (37, 1001, 1), (300, 512, 3),
                                    (129, 257, 33), (64, 128, 64),
-                                   (100, 96, None)])
+                                   (100, 96, None),
+                                   # the tile's column widths 16 / 32 / 64 and
+                                   # two column blocks (k = 65)
+                                   (129, 257, 5), (64, 128, 8), (100, 300, 65),
+                                   # split-K, a ragged block, and a row block
+                                   # of a (257, 1025) matrix that starts 4 or 8
+                                   # bytes past a 16-byte boundary
+                                   (256, 16384, 32), (129, 1001, 32),
+                                   (257, 1025, 32, 1)])
 @pytest.mark.parametrize("dt", EST_DTYPES)
 def test_matvec_within_bound(cuda, shape, dt):
     """K5 and its plain version each within `ref.matvec_bound` of the f64
     product (twice it for f64 input, itself one evaluation); the GEMV
-    path (k <= 4, aligned or not), the tile path and a vector x."""
+    path (k <= 4, aligned or not), the tile path at every column width,
+    split or not, on 16-byte-aligned rows or not, and a vector x; one
+    counted launch per call, a repeated call bitwise equal."""
     from repro_torch.kernels import matvec as k5
     gen = torch.Generator().manual_seed(10)
-    m, n, k = shape
-    a = _randn(gen, m, n, dtype=dt, device=cuda)
+    m, n, k, *skip = shape
+    a = _randn(gen, m, n, dtype=dt, device=cuda)[sum(skip):]
     x = _randn(gen, *((n,) if k is None else (n, k)), dtype=dt, device=cuda)
     exact = a.double() @ x.double()
     bound = (2.0 if dt == torch.float64 else 1.0) * ref.matvec_bound(a, x)

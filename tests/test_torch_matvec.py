@@ -103,3 +103,79 @@ def test_matvec_wrapper_takes_only_cuda_tensors():
         k5.matvec(a, x[:5])
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.matvec(a.to("meta"), x.to("meta"))
+
+
+# The launch plan of K5 (`matvec.plan`): pure Python, held here on the CPU
+# because the C entry obeys it.  Shapes: the sharded estimators' blocks at
+# P = 1 and 4, the card tests' ragged and split shapes, a slab wider than
+# one column block, a single row.
+PLAN_SHAPES = [(16384, 16384, 32), (4096, 16384, 32), (16384, 16384, 64),
+               (4096, 16384, 64), (256, 16384, 32), (129, 1001, 32),
+               (256, 1025, 33), (100, 300, 65), (1, 4097, 5), (300, 70, 200)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_matvec_plan_ranges_cover_the_reduction_axis(shape, dt):
+    """The S ranges cover [0, n) exactly once, in order, each starting on
+    a multiple of 32 and each but the last a multiple of 32 (and of a
+    pipeline stage) long; the column blocks cover k with one block width
+    of 16, 32 or 64."""
+    m, n, k = shape
+    p = k5.plan(m, n, k, dt, H100_SMS)
+    # block z of the grid sums columns [z split_len, (z + 1) split_len) of n
+    ranges = [(z * p.split_len, min(n, (z + 1) * p.split_len))
+              for z in range(p.splits)]
+    assert len(ranges) == p.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(stop == start for (_, stop), (start, _) in zip(ranges,
+                                                                ranges[1:]))
+    assert all(stop > start for start, stop in ranges)
+    assert all(start % 32 == 0 for start, _ in ranges)
+    assert all((stop - start) % 32 == 0 for start, stop in ranges[:-1])
+    assert p.chunk == k5.CHUNK_BYTES // dt.itemsize
+    assert p.split_len % 32 == 0 and p.split_len % p.chunk == 0
+    assert p.bn in (16, 32, 64) and p.bn >= min(k, 64) and (
+        p.bn == 16 or p.bn // 2 < k)
+    assert p.col_blocks == -(-k // p.bn) and p.bm == k5.BLOCK_ROWS
+
+
+def test_matvec_plan_fills_two_waves_on_the_rank_block():
+    """One rank's (4096, 16384) block at k = 32 on an H100: its row
+    blocks, split into equal ranges, make as close to two blocks on each
+    of the 132 SMs as equal ranges allow (at least 95 % of that), none
+    waiting for a third; the full (16384, 16384) block splits too."""
+    for dt in (torch.float32, torch.float64):
+        p = k5.plan(4096, 16384, 32, dt, H100_SMS)
+        rows = 4096 // p.bm
+        blocks = rows * p.col_blocks * p.splits
+        assert p.splits > 1 and p.workspace == p.splits * 4096 * 32
+        assert 0.95 * 2 * H100_SMS <= blocks <= k5.BLOCKS_PER_SM * H100_SMS
+        assert rows * (p.splits + 1) > k5.BLOCKS_PER_SM * H100_SMS
+        assert k5.plan(16384, 16384, 32, dt, H100_SMS).splits > 1
+    # more SMs, more splits; a grid that fills the card alone is not split
+    assert k5.plan(4096, 16384, 32, torch.float32, 4 * H100_SMS).splits > \
+        k5.plan(4096, 16384, 32, torch.float32, H100_SMS).splits
+    assert k5.plan(65536, 16384, 32, torch.float64, H100_SMS).splits == 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(16384, 16384), (4096, 16384), (1, 1),
+                                   (37, 1001)])
+def test_matvec_plan_never_splits_the_gemv_path(shape, k):
+    m, n = shape
+    for dt in (torch.float32, torch.float64):
+        p = k5.plan(m, n, k, dt, H100_SMS)
+        assert (p.splits, p.workspace, p.bm, p.bn) == (1, 0, k5.GEMV_ROWS, k)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PLAN_SHAPES + [(0, 64, 8), (8, 0, 8)])
+def test_matvec_plan_workspace_is_s_m_k(shape, dt):
+    """The partials buffer holds one (m, k) slice per range when the axis
+    is split, and is not allocated when it is not."""
+    m, n, k = shape
+    p = k5.plan(m, n, k, dt, H100_SMS)
+    assert p.workspace == (p.splits * m * k if p.splits > 1 else 0)
+    assert p.splits == max(1, -(-n // p.split_len))
