@@ -16,21 +16,28 @@ printed line each, any failure ends the run:
             frame, spills;
 3. kernels  every kernel against its plain PyTorch version on the card,
             at the main paths' shapes, in f32 and f64 (and bf16 operands
-            for K1-K3): bitwise for K1, K3, K8 and K4's R and ls, K4's
-            sign exactly, K4's logdet and K2 to the tolerances stated
-            below; K5, K6 and K7 (on their routes' own operands) and
-            their plain versions against the same function in f64,
-            within its probabilistic rounding bound (`ref.matvec_bound`,
-            `ref.cheb_step_bound`, `ref.cg_step_bound`), which planted
-            faults must break; then each kernel's time beside its plain
-            version, its bound and, where one PyTorch call computes the
-            same function, that call;
+            for K1-K3): bitwise for K1, K3, K8 and K4's R and ls (NaNs
+            by position), K4's sign exactly (NaN where the plain
+            version's is), K4's logdet and K2 to the tolerances stated
+            below; K4 at the staged route's widths, with dead columns,
+            a zero pivot row, NaN and inf entries, and on its
+            global-memory branch (K4_SHAPES, K4_GLOBAL); K5, K6 and K7
+            (on their routes' own operands) and their plain versions
+            against the same function in f64, within its probabilistic
+            rounding bound (`ref.matvec_bound`, `ref.cheb_step_bound`,
+            `ref.cg_step_bound`), which planted faults must break; then
+            each kernel's time beside its plain version, its bound and,
+            where one PyTorch call computes the same function, that call
+            (K4: `torch.linalg.lu_factor_ex`, K8: `torch.sparse.mm` on a
+            CSR matrix of the bands);
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
             fused, and staged x panel with bf16 operands: sign exact,
             log|det| against an f64 reference, fused bitwise equal to
             unfused, and the launch counts of K1-K4 equal to the schedule;
+            a small matrix with a NaN entry must give sign and log|det|
+            NaN through staged x rank1 and staged x panel;
 5. estimators ``repro_torch.plan(x, method="chebyshev"|"slq")`` and
             ``estimators.cg_solve(x, b)`` on a dense SPD N = 16384 f32
             matrix and on the 1024 x 1024 lattice precision of a Matern
@@ -157,7 +164,6 @@ def bound_ms(bytes_moved: float, ops: float, dtype: str):
 def kernel_phase(n: int, k: int, gen) -> dict:
     import torch
     from repro_torch.kernels import condense_step, fused_step, ref
-    from repro_torch.kernels import panel_factor as k4
     from repro_torch.kernels import panel_update as k2
 
     dev = "cuda"
@@ -213,23 +219,6 @@ def kernel_phase(n: int, k: int, gen) -> dict:
             panel_update_max_rel_to_bound=(
                 diff2 / tol2.clamp_min(torch.finfo(acc).tiny)).max().item())
 
-        if op == dt:
-            # K4: (K, N) panel with all N columns live
-            panel = randn(k, n, dtype=dt)
-            for r_pos in (0, 1):
-                R, ls, s, ld = k4.panel_factor(panel, n, r_pos)
-                R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, n, r_pos)
-                torch.cuda.synchronize()
-                require(torch.equal(R, R0), f"K4 {tag}: R not bitwise")
-                require(torch.equal(ls, ls0), f"K4 {tag}: ls differ")
-                require(s.item() == s0.item(), f"K4 {tag}: sign differs")
-                rel = abs(ld.item() - ld0.item()) / max(abs(ld0.item()), 1e-300)
-                require(rel <= LOGDET_RTOL[str(dt)[6:]],
-                        f"K4 {tag}: logdet rel err {rel}")
-            say("kernels", variant=tag, panel_factor_R_ls_bitwise=True,
-                panel_factor_sign_exact=True, panel_factor_logdet_rel=rel,
-                logdet_rtol=LOGDET_RTOL[str(dt)[6:]])
-
         if (dt, op) != (torch.float32, torch.float32):
             continue
         # timings at the main path's dtype (f32)
@@ -238,8 +227,6 @@ def kernel_phase(n: int, k: int, gen) -> dict:
         b1 = (2 * n * n + 2 * n) * it
         b2 = (2 * n * n + n * k + k * n) * it
         b3 = (2 * n * n + 4 * n) * it + 8
-        b4 = 2 * k * n * it + k * 8 + 2 * it
-        ops4 = k * (n + 2 * k * n + n)     # divide, update, argmax compare
         timings["rank1_update"] = dict(
             max_abs_err=err1,
             ms=time_ms(lambda: condense_step.rank1_update(a, pc, pr)),
@@ -260,24 +247,147 @@ def kernel_phase(n: int, k: int, gen) -> dict:
                                                         col_l, col_last)),
             library_ms=None,
             bound=bound_ms(b3, 2 * n * n, name_dt))
-        panel = randn(k, n, dtype=dt)
-        R, _, _, _ = k4.panel_factor(panel, n)
-        R0, _, _, _ = ref.panel_factor_ref(panel, n)
-        torch.cuda.synchronize()
-        timings["panel_factor"] = dict(
-            max_abs_err=(R - R0).abs().max().item(),
-            ms=time_ms(lambda: k4.panel_factor(panel, n)),
-            plain_ms=time_ms(lambda: ref.panel_factor_ref(panel, n),
-                             warmup=1, iters=5),
-            library_ms=None,
-            bound=bound_ms(b4, ops4, name_dt))
         for name, t in timings.items():
-            say("timing", kernel=name, shape=[n, n] if name != "panel_factor"
-                else [k, n], k=k, ms=t["ms"], plain_ms=t["plain_ms"],
-                library_ms=t["library_ms"], bound_ms=t["bound"][0],
-                bound_by=t["bound"][1])
+            say("timing", kernel=name, shape=[n, n], k=k, ms=t["ms"],
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                bound_ms=t["bound"][0], bound_by=t["bound"][1])
         del a, pc, pr, c, r, got, want, got2, want2, got3, want3, sw
     return timings
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit (so -0 differs from +0), NaNs
+    compared by position only: ``torch.equal`` is false on any NaN."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(a.masked_fill(na, 0).view(ints),
+                       b.masked_fill(nb, 0).view(ints))
+
+
+def same_value(x: float, y: float, rtol: float) -> bool:
+    """Both NaN, equal (infinities too), or within ``rtol`` relative."""
+    if x != x or y != y:
+        return x != x and y != y
+    return x == y or abs(x - y) <= rtol * max(abs(y), 1e-300)
+
+
+# K4 panels of phase 3: (K, N, m0, r_pos, kind); N the staged route's
+# stage widths at N = 8192 (and the mesh's full width), m0 < N leaves dead
+# columns; kinds plant a zero pivot row, a NaN and an inf entry
+K4_SHAPES = [(32, 8192, 8192, 0, "random"), (32, 8192, 8192, 1, "random"),
+             (32, 8192, 6000, 1, "random"),
+             (32, 4608, 4608, 1, "random"), (32, 4608, 4000, 0, "random"),
+             (32, 1944, 1944, 0, "random"), (32, 1944, 1900, 1, "random"),
+             (32, 462, 462, 1, "random"), (32, 462, 300, 0, "random"),
+             (32, 64, 64, 0, "random"), (32, 64, 40, 1, "random"),
+             (32, 8192, 8192, 0, "zero_row"), (32, 8192, 8000, 1, "nan"),
+             (32, 8192, 8192, 0, "inf"), (32, 1944, 1944, 1, "nan"),
+             (32, 462, 462, 0, "inf")]
+# one width of the global-memory branch per dtype (K4's plan)
+K4_GLOBAL = {"float32": (32, 32768, 30000, 1, "random"),
+             "float64": (32, 16384, 16000, 0, "random")}
+K4_TIMED = [(32, 8192), (32, 4608)]
+
+
+def k4_panel(k: int, n: int, kind: str, gen, dtype):
+    import torch
+    p = torch.randn(k, n, generator=gen, device="cuda",
+                    dtype=torch.float64).to(dtype)
+    if kind == "zero_row":
+        p[3] = 0.0
+    elif kind == "nan":
+        p[2, 100] = float("nan")
+    elif kind == "inf":
+        p[4, 7] = float("inf")
+    return p
+
+
+def lu_factor_ms(a, backend) -> float:
+    """Time of ``torch.linalg.lu_factor_ex(a)`` with PyTorch's linear
+    algebra backend set to ``backend`` (None: its default choice, which
+    for a tall (N, 32) matrix is not the faster cuSOLVER)."""
+    import torch
+    prev = torch.backends.cuda.preferred_linalg_library()
+    if backend is not None:
+        torch.backends.cuda.preferred_linalg_library(backend)
+    try:
+        return time_ms(lambda: torch.linalg.lu_factor_ex(a))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def panel_factor_phase(gen) -> dict:
+    """K4 against its plain version: R and ls bit for bit, the sign exactly
+    (NaN where the plain version's is NaN), log|det| within LOGDET_RTOL,
+    at every K4_SHAPES panel and the K4_GLOBAL width, f32 and f64; then
+    times at K4_TIMED beside the plain version, the bound and
+    ``torch.linalg.lu_factor_ex`` of the transposed live panel (the same
+    K eliminations with the same pivot rule; its input transposed outside
+    the timing), on cuSOLVER and on PyTorch's default backend.  Returns
+    the kernels-line fields, f32 (32, 8192) first."""
+    import torch
+    from repro_torch.kernels import panel_factor as k4
+    from repro_torch.kernels import ref
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        name_dt = str(dt)[6:]
+        rtol = LOGDET_RTOL[name_dt]
+        for k, n, m0, r_pos, kind in K4_SHAPES + [K4_GLOBAL[name_dt]]:
+            plan = k4.plan(k, n, dt)
+            panel = k4_panel(k, n, kind, gen, dt)
+            R, ls, s, ld = k4.panel_factor(panel, m0, r_pos)
+            R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, m0, r_pos)
+            torch.cuda.synchronize()
+            tag = f"K4 {name_dt} {(k, n, m0, r_pos, kind)}"
+            require(same_bits(R, R0), f"{tag}: R not bitwise")
+            require(torch.equal(ls, ls0), f"{tag}: ls differ")
+            require(same_value(s.item(), s0.item(), 0.0),
+                    f"{tag}: sign {s.item()} != {s0.item()}")
+            require(same_value(ld.item(), ld0.item(), rtol),
+                    f"{tag}: logdet {ld.item()} vs {ld0.item()}")
+            if kind == "nan":
+                require(s.item() != s.item(), f"{tag}: sign not NaN")
+            if (k, n, m0, r_pos, kind) == K4_GLOBAL[name_dt]:
+                require(not plan.shared, f"{tag}: not the global branch")
+            say("kernels", kernel="panel_factor", variant=name_dt,
+                shape=[k, n], m0=m0, r_pos=r_pos, kind=kind,
+                plan=plan._asdict(), R_ls_bitwise=True, sign=s.item(),
+                logdet=ld.item(), logdet_rtol=rtol)
+        size = torch.finfo(dt).bits // 8
+        for k, n in K4_TIMED:
+            plan = k4.plan(k, n, dt)
+            say("launch", kernel="panel_factor", dtype=name_dt, shape=[k, n],
+                cluster=plan.cluster, cols_per_block=plan.cols,
+                shared=plan.shared, smem_bytes_per_block=plan.smem_bytes)
+            panel = k4_panel(k, n, "random", gen, dt)
+            lu_in = panel.mT.contiguous()
+            R, _, _, _ = k4.panel_factor(panel, n)
+            R0, _, _, _ = ref.panel_factor_ref(panel, n)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: k4.panel_factor(panel, n))
+            t = dict(
+                max_abs_err=(R - R0).abs().max().item(), ms=ms,
+                ms_per_step=ms / k,
+                plain_ms=time_ms(lambda: ref.panel_factor_ref(panel, n),
+                                 warmup=1, iters=5),
+                library_ms=lu_factor_ms(lu_in, "cusolver"),
+                library_default_ms=lu_factor_ms(lu_in, None),
+                bound=bound_ms(2 * k * n * size + k * 8 + 2 * size,
+                               k * (n + 2 * k * n + n), name_dt),
+                plan=plan._asdict())
+            out[f"{name_dt}|{k}|{n}"] = t
+            say("timing", kernel="panel_factor", dtype=name_dt, shape=[k, n],
+                ms=t["ms"], ms_per_step=t["ms_per_step"],
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                library="torch.linalg.lu_factor_ex (cuSOLVER)",
+                library_default_ms=t["library_default_ms"],
+                bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        torch.cuda.empty_cache()
+    return out
 
 
 def cheb_step_inputs(a, gen):
@@ -405,6 +515,13 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
 
         nn, nb = op.n, len(op.offsets)
         a6, a7 = operands["cheb_step"], operands["cg_step"]
+        csr = lattice_csr(op)
+        lib8 = torch.sparse.mm(csr, xs)
+        torch.cuda.synchronize()
+        say("kernels", kernel="stencil_mv", variant=name_dt,
+            library="torch.sparse.mm (CSR)", library_max_abs_diff=(
+                lib8 - y80).abs().max().item())
+        del lib8
         timings = {
             "cheb_step": dict(
                 max_abs_err=fields["cheb_step"],
@@ -425,7 +542,8 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
                 ms=time_ms(lambda: k8.stencil_mv(op.bands, xs, op.offsets)),
                 plain_ms=time_ms(lambda: ref.stencil_mv_ref(
                     op.bands, xs, offsets=op.offsets)),
-                library_ms=None, matmul_ms=None,
+                library_ms=time_ms(lambda: torch.sparse.mm(csr, xs)),
+                matmul_ms=None,
                 bound=bound_ms((2 * nn * k + nb * nn) * size,
                                2 * nb * nn * k, name_dt)),
         }
@@ -436,7 +554,7 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
                 ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], matmul_ms=t["matmul_ms"],
                 bound_ms=t["bound"][0], bound_by=t["bound"][1])
-        del a, a6, a7, operands, op, xs, y8, y80
+        del a, a6, a7, operands, op, xs, y8, y80, csr
         torch.cuda.empty_cache()
     return out
 
@@ -588,6 +706,16 @@ def main_path_phase(n: int, k: int, gen) -> dict:
                 and abs(ld - cl) <= tol * abs(cl),
                 f"warm-up {update} fused={fused} {prec}: card ({s}, {ld}), "
                 f"cpu ({cs}, {cl}), slogdet ({ws}, {wl})")
+    # a NaN entry: sign NaN and log|det| NaN, never the 0 of "singular"
+    xn = xs.to(torch.float32)
+    xn[5, 7] = float("nan")
+    for update in ("rank1", "panel"):
+        s, ld = (v.item() for v in repro_torch.plan(
+            xn, method="exact", update=update, k=k)())
+        say("main_path", route=f"staged|{update}", n=small, case="nan_entry",
+            sign=s, logabsdet=ld)
+        require(s != s and ld != ld,
+                f"NaN entry, staged|{update}: ({s}, {ld}), expected NaN")
 
     results = {}
     launches = {}
@@ -641,6 +769,24 @@ def lattice_operator(side: int, dtype, device="cuda"):
     bands[1] = torch.where(i % side == 0, 0.0, -1.0)
     bands[3] = torch.where(i % side == side - 1, 0.0, -1.0)
     return StencilOperator((-side, -1, 0, 1, side), bands)
+
+
+def lattice_csr(op):
+    """The banded operator as one CSR matrix (built once, outside any
+    timing): the yardstick ``torch.sparse.mm`` runs the same product."""
+    import torch
+    n = op.n
+    i = torch.arange(n, device=op.bands.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(op.offsets):
+        keep = (i + off >= 0) & (i + off < n)
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(op.bands[d][keep])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n, n))
+    return coo.coalesce().to_sparse_csr()
 
 
 def lattice_logdet(side: int) -> float:
@@ -1104,6 +1250,13 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     # phase 3: kernels against their plain versions, and their times
     timings = kernel_phase(args.n, args.k, gen)
+    k4_times = panel_factor_phase(gen)
+    timings["panel_factor"] = dict(
+        k4_times["float32|32|8192"], float64=k4_times["float64|32|8192"],
+        shapes={t: {f: v[f] for f in ("ms", "ms_per_step", "plain_ms",
+                                      "library_ms", "library_default_ms",
+                                      "plan")}
+                | {"bound_ms": v["bound"][0]} for t, v in k4_times.items()})
     est_timings = estimator_kernel_phase(EST_N, SIDE, gen)
     for name, by_dtype in est_timings.items():
         timings[name] = dict(by_dtype["float32"],
@@ -1139,7 +1292,8 @@ def main(argv=None) -> int:
             entry["float64"] = {
                 "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
                 "plain_ms": f64["plain_ms"], "bound_ms": f64["bound"][0],
-                "bound_by": f64["bound"][1]}
+                "bound_by": f64["bound"][1],
+                "library_ms": f64["library_ms"]}
         if t.get("matmul_ms") is not None:
             entry["matmul_ms"] = t["matmul_ms"]
         if "shapes" in t:

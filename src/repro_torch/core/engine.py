@@ -47,14 +47,14 @@ import torch
 
 from repro_torch.core import mesh as _mesh
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import guarded_pivot, swap_positions
+from repro_torch.kernels.ref import guarded_pivot, nan_sign, swap_positions
 
 __all__ = [
     "EngineConfig", "SCHEDULES", "UPDATES", "BACKENDS", "build_serial",
     "build_mesh", "engine_slogdet", "condense_steps", "condense_full",
     "panel_factor", "apply_panel", "panel_rounds_serial",
     "blocked_full", "staged_full", "stage_schedule", "mc_local_phase",
-    "mesh_tail", "combine_slogdet", "guarded_pivot",
+    "mesh_tail", "combine_slogdet", "guarded_pivot", "nan_sign",
 ]
 
 SCHEDULES = ("serial", "staged", "mesh")
@@ -123,7 +123,8 @@ class EngineConfig:
 
 
 # --------------------------------------------------------------------------
-# shared sign helpers (guarded_pivot lives with the plain kernels)
+# shared sign helpers (guarded_pivot and nan_sign live with the plain
+# kernels)
 # --------------------------------------------------------------------------
 
 def combine_slogdet(parts) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,7 +150,7 @@ def _unit(ref: torch.Tensor):
 def _close(buf: torch.Tensor, sign, logdet):
     """Fold the final 1x1 pivot ``buf[n-1, 0]`` into (sign, logdet)."""
     p = buf[-1, 0]
-    return sign * torch.sign(p), logdet + torch.log(torch.abs(p))
+    return sign * nan_sign(p), logdet + torch.log(torch.abs(p))
 
 
 # --------------------------------------------------------------------------
@@ -177,7 +178,7 @@ def _condense_step(buf: torch.Tensor, t: int, sign, logdet, *,
     # pivot (active row 0, active column m-1) => (-1)^(m-1)
     swap_sign = torch.where(l[0] == last, 1.0, -1.0).to(buf.dtype)
     parity = 1.0 if (m - 1) % 2 == 0 else -1.0
-    sign = sign * torch.sign(p) * swap_sign * parity
+    sign = sign * nan_sign(p) * swap_sign * parity
     logdet = logdet + torch.log(torch.abs(p))
     return buf, sign, logdet
 
@@ -218,15 +219,6 @@ def panel_factor(panel: torch.Tensor, m0: int, *, r_pos: int = 0):
     chosen at step k in that step's coordinates.
     """
     return ops.panel_factor(panel, m0, r_pos)
-
-
-def swap_positions(x: torch.Tensor, dim: int, l: torch.Tensor,
-                    last: int) -> None:
-    """In place: swap index ``l`` ((1,) tensor) with ``last`` along ``dim``."""
-    at_l = x.index_select(dim, l)
-    at_last = x.narrow(dim, last, 1).clone()
-    x.index_copy_(dim, l, at_last)
-    x.narrow(dim, last, 1).copy_(at_l)
 
 
 def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
@@ -442,7 +434,7 @@ def _step_sign(p, l, m: int, r_pos: int, sign, logdet):
     ``r_pos`` counts the live rows above the pivot row."""
     swap_sign = torch.where(l[0] == m - 1, 1.0, -1.0).to(sign.dtype)
     parity = 1.0 if (r_pos + m - 1) % 2 == 0 else -1.0
-    return (sign * torch.sign(p) * swap_sign * parity,
+    return (sign * nan_sign(p) * swap_sign * parity,
             logdet + torch.log(torch.abs(p)))
 
 

@@ -53,7 +53,8 @@ _ARGTYPES = {
     "rank1_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _P),
     "panel_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P),
-    "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+                     _LL, _LL, _P),
     "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),

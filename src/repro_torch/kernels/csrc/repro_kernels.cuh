@@ -44,10 +44,14 @@ int repro_fused_step(int dtype, int op_dtype, const void* a, const void* l,
                      long long m, long long n, void* stream);
 
 // K4: factorize a (k, n) panel; r (k, n) out, ls (k,) int64 out,
-// sign_logdet (2,) out in dtype.
+// sign_logdet (2,) out in dtype; one cluster of `cluster` blocks of `cols`
+// columns each, slices in shared memory if `shared`, smem_bytes of dynamic
+// shared memory per block (the cut is kernels/panel_factor.py:plan's).
 int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
                        void* sign_logdet, long long k, long long n,
-                       long long m0, long long r_pos, void* stream);
+                       long long m0, long long r_pos, long long cluster,
+                       long long cols, long long shared,
+                       long long smem_bytes, void* stream);
 
 // K5: o (m, k) = a (m, n) @ x (n, k), every tensor in dtype; the cut
 // (bm, bn, chunk, splits, split_len) is kernels/matvec.py:plan's, and

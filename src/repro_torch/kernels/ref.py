@@ -21,7 +21,7 @@ __all__ = ["rank1_update_ref", "panel_update_ref", "fused_step_ref",
            "panel_factor_ref", "matvec_ref", "cheb_step_ref", "cg_step_ref",
            "stencil_mv_ref", "matvec_bound", "cheb_step_bound",
            "cg_step_bound",
-           "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot",
+           "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot", "nan_sign",
            "swap_positions"]
 
 
@@ -33,6 +33,12 @@ def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
 def guarded_pivot(p: torch.Tensor) -> torch.Tensor:
     """A division-safe pivot: 1 where ``p == 0`` (caller masks the result)."""
     return torch.where(p == 0, torch.ones_like(p), p)
+
+
+def nan_sign(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sign``, but NaN for NaN, as ``jnp.sign``: a NaN pivot gives
+    a NaN sign, never the 0 of a singular matrix."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
 def swap_positions(x: torch.Tensor, dim: int, l: torch.Tensor,
@@ -116,7 +122,7 @@ def panel_factor_ref(panel: torch.Tensor, m0: int, r_pos: int = 0):
         ls[k] = l[0]
         parity = 1.0 if (r_pos + m - 1) % 2 == 0 else -1.0
         swap_sign = torch.where(l[0] == last, 1.0, -1.0).to(dt)
-        sign = sign * torch.sign(pv) * swap_sign * parity
+        sign = sign * nan_sign(pv) * swap_sign * parity
         logdet = logdet + torch.log(torch.abs(pv))
     return buf, ls, sign, logdet
 

@@ -24,6 +24,10 @@ Sign exact everywhere.  log|det| tolerances, with their reasons:
 
 Within the port, fused and unfused routes agree bit for bit, as the JAX
 package asserts for its own (tests/test_engine.py:351).
+
+A matrix with a NaN entry gives sign NaN and log|det| NaN in both
+packages on every exact route: never the sign 0 that reads as a singular
+matrix (``torch.sign(nan)`` is 0, ``jnp.sign(nan)`` NaN).
 """
 import functools
 
@@ -32,6 +36,9 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+
+import repro
+import repro_torch
 
 from repro.core import pad_to_multiple as jax_pad
 from repro.core.engine import EngineConfig as JaxEngineConfig
@@ -213,3 +220,53 @@ def test_shared_sign_helpers():
     assert float(s) == 1.0 and float(ld) == 2.5
     p = torch.tensor([0.0, 2.0])
     assert engine.guarded_pivot(p).tolist() == [1.0, 2.0]
+
+
+def _nan_matrix():
+    """A 40 x 40 Gaussian matrix with one NaN entry."""
+    a = np.random.default_rng(0).standard_normal((40, 40))
+    a[5, 7] = np.nan
+    return a
+
+
+NAN_A = _nan_matrix()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("update", ["rank1", "panel"])
+@pytest.mark.parametrize("schedule", ["serial", "staged"])
+def test_engine_nan_entry_gives_a_nan_sign(schedule, update, fused, dtype):
+    np_dt, t_dt = DTYPES[dtype]
+    cfg = dict(schedule=schedule, update=update, panel_k=PANEL_K,
+               min_size=MIN_SIZE, fused=fused)
+    s_ref, ld_ref = engine_slogdet(jnp.asarray(NAN_A, np_dt),
+                                   JaxEngineConfig(backend="interpret", **cfg))
+    s, ld = build_serial(EngineConfig(**cfg))(torch.from_numpy(NAN_A)
+                                              .to(t_dt))
+    assert np.isnan(float(s_ref)) and np.isnan(float(ld_ref))
+    assert torch.isnan(s) and torch.isnan(ld), (float(s), float(ld))
+
+
+@pytest.mark.parametrize("update,fused,precision,dtype",
+                         [(u, f, None, d) for u in ("rank1", "panel")
+                          for f in (False, True) for d in DTYPES]
+                         + [("panel", False, "bf16", "float32")])
+def test_plan_nan_entry_gives_a_nan_sign(update, fused, precision, dtype):
+    """Through the public entry points, as a caller runs them."""
+    np_dt, t_dt = DTYPES[dtype]
+    kw = dict(method="exact", update=update, fused=fused, precision=precision)
+    j = repro.plan(jnp.asarray(NAN_A, np_dt), **kw)()
+    t = repro_torch.plan(torch.from_numpy(NAN_A).to(t_dt), device="cpu",
+                         **kw)()
+    assert np.isnan(float(j.sign)) and np.isnan(float(j.logabsdet))
+    assert torch.isnan(t.sign) and torch.isnan(t.logabsdet), (
+        float(t.sign), float(t.logabsdet))
+
+
+def test_nan_sign_helper():
+    x = torch.tensor([-2.0, -0.0, 0.0, 3.0, float("inf"), -float("inf"),
+                      float("nan")])
+    got = engine.nan_sign(x)
+    assert got[:6].tolist() == [-1.0, 0.0, 0.0, 1.0, 1.0, -1.0]
+    assert torch.isnan(got[6])

@@ -8,7 +8,8 @@ conftest imports jax, which such a machine need not have):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Kernels against their plain versions at non-tile-multiple shapes: K1, K3,
-K8 and K4's R and ls bitwise, K4's sign exactly, K4's logdet within 1e-6
+K8 and K4's R and ls bitwise (NaNs by position), K4's sign exactly (NaN
+where the plain version's is), K4's logdet within 1e-6
 (f32) / 1e-14 (f64) relative (the card's log against PyTorch's), K2
 within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out|, K6 and K7
 within twice the rounding bound of one evaluation (`ref.cheb_step_bound`,
@@ -79,18 +80,108 @@ def test_panel_update_within_bound(cuda, shape, dt, op):
     assert bool(((got - want).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("k,n,m0", [(3, 33, 33), (5, 129, 100),
-                                    (16, 200, 170), (32, 1000, 640)])
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (-0 differs from +0), NaNs by position only."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints))
+
+
+def _same_value(x: float, y: float, rtol: float) -> bool:
+    if x != x or y != y:
+        return x != x and y != y
+    return x == y or abs(x - y) <= rtol * abs(y)
+
+
+# (K, N, m0): odd widths; widths that are no multiple of the cluster size
+# (4607, 8191, 1000); narrower than 16 blocks of MIN_COLS (100, 300, 1000);
+# K = 1 and 64; the global-memory branch (28673 f32, 14337 f64 and the
+# f64 (700, 777)); a tall panel (1024, 1500)
+PANEL_SHAPES = [(3, 33, 33), (5, 129, 100), (16, 200, 170), (32, 1000, 640),
+                (32, 100, 90), (32, 300, 300), (32, 4607, 4607),
+                (32, 8191, 8000), (32, 8192, 8192), (1, 64, 64),
+                (1, 8191, 5000), (64, 8192, 8192), (64, 4608, 4000),
+                (32, 28673, 28673), (32, 14337, 14000), (700, 777, 777),
+                (1024, 1500, 1400)]
+
+
+@pytest.mark.parametrize("k,n,m0", PANEL_SHAPES)
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 def test_panel_factor_bitwise(cuda, k, n, m0, dt):
     gen = torch.Generator().manual_seed(2)
     panel = _randn(gen, k, n, dtype=dt, device=cuda)
     R, ls, s, ld = k4.panel_factor(panel, m0, 3)
     R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, m0, 3)
-    assert torch.equal(R, R0) and torch.equal(ls, ls0)
+    assert _same_bits(R, R0) and torch.equal(ls, ls0)
     assert s.item() == s0.item()
     rtol = 1e-6 if dt == torch.float32 else 1e-14
     assert abs(ld.item() - ld0.item()) <= rtol * abs(ld0.item())
+
+
+@pytest.mark.parametrize("kind", ["nan", "nan_dead", "inf", "neg_inf",
+                                  "zero_row", "zero_pivot_column"])
+@pytest.mark.parametrize("k,n,m0", [(32, 8192, 8000), (32, 300, 260),
+                                    (32, 28673, 28000)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_panel_factor_special_values(cuda, k, n, m0, kind, dt):
+    """NaN, +-inf and zero pivots: R and ls bit for bit, the sign exactly
+    (NaN for a live NaN, as ref.nan_sign), log|det| alike."""
+    gen = torch.Generator().manual_seed(3)
+    panel = _randn(gen, k, n, dtype=dt, device=cuda)
+    if kind == "nan":
+        panel[2, 100] = float("nan")
+    elif kind == "nan_dead":
+        panel[2, n - 1] = float("nan")
+    elif kind == "inf":
+        panel[4, 7] = float("inf")
+    elif kind == "neg_inf":
+        panel[0, 50] = -float("inf")
+    elif kind == "zero_row":
+        panel[3] = 0.0
+    else:
+        panel[:, 11] = 0.0
+        panel[5] = 0.0
+    R, ls, s, ld = k4.panel_factor(panel, m0, 1)
+    R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, m0, 1)
+    assert _same_bits(R, R0) and torch.equal(ls, ls0)
+    assert _same_value(s.item(), s0.item(), 0.0), (s.item(), s0.item())
+    rtol = 1e-6 if dt == torch.float32 else 1e-14
+    assert _same_value(ld.item(), ld0.item(), rtol), (ld.item(), ld0.item())
+    if kind == "nan":
+        assert torch.isnan(s)
+
+
+def test_panel_factor_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses raises from the wrapper: shared memory
+    above one block's limit, or a cluster above 16 blocks (the C entry
+    refuses that cut), and nothing is counted."""
+    panel = torch.randn(32, 8192, device=cuda)
+    too_much = k4.PanelFactorPlan(4, 2048, True,
+                                  k4.smem_bytes(32, 2048, 4, True))
+    too_wide = k4.PanelFactorPlan(32, 256, True,
+                                  k4.smem_bytes(32, 256, 4, True))
+    for bad in (too_much, too_wide):
+        monkeypatch.setattr(k4, "plan", lambda k, n, dtype, p=bad: p)
+        before = k4.launches
+        with pytest.raises(RuntimeError, match="panel_factor"):
+            k4.panel_factor(panel, 8192)
+        assert k4.launches == before
+    monkeypatch.undo()
+    R, ls, _, _ = k4.panel_factor(panel, 8192)
+    R0, ls0, _, _ = ref.panel_factor_ref(panel, 8192)
+    assert _same_bits(R, R0) and torch.equal(ls, ls0)
+
+
+@pytest.mark.parametrize("update", ["rank1", "panel"])
+def test_nan_entry_on_the_card(cuda, update):
+    """A NaN entry gives sign NaN and log|det| NaN on the card, as on the
+    CPU and in the JAX package."""
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal((256, 256)))
+    a[5, 7] = float("nan")
+    res = repro_torch.plan(a.float().to(cuda), method="exact", update=update,
+                           k=32)()
+    assert torch.isnan(res.sign) and torch.isnan(res.logabsdet)
 
 
 def test_wrappers_check_their_operands(cuda):

@@ -20,8 +20,10 @@ from repro.kernels.fused_step import fused_step_pallas
 from repro.kernels.panel_factor import panel_factor_pallas
 from repro.kernels.panel_update import panel_update_pallas
 
+from repro_torch.core.engine import stage_schedule
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import condense_step as k1
+from repro_torch.kernels import panel_factor as k4
 
 SHAPES_R1 = [(8, 8), (64, 64), (100, 130), (256, 512), (33, 257)]
 ODD_SHAPES_R1 = [(1, 1), (7, 129), (129, 7), (255, 383), (130, 130)]
@@ -228,11 +230,103 @@ def test_panel_factor_zero_pivot_row(rng):
         np.float64))
 
 
+@pytest.mark.parametrize("where,live", [((0, 5), True), ((2, 11), True),
+                                        ((7, 35), True), ((6, 39), False)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_panel_factor_nan_entry(where, live, dt, rng):
+    """A NaN entry: the same pivots and NaN positions in both packages,
+    and a NaN sign when the entry lies in the live columns [0, m0) (not
+    the 0 of a singular panel); a NaN in a dead column leaves the sign
+    alone in both."""
+    panel = rng.standard_normal((8, 40)).astype(dt)
+    panel[where] = np.nan
+    R1, ls1, s1, ld1 = panel_factor_pallas(jnp.asarray(panel), 36, 1,
+                                           interpret=True)
+    R2, ls2, s2, ld2 = ops.panel_factor(_t(panel), 36, 1)
+    np.testing.assert_array_equal(ls2.numpy(), np.asarray(ls1))
+    np.testing.assert_array_equal(np.isnan(R2.numpy()),
+                                  np.isnan(np.asarray(R1)))
+    np.testing.assert_allclose(R2.numpy(), np.asarray(R1), **_tol(dt))
+    if live:
+        assert np.isnan(float(s1)) and torch.isnan(s2)
+    else:
+        assert float(s2) == float(s1) in (-1.0, 1.0)
+        np.testing.assert_allclose(float(ld2), float(ld1), rtol=1e-6)
+
+
 def test_panel_factor_leaves_its_input_alone(rng):
     panel = _t(rng.standard_normal((4, 16)))
     before = panel.clone()
     ops.panel_factor(panel, 16)
     assert torch.equal(panel, before)
+
+
+# ------------------------------------------------------- K4 launch plan
+
+# the panel widths of the N = 8192 routes: every stage of the staged
+# schedule (panels of stage size) and the mesh's full width
+K4_WIDTHS = sorted({size for size, _ in stage_schedule(8192, 0.75, 64)}
+                   | {8192})
+
+
+def _assert_covers(p, n):
+    """Block r owns [r * cols, min((r + 1) * cols, n)): every column once,
+    no block empty, as the C entry requires."""
+    owned = np.zeros(n, dtype=int)
+    for r in range(p.cluster):
+        assert r * p.cols < n
+        owned[r * p.cols:(r + 1) * p.cols] += 1
+    assert (owned == 1).all()
+    assert 1 <= p.cluster <= k4.MAX_CLUSTER <= 16
+    assert p.cols % k4.COL_ALIGN == 0
+
+
+@pytest.mark.parametrize("n", K4_WIDTHS)
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_panel_factor_plan_covers_the_route_widths(n, dt):
+    """Every width of the staged and mesh routes at N = 8192 keeps its
+    slices in shared memory, within one block's 232,448 bytes; narrow
+    panels take fewer blocks."""
+    p = k4.plan(32, n, dt)
+    _assert_covers(p, n)
+    assert p.shared
+    assert p.smem_bytes == k4.smem_bytes(32, p.cols, dt.itemsize, True)
+    assert p.smem_bytes + k4.STATIC_SMEM <= k4.SMEM_PER_BLOCK == 232448
+    assert p.cluster == min(k4.MAX_CLUSTER, -(-n // p.cols))
+    if n <= k4.MIN_COLS:
+        assert p.cluster == 1
+    if n >= k4.MAX_CLUSTER * k4.MIN_COLS:
+        assert p.cluster == k4.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("k,n,dt,shared", [
+    (32, 28672, torch.float32, True), (32, 28673, torch.float32, False),
+    (32, 65536, torch.float32, False), (32, 14336, torch.float64, True),
+    (32, 14337, torch.float64, False), (1024, 8192, torch.float32, False),
+    (1024, 64, torch.float32, True), (1024, 64, torch.float64, False),
+    (1, 1, torch.float32, True), (1, 33, torch.float64, True),
+    (64, 8191, torch.float32, True), (700, 777, torch.float64, False)])
+def test_panel_factor_plan_past_shared_memory(k, n, dt, shared):
+    """A panel whose slices fit no cluster's shared memory takes the
+    global-memory branch, on the widest cluster; one that fits only on
+    more blocks than the width asks for gets them."""
+    p = k4.plan(k, n, dt)
+    _assert_covers(p, n)
+    assert p.shared == shared
+    if shared:
+        assert p.smem_bytes == k4.smem_bytes(k, p.cols, dt.itemsize, True)
+        assert p.smem_bytes + k4.STATIC_SMEM <= k4.SMEM_PER_BLOCK
+    else:
+        assert p.smem_bytes == k4.smem_bytes(k, p.cols, dt.itemsize, False)
+        # the widest cluster: ceil(n / 16) columns each, warp-aligned
+        per_block = -(-n // k4.MAX_CLUSTER)
+        assert p.cols == -(-per_block // k4.COL_ALIGN) * k4.COL_ALIGN
+
+
+@pytest.mark.parametrize("k", [0, -1, k4.MAX_ROWS + 1])
+def test_panel_factor_plan_rejects_k(k):
+    with pytest.raises(ValueError, match=f"K={k}"):
+        k4.plan(k, 8192, torch.float32)
 
 
 # ------------------------------------------------------------ dispatch

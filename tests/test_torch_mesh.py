@@ -15,10 +15,12 @@ numpy's slogdet: the documented bf16 error model).  The sharded estimators on
 identical probes and bounds: f64 rtol 1e-10, the JAX package's own
 sharded-against-dense tolerance (tests/test_estimators.py:125).  Within
 the port: lookahead bitwise equal to the plain schedule, and every rank
-returns the same result bit for bit.
+returns the same result bit for bit.  A matrix with a NaN entry (P = 1,
+2) gives sign NaN and log|det| NaN in both packages.
 """
 import functools
 import json
+import math
 
 import numpy as np
 import pytest
@@ -65,6 +67,10 @@ def _cases():
 
 
 CASES = _cases()
+# a Gaussian matrix with one NaN entry, run by the mesh sizes NAN_SIZES
+NAN_CASE = np.random.default_rng(0).standard_normal((40, 40))
+NAN_CASE[5, 7] = np.nan
+NAN_SIZES = (1, 2)
 ROUTES = [(c, d) for d in ("float32", "float64") for c in sorted(CASES)
           if not (d == "float32" and c == "near_singular")]
 
@@ -100,6 +106,8 @@ def _port(size: int):
                              probes=PLAN_PROBES, bounds=PLAN_BOUNDS)}
     if size != 2:
         payload["sharded"] = EST
+    if size in NAN_SIZES:
+        payload["nan"] = {"nan": NAN_CASE}
     return run_ranks(ranks.everything, size, backend="gloo", device="cpu",
                      timeout=SPAWN_TIMEOUT, args=(payload,))
 
@@ -138,8 +146,11 @@ print(json.dumps(out))
 """
 
 
-def _jax_inputs(path, with_est: bool):
+def _jax_inputs(path, with_est: bool, with_nan: bool):
     arrays = {f"case|{c}|{d}": CASES[c].astype(d) for c, d in ROUTES}
+    if with_nan:
+        arrays.update({f"case|nan|{d}": NAN_CASE.astype(d)
+                       for d in ("float32", "float64")})
     if with_est:
         arrays.update(est_a=EST["a"], est_probes=EST["probes"],
                       est_bounds=np.asarray(EST["bounds"]))
@@ -151,8 +162,10 @@ def jax_refs(tmp_path_factory):
     """``{size: {route or estimator: values}}`` of the JAX package."""
     mesh1 = make_mesh((1,), ("rows",))       # the mesh1 fixture's mesh
     refs = {1: {}}
-    for case, dtype in ROUTES:
-        a = jax_pad(jnp.asarray(CASES[case].astype(dtype)), 1)
+    nan_routes = [("nan", d) for d in ("float32", "float64")]
+    for case, dtype in ROUTES + nan_routes:
+        src = NAN_CASE if case == "nan" else CASES[case]
+        a = jax_pad(jnp.asarray(src.astype(dtype)), 1)
         for update in ("rank1", "panel"):
             cfg = JaxEngineConfig(schedule="mesh", update=update,
                                   panel_k=PANEL_K, backend="xla")
@@ -167,7 +180,7 @@ def jax_refs(tmp_path_factory):
     refs[1]["slq"] = [float(s.est), float(s.sem)]
     for size in (2, 4):
         path = str(tmp_path_factory.mktemp("jax_mesh") / f"p{size}.npz")
-        _jax_inputs(path, with_est=size == 4)
+        _jax_inputs(path, with_est=size == 4, with_nan=size in NAN_SIZES)
         code = _JAX_CODE.format(src=SRC, path=path, size=size, k=PANEL_K,
                                 degree=DEGREE, steps=NUM_STEPS)
         stdout = run_with_devices(code, size, timeout=SPAWN_TIMEOUT)
@@ -207,6 +220,20 @@ def test_lookahead_is_bitwise_plain(size, update):
         assert exact[f"{case}|{dtype}|{update}|1"] == plain, (case, dtype)
 
 
+@pytest.mark.parametrize("update", ["rank1", "panel"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("size", NAN_SIZES)
+def test_mesh_nan_entry_gives_a_nan_sign(jax_refs, size, dtype, update):
+    """Plain and lookahead; in the JAX package too.  The partial signs
+    reach the result through `mesh_tail`'s all_reduce and product."""
+    s_ref, ld_ref = jax_refs[size][f"nan|{dtype}|{update}"]
+    assert math.isnan(s_ref) and math.isnan(ld_ref)
+    got = _port(size)[0]["nan"]
+    for la in (0, 1):
+        s, ld = got[f"nan|{dtype}|{update}|{la}"]
+        assert math.isnan(s) and math.isnan(ld), (la, s, ld)
+
+
 @pytest.mark.parametrize("size", SIZES)
 def test_mesh_bf16_operands(size):
     """bf16 multiply operands on the mesh: within the 5e-3 bf16 error
@@ -228,6 +255,8 @@ def _same(x, y):
         return np.array_equal(x, y)
     if isinstance(x, (tuple, list)):
         return len(x) == len(y) and all(_same(a, b) for a, b in zip(x, y))
+    if isinstance(x, float) and isinstance(y, float):
+        return x == y or (math.isnan(x) and math.isnan(y))
     return x == y
 
 

@@ -145,6 +145,8 @@ def everything(mesh, payload: dict) -> dict:
     """One spawn per mesh size: the parts ``payload`` names."""
     out = {"exact": exact_routes(mesh, payload["cases"],
                                  payload.get("bf16_case"))}
+    if "nan" in payload:
+        out["nan"] = exact_routes(mesh, payload["nan"])
     if "sharded" in payload:
         out["sharded"] = sharded(mesh, **payload["sharded"])
     if "plans" in payload:
