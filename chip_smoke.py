@@ -28,8 +28,10 @@ printed line each, any failure ends the run:
             `ref.cg_step_bound`), which planted faults must break; then
             each kernel's time beside its plain version, its bound and,
             where one PyTorch call computes the same function, that call
-            (K4: `torch.linalg.lu_factor_ex`, K8: `torch.sparse.mm` on a
-            CSR matrix of the bands);
+            (K1: `torch.addr`, K2: `torch.addmm`, K4:
+            `torch.linalg.lu_factor_ex`, K8: `torch.sparse.mm` on a CSR
+            matrix of the bands): K1-K3 in f32 and f64, K2 also with bf16
+            operands and on the mesh lookahead's 32 rows;
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
@@ -77,6 +79,9 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores' rate (K5 runs on them; DFMA alone peaks at 34e12)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 67e12}
+
+# time_ms(queued=True): about 20 ms at the H100's clock
+SLEEP_CYCLES = 40_000_000
 
 # K4 logdet: the card's log against PyTorch's log, summed over K pivots
 LOGDET_RTOL = {"float32": 1e-6, "float64": 1e-14}
@@ -135,19 +140,33 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
 
 
-def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+def time_ms(fn, *, warmup: int = 3, iters: int = 20,
+            queued: bool = False) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls;
+    ``queued`` puts them behind a sleeping kernel, so that a call shorter
+    than the host's enqueue is timed on the card, not on the host (and
+    fails if the enqueue outlasted the sleep)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        s0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
+    if queued:
+        slept = s0.elapsed_time(start)
+        require(host_ms < slept, f"enqueue of {iters} calls took {host_ms} "
+                f"ms, longer than the {slept} ms sleep: raise SLEEP_CYCLES")
     return start.elapsed_time(end) / iters
 
 
@@ -160,6 +179,12 @@ def bound_ms(bytes_moved: float, ops: float, dtype: str):
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
+
+# the dtype variants of phase 3 that are timed: "buffer/operands" -> key
+# (K1 and K3 in the buffer's dtype only)
+TIMED_VARIANTS = {"float32/float32": "float32", "float64/float64": "float64",
+                  "float32/bfloat16": "bf16_operands"}
+
 
 def kernel_phase(n: int, k: int, gen) -> dict:
     import torch
@@ -207,9 +232,7 @@ def kernel_phase(n: int, k: int, gen) -> dict:
         # rounding in either order, then one rounding of the subtract)
         got2, want2 = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
         acc = ref.accumulator_dtype(dt)
-        scale = c.to(acc).abs() @ r.to(acc).abs()
-        tol2 = (2 * k * torch.finfo(acc).eps * scale
-                + torch.finfo(dt).eps * want2.abs())
+        tol2 = ref.panel_update_bound(a, c, r, want2)
         diff2 = (got2 - want2).abs()
         err2 = diff2.max().item()
         require(bool((diff2 <= tol2).all()),
@@ -219,40 +242,86 @@ def kernel_phase(n: int, k: int, gen) -> dict:
             panel_update_max_rel_to_bound=(
                 diff2 / tol2.clamp_min(torch.finfo(acc).tiny)).max().item())
 
-        if (dt, op) != (torch.float32, torch.float32):
-            continue
-        # timings at the main path's dtype (f32)
-        it = 4
-        name_dt = "float32"
-        b1 = (2 * n * n + 2 * n) * it
-        b2 = (2 * n * n + n * k + k * n) * it
-        b3 = (2 * n * n + 4 * n) * it + 8
-        timings["rank1_update"] = dict(
-            max_abs_err=err1,
-            ms=time_ms(lambda: condense_step.rank1_update(a, pc, pr)),
-            plain_ms=time_ms(lambda: ref.rank1_update_ref(a, pc, pr)),
-            library_ms=time_ms(lambda: torch.addr(a, pc, pr, alpha=-1)),
-            bound=bound_ms(b1, 2 * n * n, name_dt))
-        timings["panel_update"] = dict(
-            max_abs_err=err2,
-            ms=time_ms(lambda: k2.panel_update(a, c, r)),
-            plain_ms=time_ms(lambda: ref.panel_update_ref(a, c, r)),
-            library_ms=time_ms(lambda: torch.addmm(a, c, r, alpha=-1)),
-            bound=bound_ms(b2, 2 * n * n * k + n * n, name_dt))
-        timings["fused_step"] = dict(
-            max_abs_err=err3,
-            ms=time_ms(lambda: fused_step.fused_step(a, l, last, pc, pr,
-                                                     col_l, col_last)),
-            plain_ms=time_ms(lambda: ref.fused_step_ref(a, l, last, pc, pr,
-                                                        col_l, col_last)),
-            library_ms=None,
-            bound=bound_ms(b3, 2 * n * n, name_dt))
-        for name, t in timings.items():
-            say("timing", kernel=name, shape=[n, n], k=k, ms=t["ms"],
-                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
-                bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        key = TIMED_VARIANTS.get(tag)
+        if key is not None:
+            times = kernel_times(n, k, a, pc, pr, c, r, l, last, col_l,
+                                 col_last, (err1, err2, err3))
+            for name, t in times.items():
+                timings.setdefault(name, {})[key] = t
+                say("timing", kernel=name, variant=key, shape=[n, n], k=k,
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1])
+            if key == "float32":
+                # K2 on the mesh lookahead's 32 rows: shorter than the
+                # host's enqueue, so timed behind a sleeping kernel
+                rows = slice(0, 32)
+                ar, cr = a[rows], c[rows].contiguous()
+                t = dict(
+                    ms=time_ms(lambda: k2.panel_update(ar, cr, r),
+                               queued=True),
+                    plain_ms=time_ms(lambda: ref.panel_update_ref(ar, cr, r),
+                                     queued=True),
+                    library_ms=time_ms(lambda: torch.addmm(ar, cr, r,
+                                                           alpha=-1),
+                                       queued=True),
+                    bound_ms=bound_ms((2 * 32 * n + 32 * k + k * n) * 4,
+                                      2 * 32 * n * k + 32 * n,
+                                      "float32")[0])
+                timings["panel_update"]["shapes"] = {f"32x{n}": t}
+                say("timing", kernel="panel_update", variant=key,
+                    shape=[32, n], k=k, **t)
         del a, pc, pr, c, r, got, want, got2, want2, got3, want3, sw
-    return timings
+        torch.cuda.empty_cache()
+    # the f32 fields at the top, each other variant under its key
+    return {name: dict(by_key.pop("float32"), **by_key)
+            for name, by_key in timings.items()}
+
+
+def kernel_times(n, k, a, pc, pr, c, r, l, last, col_l, col_last, errs):
+    """Times of K1-K3 on phase 3's operands, each beside its plain version,
+    its bound and the PyTorch call computing the same function (none for
+    K3, or for operands in another dtype than the buffer)."""
+    import torch
+    from repro_torch.kernels import condense_step, fused_step, ref
+    from repro_torch.kernels import panel_update as k2
+
+    err1, err2, err3 = errs
+    name_dt = str(a.dtype)[6:]
+    size, op_size = a.element_size(), c.element_size()
+    same = a.dtype == c.dtype
+    out = {"panel_update": dict(
+        max_abs_err=err2,
+        ms=time_ms(lambda: k2.panel_update(a, c, r)),
+        plain_ms=time_ms(lambda: ref.panel_update_ref(a, c, r)),
+        bound=bound_ms(2 * n * n * size + 2 * n * k * op_size,
+                       2 * n * n * k + n * n, name_dt))}
+    # bf16 operands: addmm's out_dtype overload widens them into an f32
+    # product; where the card refuses it, its error stands in the line
+    try:
+        lib = (lambda: torch.addmm(a, c, r, alpha=-1)) if same else \
+            (lambda: torch.addmm(a, c, r, out_dtype=a.dtype, alpha=-1))
+        out["panel_update"]["library_ms"] = time_ms(lib)
+    except RuntimeError as e:
+        out["panel_update"].update(library_ms=None,
+                                   library_error=str(e).splitlines()[0])
+    if not same:
+        return out
+    out["rank1_update"] = dict(
+        max_abs_err=err1,
+        ms=time_ms(lambda: condense_step.rank1_update(a, pc, pr)),
+        plain_ms=time_ms(lambda: ref.rank1_update_ref(a, pc, pr)),
+        library_ms=time_ms(lambda: torch.addr(a, pc, pr, alpha=-1)),
+        bound=bound_ms((2 * n * n + 2 * n) * size, 2 * n * n, name_dt))
+    out["fused_step"] = dict(
+        max_abs_err=err3,
+        ms=time_ms(lambda: fused_step.fused_step(a, l, last, pc, pr, col_l,
+                                                 col_last)),
+        plain_ms=time_ms(lambda: ref.fused_step_ref(a, l, last, pc, pr,
+                                                    col_l, col_last)),
+        library_ms=None,
+        bound=bound_ms((2 * n * n + 4 * n) * size + 8, 2 * n * n, name_dt))
+    return out
 
 
 def same_bits(a, b) -> bool:
@@ -1287,13 +1356,16 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
-        if "float64" in t:
-            f64 = t["float64"]
-            entry["float64"] = {
-                "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
-                "plain_ms": f64["plain_ms"], "bound_ms": f64["bound"][0],
-                "bound_by": f64["bound"][1],
-                "library_ms": f64["library_ms"]}
+        for variant in ("float64", "bf16_operands"):
+            if variant in t:
+                v = t[variant]
+                entry[variant] = {
+                    "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+                    "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                    "bound_by": v["bound"][1],
+                    "library_ms": v["library_ms"]}
+                if "library_error" in v:
+                    entry[variant]["library_error"] = v["library_error"]
         if t.get("matmul_ms") is not None:
             entry["matmul_ms"] = t["matmul_ms"]
         if "shapes" in t:

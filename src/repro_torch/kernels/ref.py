@@ -20,7 +20,7 @@ import torch
 __all__ = ["rank1_update_ref", "panel_update_ref", "fused_step_ref",
            "panel_factor_ref", "matvec_ref", "cheb_step_ref", "cg_step_ref",
            "stencil_mv_ref", "matvec_bound", "cheb_step_bound",
-           "cg_step_bound",
+           "cg_step_bound", "panel_update_bound",
            "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot", "nan_sign",
            "swap_positions"]
 
@@ -71,6 +71,19 @@ def panel_update_ref(a: torch.Tensor, c: torch.Tensor,
     """
     acc = accumulator_dtype(a.dtype)
     return a - (c.to(acc) @ r.to(acc)).to(a.dtype)
+
+
+def panel_update_bound(a: torch.Tensor, c: torch.Tensor, r: torch.Tensor,
+                       plain: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on how far two evaluations of ``a - c @ r`` whose
+    products are summed in different orders may differ:
+    ``2 K eps_acc (|c| @ |r|) + eps (|plain|)``, the product's rounding in
+    either order, then one rounding of the subtract.  ``plain`` is
+    `panel_update_ref`'s result."""
+    acc = accumulator_dtype(a.dtype)
+    return (2 * c.shape[1] * torch.finfo(acc).eps
+            * (c.to(acc).abs() @ r.to(acc).abs())
+            + torch.finfo(a.dtype).eps * plain.abs())
 
 
 def fused_step_ref(a: torch.Tensor, l, last: int, pc: torch.Tensor,

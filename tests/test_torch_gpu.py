@@ -11,7 +11,9 @@ Kernels against their plain versions at non-tile-multiple shapes: K1, K3,
 K8 and K4's R and ls bitwise (NaNs by position), K4's sign exactly (NaN
 where the plain version's is), K4's logdet within 1e-6
 (f32) / 1e-14 (f64) relative (the card's log against PyTorch's), K2
-within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out|, K6 and K7
+within its summation-order bound 2*K*eps*(|c|@|r|) + eps*|out| (NaN and
+inf where the plain version has them; a 32-row call bitwise equal to the
+same rows of the full call, as the mesh lookahead needs), K6 and K7
 within twice the rounding bound of one evaluation (`ref.cheb_step_bound`,
 `ref.cg_step_bound`), K5 within `ref.matvec_bound`.  The estimators on
 the card against the same calls on the CPU, with the same probes and
@@ -74,10 +76,79 @@ def test_panel_update_within_bound(cuda, shape, dt, op):
     c = _randn(gen, m, k, dtype=op, device=cuda)
     r = _randn(gen, k, n, dtype=op, device=cuda)
     got, want = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
-    acc = ref.accumulator_dtype(dt)
-    tol = (2 * k * torch.finfo(acc).eps * (c.to(acc).abs() @ r.to(acc).abs())
-           + torch.finfo(dt).eps * want.abs())
+    tol = ref.panel_update_bound(a, c, r, want)
     assert bool(((got - want).abs() <= tol).all())
+
+
+def _k2_operands(gen, m, n, k, dt, op, device):
+    return (_randn(gen, m, n, dtype=dt, device=device),
+            _randn(gen, m, k, dtype=op, device=device),
+            _randn(gen, k, n, dtype=op, device=device))
+
+
+# row blocks at a tile's start, inside a tile, and at the matrix's end;
+# n a multiple of 16 bytes (vector epilogue) and odd (element copies);
+# 2048 rows span more tiles than the card holds blocks (in f32 each
+# block walks several)
+@pytest.mark.parametrize("row0", [0, 32, 37, 2016])
+@pytest.mark.parametrize("n", [2080, 2047])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_panel_update_row_block_bitwise(cuda, row0, n, dt, op):
+    """The mesh lookahead's invariant: K2 on 32 rows equals the same rows
+    of the full call bit for bit (one summation order, whatever the call's
+    shape or a row's place in a tile), and a repeated call is bitwise
+    equal."""
+    gen = torch.Generator().manual_seed(4)
+    a, c, r = _k2_operands(gen, 2048, n, 32, dt, op, cuda)
+    full = k2.panel_update(a, c, r)
+    rows = slice(row0, row0 + 32)
+    assert torch.equal(k2.panel_update(a[rows], c[rows].contiguous(), r),
+                       full[rows])
+    assert torch.equal(k2.panel_update(a, c, r), full)
+
+
+@pytest.mark.parametrize("where", ["a_nan", "a_inf", "c_nan", "c_neg_inf",
+                                   "r_nan", "r_inf", "r_inf_zero_c_row"])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_panel_update_special_values(cuda, where, dt, op):
+    """NaN and inf in a, c or r propagate as in the plain version: the
+    same NaN positions, the same infinities with their signs, and the
+    finite entries within the summation-order bound."""
+    gen = torch.Generator().manual_seed(5)
+    a, c, r = _k2_operands(gen, 300, 515, 32, dt, op, cuda)
+    special = {"a_nan": (a, (7, 9), float("nan")),
+               "a_inf": (a, (7, 9), float("inf")),
+               "c_nan": (c, (11, 3), float("nan")),
+               "c_neg_inf": (c, (11, 3), -float("inf")),
+               "r_nan": (r, (5, 100), float("nan")),
+               "r_inf": (r, (5, 100), float("inf")),
+               "r_inf_zero_c_row": (r, (5, 100), float("inf"))}
+    t, at, value = special[where]
+    t[at] = value
+    if where == "r_inf_zero_c_row":
+        c[20] = 0.0     # a masked row: 0 * inf is NaN in both
+    got, plain = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
+    assert torch.isnan(got).any() or torch.isinf(got).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    inf = torch.isinf(plain)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], plain[inf])
+    fin = torch.isfinite(plain)
+    tol = ref.panel_update_bound(a, c, r, plain)
+    assert bool(((got - plain).abs()[fin] <= tol[fin]).all())
+
+
+# widths of the staged route's stages at N = 8192 (stage_schedule(8192,
+# 0.75, 64)), from the last stage up
+@pytest.mark.parametrize("width", [64, 462, 1944, 4608])
+@pytest.mark.parametrize("k", [7, 32, 48])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_panel_update_staged_widths(cuda, width, k, dt, op):
+    gen = torch.Generator().manual_seed(6)
+    a, c, r = _k2_operands(gen, width, width, k, dt, op, cuda)
+    got, plain = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
+    tol = ref.panel_update_bound(a, c, r, plain)
+    assert bool(((got - plain).abs() <= tol).all())
 
 
 def _same_bits(a, b) -> bool:

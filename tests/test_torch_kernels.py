@@ -126,6 +126,27 @@ def test_panel_update_bf16_follows_the_kernel(shape, dt, rng):
     np.testing.assert_allclose(got.numpy(), want, **_tol(np.float32, True))
 
 
+@pytest.mark.parametrize("shape", SHAPES_PK + ODD_SHAPES_PK)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_panel_update_bound_admits_pallas_refuses_a_dropped_term(shape, dt,
+                                                                 rng):
+    """`ref.panel_update_bound`, which K2 on the card is held to, admits
+    the Pallas kernel's own summation order and refuses a product that
+    lacks one of its K terms."""
+    m, n, k = shape
+    a = rng.standard_normal((m, n)).astype(dt)
+    c = rng.standard_normal((m, k)).astype(dt)
+    r = rng.standard_normal((k, n)).astype(dt)
+    ta, tc, tr = _t(a), _t(c), _t(r)
+    plain = ref.panel_update_ref(ta, tc, tr)
+    tol = ref.panel_update_bound(ta, tc, tr, plain)
+    pallas = torch.from_numpy(
+        np.asarray(panel_update_pallas(a, c, r, interpret=True)))
+    assert bool(((pallas - plain).abs() <= tol).all())
+    dropped = ta - tc[:, 1:] @ tr[1:]
+    assert not bool(((dropped - plain).abs() <= tol).all())
+
+
 # ------------------------------------------------------------------ K3
 
 @pytest.mark.parametrize("n", [7, 37, 129, 200])
