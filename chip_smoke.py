@@ -31,7 +31,10 @@ printed line each, any failure ends the run:
             (K1: `torch.addr`, K2: `torch.addmm`, K4:
             `torch.linalg.lu_factor_ex`, K8: `torch.sparse.mm` on a CSR
             matrix of the bands): K1-K3 in f32 and f64, K2 also with bf16
-            operands and on the mesh lookahead's 32 rows;
+            operands and on the mesh lookahead's 32 rows, K1 also on its
+            one row and beside a pure copy of its bytes (`copy_ms`), K6
+            and K7 beside cuBLAS's product alone (`matmul_ms`), K6 also
+            beside K5's (`matvec_ms`);
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
@@ -250,8 +253,10 @@ def kernel_phase(n: int, k: int, gen) -> dict:
                 timings.setdefault(name, {})[key] = t
                 say("timing", kernel=name, variant=key, shape=[n, n], k=k,
                     ms=t["ms"], plain_ms=t["plain_ms"],
-                    library_ms=t["library_ms"], bound_ms=t["bound"][0],
-                    bound_by=t["bound"][1])
+                    library_ms=t["library_ms"], copy_ms=t.get("copy_ms"),
+                    bound_ms=t["bound"][0], bound_by=t["bound"][1])
+                for shape, ts in t.get("shapes", {}).items():
+                    say("timing", kernel=name, variant=key, shape=shape, **ts)
             if key == "float32":
                 # K2 on the mesh lookahead's 32 rows: shorter than the
                 # host's enqueue, so timed behind a sleeping kernel
@@ -307,12 +312,27 @@ def kernel_times(n, k, a, pc, pr, c, r, l, last, col_l, col_last, errs):
                                    library_error=str(e).splitlines()[0])
     if not same:
         return out
+    o = torch.empty_like(a)
+    a1, pc1 = a[:1], pc[:1]
     out["rank1_update"] = dict(
         max_abs_err=err1,
         ms=time_ms(lambda: condense_step.rank1_update(a, pc, pr)),
         plain_ms=time_ms(lambda: ref.rank1_update_ref(a, pc, pr)),
         library_ms=time_ms(lambda: torch.addr(a, pc, pr, alpha=-1)),
-        bound=bound_ms((2 * n * n + 2 * n) * size, 2 * n * n, name_dt))
+        # a pure stream of K1's bytes: a read once, the output written once
+        copy_ms=time_ms(lambda: o.copy_(a)),
+        bound=bound_ms((2 * n * n + 2 * n) * size, 2 * n * n, name_dt),
+        # the mesh lookahead's one-row calls: shorter than the host's
+        # enqueue, so timed behind a sleeping kernel
+        shapes={f"1x{n}": dict(
+            ms=time_ms(lambda: condense_step.rank1_update(a1, pc1, pr),
+                       queued=True),
+            plain_ms=time_ms(lambda: ref.rank1_update_ref(a1, pc1, pr),
+                             queued=True),
+            library_ms=time_ms(lambda: torch.addr(a1, pc1, pr, alpha=-1),
+                               queued=True),
+            bound_ms=bound_ms((3 * n + 1) * size, 2 * n, name_dt)[0])})
+    del o
     out["fused_step"] = dict(
         max_abs_err=err3,
         ms=time_ms(lambda: fused_step.fused_step(a, l, last, pc, pr, col_l,
@@ -523,7 +543,7 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
     route's own operands, K8 at the lattice's, each in f32 and f64:
     parity, then times.  Returns ``{kernel: {dtype: fields}}``."""
     import torch
-    from repro_torch.kernels import fused_est, ref
+    from repro_torch.kernels import fused_est, matvec, ref
     from repro_torch.kernels import stencil_mv as k8
 
     k = PROBES
@@ -597,6 +617,8 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
                 ms=time_ms(lambda: fused_est.cheb_step(*a6)),
                 plain_ms=time_ms(lambda: ref.cheb_step_ref(*a6)),
                 library_ms=None, matmul_ms=time_ms(lambda: a @ a6[1]),
+                # K5 alone: the product on the tile K6 shares
+                matvec_ms=time_ms(lambda: matvec.matvec(a, a6[1])),
                 bound=bound_ms((n * n + 4 * n * k + k) * size,
                                2 * n * n * k + 8 * n * k, name_dt)),
             "cg_step": dict(
@@ -622,7 +644,8 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
                 shape=[nn, k] if name == "stencil_mv" else [n, n, k],
                 ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], matmul_ms=t["matmul_ms"],
-                bound_ms=t["bound"][0], bound_by=t["bound"][1])
+                matvec_ms=t.get("matvec_ms"), bound_ms=t["bound"][0],
+                bound_by=t["bound"][1])
         del a, a6, a7, operands, op, xs, y8, y80, csr
         torch.cuda.empty_cache()
     return out
@@ -1356,6 +1379,11 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+        # yardsticks beside a kernel: a pure stream of its bytes (K1),
+        # cuBLAS's product and K5's alone (K6, K7), other shapes
+        extras = ("library_error", "copy_ms", "matmul_ms", "matvec_ms",
+                  "shapes")
+        entry.update({f: t[f] for f in extras if t.get(f) is not None})
         for variant in ("float64", "bf16_operands"):
             if variant in t:
                 v = t[variant]
@@ -1364,12 +1392,8 @@ def main(argv=None) -> int:
                     "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                     "bound_by": v["bound"][1],
                     "library_ms": v["library_ms"]}
-                if "library_error" in v:
-                    entry[variant]["library_error"] = v["library_error"]
-        if t.get("matmul_ms") is not None:
-            entry["matmul_ms"] = t["matmul_ms"]
-        if "shapes" in t:
-            entry["shapes"] = t["shapes"]
+                entry[variant].update({f: v[f] for f in extras
+                                       if v.get(f) is not None})
         kernels.append(entry)
     say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,7 +55,8 @@ _ARGTYPES = {
     "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
                      _LL, _LL, _P),
-    "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
+    "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                  _LL, _LL, _LL, _LL, _LL, _P),
     "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
     "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),
     "matvec": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -5,26 +5,45 @@
 //
 // Bound: bytes.  Each element is read once and written once for one
 // multiply and one subtract (0.25 FLOP/byte in f32), so the kernel can
-// only approach the card's memory rate.  Design: every thread owns V
-// contiguous columns (one 16-byte vector: 4 f32 or 2 f64), loads its V
-// pivot-row values once, and walks kRowsPerBlock rows, so `a` and `out`
-// stream with coalesced 16-byte accesses and `pr` is read once per
-// kRowsPerBlock rows instead of once per element.  Rows whose width is
-// not a multiple of V, or unaligned buffers, take a scalar path with the
-// same arithmetic.  The multiply and the subtract round separately
-// (`product`, `sub_rn`): bitwise equal to the plain version.
+// only approach the card's memory rate, and it gets there only with
+// enough of `a` in flight on every SM.  Design (each choice measured on an
+// H100 against its alternatives, tools/k1_k6_variants.py; ms f32 / f64 at
+// 8192 x 8192):
+//  - Every thread owns V contiguous columns (one 16-byte vector: 4 f32 or
+//    2 f64) and loads its V pivot-row values once.
+//  - It takes its rows kRows = 8 at a time and issues all eight loads of
+//    `a` (and of `pc`) before the first subtract, so eight 16-byte loads a
+//    thread are in flight: 0.1807 / 0.3566, against 0.1865 / 0.3987 for
+//    the first K1, which loaded, subtracted and stored one row before it
+//    loaded the next, and 0.1793 / 0.3579 for a pure copy of the same
+//    bytes (`o.copy_(a)`).  Four rows at a time: 0.1816 / 0.3561.
+//  - One block per group of eight rows, so the card schedules short-lived
+//    blocks as SMs free up.  Persistent blocks (as many as the card holds
+//    at once, each walking the same number of groups with `pr` in
+//    registers) took 0.1947 / 0.3781.
+//  - Calls of fewer than eight rows (the mesh lookahead's one-row calls)
+//    take a one-row instance, a smaller body: 2.27 / 2.23 us at (1,
+//    8192), against 2.71 / 2.60 through the eight-row one and 2.37 / 2.51
+//    for the first K1.
+//  - Rows whose width is not a multiple of V, or unaligned buffers, take
+//    a scalar path with the same batching and the same arithmetic.
+// The multiply and the subtract round separately (`product`, `sub_rn`):
+// bitwise equal to the plain version, signed zeros, infinities and NaNs
+// included.  (K2 with K = 1 would not be: its FMA chain from zero turns a
+// -0 product into +0.)
 #include "repro_kernels.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 8;
+constexpr int kRows = 8;   // rows a thread loads before its first subtract
 
-template <typename T, typename OpT>
+// Block (blockIdx.x, blockIdx.y) owns kThreads * V columns of R rows.
+template <typename T, typename OpT, bool VEC, int R>
 __global__ void __launch_bounds__(kThreads)
 rank1_update_kernel(const T* __restrict__ a, const OpT* __restrict__ pc,
                     const OpT* __restrict__ pr, T* __restrict__ out,
-                    long long m, long long n, bool vec) {
+                    long long m, long long n) {
   using VT = typename repro::Vec16<T>::type;
   constexpr int V = repro::Vec16<T>::n;
   const long long j0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * V;
@@ -34,23 +53,68 @@ rank1_update_kernel(const T* __restrict__ a, const OpT* __restrict__ pc,
 #pragma unroll
   for (int v = 0; v < V; ++v)
     if (v < nv) prv[v] = pr[j0 + v];
-  const long long i0 = (long long)blockIdx.y * kRowsPerBlock;
-  const long long i1 = i0 + kRowsPerBlock < m ? i0 + kRowsPerBlock : m;
-  for (long long i = i0; i < i1; ++i) {
-    const OpT c = pc[i];
-    const long long off = i * n + j0;
-    if (vec) {
-      alignas(16) T x[V];
-      *reinterpret_cast<VT*>(x) = *reinterpret_cast<const VT*>(a + off);
+  const long long i0 = (long long)blockIdx.y * R;
+  const int rows = (int)(m - i0 < R ? m - i0 : R);
+  OpT c[R];
+  if constexpr (VEC) {
+    VT x[R];
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        x[v] = repro::sub_rn(x[v], repro::product<T>(c, prv[v]));
-      *reinterpret_cast<VT*>(out + off) = *reinterpret_cast<const VT*>(x);
-    } else {
-      for (int v = 0; v < nv; ++v)
-        out[off + v] = repro::sub_rn(a[off + v], repro::product<T>(c, prv[v]));
-    }
+    for (int r = 0; r < R; ++r)
+      if (r < rows) {
+        x[r] = *reinterpret_cast<const VT*>(a + (i0 + r) * n + j0);
+        c[r] = pc[i0 + r];
+      }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rows) {
+        alignas(16) T y[V];
+        *reinterpret_cast<VT*>(y) = x[r];
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          y[v] = repro::sub_rn(y[v], repro::product<T>(c[r], prv[v]));
+        *reinterpret_cast<VT*>(out + (i0 + r) * n + j0) = *reinterpret_cast<const VT*>(y);
+      }
+  } else {
+    T x[R][V];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rows) {
+        c[r] = pc[i0 + r];
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (v < nv) x[r][v] = a[(i0 + r) * n + j0 + v];
+      }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rows) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (v < nv)
+            out[(i0 + r) * n + j0 + v] =
+                repro::sub_rn(x[r][v], repro::product<T>(c[r], prv[v]));
+      }
   }
+}
+
+template <typename T, typename OpT, bool VEC, int R>
+int launch_kernel(const void* a, const void* pc, const void* pr, void* out,
+                  long long m, long long n, void* stream) {
+  constexpr int V = repro::Vec16<T>::n;
+  const auto kernel = rank1_update_kernel<T, OpT, VEC, R>;
+  const long long col_blocks = (n + (long long)kThreads * V - 1) / ((long long)kThreads * V);
+  const long long groups = (m + R - 1) / R;
+  kernel<<<dim3((unsigned)col_blocks, (unsigned)groups), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)a, (const OpT*)pc, (const OpT*)pr, (T*)out, m, n);
+  return (int)cudaGetLastError();
+}
+
+// Calls of fewer than kRows rows (the mesh lookahead's one-row calls) take
+// the one-row instance, which runs them sooner (measured, above)
+template <typename T, typename OpT, bool VEC>
+int launch_rows(const void* a, const void* pc, const void* pr, void* out,
+                long long m, long long n, void* stream) {
+  return m < kRows ? launch_kernel<T, OpT, VEC, 1>(a, pc, pr, out, m, n, stream)
+                   : launch_kernel<T, OpT, VEC, kRows>(a, pc, pr, out, m, n, stream);
 }
 
 template <typename T, typename OpT>
@@ -59,11 +123,8 @@ int launch(const void* a, const void* pc, const void* pr, void* out,
   constexpr int V = repro::Vec16<T>::n;
   const bool vec = n % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const dim3 grid((unsigned)((n + (long long)kThreads * V - 1) / ((long long)kThreads * V)),
-                  (unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
-  rank1_update_kernel<T, OpT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)a, (const OpT*)pc, (const OpT*)pr, (T*)out, m, n, vec);
-  return (int)cudaGetLastError();
+  return vec ? launch_rows<T, OpT, true>(a, pc, pr, out, m, n, stream)
+             : launch_rows<T, OpT, false>(a, pc, pr, out, m, n, stream);
 }
 
 }  // namespace

@@ -38,56 +38,20 @@ namespace {
 
 using namespace repro;
 
-constexpr int kRowWarps = 8;   // rows (warps) per 256-thread block, GEMV path
-constexpr int kMaxGemvCols = 4;
-
 template <typename T, int KC, bool VEC>
-__global__ void __launch_bounds__(32 * kRowWarps)
+__global__ void __launch_bounds__(32 * skinny::kGemvRows)
 matvec_rows_kernel(const T* __restrict__ a, const T* __restrict__ x,
                    T* __restrict__ o, long long m, long long n) {
   const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
+  const long long row = (long long)blockIdx.x * skinny::kGemvRows + threadIdx.x / 32;
   if (row >= m) return;                       // the whole warp leaves
-  const T* __restrict__ arow = a + row * n;
   T acc[KC];
-#pragma unroll
-  for (int j = 0; j < KC; ++j) acc[j] = T(0);
-  if constexpr (VEC) {
-    using V = typename Vec16<T>::type;
-    constexpr int W = Vec16<T>::n;
-    const V* __restrict__ av = reinterpret_cast<const V*>(arow);
-    const long long nv = n / W;
-#pragma unroll 4
-    for (long long c = lane; c < nv; c += 32) {
-      const V v = __ldg(av + c);
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int q = 0; q < W; ++q) {
-        const T* xr = x + (c * W + q) * KC;
-#pragma unroll
-        for (int j = 0; j < KC; ++j) acc[j] = fma_rn(e[q], __ldg(xr + j), acc[j]);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (long long c = lane; c < n; c += 32) {
-      const T e = __ldg(arow + c);
-#pragma unroll
-      for (int j = 0; j < KC; ++j) acc[j] = fma_rn(e, __ldg(x + c * KC + j), acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KC; ++j)
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      acc[j] = add_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
+  skinny::row_dot<T, KC, VEC>(a + row * n, x, n, lane, acc);
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < KC; ++j) o[row * KC + j] = acc[j];
   }
 }
-
-constexpr int kSplitAlign = 32;   // a range's length is a multiple of this
 
 // out[z] (m, k) = a[:, z*split_len : (z+1)*split_len] @ x[that range, :] for
 // range z = blockIdx.z; block (blockIdx.x, blockIdx.y) owns kBlockRows rows
@@ -126,12 +90,12 @@ __global__ void split_sum_kernel(const T* __restrict__ partials, T* __restrict__
 template <typename T, int KC>
 void launch_rows(const T* a, const T* x, T* o, long long m, long long n,
                  cudaStream_t s) {
-  const unsigned blocks = (unsigned)((m + kRowWarps - 1) / kRowWarps);
+  const unsigned blocks = (unsigned)((m + skinny::kGemvRows - 1) / skinny::kGemvRows);
   const bool vec = n % Vec16<T>::n == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   if (vec)
-    matvec_rows_kernel<T, KC, true><<<blocks, 32 * kRowWarps, 0, s>>>(a, x, o, m, n);
+    matvec_rows_kernel<T, KC, true><<<blocks, 32 * skinny::kGemvRows, 0, s>>>(a, x, o, m, n);
   else
-    matvec_rows_kernel<T, KC, false><<<blocks, 32 * kRowWarps, 0, s>>>(a, x, o, m, n);
+    matvec_rows_kernel<T, KC, false><<<blocks, 32 * skinny::kGemvRows, 0, s>>>(a, x, o, m, n);
 }
 
 template <typename T, int BN, skinny::Copy MODE>
@@ -179,23 +143,19 @@ int launch(const void* a_, const void* x_, void* o_, void* partials_,
   const T* x = (const T*)x_;
   T* o = (T*)o_;
   T* partials = (T*)partials_;
-  if (k <= kMaxGemvCols) {
-    if (bm != kRowWarps || bn != k || splits != 1) return (int)cudaErrorInvalidValue;
+  if (k <= skinny::kMaxGemvCols) {
+    if (bm != skinny::kGemvRows || bn != k || splits != 1) return (int)cudaErrorInvalidValue;
     switch (k) {
       case 1: launch_rows<T, 1>(a, x, o, m, n, s); break;
       case 2: launch_rows<T, 2>(a, x, o, m, n, s); break;
       case 3: launch_rows<T, 3>(a, x, o, m, n, s); break;
       case 4: launch_rows<T, 4>(a, x, o, m, n, s); break;
     }
-    static_assert(kMaxGemvCols == 4, "the switch above covers k = 1..4");
+    static_assert(skinny::kMaxGemvCols == 4, "the switch above covers k = 1..4");
     return (int)cudaGetLastError();
   }
-  const bool cut_ok =
-      bm == skinny::kBlockRows && chunk == skinny::kChunkBytes / (long long)sizeof(T) &&
-      split_len > 0 && split_len % kSplitAlign == 0 && splits >= 1 && splits <= 65535 &&
-      splits == (n > 0 ? (n + split_len - 1) / split_len : 1) &&
-      (splits == 1 || partials != nullptr);
-  if (!cut_ok) return (int)cudaErrorInvalidValue;
+  if (!skinny::tile_cut_ok<T>(n, bm, chunk, splits, split_len, partials))
+    return (int)cudaErrorInvalidValue;
   switch (bn) {
     case 16: return (int)launch_bn<T, 16>(a, x, o, partials, m, n, k, splits, split_len, s);
     case 32: return (int)launch_bn<T, 32>(a, x, o, partials, m, n, k, splits, split_len, s);

@@ -62,12 +62,17 @@ int repro_matvec(int dtype, const void* a, const void* x, void* o,
                  long long split_len, void* stream);
 
 // K6: one Chebyshev step on a (n, n), w / w_prev / v (n, k) in dtype;
-// w_next (n, k) out, dots (k,) out, partials (ceil(n / 32), k) scratch;
-// center and width are one-element device buffers in dtype.
+// w_next (n, k) out, dots (k,) out; center and width are one-element
+// device buffers in dtype.  The cut (bm, bn, chunk, splits, split_len) is
+// kernels/matvec.py:plan's for (n, n, k);
+// partials (ceil(n / bm), k) is scratch, and so is slices (splits, n, k)
+// when splits > 1 (else may be null).
 int repro_cheb_step(int dtype, const void* a, const void* w,
                     const void* w_prev, const void* v, const void* center,
                     const void* width, void* w_next, void* dots,
-                    void* partials, long long n, long long k, void* stream);
+                    void* partials, void* slices, long long n, long long k,
+                    long long bm, long long bn, long long chunk,
+                    long long splits, long long split_len, void* stream);
 
 // K7: one CG step on a (n, n), p / x / r (n, k), rz (k,) in dtype;
 // x_new, r_new (n, k) out, ap (n, k) and partials (ceil(n / 32), k) scratch.

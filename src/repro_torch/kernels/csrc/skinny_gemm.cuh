@@ -1,10 +1,10 @@
-// The skinny GEMM tile shared by K5 (matvec), K6 (cheb_step) and K7
-// (cg_step).
+// The skinny GEMM tile of K7 (cg_step), and the ordered column sum of
+// partial dots that K6 (cheb_step) shares (K5 and K6 compute their
+// products on skinny_mma.cuh's tile).
 //
-// Each computes `A @ w` for A (m, n) -- square for K6/K7, a rank's row
-// block for K5 -- and a slab w (n, k) of a few dozen probe columns; K6
-// and K7 then finish an elementwise epilogue on the (32 x 32) output tile
-// while it is still in registers.  A is read from device memory exactly
+// It computes `A @ w` for a square A (n, n) and a slab w (n, k) of a few
+// dozen probe columns; K7 then finishes an elementwise epilogue on the
+// (32 x 32) output tile while it is still in registers.  A is read from device memory exactly
 // once per 32 columns of the slab (once in all for k <= 32), so at k = 32
 // an f32 call moves 4 bytes of A per 64 FLOP: near the card's f32 ridge,
 // and bound by the FFMA rate of this plain shared-memory GEMM rather than

@@ -1,6 +1,8 @@
-// The skinny tile of K5 (matvec) on Hopper: a block's (kBlockRows x BN)
-// share of `A[:, kbeg:kend] @ X[kbeg:kend, :]` for A (m, n) and a slab X
-// (n, k) of a few dozen probe columns, both row-major.
+// The skinny tile of K5 (matvec) and K6 (cheb_step) on Hopper: a block's
+// (kBlockRows x BN) share of `A[:, kbeg:kend] @ X[kbeg:kend, :]` for A
+// (m, n) and a slab X (n, k) of a few dozen probe columns, both
+// row-major; and, for k <= kMaxGemvCols, one row of A against X by one
+// warp (`row_dot`).
 //
 // Bound: bytes.  A is read from device memory once for any k <= BN
 // (BN = 16, 32 or 64), at 4 bytes of f32 per 2k FLOP: at k = 32 an f32
@@ -373,6 +375,66 @@ __device__ __forceinline__ T sum(const T* smem, int row, int col) {
 #pragma unroll
   for (int g = 1; g < G; ++g) s = add_rn(s, p[g * kBlockRows * BN]);
   return s;
+}
+
+// Whether (bm, chunk, splits, split_len) is a cut of the tile path that
+// kernels/matvec.py:plan can give for n columns of A: 32-aligned ranges
+// that cover [0, n), a partials buffer when there are several.
+constexpr int kSplitAlign = 32;   // a range's length is a multiple of this
+template <typename T>
+__host__ __forceinline__ bool tile_cut_ok(long long n, long long bm, long long chunk,
+                                          long long splits, long long split_len,
+                                          const void* partials) {
+  return bm == kBlockRows && chunk == kChunkBytes / (long long)sizeof(T) && split_len > 0 &&
+         split_len % kSplitAlign == 0 && splits >= 1 && splits <= 65535 &&
+         splits == (n > 0 ? (n + split_len - 1) / split_len : 1) &&
+         (splits == 1 || partials != nullptr);
+}
+
+// The GEMV path (k <= kMaxGemvCols): one warp per row of A, kGemvRows
+// rows per 256-thread block.
+constexpr int kGemvRows = 8;
+constexpr int kMaxGemvCols = 4;
+
+// acc[j] = sum over c of arow[c] * x[c * KC + j], by one warp: lane `lane`
+// takes columns lane, lane + 32, ... (16-byte vectors of them when VEC:
+// arow 16-byte aligned, n a multiple of the vector), multiplies each by
+// the KC entries of x it meets (x is small and stays in L1/L2), and the 32
+// partial sums meet by shuffles in a fixed order; every lane gets them.
+template <typename T, int KC, bool VEC>
+__device__ __forceinline__ void row_dot(const T* __restrict__ arow, const T* __restrict__ x,
+                                        long long n, int lane, T (&acc)[KC]) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) acc[j] = T(0);
+  if constexpr (VEC) {
+    using V = typename Vec16<T>::type;
+    constexpr int W = Vec16<T>::n;
+    const V* __restrict__ av = reinterpret_cast<const V*>(arow);
+    const long long nv = n / W;
+#pragma unroll 4
+    for (long long c = lane; c < nv; c += 32) {
+      const V v = __ldg(av + c);
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        const T* xr = x + (c * W + q) * KC;
+#pragma unroll
+        for (int j = 0; j < KC; ++j) acc[j] = fma_rn(e[q], __ldg(xr + j), acc[j]);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (long long c = lane; c < n; c += 32) {
+      const T e = __ldg(arow + c);
+#pragma unroll
+      for (int j = 0; j < KC; ++j) acc[j] = fma_rn(e, __ldg(x + c * KC + j), acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KC; ++j)
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      acc[j] = add_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
 }
 
 }  // namespace skinny

@@ -8,25 +8,37 @@ versions are `repro_torch.kernels.ref.cheb_step_ref` and
 
 Bound: bytes at k = 32 f32 (A once; near the f32 FFMA ridge), which
 the Pallas kernels meet by holding A in VMEM.  Both stream the (n, n)
-matrix once through a skinny shared-memory FFMA GEMM (no TF32) and
-finish the recurrence in its epilogue, so the slabs cross memory once;
-their column dots are reduced across blocks through a (tiles, k) buffer
-in a fixed order, so a repeated call is bitwise repeatable.  Unlike the
-Pallas kernels they have no size budget: on a CUDA tensor they run at
-every n.
+matrix once and finish the recurrence on the product's tile, so the
+slabs cross memory once; their column dots are reduced across blocks
+through a (row blocks, k) buffer in a fixed order, so a repeated call is
+bitwise repeatable.  Unlike the Pallas kernels they have no size budget:
+on a CUDA tensor they run at every n.
+
+K6 computes ``A @ w`` on K5's tile (``csrc/skinny_mma.cuh``: 128-row
+blocks, A streamed through a shared-memory ring by the copy engine, DMMA
+in f64), cut by `matvec.plan` for ``(n, n, k)``: where that cut splits
+the reduction axis, each range writes an (S, n, k) slice allocated here
+and the pass that adds the slices runs the recurrence; the partial dots
+take one row of k per block of the cut's ``bm`` rows.
+On an H100 at n = 16384, k = 32 (``tools/k1_k6_variants.py``): 0.556 /
+0.761 ms in f32 / f64, split in two; the axis whole 0.701 / 1.084; the
+first K6, on the 32 x 32 FFMA tile that K7 still uses, 1.143 / 3.079.
+K7 stays on ``csrc/skinny_gemm.cuh``, one partial-dot row per `GEMM_ROWS`
+rows.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import matvec as _k5
 
 __all__ = ["cheb_step", "cg_step", "cheb_step_launches", "cg_step_launches",
            "GEMM_ROWS", "MAX_CG_COLUMNS"]
 
 cheb_step_launches = 0   # since the last reset (ops.reset_launch_counts)
 cg_step_launches = 0
-GEMM_ROWS = 32           # rows of A per block: one partial-dot row per tile
+GEMM_ROWS = 32           # K7: rows of A per block, one partial-dot row each
 MAX_CG_COLUMNS = 4096    # K7 keeps one alpha per column in shared memory;
                          # a wider slab runs in column blocks of this width
 
@@ -53,7 +65,9 @@ def cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
 
     ``w_next = 2 (2 a w - center w) / width - w_prev``, ``dots = (v *
     w_next).sum(0)``.  ``center`` and ``width`` are one-element tensors on
-    the card (read there, so the host never waits for them).
+    the card (read there, so the host never waits for them).  Two or three
+    launches behind one entry point (the product with or without its
+    split pass, then the column sums), counted as one.
     """
     global cheb_step_launches
     if center.numel() != 1 or width.numel() != 1:
@@ -62,14 +76,18 @@ def cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
     n, k = _check("cheb_step", a, (w, w_prev, v), (center, width))
     w_next = torch.empty_like(w)
     dots = torch.empty(k, dtype=a.dtype, device=a.device)
-    partials = torch.empty((-(-n // GEMM_ROWS), k), dtype=a.dtype,
-                           device=a.device)
+    p = _k5.plan(n, n, k, a.dtype, _k5._sm_count(a.device.index))
+    partials = torch.empty((-(-n // p.bm), k), dtype=a.dtype, device=a.device)
+    slices = (torch.empty(p.workspace, dtype=a.dtype, device=a.device)
+              if p.workspace else None)
     fn = _build.function("cheb_step")
     with torch.cuda.device(a.device):
         rc = fn(_build.dtype_code(a.dtype), a.data_ptr(), w.data_ptr(),
                 w_prev.data_ptr(), v.data_ptr(), center.data_ptr(),
                 width.data_ptr(), w_next.data_ptr(), dots.data_ptr(),
-                partials.data_ptr(), n, k, _build.stream(a))
+                partials.data_ptr(),
+                None if slices is None else slices.data_ptr(), n, k, p.bm,
+                p.bn, p.chunk, p.splits, p.split_len, _build.stream(a))
     _build.check(rc, "cheb_step")
     cheb_step_launches += 1
     return w_next, dots

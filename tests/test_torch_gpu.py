@@ -49,13 +49,22 @@ def _randn(gen, *shape, dtype, device):
         device=device, dtype=dtype)
 
 
+# K1's paths: one row (the mesh lookahead's calls: its one-row instance);
+# widths just under and just over a block's span (256 threads of one
+# 16-byte vector: 1024 f32 or 512 f64 columns); rows 1.. of a matrix of
+# odd width, whose rows are not 16-byte aligned (a third entry drops that
+# many rows); 20001 rows of one block's width (2501 row blocks, more than
+# the card holds at once)
 @pytest.mark.parametrize("shape", [(1, 1), (7, 129), (129, 7), (255, 383),
-                                   (33, 257)])
+                                   (33, 257), (1, 8192), (5, 511), (5, 513),
+                                   (5, 1023), (5, 1025), (40, 1001, 1),
+                                   (40, 8191, 1), (20001, 100)])
 @pytest.mark.parametrize("dt,op", VARIANTS)
 def test_rank1_and_fused_step_bitwise(cuda, shape, dt, op):
     gen = torch.Generator().manual_seed(0)
-    m, n = shape
-    a = _randn(gen, m, n, dtype=dt, device=cuda)
+    m, n, *skip = shape
+    a = _randn(gen, m, n, dtype=dt, device=cuda)[sum(skip):]
+    m -= sum(skip)
     pc = _randn(gen, m, dtype=op, device=cuda)
     pr = _randn(gen, n, dtype=op, device=cuda)
     assert torch.equal(condense_step.rank1_update(a, pc, pr),
@@ -64,6 +73,31 @@ def test_rank1_and_fused_step_bitwise(cuda, shape, dt, op):
     cl, clast = a[:, n // 2].contiguous(), a[:, last].contiguous()
     assert torch.equal(fused_step.fused_step(a, l, last, pc, pr, cl, clast),
                        ref.fused_step_ref(a, l, last, pc, pr, cl, clast))
+
+
+@pytest.mark.parametrize("where", ["a", "pc", "pr", "all"])
+@pytest.mark.parametrize("n", [257, 1024])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_rank1_update_special_values(cuda, where, n, dt, op):
+    """-0, +-inf and NaN in a, pc or pr: K1 equal to the plain version bit
+    for bit (NaNs by position), on the vector path (n = 1024) and the
+    scalar one (n = 257); with all of them, -0 - (+0) stays -0, -0 - (-0)
+    is +0 and inf - inf is NaN."""
+    gen = torch.Generator().manual_seed(2)
+    m = 9
+    a = _randn(gen, m, n, dtype=dt, device=cuda)
+    pc = _randn(gen, m, dtype=op, device=cuda)
+    pr = _randn(gen, n, dtype=op, device=cuda)
+    if where in ("a", "all"):
+        a[0, :4] = -0.0
+        a[1, 1], a[1, 2], a[2, 5] = float("inf"), float("-inf"), float("nan")
+    if where in ("pc", "all"):
+        pc[0], pc[3], pc[4] = -0.0, float("inf"), float("nan")
+    if where in ("pr", "all"):
+        pr[0], pr[1], pr[2], pr[6] = 0.0, -0.0, float("-inf"), float("nan")
+    got = condense_step.rank1_update(a, pc, pr)
+    want = ref.rank1_update_ref(a, pc, pr)
+    assert _same_bits(got, want) and got.isnan().any()
 
 
 @pytest.mark.parametrize("shape", [(7, 129, 3), (65, 190, 33),
@@ -312,7 +346,13 @@ def test_plan_defaults_to_the_card(cuda):
 
 
 EST_DTYPES = [torch.float32, torch.float64]
-EST_SHAPES = [(1, 1), (37, 5), (130, 7), (257, 33), (1000, 32)]
+# K6 at k = 1 (one warp a row), then for k = 5, 16, 33, 64 and 65 with
+# the reduction axis in one range (n at most one 32-column f64 stage, or
+# more 128-row blocks than 132 SMs take two of: (4300, 200)) and split
+# (`matvec.plan` for (n, n, k) on a 132-SM H100); no n a multiple of 128
+EST_SHAPES = [(1, 1), (1000, 1), (30, 5), (1001, 5), (31, 16), (1001, 16),
+              (29, 33), (257, 33), (31, 64), (1000, 64), (27, 65),
+              (1000, 65), (130, 7), (1000, 32), (4300, 200)]
 
 
 @pytest.mark.parametrize("n,k", EST_SHAPES)

@@ -179,3 +179,59 @@ def test_matvec_plan_workspace_is_s_m_k(shape, dt):
     p = k5.plan(m, n, k, dt, H100_SMS)
     assert p.workspace == (p.splits * m * k if p.splits > 1 else 0)
     assert p.splits == max(1, -(-n // p.split_len))
+
+
+# K6 (`fused_est.cheb_step`) computes ``A @ w`` on K5's tile with K5's cut:
+# the dense Chebyshev cell (n = 16384, k = 32: split in two on 132 SMs),
+# wider slabs (one and two column blocks of 64), n not a multiple of the
+# 128-row block, and the warp-per-row path (k <= 4).
+K6_SHAPES = [(16384, 32), (16384, 64), (16384, 65), (1000, 33), (4097, 5),
+             (129, 16), (300, 200), (37, 4), (1, 1)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k", K6_SHAPES)
+def test_cheb_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
+    """The K6 wrapper hands its C entry `matvec.plan`'s cut for (n, n, k),
+    a partials buffer of one row of k per block of ``bm`` rows and, where
+    the reduction axis is split, an (S, n, k) slices buffer (else null)."""
+    import contextlib
+    from repro_torch.kernels import _build, fused_est
+
+    mv = k5.plan(n, n, k, dt, H100_SMS)
+    assert mv.bm == (k5.GEMV_ROWS if k <= 4 else k5.BLOCK_ROWS)
+    if (n, k) == (16384, 32):   # the dense Chebyshev cell splits in two
+        assert (mv.splits, -(-n // mv.bm)) == (2, 128)
+
+    seen, allocated = {}, {}
+    real_empty = torch.empty
+
+    def empty(*args, **kw):
+        t = real_empty(*args, **kw)
+        allocated[t.data_ptr()] = t
+        return t
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(_build, "function", lambda name: entry)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    monkeypatch.setattr(k5, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", empty)
+    a = real_empty((n, n), dtype=dt)
+    w = real_empty((n, k), dtype=dt)
+    one = real_empty((1,), dtype=dt)
+    fused_est.cheb_step(a, w, w, w, one, one)
+    (*_, partials, slices, n_, k_, bm, bn, chunk, splits, split_len,
+     stream) = seen["args"]
+    assert (n_, k_, bm, bn, chunk, splits, split_len) == (
+        n, k, mv.bm, mv.bn, mv.chunk, mv.splits, mv.split_len)
+    assert allocated[partials].shape == (-(-n // mv.bm), k)
+    if mv.splits > 1:
+        assert allocated[slices].numel() == mv.splits * n * k
+    else:
+        assert slices is None
