@@ -33,8 +33,8 @@ printed line each, any failure ends the run:
             matrix of the bands): K1-K3 in f32 and f64, K2 also with bf16
             operands and on the mesh lookahead's 32 rows, K1 also on its
             one row and beside a pure copy of its bytes (`copy_ms`), K6
-            and K7 beside cuBLAS's product alone (`matmul_ms`), K6 also
-            beside K5's (`matvec_ms`);
+            and K7 beside cuBLAS's product alone (`matmul_ms`) and K5's
+            (`matvec_ms`, the tile they share);
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
@@ -626,6 +626,8 @@ def estimator_kernel_phase(n: int, side: int, gen) -> dict:
                 ms=time_ms(lambda: fused_est.cg_step(*a7)),
                 plain_ms=time_ms(lambda: ref.cg_step_ref(*a7)),
                 library_ms=None, matmul_ms=time_ms(lambda: a @ a7[1]),
+                # K5 alone: the product on the tile K7 shares
+                matvec_ms=time_ms(lambda: matvec.matvec(a, a7[1])),
                 bound=bound_ms((n * n + 5 * n * k + k) * size,
                                2 * n * n * k + 6 * n * k, name_dt)),
             "stencil_mv": dict(

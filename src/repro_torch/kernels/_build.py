@@ -57,7 +57,8 @@ _ARGTYPES = {
                      _LL, _LL, _P),
     "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                   _LL, _LL, _LL, _LL, _LL, _P),
-    "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P),
+    "cg_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                _LL, _LL, _LL, _LL, _LL, _P),
     "stencil_mv": (_I, _P, _P, _I, _P, _P, _LL, _LL, _P),
     "matvec": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                _P),

@@ -37,12 +37,11 @@
 //    `A @ w`'s sums differs from it (and from the first K6's).
 //  - The probe dots are reduced without atomics: each block writes its
 //    column sums (its rows in order) to a (row blocks, k) buffer, and
-//    `column_sum_kernel` (skinny_gemm.cuh, shared with K7) adds them in
-//    row-block order, so a repeated call is bitwise repeatable.
+//    `column_sum_kernel` (skinny_mma.cuh) adds them in row-block order,
+//    so a repeated call is bitwise repeatable.
 //  - `center` and `width` are read from device memory: they come from
 //    `spectral_bounds` on the card, and a host float would stall the host
 //    on every step.
-#include "skinny_gemm.cuh"   // column_sum_kernel
 #include "skinny_mma.cuh"
 
 namespace {
@@ -259,7 +258,7 @@ int launch(const Args& g, long long bm, long long bn, long long chunk, long long
     }
   }
   if (err != cudaSuccess) return (int)err;
-  column_sum_kernel<T><<<(unsigned)((g.k + 127) / 128), 128, 0, g.s>>>(
+  skinny::column_sum_kernel<T><<<(unsigned)((g.k + 127) / 128), 128, 0, g.s>>>(
       (const T*)g.partials, (T*)g.dots, (g.n + bm - 1) / bm, g.k);
   return (int)cudaGetLastError();
 }

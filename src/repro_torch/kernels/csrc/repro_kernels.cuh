@@ -15,6 +15,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cstdint>
 #include <type_traits>
 
@@ -75,11 +76,15 @@ int repro_cheb_step(int dtype, const void* a, const void* w,
                     long long splits, long long split_len, void* stream);
 
 // K7: one CG step on a (n, n), p / x / r (n, k), rz (k,) in dtype;
-// x_new, r_new (n, k) out, ap (n, k) and partials (ceil(n / 32), k) scratch.
+// x_new, r_new (n, k) out.  The cut (bm, bn, chunk, splits, split_len) is
+// kernels/matvec.py:plan's for (n, n, k); ap (n, k) and partials
+// (ceil(n / bm), k) are scratch, and so is slices (splits, n, k) when
+// splits > 1 (else may be null).
 int repro_cg_step(int dtype, const void* a, const void* p, const void* x,
                   const void* r, const void* rz, void* x_new, void* r_new,
-                  void* ap, void* partials, long long n, long long k,
-                  void* stream);
+                  void* ap, void* partials, void* slices, long long n,
+                  long long k, long long bm, long long bn, long long chunk,
+                  long long splits, long long split_len, void* stream);
 
 // K8: y (n, k) = sum_d bands[d, :] * x[. + offsets[d], :], zero outside
 // [0, n); bands (nb, n), x (n, k) in dtype; offsets is a host array of nb
@@ -110,6 +115,11 @@ __device__ __forceinline__ float abs_(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 __device__ __forceinline__ float log_(float x) { return logf(x); }
 __device__ __forceinline__ double log_(double x) { return log(x); }
+
+// the smallest normal value: K7's alpha is 0 where |den| is not above it
+template <typename T> __device__ __forceinline__ T tiny();
+template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
+template <> __device__ __forceinline__ double tiny<double>() { return DBL_MIN; }
 
 template <typename T>
 __device__ __forceinline__ T widen(T x) { return x; }

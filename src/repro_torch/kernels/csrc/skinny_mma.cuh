@@ -1,8 +1,8 @@
-// The skinny tile of K5 (matvec) and K6 (cheb_step) on Hopper: a block's
-// (kBlockRows x BN) share of `A[:, kbeg:kend] @ X[kbeg:kend, :]` for A
-// (m, n) and a slab X (n, k) of a few dozen probe columns, both
-// row-major; and, for k <= kMaxGemvCols, one row of A against X by one
-// warp (`row_dot`).
+// The skinny tile of K5 (matvec), K6 (cheb_step) and K7 (cg_step) on
+// Hopper: a block's (kBlockRows x BN) share of `A[:, kbeg:kend] @
+// X[kbeg:kend, :]` for A (m, n) and a slab X (n, k) of a few dozen probe
+// columns, both row-major; and, for k <= kMaxGemvCols, one row of A
+// against X by one warp (`row_dot`).
 //
 // Bound: bytes.  A is read from device memory once for any k <= BN
 // (BN = 16, 32 or 64), at 4 bytes of f32 per 2k FLOP: at k = 32 an f32
@@ -435,6 +435,18 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ arow, const T* __r
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
       acc[j] = add_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
+}
+
+// out[c] = sum over row blocks t, in order, of partials[t, c]: the probe
+// dots of K6 from its blocks' column sums
+template <typename T>
+__global__ void column_sum_kernel(const T* __restrict__ partials, T* __restrict__ out,
+                                  long long blocks, long long k) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= k) return;
+  T s = T(0);
+  for (long long t = 0; t < blocks; ++t) s = add_rn(s, partials[t * k + c]);
+  out[c] = s;
 }
 
 }  // namespace skinny

@@ -14,17 +14,19 @@ through a (row blocks, k) buffer in a fixed order, so a repeated call is
 bitwise repeatable.  Unlike the Pallas kernels they have no size budget:
 on a CUDA tensor they run at every n.
 
-K6 computes ``A @ w`` on K5's tile (``csrc/skinny_mma.cuh``: 128-row
-blocks, A streamed through a shared-memory ring by the copy engine, DMMA
-in f64), cut by `matvec.plan` for ``(n, n, k)``: where that cut splits
-the reduction axis, each range writes an (S, n, k) slice allocated here
-and the pass that adds the slices runs the recurrence; the partial dots
-take one row of k per block of the cut's ``bm`` rows.
-On an H100 at n = 16384, k = 32 (``tools/k1_k6_variants.py``): 0.556 /
-0.761 ms in f32 / f64, split in two; the axis whole 0.701 / 1.084; the
-first K6, on the 32 x 32 FFMA tile that K7 still uses, 1.143 / 3.079.
-K7 stays on ``csrc/skinny_gemm.cuh``, one partial-dot row per `GEMM_ROWS`
-rows.
+K6 and K7 compute their product on K5's tile (``csrc/skinny_mma.cuh``:
+128-row blocks, A streamed through a shared-memory ring by the copy
+engine, DMMA in f64), cut by `matvec.plan` for ``(n, n, k)``: where that
+cut splits the reduction axis, each range writes an (S, n, k) slice
+allocated here, and the pass that adds the slices runs the epilogue (K6's
+recurrence, K7's ``ap`` and dots); the partial dots take one row of k
+per block of the cut's ``bm`` rows.  K7's second launch forms alpha from
+them and runs both axpys.
+On an H100 at n = 16384, k = 32, split in two, in f32 / f64: K6 0.556 /
+0.761 ms (``tools/k1_k6_variants.py``; the axis whole 0.701 / 1.084,
+the first K6 on a 32 x 32 FFMA tile 1.143 / 3.079); K7 0.551 / 0.763
+(``tools/k7_variants.py``; the axis whole 0.700 / 1.091, the first K7
+on that tile 1.130 / 3.077).
 """
 from __future__ import annotations
 
@@ -34,11 +36,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import matvec as _k5
 
 __all__ = ["cheb_step", "cg_step", "cheb_step_launches", "cg_step_launches",
-           "GEMM_ROWS", "MAX_CG_COLUMNS"]
+           "MAX_CG_COLUMNS"]
 
 cheb_step_launches = 0   # since the last reset (ops.reset_launch_counts)
 cg_step_launches = 0
-GEMM_ROWS = 32           # K7: rows of A per block, one partial-dot row each
 MAX_CG_COLUMNS = 4096    # K7 keeps one alpha per column in shared memory;
                          # a wider slab runs in column blocks of this width
 
@@ -99,7 +100,9 @@ def cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
 
     ``ap = a p``, ``alpha = rz / (p . ap)`` per column (0 where the
     denominator is not above ``finfo.tiny``), ``x + alpha p`` and ``r -
-    alpha ap``.  Two launches behind one entry point, counted as one.
+    alpha ap``.  Two or three launches behind one entry point (the
+    product with or without its split pass, then the update), counted as
+    one.
     The columns are independent: a slab wider than ``MAX_CG_COLUMNS``
     runs as one such call per block of that many columns.
     """
@@ -115,13 +118,18 @@ def cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
         return (torch.cat([xp for xp, _ in parts], 1),
                 torch.cat([rp for _, rp in parts], 1))
     x_new, r_new, ap = (torch.empty_like(p) for _ in range(3))
-    partials = torch.empty((-(-n // GEMM_ROWS), k), dtype=a.dtype,
+    cut = _k5.plan(n, n, k, a.dtype, _k5._sm_count(a.device.index))
+    partials = torch.empty((-(-n // cut.bm), k), dtype=a.dtype,
                            device=a.device)
+    slices = (torch.empty(cut.workspace, dtype=a.dtype, device=a.device)
+              if cut.workspace else None)
     fn = _build.function("cg_step")
     with torch.cuda.device(a.device):
         rc = fn(_build.dtype_code(a.dtype), a.data_ptr(), p.data_ptr(),
                 x.data_ptr(), r.data_ptr(), rz.data_ptr(), x_new.data_ptr(),
-                r_new.data_ptr(), ap.data_ptr(), partials.data_ptr(), n, k,
+                r_new.data_ptr(), ap.data_ptr(), partials.data_ptr(),
+                None if slices is None else slices.data_ptr(), n, k, cut.bm,
+                cut.bn, cut.chunk, cut.splits, cut.split_len,
                 _build.stream(a))
     _build.check(rc, "cg_step")
     cg_step_launches += 1

@@ -390,6 +390,29 @@ def test_cg_step_within_bound(cuda, n, k, dt):
     assert torch.equal(x1, x2) and torch.equal(r1, r2)
 
 
+# K7 on rows 1.. of an (n + 1, n) matrix: rows 4 or 8 bytes past a
+# 16-byte boundary (element copies of A), or on one with n not a multiple
+# of a stage (16-byte copies); the reduction axis split ((1025, 32),
+# (1028, 32)) or whole ((4301, 200)), and one warp a row ((1025, 3))
+@pytest.mark.parametrize("n,k", [(1025, 32), (1028, 32), (1025, 3),
+                                 (4301, 200)])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_cg_step_on_unaligned_rows(cuda, n, k, dt):
+    gen = torch.Generator().manual_seed(12)
+    a = _randn(gen, n + 1, n, dtype=dt, device=cuda)[1:]
+    p, x, r = (_randn(gen, n, k, dtype=dt, device=cuda) for _ in range(3))
+    rz = _randn(gen, k, dtype=dt, device=cuda)
+    p[:, 0] = 0                          # a converged column: den = 0
+    x1, r1 = fused_est.cg_step(a, p, x, r, rz)
+    x0, r0 = ref.cg_step_ref(a, p, x, r, rz)
+    tol_x, tol_r = ref.cg_step_bound(a, p, x, r, rz)
+    assert bool(((x1 - x0).abs() <= 2 * tol_x).all())
+    assert bool(((r1 - r0).abs() <= 2 * tol_r).all())
+    assert torch.equal(x1[:, 0], x[:, 0]) and torch.equal(r1[:, 0], r[:, 0])
+    x2, r2 = fused_est.cg_step(a, p, x, r, rz)
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
+
+
 @pytest.mark.parametrize("n,offsets,k", [
     (1, (0,), 3), (11, (-1, 0, 1), 4), (37, (-5, 0, 5), 1),
     (300, (-3, -1, 0, 2, 7), 5), (1024, (-32, -1, 0, 1, 32), 32)])

@@ -181,27 +181,21 @@ def test_matvec_plan_workspace_is_s_m_k(shape, dt):
     assert p.splits == max(1, -(-n // p.split_len))
 
 
-# K6 (`fused_est.cheb_step`) computes ``A @ w`` on K5's tile with K5's cut:
-# the dense Chebyshev cell (n = 16384, k = 32: split in two on 132 SMs),
-# wider slabs (one and two column blocks of 64), n not a multiple of the
-# 128-row block, and the warp-per-row path (k <= 4).
+# K6 and K7 (`fused_est.cheb_step`, `fused_est.cg_step`) compute their
+# product on K5's tile with K5's cut: the dense estimator cell (n = 16384,
+# k = 32: split in two on 132 SMs), wider slabs (one and two column blocks
+# of 64), n not a multiple of the 128-row block, and the warp-per-row path
+# (k <= 4).
 K6_SHAPES = [(16384, 32), (16384, 64), (16384, 65), (1000, 33), (4097, 5),
              (129, 16), (300, 200), (37, 4), (1, 1)]
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,k", K6_SHAPES)
-def test_cheb_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
-    """The K6 wrapper hands its C entry `matvec.plan`'s cut for (n, n, k),
-    a partials buffer of one row of k per block of ``bm`` rows and, where
-    the reduction axis is split, an (S, n, k) slices buffer (else null)."""
+def _entry_args(monkeypatch, call):
+    """Run ``call`` with the C entry, the CUDA checks and the SM count
+    replaced; returns the arguments the entry was given and the tensors
+    `torch.empty` made, by data pointer."""
     import contextlib
-    from repro_torch.kernels import _build, fused_est
-
-    mv = k5.plan(n, n, k, dt, H100_SMS)
-    assert mv.bm == (k5.GEMV_ROWS if k <= 4 else k5.BLOCK_ROWS)
-    if (n, k) == (16384, 32):   # the dense Chebyshev cell splits in two
-        assert (mv.splits, -(-n // mv.bm)) == (2, 128)
+    from repro_torch.kernels import _build
 
     seen, allocated = {}, {}
     real_empty = torch.empty
@@ -222,12 +216,20 @@ def test_cheb_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch, "empty", empty)
-    a = real_empty((n, n), dtype=dt)
-    w = real_empty((n, k), dtype=dt)
-    one = real_empty((1,), dtype=dt)
-    fused_est.cheb_step(a, w, w, w, one, one)
+    call(real_empty)
+    return seen["args"], allocated
+
+
+def _check_cut(args, allocated, n, k, dt):
+    """The tail of a K6 / K7 entry's arguments is `matvec.plan`'s cut for
+    (n, n, k), after a (ceil(n / bm), k) partials buffer and the (S, n, k)
+    slices exactly when the plan splits (else null)."""
+    mv = k5.plan(n, n, k, dt, H100_SMS)
+    assert mv.bm == (k5.GEMV_ROWS if k <= 4 else k5.BLOCK_ROWS)
+    if (n, k) == (16384, 32):   # the dense estimator cell splits in two
+        assert (mv.splits, -(-n // mv.bm)) == (2, 128)
     (*_, partials, slices, n_, k_, bm, bn, chunk, splits, split_len,
-     stream) = seen["args"]
+     stream) = args
     assert (n_, k_, bm, bn, chunk, splits, split_len) == (
         n, k, mv.bm, mv.bn, mv.chunk, mv.splits, mv.split_len)
     assert allocated[partials].shape == (-(-n // mv.bm), k)
@@ -235,3 +237,33 @@ def test_cheb_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
         assert allocated[slices].numel() == mv.splits * n * k
     else:
         assert slices is None
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k", K6_SHAPES)
+def test_cheb_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
+    """The K6 wrapper hands its C entry `matvec.plan`'s cut for (n, n, k),
+    a partials buffer of one row of k per block of ``bm`` rows and, where
+    the reduction axis is split, an (S, n, k) slices buffer (else null)."""
+    from repro_torch.kernels import fused_est
+
+    def call(empty):
+        a, w, one = empty((n, n), dtype=dt), empty((n, k), dtype=dt), \
+            empty((1,), dtype=dt)
+        fused_est.cheb_step(a, w, w, w, one, one)
+    _check_cut(*_entry_args(monkeypatch, call), n, k, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k", K6_SHAPES)
+def test_cg_step_cut_is_the_matvec_plan(n, k, dt, monkeypatch):
+    """The K7 wrapper hands its C entry the same cut as K6's: `matvec.plan`
+    for (n, n, k), one partial-dot row per block of ``bm`` rows, and the
+    (S, n, k) slices exactly when the plan splits (else null)."""
+    from repro_torch.kernels import fused_est
+
+    def call(empty):
+        a, w, rz = empty((n, n), dtype=dt), empty((n, k), dtype=dt), \
+            empty((k,), dtype=dt)
+        fused_est.cg_step(a, w, w, w, rz)
+    _check_cut(*_entry_args(monkeypatch, call), n, k, dt)
