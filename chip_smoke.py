@@ -21,7 +21,9 @@ printed line each, any failure ends the run:
             version's is), K4's logdet and K2 to the tolerances stated
             below; K4 at the staged route's widths, with dead columns,
             a zero pivot row, NaN and inf entries, and on its
-            global-memory branch (K4_SHAPES, K4_GLOBAL); K5, K6 and K7
+            global-memory branch (K4_SHAPES, K4_GLOBAL), and K4 and K2
+            at the widths method="auto" runs, K = 64 and 128 (K4_AUTO,
+            K2_AUTO, each K4 panel on the branch it lists); K5, K6 and K7
             (on their routes' own operands) and their plain versions
             against the same function in f64, within its probabilistic
             rounding bound (`ref.matvec_bound`, `ref.cheb_step_bound`,
@@ -43,6 +45,16 @@ printed line each, any failure ends the run:
             unfused, and the launch counts of K1-K4 equal to the schedule;
             a small matrix with a NaN entry must give sign and log|det|
             NaN through staged x rank1 and staged x panel;
+4b. auto    ``repro_torch.plan(x)`` with no method on the committed
+            calibration table (its source must be ``measured:cuda``,
+            every term positive): the exact cell with ``rtol=1e-6``
+            takes staged x panel at the autotuned width (sign, log|det|,
+            launches; its wall beside phase 4's), an SPD matrix of the
+            same side takes the route the card runs faster, exact or
+            slq, both timed here beside the model's seconds, the dense
+            estimator cell slq (chebyshev with bounds) and the lattice
+            slq, each against its exact reference; the N at which the
+            table moves dense SPD input from exact to slq;
 5. estimators ``repro_torch.plan(x, method="chebyshev"|"slq")`` and
             ``estimators.cg_solve(x, b)`` on a dense SPD N = 16384 f32
             matrix and on the 1024 x 1024 lattice precision of a Matern
@@ -61,8 +73,13 @@ printed line each, any failure ends the run:
             lookahead bitwise equal to plain), sharded Chebyshev, SLQ
             and CG on the dense estimator cell (against the exact f64
             reference and the same route through the plain product, CG's
-            true residual), the launch counts of every rank, and every
-            rank's result equal to rank 0's.
+            true residual), the launch counts and collectives of every
+            rank, and every rank's result equal to rank 0's; then the
+            paper's baselines ge, pge, plu (nb = 1, 32) on the exact cell
+            (one rank: N = 8192, the ``[table3]`` line beside mesh x
+            rank1 and x panel; four ranks: N = 2048), sign and log|det|
+            against the f64 slogdet, launches and collectives against
+            their formulas, and a NaN entry giving sign NaN.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -128,6 +145,10 @@ ROUTE_RTOL = {"dense|chebyshev": 1e-4, "dense|slq": 1e-6,
 CG_TOL, CG_RESIDUAL, CG_X_RTOL = 1e-6, 1e-5, 1e-5
 # phase 6: ranks of the shared-card mesh, and each run's time limit (s)
 MESH_RANKS, MESH_TIMEOUT = 4, 600
+# the paper's baselines in phase 6: (method, nb); their side on the
+# shared-card mesh (correctness only), and of the NaN-entry matrix
+BASELINES = [("ge", 1), ("pge", 1), ("plu", 1), ("plu", 32)]
+BASELINE_SHARED_N, BASELINE_NAN_N = 2048, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -378,7 +399,20 @@ K4_SHAPES = [(32, 8192, 8192, 0, "random"), (32, 8192, 8192, 1, "random"),
 # one width of the global-memory branch per dtype (K4's plan)
 K4_GLOBAL = {"float32": (32, 32768, 30000, 1, "random"),
              "float64": (32, 16384, 16000, 0, "random")}
-K4_TIMED = [(32, 8192), (32, 4608)]
+# K4 at the widths method="auto" runs (resolved_panel_k: 64 at N = 8192,
+# 128 at 16384), each with the branch its plan must take (True: shared
+# memory); f64 at 64 and f32 at 128 exceed the shared-memory budget
+K4_AUTO = {"float32": [((64, 8192, 8192, 0, "random"), True),
+                       ((64, 8192, 7000, 1, "nan"), True),
+                       ((128, 16384, 16384, 0, "random"), False),
+                       ((128, 16384, 15000, 1, "inf"), False)],
+           "float64": [((64, 8192, 8192, 0, "random"), False),
+                       ((64, 8192, 7000, 1, "nan"), False)]}
+K4_TIMED = {"float32": [(32, 8192), (32, 4608), (64, 8192), (128, 16384)],
+            "float64": [(32, 8192), (32, 4608), (64, 8192)]}
+# K2 at the auto widths: (buffer dtype, side, K)
+K2_AUTO = [("float32", 8192, 64), ("float64", 8192, 64),
+           ("float32", 16384, 128)]
 
 
 def k4_panel(k: int, n: int, kind: str, gen, dtype):
@@ -411,8 +445,9 @@ def lu_factor_ms(a, backend) -> float:
 def panel_factor_phase(gen) -> dict:
     """K4 against its plain version: R and ls bit for bit, the sign exactly
     (NaN where the plain version's is NaN), log|det| within LOGDET_RTOL,
-    at every K4_SHAPES panel and the K4_GLOBAL width, f32 and f64; then
-    times at K4_TIMED beside the plain version, the bound and
+    at every K4_SHAPES panel, the K4_GLOBAL width and the K4_AUTO panels
+    (each on the branch it lists), f32 and f64; then times at K4_TIMED
+    beside the plain version, the bound and
     ``torch.linalg.lu_factor_ex`` of the transposed live panel (the same
     K eliminations with the same pivot rule; its input transposed outside
     the timing), on cuSOLVER and on PyTorch's default backend.  Returns
@@ -425,7 +460,9 @@ def panel_factor_phase(gen) -> dict:
     for dt in (torch.float32, torch.float64):
         name_dt = str(dt)[6:]
         rtol = LOGDET_RTOL[name_dt]
-        for k, n, m0, r_pos, kind in K4_SHAPES + [K4_GLOBAL[name_dt]]:
+        shapes = [(s, None) for s in K4_SHAPES] \
+            + [(K4_GLOBAL[name_dt], False)] + K4_AUTO[name_dt]
+        for (k, n, m0, r_pos, kind), shared in shapes:
             plan = k4.plan(k, n, dt)
             panel = k4_panel(k, n, kind, gen, dt)
             R, ls, s, ld = k4.panel_factor(panel, m0, r_pos)
@@ -440,14 +477,15 @@ def panel_factor_phase(gen) -> dict:
                     f"{tag}: logdet {ld.item()} vs {ld0.item()}")
             if kind == "nan":
                 require(s.item() != s.item(), f"{tag}: sign not NaN")
-            if (k, n, m0, r_pos, kind) == K4_GLOBAL[name_dt]:
-                require(not plan.shared, f"{tag}: not the global branch")
+            require(shared is None or plan.shared == shared,
+                    f"{tag}: shared-memory branch {plan.shared}, expected "
+                    f"{shared}")
             say("kernels", kernel="panel_factor", variant=name_dt,
                 shape=[k, n], m0=m0, r_pos=r_pos, kind=kind,
                 plan=plan._asdict(), R_ls_bitwise=True, sign=s.item(),
                 logdet=ld.item(), logdet_rtol=rtol)
         size = torch.finfo(dt).bits // 8
-        for k, n in K4_TIMED:
+        for k, n in K4_TIMED[name_dt]:
             plan = k4.plan(k, n, dt)
             say("launch", kernel="panel_factor", dtype=name_dt, shape=[k, n],
                 cluster=plan.cluster, cols_per_block=plan.cols,
@@ -475,6 +513,48 @@ def panel_factor_phase(gen) -> dict:
                 library="torch.linalg.lu_factor_ex (cuSOLVER)",
                 library_default_ms=t["library_default_ms"],
                 bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        torch.cuda.empty_cache()
+    return out
+
+
+def panel_update_auto_phase(gen) -> dict:
+    """K2 at the widths method="auto" runs (K2_AUTO): within its
+    summation-order bound of the plain version, a repeated call bitwise
+    equal, then timed beside the plain version, the bound and
+    ``torch.addmm``.  Returns ``{"<side>x<side>x<K>|<dtype>": fields}``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import panel_update as k2
+
+    out = {}
+    for name_dt, n, k in K2_AUTO:
+        dt = getattr(torch, name_dt)
+        size = torch.finfo(dt).bits // 8
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=torch.float64).to(dt)
+
+        a, c, r = randn(n, n), randn(n, k), randn(k, n)
+        got, want = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
+        tol = ref.panel_update_bound(a, c, r, want)
+        diff = (got - want).abs()
+        tag = f"{n}x{n}x{k}|{name_dt}"
+        require(bool((diff <= tol).all()),
+                f"K2 {tag}: outside the summation-order bound, "
+                f"{diff.max().item()}")
+        require(torch.equal(k2.panel_update(a, c, r), got),
+                f"K2 {tag}: a repeated call differs")
+        t = dict(max_abs_err=diff.max().item(),
+                 ms=time_ms(lambda: k2.panel_update(a, c, r)),
+                 plain_ms=time_ms(lambda: ref.panel_update_ref(a, c, r)),
+                 library_ms=time_ms(lambda: torch.addmm(a, c, r, alpha=-1)),
+                 bound_ms=bound_ms(2 * n * n * size + 2 * n * k * size,
+                                   2 * n * n * k + n * n, name_dt)[0])
+        out[tag] = t
+        say("timing", kernel="panel_update", variant=name_dt,
+            shape=[n, n], k=k, **t)
+        del a, c, r, got, want, tol, diff
         torch.cuda.empty_cache()
     return out
 
@@ -813,6 +893,7 @@ def main_path_phase(n: int, k: int, gen) -> dict:
 
     results = {}
     launches = {}
+    walls = {}
     for update, fused, prec in routes:
         name = f"staged|{update}" + ("|fused" if fused else "") \
             + (f"|{prec}" if prec else "")
@@ -836,6 +917,7 @@ def main_path_phase(n: int, k: int, gen) -> dict:
         require(counts == want, f"{name}: launches {counts} != {want}")
         results[name] = (res.sign, res.logabsdet)
         launches[name] = counts
+        walls[name] = res.diagnostics.wall_time_s
     require(torch.equal(a, a_before), "the caller's tensor was modified")
     for update in ("rank1", "panel"):
         u, f = results[f"staged|{update}"], results[f"staged|{update}|fused"]
@@ -843,6 +925,174 @@ def main_path_phase(n: int, k: int, gen) -> dict:
                 f"staged|{update}: fused {f[1].item()!r} != unfused "
                 f"{u[1].item()!r}")
     say("main_path", fused_equals_unfused_bitwise=True)
+    return launches, walls
+
+
+def exact_cell(n: int, gen):
+    """The exact cell: x x^T / n + 2 I made in f64, row 3 negated, stored
+    in f32; with its f64 slogdet ``(sign, logabsdet)``."""
+    import torch
+    x = torch.randn(n, n, generator=gen, device=gen.device,
+                    dtype=torch.float64)
+    a64 = x @ x.T / n + 2.0 * torch.eye(n, device=gen.device,
+                                        dtype=torch.float64)
+    del x
+    a64[3] = -a64[3]
+    s_ref, ld_ref = (v.item() for v in torch.linalg.slogdet(a64))
+    return a64.to(torch.float32).contiguous(), s_ref, ld_ref
+
+
+# --------------------------------------------------------------------------
+# phase 4b: method="auto" on the port's measured table
+# --------------------------------------------------------------------------
+
+def auto_phase(n: int, gen, walls: dict) -> dict:
+    """``repro_torch.plan(x)`` with no method: the committed table is the
+    card's; the exact cell with ``rtol=1e-6`` takes staged x panel at the
+    autotuned width (sign, log|det|, launches), its wall beside phase 4's
+    routes; on an SPD matrix of the same side auto takes the route that
+    is faster on the card, exact or slq, both measured here (and the
+    estimate is checked); the dense estimator cell takes slq, or
+    chebyshev with bounds, the lattice slq (each checked against its
+    exact reference); the N where the table moves dense SPD input from
+    exact to slq.  Returns the launch counts by route."""
+    import torch
+    import repro_torch
+    from repro_torch.core.calibration import (calibration_path, estimator_cost,
+                                              exact_cost, load_calibration)
+    from repro_torch.core.plan import (ProblemSpec, _BOUNDS_COLS,
+                                       _DEFAULT_EST_COLS, select_method,
+                                       select_route)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import resolved_panel_k
+
+    cal = load_calibration()
+    terms = {f: getattr(cal, f) for f in (
+        "gemm_flops", "stream_bytes", "collective_lat", "collective_bytes",
+        "gemm_flops_bf16", "host_rank1_row_s", "host_panel_row_s")}
+    say("auto", table=str(calibration_path()), source=cal.source, **terms)
+    require(cal.source.startswith("measured:cuda"),
+            f"the calibration table is {cal.source!r}, not the card's")
+    require(all(v is not None and v > 0 for v in terms.values()),
+            f"a calibration term is not positive: {terms}")
+    launches = {}
+
+    def run(p, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = p(**kw)
+        return res, ops.launch_counts()
+
+    # the exact cell, rtol=1e-6
+    a, s_ref, ld_ref = exact_cell(n, gen)
+    k = resolved_panel_k(n, itemsize=4)
+    p = repro_torch.plan(a, rtol=1e-6)
+    route = (p.method, p.config.schedule, p.config.update, p.config.k)
+    require(route == ("exact", "staged", "panel", k),
+            f"auto on the exact cell: {route}, expected staged x panel at "
+            f"K = {k}")
+    res, counts = run(p)
+    s, ld = res.sign.item(), res.logabsdet.item()
+    rel = abs(ld - ld_ref) / abs(ld_ref)
+    want = expected_launches(p.diagnostics.padded_n, k, "panel", False)
+    say("auto", cell="exact", n=n, rtol=1e-6, route=list(route), sign=s,
+        logabsdet=ld, ref_logabsdet=ld_ref, rel_err=rel,
+        wall_s=res.diagnostics.wall_time_s,
+        model_s=exact_cost(n, 1, cal, update="panel", panel_k=k, itemsize=4),
+        phase4_walls_s={r: walls[r] for r in ("staged|panel",
+                                              "staged|rank1")},
+        launches=counts, expected_launches=want)
+    require(s == s_ref, f"auto exact cell: sign {s} != {s_ref}")
+    require(rel <= E2E_RTOL[None], f"auto exact cell: rel err {rel}")
+    require(counts == want, f"auto exact cell: launches {counts} != {want}")
+    launches["auto|exact"] = counts
+    del a, p, res
+
+    # an SPD matrix of the same side: auto against both routes, measured
+    spd = dense_spd(n, gen, torch.float32)
+    ref_ld = (2.0 * torch.linalg.cholesky(spd.double()).diagonal().log()
+              .sum()).item()
+    picked = select_method(spd)
+    ex = select_route(spd, rtol=1e-6)[1]
+    cols = _DEFAULT_EST_COLS + _BOUNDS_COLS
+    model = {"exact": exact_cost(n, 1, cal, update=ex.update,
+                                 panel_k=ex.panel_k, itemsize=4),
+             "slq": estimator_cost(n, cols, 2.0 * n * n, 1, cal,
+                                   itemsize=4)}
+    plans = {"exact": repro_torch.plan(spd, method="exact",
+                                       schedule=ex.schedule,
+                                       update=ex.update, k=ex.panel_k),
+             "slq": repro_torch.plan(spd, method="slq")}
+    measured, values = {}, {}
+    for name in ("exact", "slq", "slq", "exact"):
+        res, _ = run(plans[name])
+        measured.setdefault(name, []).append(res.diagnostics.wall_time_s)
+        values[name] = (res.logabsdet.item(), res.sem.item())
+    auto_p = repro_torch.plan(spd)
+    res, counts = run(auto_p)
+    faster = min(measured, key=lambda r: min(measured[r]))
+    est_v, sem = values["slq"]
+    tol = N_SEM * sem + EST_RTOL * abs(ref_ld)
+    say("auto", cell="dense_spd", n=n, picked=auto_p.method,
+        selector=picked, exact_route=[ex.schedule, ex.update, ex.panel_k],
+        walls_s=measured, model_s=model, faster=faster,
+        auto_wall_s=res.diagnostics.wall_time_s, slq_estimate=est_v,
+        slq_sem=sem, exact_logabsdet=values["exact"][0],
+        ref_logabsdet=ref_ld, tol=tol, launches=counts)
+    require(auto_p.method == picked == faster,
+            f"auto on dense SPD N={n} picked {auto_p.method}, the card's "
+            f"faster route is {faster} ({measured})")
+    require(abs(est_v - ref_ld) <= tol,
+            f"slq on dense SPD N={n}: {est_v} vs {ref_ld}, tolerance {tol}")
+    require(abs(values["exact"][0] - ref_ld) <= E2E_RTOL[None] * abs(ref_ld),
+            f"exact on dense SPD N={n}: {values['exact'][0]} vs {ref_ld}")
+    launches["auto|dense_spd"] = counts
+    del spd, plans, auto_p, res
+
+    # the dense estimator cell and the lattice: the estimators
+    a16 = dense_spd(EST_N, gen, torch.float32)
+    ref16 = (2.0 * torch.linalg.cholesky(a16.double()).diagonal().log()
+             .sum()).item()
+    lattice = lattice_operator(SIDE, torch.float32)
+    cells = [("dense", a16, {}, "slq", ref16),
+             ("dense", a16, dict(lmin=1.9, lmax=6.5), "chebyshev", ref16),
+             ("lattice", lattice, {}, "slq", lattice_logdet(SIDE))]
+    for kind, x, kw, want_method, ref in cells:
+        p = repro_torch.plan(x, **kw)
+        require(p.method == want_method, f"auto on the {kind} cell "
+                f"{kw}: {p.method}, expected {want_method}")
+        res, counts = run(p)
+        v, sem = res.logabsdet.item(), res.sem.item()
+        tol = N_SEM * sem + EST_RTOL * abs(ref)
+        route = f"{kind}|{want_method}"
+        want = expected_estimator_launches(route)
+        say("auto", cell=kind, method=p.method, bounds=kw, estimate=v,
+            sem=sem, ref_logabsdet=ref, tol=tol,
+            wall_s=res.diagnostics.wall_time_s, launches=counts,
+            expected_launches=want)
+        require(abs(v - ref) <= tol,
+                f"auto {route}: {v} vs {ref}, tolerance {tol}")
+        require(counts == want, f"auto {route}: launches {counts} != {want}")
+        launches[f"auto|{route}"] = counts
+    del a16, lattice
+
+    # where the table moves dense SPD f32 input from exact to slq
+    def spec(m):
+        return ProblemSpec(kind="dense", n=m, batch=None, dtype="float32",
+                           matvec_flops=2.0 * m * m)
+
+    lo, hi = 2, 2
+    while select_method(spec(hi)) == "exact":
+        lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if select_method(spec(mid)) == "exact" \
+            else (lo, mid)
+    ex = select_route(spec(hi), rtol=1e-6)[1]
+    say("auto", crossover_n=hi, exact_below=lo,
+        exact_route_at_crossover=[ex.schedule, ex.update, ex.panel_k],
+        model_exact_s=exact_cost(hi, 1, cal, update=ex.update,
+                                 panel_k=ex.panel_k, itemsize=4))
     return launches
 
 
@@ -1094,6 +1344,116 @@ def mesh_launches(L: int, P: int, rank: int, k: int, route: str) -> dict:
     return counts
 
 
+def mesh_collectives(L: int, P: int, k: int, update: str) -> dict:
+    """Collectives of one mesh route per rank: a broadcast per rank-1 step
+    ((L - 1) P) or per panel (R P, R = (L - 1) // k) and per remainder
+    step, then the tail's all_sum; lookahead issues the same ones."""
+    steps = (L - 1) * P
+    if update == "panel":
+        r = (L - 1) // k
+        steps = r * P + (L - 1 - r * k) * P
+    return {"broadcast": steps, "all_sum": 1}
+
+
+def baseline_name(method: str, nb: int) -> str:
+    return f"{method}|nb{nb}" if method == "plu" else method
+
+
+def baseline_launches(n: int, P: int, rank: int, method: str,
+                      nb: int) -> dict:
+    """Kernel launches of a Gaussian-elimination baseline on ``rank``: ge
+    K1 once a step below the last; on the mesh a rank launches while it
+    holds rows below the pivot row, i.e. for the steps before its last
+    global row g = (n / P - 1) P + rank: pge K1 g times; plu K2 once a
+    panel, floor(g / nb), and K1 once a column but the panel's last, g -
+    floor(g / nb)."""
+    counts = dict.fromkeys(KERNEL_META, 0)
+    last = (n // P - 1) * P + rank
+    if method == "ge":
+        counts["rank1_update"] = n - 1
+    elif method == "pge":
+        counts["rank1_update"] = last
+    else:
+        counts["panel_update"] = last // nb
+        counts["rank1_update"] = last - last // nb
+    return counts
+
+
+def baseline_collectives(n: int, method: str, nb: int) -> dict:
+    """Collectives of a baseline per rank: a step's pivot search and pivot
+    row (all_sum) and row t (broadcast); plu's panel gather (all_sum)."""
+    if method == "ge":
+        return {"broadcast": 0, "all_sum": 0}
+    return {"broadcast": n,
+            "all_sum": 2 * n + (n // nb if method == "plu" else 0)}
+
+
+def baseline_routes(mesh, n: int, gen, sync) -> dict:
+    """ge, pge and plu (BASELINES) on the exact cell of side n, each
+    checked (sign, log|det| against the f64 slogdet, launches and
+    collectives against their formulas), then each on a matrix with a
+    NaN entry (sign and log|det| NaN)."""
+    import torch
+    import repro_torch
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels import ops
+
+    dev, P, me = mesh.device, mesh.size, mesh.rank
+    out = {}
+
+    def plan(x, method, nb):
+        return repro_torch.plan(x, method=method, mesh=mesh,
+                                **({"nb": nb} if method == "plu" else {}))
+
+    # warm-up (handles, solve_triangular) at a small size
+    small = torch.randn(64 * P, 64 * P, generator=gen, device=dev,
+                        dtype=torch.float64) + 16.0 * P * torch.eye(
+        64 * P, device=dev, dtype=torch.float64)
+    for method, nb in BASELINES:
+        plan(small, method, nb)()
+    a, s_ref, ld_ref = exact_cell(n, gen)
+    for method, nb in BASELINES:
+        name = baseline_name(method, nb)
+        p = plan(a, method, nb)
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        M.reset_collective_counts()
+        t0 = time.perf_counter()
+        res = p()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts, colls = ops.launch_counts(), M.collective_counts()
+        s, ld = res.sign.item(), res.logabsdet.item()
+        rel = abs(ld - ld_ref) / abs(ld_ref)
+        want = baseline_launches(n, P, me, method, nb)
+        want_c = baseline_collectives(n, method, nb)
+        out[name] = dict(
+            n=n, sign=s, logabsdet=ld, ref_logabsdet=ld_ref, rel_err=rel,
+            wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+            launches=counts, collectives=colls,
+            device_count=p.diagnostics.device_count)
+        require(s == s_ref, f"rank {me} {name}: sign {s} != {s_ref}")
+        require(rel <= E2E_RTOL[None], f"rank {me} {name}: rel err {rel}")
+        require(counts == want,
+                f"rank {me} {name}: launches {counts} != {want}")
+        require(colls == want_c,
+                f"rank {me} {name}: collectives {colls} != {want_c}")
+    del a
+    b = torch.randn(BASELINE_NAN_N, BASELINE_NAN_N, generator=gen,
+                    device=dev, dtype=torch.float32)
+    b[5, 7] = float("nan")
+    for method, nb in BASELINES:
+        name = "nan|" + baseline_name(method, nb)
+        res = plan(b, method, nb)()
+        s, ld = res.sign.item(), res.logabsdet.item()
+        out[name] = dict(n=BASELINE_NAN_N, sign_is_nan=s != s,
+                         logabsdet_is_nan=ld != ld)
+        require(s != s and ld != ld,
+                f"rank {me} {name}: ({s}, {ld}), expected NaN")
+    return out
+
+
 class PlainShardedOperator:
     """A `ShardedOperator` whose local product is the plain version
     (`torch.matmul`) -- the comparison route, never the main path."""
@@ -1128,7 +1488,8 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, P, me = mesh.device, mesh.size, mesh.rank
-    out = {"device": str(dev), "exact": {}, "estimators": {}}
+    out = {"device": str(dev), "exact": {}, "estimators": {},
+           "baselines": {}}
 
     def same_on_every_rank(a, what):
         """The ranks built ``a`` from one seed: an all_reduce of each
@@ -1151,6 +1512,7 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
         sync()
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
+        M.reset_collective_counts()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize(dev)
@@ -1182,13 +1544,17 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
         plan = repro_torch.plan(a, method="exact", update=update, k=k,
                                 lookahead=la, mesh=mesh)
         res, wall, counts, peak = run(plan)
+        colls = M.collective_counts()
         s, ld = res.sign.item(), res.logabsdet.item()
         rel = abs(ld - ld_ref) / abs(ld_ref)
         want = mesh_launches(n // P, P, me, k, name)
+        want_c = mesh_collectives(n // P, P, k, update)
         out["exact"][name] = dict(
             sign=s, logabsdet=ld, ref_logabsdet=ld_ref, rel_err=rel,
             wall_s=wall, peak_mem_bytes=peak, launches=counts,
-            device_count=plan.diagnostics.device_count)
+            collectives=colls, device_count=plan.diagnostics.device_count)
+        require(colls == want_c,
+                f"rank {me} mesh {name}: collectives {colls} != {want_c}")
         require(s == s_ref, f"rank {me} mesh {name}: sign {s} != {s_ref}")
         require(rel <= E2E_RTOL[None], f"rank {me} mesh {name}: rel {rel}")
         require(counts == want,
@@ -1200,6 +1566,12 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
                 f"{results[update + '|lookahead']} != plain "
                 f"{results[update]}")
     del a
+    torch.cuda.empty_cache()
+
+    # the paper's baselines: at the exact cell's side on one rank, at
+    # BASELINE_SHARED_N on the ranks sharing the card
+    out["baselines"] = baseline_routes(
+        mesh, n if P == 1 else BASELINE_SHARED_N, gen, sync)
     torch.cuda.empty_cache()
 
     # the sharded estimators on the dense estimator cell
@@ -1278,16 +1650,17 @@ def mesh_phase(n: int, k: int, seed: int) -> dict:
                             timeout=MESH_TIMEOUT, args=(n, k, seed))
         seconds = time.perf_counter() - t0
         for rank, res in enumerate(results):
-            for part in ("exact", "estimators"):
+            for part in PARTS:
                 for route, fields in res[part].items():
                     say("mesh", ranks=size, backend=backend, rank=rank,
                         device=res["device"], route=route, **fields)
         first = results[0]
         for rank, res in enumerate(results[1:], 1):
-            for part in ("exact", "estimators"):
+            for part in PARTS:
                 for route, fields in res[part].items():
                     for key in ("sign", "logabsdet", "estimate", "sem",
-                                "iters"):
+                                "iters", "sign_is_nan",
+                                "logabsdet_is_nan"):
                         require(fields.get(key) == first[part][route]
                                 .get(key), f"mesh P={size} {route}: rank "
                                 f"{rank} {key} differs from rank 0's")
@@ -1296,10 +1669,21 @@ def mesh_phase(n: int, k: int, seed: int) -> dict:
             note=("several ranks share one card; their collectives pass "
                   "through host memory: not a scaling figure")
             if size > 1 else "one rank, NCCL")
-        for part in ("exact", "estimators"):
+        if size == 1:
+            # the paper's Table 3 on one card: PMC against GE and LU
+            say("table3", n=first["baselines"]["ge"]["n"],
+                walls_s={r: first[part][r]["wall_s"] for part, r in (
+                    ("exact", "rank1"), ("exact", "panel"),
+                    *(("baselines", baseline_name(m, nb))
+                      for m, nb in BASELINES))})
+        for part in PARTS:
             for route, fields in first[part].items():
-                launches[f"mesh{size}|{route}"] = fields["launches"]
+                if "launches" in fields:
+                    launches[f"mesh{size}|{route}"] = fields["launches"]
     return launches
+
+
+PARTS = ("exact", "estimators", "baselines")
 
 
 def main(argv=None) -> int:
@@ -1344,6 +1728,7 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     # phase 3: kernels against their plain versions, and their times
     timings = kernel_phase(args.n, args.k, gen)
+    timings["panel_update"]["shapes"].update(panel_update_auto_phase(gen))
     k4_times = panel_factor_phase(gen)
     timings["panel_factor"] = dict(
         k4_times["float32|32|8192"], float64=k4_times["float64|32|8192"],
@@ -1364,7 +1749,9 @@ def main(argv=None) -> int:
                                  | {"bound_ms": v["bound"][0]}
                                  for t, v in mv.items()})
     # phase 4: the main path
-    launches = main_path_phase(args.n, args.k, gen)
+    launches, walls = main_path_phase(args.n, args.k, gen)
+    # phase 4b: method="auto" on the port's measured table
+    launches.update(auto_phase(args.n, gen, walls))
     # phase 5: the estimators
     launches.update(estimator_phase(EST_N, SIDE, args.seed))
     # phase 6: the mesh (the ranks are spawned: CUDA is initialized here)

@@ -1,12 +1,17 @@
 """repro_torch -- the PyTorch / CUDA port of `repro` for NVIDIA Hopper.
 
-Three paths of the JAX package, in PyTorch, with their Pallas kernels
+Paths of the JAX package, in PyTorch, with their Pallas kernels
 rewritten by hand in CUDA C++ for ``sm_90a`` (``kernels/csrc``, built at
 first use):
 
+- ``method="auto"`` (the default): the JAX package's cost model, plus the
+  host's dispatch time per row, on the table measured on the card
+  (`core.calibration`, ``tools/torch_calibrate.py``), picks one of the
+  routes below;
 - the exact log-determinant (`repro.plan(a, method="exact")` ->
   `ExactConfig` -> `engine.build_serial` -> `staged_full`), through
-  K1-K4;
+  K1-K4, and the paper's baselines ``ge``, ``pge`` and ``plu``
+  (`core.gaussian`, `core.scalapack`) through K1 and K2;
 - the estimators on one device (``method="chebyshev"|"slq"`` on a dense
   SPD matrix or a `estimators.StencilOperator`, and
   `estimators.cg_solve`), through K6 (dense Chebyshev), K7 (dense CG)
@@ -19,6 +24,7 @@ Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.
 
     import repro_torch
+    sign, logabsdet = repro_torch.plan(a)()                # auto
     sign, logabsdet = repro_torch.plan(a, method="exact")()
     res = repro_torch.plan(a, method="slq")(generator=g)   # res.sem too
 

@@ -17,8 +17,12 @@ from repro_torch.core.engine import (
 )
 
 __all__ = ["ExactConfig", "ChebyshevConfig", "SLQConfig", "LogdetConfig",
-           "EngineConfig", "config_for", "config_to_dict",
-           "config_from_dict", "from_jax_config"]
+           "EngineConfig", "config_for", "filter_for_method",
+           "config_to_dict", "config_from_dict", "from_jax_config",
+           "BASELINE_METHODS"]
+
+# the Gaussian-elimination baselines: serial GE, parallel GE, blocked LU
+BASELINE_METHODS = ("ge", "pge", "plu")
 
 # the JAX package's kernel backends; the port accepts them only in a dict
 # carried across by `from_jax_config`, where each maps to "auto"
@@ -48,8 +52,8 @@ class ExactConfig:
                    permutation gather per panel (bit-identical results).
     ``precision`` -- ``None`` or ``"bf16"``: bf16 GEMM / outer-product
                    operands, full-precision buffer and accumulators.
-    ``nb``       -- block-cyclic tile of the ScaLAPACK-style baseline;
-                   kept so configs round-trip with the JAX package.
+    ``nb``       -- block size of the ScaLAPACK-style baseline
+                   (``method="plu"``).
     """
     k: int = 32
     nb: int = 1
@@ -203,7 +207,8 @@ class SLQConfig:
 
 LogdetConfig = Union[ExactConfig, ChebyshevConfig, SLQConfig]
 _CONFIG_CLS = {"exact": ExactConfig, "chebyshev": ChebyshevConfig,
-               "slq": SLQConfig}
+               "slq": SLQConfig,
+               **{m: ExactConfig for m in BASELINE_METHODS}}
 _BY_NAME = {cls.__name__: cls for cls in _CONFIG_CLS.values()}
 _ESTIMATOR_KW = ({f.name for f in dataclasses.fields(ChebyshevConfig)}
                  | {f.name for f in dataclasses.fields(SLQConfig)})
@@ -226,6 +231,29 @@ def config_for(method: str, kwargs: dict) -> LogdetConfig:
             f"unknown keywords for method {method!r}: {sorted(extra)} "
             f"(valid: {sorted(names)})")
     return cls(**kwargs)
+
+
+def filter_for_method(method: str, kwargs: dict) -> dict:
+    """Keep the keywords the resolved method's family understands.
+
+    Used by ``method="auto"``: knobs of the family the selector did not
+    pick are dropped (exact is at least as accurate), while names no
+    family defines still raise, as in `repro.core.configs
+    .filter_for_method`.
+    """
+    known = set().union(*({f.name for f in dataclasses.fields(c)}
+                          for c in (ExactConfig, ChebyshevConfig,
+                                    SLQConfig)))
+    unknown = set(kwargs) - known
+    if unknown:
+        raise TypeError(
+            f"unknown keywords: {sorted(unknown)} (no method understands "
+            f"them; valid names: {sorted(known)})")
+    cls = _CONFIG_CLS.get(method)
+    if cls is None:
+        raise ValueError(f"unknown method {method!r}")
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in kwargs.items() if k in names}
 
 
 def config_to_dict(config: LogdetConfig) -> dict:

@@ -43,6 +43,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import mesh as _mesh
@@ -55,6 +56,7 @@ __all__ = [
     "panel_factor", "apply_panel", "panel_rounds_serial",
     "blocked_full", "staged_full", "stage_schedule", "mc_local_phase",
     "mesh_tail", "combine_slogdet", "guarded_pivot", "nan_sign",
+    "cyclic_perm", "perm_parity",
 ]
 
 SCHEDULES = ("serial", "staged", "mesh")
@@ -132,6 +134,31 @@ def combine_slogdet(parts) -> Tuple[torch.Tensor, torch.Tensor]:
     sign = functools.reduce(lambda a, b: a * b, [p[0] for p in parts])
     logdet = functools.reduce(lambda a, b: a + b, [p[1] for p in parts])
     return sign, logdet
+
+
+def cyclic_perm(n: int, p: int) -> np.ndarray:
+    """Permutation mapping block layout to cyclic: out[d*L + i] = i*p + d
+    (host numpy; the Gaussian-elimination baselines' row layout)."""
+    return np.arange(n).reshape(n // p, p).T.reshape(-1)
+
+
+def perm_parity(perm: np.ndarray) -> float:
+    """Parity (+1/-1) of a permutation via cycle decomposition (O(n),
+    on the host)."""
+    seen = np.zeros(len(perm), dtype=bool)
+    parity = 1.0
+    for start in range(len(perm)):
+        if seen[start]:
+            continue
+        clen = 0
+        j = start
+        while not seen[j]:
+            seen[j] = True
+            j = int(perm[j])
+            clen += 1
+        if clen % 2 == 0:
+            parity = -parity
+    return parity
 
 
 def _own(a: torch.Tensor) -> torch.Tensor:

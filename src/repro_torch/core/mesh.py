@@ -12,6 +12,9 @@ the same result; the port slices the rank's row block onto
 ``mesh.device`` itself.  Estimator probes come from a generator seeded
 alike on every rank, so the replicated slabs are identical.
 
+`collective_counts` tallies the collectives this process has issued
+through the helpers (the analogue of the kernels' launch counts).
+
 Only ``broadcast`` and ``all_reduce`` are used, on every backend: NCCL
 takes one rank per card, and gloo, which runs several ranks on one card
 or on the CPU, takes CUDA tensors for these two collectives alone
@@ -37,7 +40,22 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "run_ranks", "broadcast", "all_sum",
-           "gather_rows", "rank_device"]
+           "gather_rows", "rank_device", "collective_counts",
+           "reset_collective_counts"]
+
+# collectives issued through the helpers below since the last reset
+_collectives = {"broadcast": 0, "all_sum": 0}
+
+
+def collective_counts() -> dict:
+    """Collectives this process issued since the last reset, by helper
+    (`gather_rows` counts as its P broadcasts)."""
+    return dict(_collectives)
+
+
+def reset_collective_counts() -> None:
+    for key in _collectives:
+        _collectives[key] = 0
 
 
 @dataclass(frozen=True)
@@ -114,12 +132,14 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int, async_op: bool = False):
     """In place: ``t`` on every rank becomes rank ``src``'s ``t``.  With
     ``async_op`` returns the work handle to ``wait()`` on before ``t`` is
     read."""
+    _collectives["broadcast"] += 1
     return dist.broadcast(t, _global(mesh, src), group=mesh.group,
                           async_op=async_op)
 
 
 def all_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """In place: ``t`` becomes the sum of every rank's ``t``; returns it."""
+    _collectives["all_sum"] += 1
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 

@@ -8,10 +8,13 @@ once, at plan time, and the plan is then called on data::
     res = repro_torch.plan(op, method="slq", num_steps=25)(generator=g)
     res.logabsdet, res.sem          # estimate and its standard error
 
-``method`` is ``"exact"`` (the condensation engine) or an estimator,
-``"chebyshev"`` or ``"slq"``, on a dense SPD matrix or on an operator
-(`repro_torch.estimators.StencilOperator`, or any object with ``shape``,
-``dtype`` and ``mm``).  Plans run on the card unless the caller asks for
+``method`` is ``"auto"`` (the default: the cost model below picks),
+``"exact"`` (the condensation engine), one of the paper's baselines --
+``"ge"`` (serial Gaussian elimination), ``"pge"`` (parallel GE) and
+``"plu"`` (blocked LU, ``nb=``), the last two on a mesh -- or an
+estimator, ``"chebyshev"`` or ``"slq"``, on a dense SPD matrix or on an
+operator (`repro_torch.estimators.StencilOperator`, or any object with
+``shape``, ``dtype`` and ``mm``).  Plans run on the card unless the caller asks for
 the CPU: ``device=None`` resolves to ``"cuda"`` and raises when there is
 none; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 An input on another device is moved to the plan's device, an operator
@@ -26,12 +29,21 @@ the mesh size with diag(A, I).  Every rank builds and calls the same
 plan on the same full matrix and gets the same result, on
 ``mesh.device``.
 
+The cost model (`select_route` / `select_method`) is the JAX package's
+(`repro.core.plan`): an operator goes to an estimator, ``rtol`` below
+1e-3 to the exact family, and otherwise the modeled seconds of the best
+exact engine route (`core.calibration.exact_cost`, panel width from
+`kernels.autotune`) against the estimator's probe budget
+(`estimator_cost`) decide, exact winning below 0.05 s; the estimator is
+``chebyshev`` when ``lmin`` and ``lmax`` are given, else ``slq``.  The
+port's table (``bench_out/torch_roofline_calibration.json``, measured on
+the card by ``tools/torch_calibrate.py``) adds the host's dispatch time
+per eliminated row to every exact route.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``method="auto"`` and the cost model (Queue 1 item 4), gradients (items
-5 and 7), the Gaussian-elimination baselines ``ge``, ``pge`` and ``plu``
-(items 6 and 8), ``explain`` (item 9), ``export`` (item 10), ``audit``
-(item 11), the legacy route strings (item 12), and batched stacks (items
-3 and 7).
+gradients (items 5 and 7), ``explain`` (item 9), ``export`` (item 10),
+``audit`` (item 11), the legacy route strings (item 12), and batched
+stacks (items 3 and 7).
 """
 from __future__ import annotations
 
@@ -46,29 +58,28 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import pad_to_multiple
+from repro_torch.core.calibration import (Calibration, estimator_cost,
+                                          exact_cost, load_calibration)
 from repro_torch.core.configs import (
-    ChebyshevConfig, ExactConfig, LogdetConfig, config_for,
+    BASELINE_METHODS, ChebyshevConfig, ExactConfig, LogdetConfig, config_for,
+    filter_for_method,
 )
-from repro_torch.core.engine import build_mesh, build_serial
+from repro_torch.core.engine import EngineConfig, build_mesh, build_serial
+from repro_torch.core.gaussian import parallel_slogdet_ge, slogdet_ge
 from repro_torch.core.mesh import Mesh
 from repro_torch.core.result import Diagnostics, LogdetResult
+from repro_torch.core.scalapack import parallel_slogdet_lu
 from repro_torch.estimators import (
     ESTIMATOR_METHODS, ShardedOperator, estimate_logdet, is_operator,
     operator_on,
 )
 from repro_torch.estimators.operators.base import resolve_device
 
-__all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of",
-           "clear_plan_cache"]
+__all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of", "select_method",
+           "select_route", "clear_plan_cache"]
 
 # methods of the JAX package that the port does not run yet
 _NOT_PORTED = {
-    "auto": "method='auto' and the cost model (ROADMAP Queue 1 item 4)",
-    "ge": "the Gaussian-elimination baseline (ROADMAP Queue 1 item 6)",
-    "pge": "the parallel baselines pge/plu (ROADMAP Queue 1 item 8, with "
-           "the serial ge of item 6)",
-    "plu": "the parallel baselines pge/plu (ROADMAP Queue 1 item 8, with "
-           "the serial ge of item 6)",
     **{m: "the legacy route strings (ROADMAP Queue 1 item 12); use "
           "method='exact' with schedule=/update="
        for m in ("mc", "mc_staged", "mc_blocked", "pmc", "pmc_blocked")},
@@ -76,7 +87,8 @@ _NOT_PORTED = {
 _BATCHED_TODO = ("batched (B, n, n) stacks (ROADMAP Queue 1 items 3 and "
                  "7, still open)")
 _DTYPES = (torch.float32, torch.float64)
-_METHODS = ("exact", *ESTIMATOR_METHODS)
+_EXACT_METHODS = ("exact", *BASELINE_METHODS)
+_METHODS = (*_EXACT_METHODS, *ESTIMATOR_METHODS)
 # single-column matvecs of the power-iteration bounds (two runs of 32
 # iterations plus their Rayleigh quotients), as in the JAX package
 _BOUNDS_COLS = 2 * (32 + 1)
@@ -95,13 +107,18 @@ class ProblemSpec:
     """What a plan is built for: ``kind`` "dense" | "batched" |
     "operator", the matrix side ``n``, the stack size ``batch`` (or
     None), the dtype name, the operator's ``structure`` tag ("dense" for
-    arrays) and the FLOPs ``matvec_flops`` of one matvec column."""
+    arrays), the FLOPs ``matvec_flops`` of one matvec column, whether
+    exact methods could run on the input (``materializable``) and the
+    devices the operator's own product spans (``device_count``) -- the
+    cost model's inputs."""
     kind: str
     n: int
     batch: Optional[int]
     dtype: str
     structure: str = "dense"
     matvec_flops: float = 0.0
+    materializable: bool = True
+    device_count: int = 1
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -130,7 +147,9 @@ def spec_of(x, dtype=None) -> ProblemSpec:
             dtype=_dtype_name(_torch_dtype(x.dtype)),
             structure=hints.structure if hints else "implicit",
             matvec_flops=float(hints.matvec_flops) if hints
-            else 2.0 * n * n)
+            else 2.0 * n * n,
+            materializable=bool(hints.materializable) if hints else False,
+            device_count=int(hints.device_count) if hints else 1)
     if isinstance(x, int):
         shape = (x, x)
     elif isinstance(x, tuple):
@@ -155,10 +174,121 @@ def spec_of(x, dtype=None) -> ProblemSpec:
 
 
 # --------------------------------------------------------------------------
+# cost model
+# --------------------------------------------------------------------------
+
+# probe budget the selector assumes when none is configured: the SLQ
+# defaults (bounds-free, the conservative estimator choice)
+_DEFAULT_EST_COLS = 25 * 32
+# Monte-Carlo noise floor: below this requested rtol the selector goes
+# exact
+_EST_RTOL_FLOOR = 1e-3
+# panel updates are offered only from this many panels' worth of rows
+_PANEL_MIN_N_FACTOR = 4
+# below this modeled exact wall time the estimators have nothing to offer
+_EXACT_FREE_SECONDS = 0.05
+
+
+def select_route(x, *, mesh=None, rtol: Optional[float] = None,
+                 bounds_known: bool = False,
+                 est_cols: Optional[int] = None,
+                 calibration: Optional[Calibration] = None,
+                 precision: Optional[str] = None,
+                 ) -> Tuple[str, Optional[EngineConfig]]:
+    """Resolve ``method="auto"`` to ``(method, engine_config)``, as
+    `repro.core.plan.select_route` does.
+
+    The estimators carry ``None``; the exact family returns the cheapest
+    `EngineConfig` (schedule x update, ``panel_k`` from the tile
+    autotuner, lookahead on a mesh) under the calibration table
+    (`core.calibration.load_calibration` unless ``calibration`` is given).
+    ``mesh`` (a `core.mesh.Mesh`) sets the device count; without one the
+    spec's ``device_count`` does.  ``precision="bf16"`` prices GEMM work at
+    the bf16 rate and keeps to the exact family.  Pure and cheap.
+    """
+    spec = spec_of(x)
+    devices = mesh.size if mesh is not None else spec.device_count
+    est_method = "chebyshev" if bounds_known else "slq"
+
+    if spec.kind == "operator":
+        # only the matrix-free estimators run on operator inputs
+        return est_method, None
+
+    cal = calibration if calibration is not None else load_calibration()
+    itemsize = _torch_dtype(spec.dtype).itemsize
+    route, exact_t = _best_exact_route(spec, devices, cal, itemsize,
+                                       precision=precision)
+
+    if precision == "bf16":
+        # the quantized-GEMM route only exists in the exact engine
+        return "exact", route
+    if rtol is not None and rtol < _EST_RTOL_FLOOR:
+        return "exact", route
+
+    cols = est_cols if est_cols is not None \
+        else _DEFAULT_EST_COLS + _BOUNDS_COLS
+    est_t = estimator_cost(spec.n, cols, spec.matvec_flops, devices, cal,
+                           itemsize=itemsize, batch=spec.batch or 1)
+    # leave the exact family only when exact is both slow enough to care
+    # about and modeled slower than the estimator budget
+    if exact_t <= _EXACT_FREE_SECONDS or exact_t <= est_t:
+        return "exact", route
+    return est_method, None
+
+
+def select_method(x, *, mesh=None, rtol: Optional[float] = None,
+                  bounds_known: bool = False,
+                  est_cols: Optional[int] = None,
+                  calibration: Optional[Calibration] = None) -> str:
+    """The method name `select_route` resolves to."""
+    return select_route(x, mesh=mesh, rtol=rtol, bounds_known=bounds_known,
+                        est_cols=est_cols, calibration=calibration)[0]
+
+
+def _best_exact_route(spec: ProblemSpec, devices: int, cal: Calibration,
+                      itemsize: int, precision: Optional[str] = None,
+                      ) -> Tuple[EngineConfig, float]:
+    """Cheapest exact engine instantiation under the calibration table,
+    and its modeled seconds."""
+    from repro_torch.kernels.autotune import resolved_panel_k
+    n, b = spec.n, spec.batch or 1
+    tuned_k = resolved_panel_k(n, itemsize=itemsize, precision=precision,
+                               cal=cal)
+    if spec.batch is not None:
+        # stacks run one matrix per device (serial schedule)
+        candidates = [("serial", "rank1", 1, False),
+                      ("serial", "panel", 1, False)]
+    else:
+        candidates = [("staged", "rank1", 1, False),
+                      ("staged", "panel", 1, False)]
+        if devices > 1:
+            # each mesh route plain and pipelined
+            candidates += [("mesh", "rank1", devices, False),
+                           ("mesh", "panel", devices, False),
+                           ("mesh", "rank1", devices, True),
+                           ("mesh", "panel", devices, True)]
+    if n < _PANEL_MIN_N_FACTOR * tuned_k:
+        candidates = [c for c in candidates if c[1] != "panel"]
+
+    def cost_of(c):
+        schedule, update, devs, la = c
+        return exact_cost(n, devs, cal, update=update, panel_k=tuned_k,
+                          itemsize=itemsize, batch=b, lookahead=la,
+                          precision=precision)
+
+    best = min(candidates, key=cost_of)
+    schedule, update, devs, la = best
+    return EngineConfig(schedule=schedule, update=update, panel_k=tuned_k,
+                        lookahead=la, precision=precision), cost_of(best)
+
+
+# --------------------------------------------------------------------------
 # the forward callable
 # --------------------------------------------------------------------------
 
-def _serial_exact_core(cfg: ExactConfig) -> Callable:
+def _serial_exact_core(method: str, cfg: ExactConfig) -> Callable:
+    if method == "ge":
+        return slogdet_ge
     ecfg = cfg.engine_config()
     fn = build_serial(ecfg)
     if ecfg.update == "panel":
@@ -187,22 +317,29 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
     call-time ``generator``/``probes``/``lmin``/``lmax``) to ``(sign,
     logabsdet, sem)`` on ``device``."""
     dtype = getattr(torch, spec.dtype)
-    if method == "exact" and cfg.schedule == "mesh":
+    if _is_mesh_exact(method, cfg):
         size = mesh.size
-        core = build_mesh(cfg.engine_config(), mesh)
+        # diag(A, I) padding: to a multiple of P, for plu of lcm(P, nb)
+        mult = math.lcm(size, cfg.nb) if method == "plu" else size
+        if method == "exact":
+            core = build_mesh(cfg.engine_config(), mesh)
+        elif method == "pge":
+            core = parallel_slogdet_ge(mesh)
+        else:
+            core = parallel_slogdet_lu(mesh, nb=cfg.nb)
 
         def fwd(a):
             a = torch.as_tensor(a).to(device=device, dtype=dtype)
-            sign, ld = core(pad_to_multiple(a, size))
+            sign, ld = core(pad_to_multiple(a, mult))
             return sign, ld, torch.zeros_like(ld)
 
-        return fwd, -(-spec.n // size) * size
+        return fwd, -(-spec.n // mult) * mult
 
-    if method == "exact":
+    if method in _EXACT_METHODS:
         padded_n = spec.n
-        if cfg.update == "panel" and spec.n:
+        if method == "exact" and cfg.update == "panel" and spec.n:
             padded_n = -(-spec.n // cfg.k) * cfg.k
-        core = _serial_exact_core(cfg)
+        core = _serial_exact_core(method, cfg)
 
         def fwd(a):
             sign, ld = core(torch.as_tensor(a).to(device=device,
@@ -239,11 +376,17 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
     return fwd, padded_n
 
 
+def _is_mesh_exact(method: str, cfg: LogdetConfig) -> bool:
+    """Does this exact method distribute one matrix over a mesh?"""
+    return method in ("pge", "plu") or (method == "exact"
+                                        and cfg.schedule == "mesh")
+
+
 def _flops_est(method: str, spec: ProblemSpec, cfg: LogdetConfig,
                devices: int) -> Tuple[Optional[int], float]:
     """(matvec_cols, flops_est) diagnostics for the resolved path, per
     device."""
-    if method == "exact":
+    if method in _EXACT_METHODS:
         return None, (2.0 / 3.0) * spec.n ** 3 / devices
     if isinstance(cfg, ChebyshevConfig):
         cols = cfg.degree * cfg.num_probes
@@ -319,7 +462,7 @@ class LogdetPlan:
         raise _not_ported("plan explain (ROADMAP Queue 1 item 9)")
 
     def _run(self, x, generator, probes, lmin, lmax):
-        if self.method == "exact":
+        if self.method in _EXACT_METHODS:
             return self._fwd(x)
         return self._fwd(x, generator=generator, probes=probes, lmin=lmin,
                          lmax=lmax)
@@ -340,7 +483,7 @@ class LogdetPlan:
     def _check(self, x, generator, probes, lmin, lmax):
         """Reject estimator inputs on an exact plan; screen a dense
         estimator input (moved to the plan's device first)."""
-        if self.method == "exact":
+        if self.method in _EXACT_METHODS:
             if any(v is not None for v in (generator, probes, lmin, lmax)):
                 raise TypeError("exact method takes no generator/probes/"
                                 "bounds")
@@ -401,15 +544,20 @@ def clear_plan_cache():
 def plan(x, *, method: str = "auto", device=None, precision=None,
          config: Optional[LogdetConfig] = None, mesh=None,
          grad: bool = False, validate: bool = True,
-         **kwargs) -> LogdetPlan:
+         rtol: Optional[float] = None, **kwargs) -> LogdetPlan:
     """Build a log-determinant plan for a problem.
 
     ``x``          an int N, a shape tuple, a concrete array / tensor, or an
                    operator (concrete inputs stay bound to the plan, so
                    ``plan(a)()`` works).
-    ``method``     ``"exact"`` (the condensation engine, any square
-                   matrix), ``"chebyshev"`` or ``"slq"`` (estimators, SPD
-                   input; the only methods an operator takes).
+    ``method``     ``"auto"`` (the cost model, `select_route`, over N,
+                   structure, devices, ``rtol`` and the calibration
+                   table), ``"exact"`` (the condensation engine, any
+                   square matrix), ``"ge"``, ``"pge"``, ``"plu"`` (the
+                   Gaussian-elimination baselines, any square matrix;
+                   pge and plu need a mesh), ``"chebyshev"`` or ``"slq"``
+                   (estimators, SPD input; the only methods an operator
+                   takes).
     ``device``     where the plan runs; ``None`` is the card and raises
                    when there is none; ``"cpu"`` runs the plain versions.
                    With a mesh, ``None`` is ``mesh.device``, and another
@@ -426,8 +574,13 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                    and calls the same plan.
     ``validate``   screen a dense estimator input for symmetry and a
                    positive diagonal at call time.
-    ``**kwargs``   the config's fields (``update=``, ``k=``, ``degree=``,
-                   ``num_probes=``, ``seed=``, ...).
+    ``rtol``       requested relative accuracy; steers ``method="auto"``
+                   (below 1e-3 only the exact family qualifies).
+    ``**kwargs``   the config's fields (``update=``, ``k=``, ``nb=``,
+                   ``degree=``, ``num_probes=``, ``seed=``, ...).  With
+                   ``method="auto"`` the estimator knobs inform the cost
+                   estimate, and the knobs of the family not picked are
+                   dropped; names no method defines still raise.
 
     Plans for arrays are cached on ``(spec, method, config, device, mesh)``.
     """
@@ -462,6 +615,29 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                         f"got {spec.dtype}")
     if grad:
         raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
+    if method == "auto":
+        if config is not None:
+            raise ValueError(
+                "method='auto' with an explicit config is ambiguous: the "
+                "config pins the method family; pass the method name")
+        bounds_known = (kwargs.get("lmin") is not None
+                        and kwargs.get("lmax") is not None)
+        probes = kwargs.get("num_probes", 32)
+        est_cols = (kwargs.get("degree", 64) * probes if bounds_known
+                    else kwargs.get("num_steps", 25) * probes + _BOUNDS_COLS)
+        method, route = select_route(spec, mesh=mesh, rtol=rtol,
+                                     bounds_known=bounds_known,
+                                     est_cols=est_cols,
+                                     precision=engine_precision)
+        kwargs = filter_for_method(method, kwargs)
+        if route is not None:
+            # the selector's engine tuple, the caller's axes winning; k is
+            # the autotuned width exact_cost priced, so auto runs it
+            kwargs.setdefault("schedule", route.schedule)
+            kwargs.setdefault("update", route.update)
+            kwargs.setdefault("k", route.panel_k)
+            if route.schedule == "mesh":
+                kwargs.setdefault("lookahead", route.lookahead)
     if method in _NOT_PORTED:
         raise _not_ported(_NOT_PORTED[method])
     if method not in _METHODS:
@@ -499,9 +675,11 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
         if mesh is not None:
             raise TypeError("operator inputs carry their own distribution; "
                             "mesh is only accepted for dense array inputs")
-    mesh_exact = method == "exact" and cfg.schedule == "mesh"
+    mesh_exact = _is_mesh_exact(method, cfg)
     if mesh_exact and mesh is None:
-        raise ValueError("engine schedule 'mesh' requires a mesh")
+        raise ValueError("engine schedule 'mesh' requires a mesh"
+                         if method == "exact"
+                         else f"method {method!r} requires a mesh")
     # a mesh spans its devices only on the routes that distribute: a
     # serial or staged schedule chosen explicitly runs on this rank alone
     run_mesh = mesh if mesh_exact or method in ESTIMATOR_METHODS else None

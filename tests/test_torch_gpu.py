@@ -586,3 +586,62 @@ def test_mesh_routes_on_the_card(cuda):
                 n, 1, 0, k, update, bool(la))
     value, counts = card["chebyshev"]
     assert np.isfinite(value) and counts["matvec"] == 66 + degree
+
+
+def test_auto_route_on_the_card(cuda):
+    """``method="auto"`` on the card runs the route `select_route` names,
+    at its panel width, through that route's kernels, and equals the same
+    plan on the CPU."""
+    from repro_torch.core import select_route
+    a = np.random.default_rng(12).standard_normal((300, 300))
+    method, route = select_route(torch.from_numpy(a), rtol=1e-6)
+    p = repro_torch.plan(a, rtol=1e-6)
+    assert p.device.type == "cuda" and p.method == method == "exact"
+    assert (p.config.schedule, p.config.update, p.config.k) == (
+        route.schedule, route.update, route.panel_k)
+    ops.reset_launch_counts()
+    s, ld = (float(v) for v in p())
+    counts = ops.launch_counts()
+    cs, cl = (float(v) for v in repro_torch.plan(a, rtol=1e-6,
+                                                 device="cpu")())
+    s_np, ld_np = np.linalg.slogdet(a)
+    assert s == cs == s_np
+    assert abs(ld - ld_np) <= 1e-10 * abs(ld_np)
+    assert abs(ld - cl) <= 1e-10 * abs(cl)
+    kernel = "panel_update" if route.update == "panel" else "rank1_update"
+    assert counts[kernel] > 0
+
+
+@pytest.mark.parametrize("dt,rtol", [(torch.float32, 1e-4),
+                                     (torch.float64, 1e-10)])
+def test_ge_on_the_card(cuda, dt, rtol):
+    """Serial GE on the card: one K1 launch a step below the last, the
+    CPU's sign and log|det| within rtol."""
+    a = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (257, 257))).to(dt)
+    ops.reset_launch_counts()
+    s, ld = (float(v) for v in repro_torch.plan(a, method="ge")())
+    assert ops.launch_counts()["rank1_update"] == 256
+    cs, cl = (float(v) for v in repro_torch.plan(a, method="ge",
+                                                 device="cpu")())
+    assert s == cs and abs(ld - cl) <= rtol * abs(cl)
+
+
+def test_pge_and_plu_at_one_rank_on_the_card(cuda):
+    """One rank under NCCL: pge and plu (nb = 1, 8) give numpy's sign and
+    log|det|, K1 / K2 launches and collectives by their formulas."""
+    import test_torch_ranks as ranks
+    from repro_torch.core.mesh import run_ranks
+    n = 200
+    a = np.random.default_rng(14).standard_normal((n, n))
+    card = run_ranks(ranks.card_baselines, 1, backend="nccl", device="cuda",
+                     timeout=600, args=(a, (1, 8)))[0]
+    s_np, ld_np = np.linalg.slogdet(a)
+    for name, ((s, ld), counts, colls) in card.items():
+        assert s == s_np and abs(ld - ld_np) <= 1e-10 * abs(ld_np), name
+        nb = 1 if name == "pge" else int(name[3:])
+        panels = 0 if name == "pge" else (n - 1) // nb
+        assert counts["rank1_update"] == n - 1 - panels, name
+        assert counts["panel_update"] == panels, name
+        assert colls == {"broadcast": n, "all_sum": 2 * n + (
+            0 if name == "pge" else n // nb)}, name

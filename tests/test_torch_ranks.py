@@ -29,8 +29,10 @@ from repro_torch import estimators as est
 from repro_torch.core.api import pad_to_multiple
 from repro_torch.core import mesh as M
 from repro_torch.core.engine import EngineConfig, build_mesh
+from repro_torch.core.gaussian import parallel_slogdet_ge
 from repro_torch.core.plan import clear_plan_cache
-from repro_torch.kernels import _build
+from repro_torch.core.scalapack import parallel_slogdet_lu
+from repro_torch.kernels import _build, ops
 
 PANEL_K = 8
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -151,6 +153,85 @@ def everything(mesh, payload: dict) -> dict:
         out["sharded"] = sharded(mesh, **payload["sharded"])
     if "plans" in payload:
         out["plans"] = plans(mesh, **payload["plans"])
+    return out
+
+
+def _counting(names):
+    """Wrap the `ops` entry points ``names`` to count their calls (on the
+    CPU no kernel launches, so the launch counters stay at 0); returns the
+    counter and a function that restores them."""
+    calls = dict.fromkeys(names, 0)
+    saved = {name: getattr(ops, name) for name in names}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(ops, name, wrap(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+    return calls, restore
+
+
+def baseline_routes(mesh, cases: dict, pad_to: int, nbs,
+                    pge_only: dict = None) -> dict:
+    """``{"case|dtype|method": (sign, logabsdet, calls, collectives)}``:
+    parallel GE (method "pge") and blocked LU ("plu<nb>") on every case
+    padded with diag(A, I) to ``pad_to`` rows, in f64 and (but for
+    near_singular) f32, with the calls of `ops.rank1_update` /
+    `ops.panel_update` and the collectives of each call; ``pge_only``
+    ``{name: (a, pad)}`` runs pge alone, f64, on ``a`` padded to ``pad``
+    (``"name|pge"``); plus the plans ``plan(method="pge"|"plu")`` on the
+    unpadded first case."""
+    torch.set_num_threads(1)
+    out = {}
+    calls, restore = _counting(("rank1_update", "panel_update"))
+    routes = {"pge": parallel_slogdet_ge(mesh),
+              **{f"plu{nb}": parallel_slogdet_lu(mesh, nb=nb) for nb in nbs}}
+    try:
+        for case, a in cases.items():
+            for dname, dt in DTYPES.items():
+                if dname == "float32" and case == "near_singular":
+                    continue
+                at = pad_to_multiple(torch.from_numpy(a).to(dt), pad_to)
+                for name, fn in routes.items():
+                    for key in calls:
+                        calls[key] = 0
+                    M.reset_collective_counts()
+                    res = fn(at)
+                    out[f"{case}|{dname}|{name}"] = (
+                        *_pair(res), dict(calls), M.collective_counts())
+        for name, (a, pad) in (pge_only or {}).items():
+            at = pad_to_multiple(torch.from_numpy(a), pad)
+            out[f"{name}|pge"] = _pair(routes["pge"](at))
+    finally:
+        restore()
+    case, a = next(iter(cases.items()))
+    for method, kw in (("pge", {}), ("plu", {"nb": nbs[-1]})):
+        p = repro_torch.plan(a, method=method, mesh=mesh, **kw)
+        out[f"plan|{method}"] = (_pair(p()), p.diagnostics.padded_n,
+                                 p.diagnostics.device_count)
+    return out
+
+
+def card_baselines(mesh, a: np.ndarray, nbs) -> dict:
+    """On the card: pge and plu (each ``nbs``) with their launch counts and
+    collectives."""
+    at = torch.from_numpy(a).to(mesh.device)
+    out = {}
+    for name, fn in (("pge", parallel_slogdet_ge(mesh)),
+                     *((f"plu{nb}", parallel_slogdet_lu(mesh, nb=nb))
+                       for nb in nbs)):
+        ops.reset_launch_counts()
+        M.reset_collective_counts()
+        res = fn(at)
+        out[name] = (_pair(res), ops.launch_counts(), M.collective_counts())
     return out
 
 
