@@ -79,7 +79,27 @@ printed line each, any failure ends the run:
             (one rank: N = 8192, the ``[table3]`` line beside mesh x
             rank1 and x panel; four ranks: N = 2048), sign and log|det|
             against the f64 slogdet, launches and collectives against
-            their formulas, and a NaN entry giving sign NaN.
+            their formulas, and a NaN entry giving sign NaN;
+7. grad     gradients through ``plan(...).value_and_grad`` and autograd of
+            ``plan(...).logdet(x)``: on phase 4's matrix (staged x panel,
+            staged x rank1, ge) sign and log|det| equal to phase 4's, the
+            gradient bitwise equal across the routes and the two paths,
+            ||A G^T - I|| / sqrt(N) under INV_RESIDUAL, a directional
+            derivative against a central difference of the f64 slogdet,
+            K1-K4 launches of the forward unchanged and none in the
+            backward; on the dense estimator cell (slq, chebyshev with
+            bounds) the value bitwise equal to ``__call__``'s, ||G -
+            inv(A)^T|| within 3 sqrt(sum sem^2), the transposed CG's true
+            residual under its tolerance, K7 never launched and K6 at its
+            forward formula; on the lattice (slq) a finite (5, n) band
+            gradient equal to the same pullback through the plain
+            `ref.stencil_mv_ref` within its rounding bound, K8 launched CG
+            iterations + 1 times by the backward, and on a 64 x 64 lattice
+            within 3 sem of inv(A)^T at the bands' positions; on phase 6's
+            ranks (run there), mesh x panel plain and lookahead: every
+            rank's gradient equal to rank 0's and to the single-device
+            plan's, and sharded Chebyshev's equal to dense Chebyshev's
+            (same probes and bounds) within ROUTE_RTOL's f32 figure.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -87,6 +107,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -149,6 +170,21 @@ MESH_RANKS, MESH_TIMEOUT = 4, 600
 # shared-card mesh (correctness only), and of the NaN-entry matrix
 BASELINES = [("ge", 1), ("pge", 1), ("plu", 1), ("plu", 32)]
 BASELINE_SHARED_N, BASELINE_NAN_N = 2048, 256
+# phase 7: the exact gradient G = inv(A)^T in f32 at N = 8192, its residual
+# ||A G^T - I||_F / sqrt(N) (f64 product; the cell's condition number is
+# about 3); the directional derivative <G, E> (E = randn / sqrt(N))
+# against the central difference of the f64 slogdet at step FD_STEP,
+# within FD_RTOL (its truncation and rounding are far below)
+INV_RESIDUAL, FD_STEP, FD_RTOL = 1e-4, 1e-4, 1e-3
+# the estimator backward's CG tolerance on the dense and lattice cells: f32
+# solves reach a true residual of about 1e-6 at these conditions (phase 5),
+# so at 1e-4 "true residual under the tolerance" is the solve's doing, not
+# rounding's; on the mesh, where sharded and dense Chebyshev are compared
+# within ROUTE_RTOL, 1e-6
+GRAD_CG_TOL, MESH_GRAD_CG_TOL = 1e-4, 1e-6
+# Chebyshev's bounds on the dense cell (spectrum of x x^T / n + 2 I inside
+# [2, 6]), and the side of the small lattice held against a dense inverse
+CHEB_BOUNDS, SMALL_SIDE = (1.9, 6.5), 64
 
 
 class SmokeFailure(RuntimeError):
@@ -925,7 +961,9 @@ def main_path_phase(n: int, k: int, gen) -> dict:
                 f"staged|{update}: fused {f[1].item()!r} != unfused "
                 f"{u[1].item()!r}")
     say("main_path", fused_equals_unfused_bitwise=True)
-    return launches, walls
+    # phase 7 takes the matrix and the unfused routes' results
+    cell = (a, {r: results[r] for r in ("staged|rank1", "staged|panel")})
+    return launches, walls, cell
 
 
 def exact_cell(n: int, gen):
@@ -1489,7 +1527,7 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, P, me = mesh.device, mesh.size, mesh.rank
     out = {"device": str(dev), "exact": {}, "estimators": {},
-           "baselines": {}}
+           "baselines": {}, "grad": {}}
 
     def same_on_every_rank(a, what):
         """The ranks built ``a`` from one seed: an all_reduce of each
@@ -1565,7 +1603,34 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
                 f"rank {me} mesh {update}: lookahead "
                 f"{results[update + '|lookahead']} != plain "
                 f"{results[update]}")
-    del a
+    # phase 7 here: mesh x panel's gradient, plain and lookahead, against
+    # the single-device plan's; every rank inverts the full matrix, so the
+    # backward adds no launch and no collective to the forward's
+    single = repro_torch.plan(a, method="exact", update="panel", k=k,
+                              device=dev).value_and_grad()[1]
+    for la in (False, True):
+        name = "panel" + ("|lookahead" if la else "")
+        plan = repro_torch.plan(a, method="exact", update="panel", k=k,
+                                lookahead=la, mesh=mesh)
+        (res, g), wall, counts, peak = run(plan.value_and_grad)
+        colls = M.collective_counts()
+        want = mesh_launches(n // P, P, me, k, name)
+        want_c = mesh_collectives(n // P, P, k, "panel")
+        same = bool(torch.equal(g, single))
+        out["grad"][f"grad|{name}"] = dict(
+            logabsdet=res.logabsdet.item(), grad_sha256=sha256(g),
+            equals_single_device=same, wall_s=wall, peak_mem_bytes=peak,
+            launches=counts, collectives=colls)
+        require(res.logabsdet.item() == results[name][1],
+                f"rank {me} grad mesh {name}: value {res.logabsdet.item()} "
+                f"!= {results[name][1]}")
+        require(same, f"rank {me} grad mesh {name}: gradient differs from "
+                "the single-device plan's")
+        require(counts == want and colls == want_c,
+                f"rank {me} grad mesh {name}: launches {counts}, "
+                f"collectives {colls} != {want}, {want_c}")
+        del g
+    del a, single
     torch.cuda.empty_cache()
 
     # the paper's baselines: at the exact cell's side on one rank, at
@@ -1633,6 +1698,33 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
             f"plain route by {x_rel}")
     require(counts == want,
             f"rank {me} sharded cg: launches {counts} != {want}")
+
+    # phase 7 here: sharded Chebyshev's gradient against dense
+    # Chebyshev's, the same probes (one seed on this rank's card) and
+    # bounds; K5 once per forward product (DEGREE, the bounds given), the
+    # backward's transposed products through rmm
+    from repro_torch.estimators.chebyshev import default_generator
+    kw = dict(method="chebyshev", degree=DEGREE, num_probes=PROBES,
+              lmin=CHEB_BOUNDS[0], lmax=CHEB_BOUNDS[1],
+              grad_cg_tol=MESH_GRAD_CG_TOL)
+    plan = repro_torch.plan(a, mesh=mesh, **kw)
+    (res, g), wall, counts, peak = run(lambda: plan.value_and_grad(
+        generator=default_generator(dev, seed)))
+    dres, dg = repro_torch.plan(a, device=dev, **kw).value_and_grad(
+        generator=default_generator(dev, seed))
+    rel = (torch.linalg.matrix_norm(g - dg)
+           / torch.linalg.matrix_norm(dg)).item()
+    want = dict(dict.fromkeys(KERNEL_META, 0), matvec=DEGREE)
+    out["grad"]["grad|chebyshev"] = dict(
+        estimate=res.logabsdet.item(), grad_sha256=sha256(g),
+        cg_iters=res.diagnostics.cg_iters,
+        dense_cg_iters=dres.diagnostics.cg_iters, dense_rel=rel,
+        rtol=ROUTE_RTOL["dense|chebyshev"], wall_s=wall,
+        peak_mem_bytes=peak, launches=counts)
+    require(rel <= ROUTE_RTOL["dense|chebyshev"],
+            f"rank {me} grad sharded chebyshev: {rel} from dense")
+    require(counts == want, f"rank {me} grad sharded chebyshev: launches "
+            f"{counts} != {want}")
     return out
 
 
@@ -1660,7 +1752,8 @@ def mesh_phase(n: int, k: int, seed: int) -> dict:
                 for route, fields in res[part].items():
                     for key in ("sign", "logabsdet", "estimate", "sem",
                                 "iters", "sign_is_nan",
-                                "logabsdet_is_nan"):
+                                "logabsdet_is_nan", "grad_sha256",
+                                "cg_iters"):
                         require(fields.get(key) == first[part][route]
                                 .get(key), f"mesh P={size} {route}: rank "
                                 f"{rank} {key} differs from rank 0's")
@@ -1683,7 +1776,322 @@ def mesh_phase(n: int, k: int, seed: int) -> dict:
     return launches
 
 
-PARTS = ("exact", "estimators", "baselines")
+PARTS = ("exact", "estimators", "baselines", "grad")
+
+
+# --------------------------------------------------------------------------
+# phase 7: gradients
+# --------------------------------------------------------------------------
+
+def sha256(t) -> str:
+    """Digest of a tensor's bytes: two ranks' gradients compare bitwise."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().data).hexdigest()
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the card synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """``(fn(), seconds, launches)``: the launch counts of ``fn`` alone."""
+    from repro_torch.kernels import ops
+    import torch
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out, seconds = timed(fn)
+    return out, seconds, ops.launch_counts()
+
+
+def grad_exact(a, phase4: dict, k: int, gen) -> dict:
+    """Phase 7 on the exact cell ``a`` (phase 4's matrix; ``phase4`` its
+    staged routes' ``(sign, logabsdet)``): value_and_grad and autograd on
+    staged x panel, staged x rank1 and ge."""
+    import torch
+    import repro_torch
+
+    n = a.shape[0]
+    a64 = a.double()
+    s_ref, ld_ref = (v.item() for v in torch.linalg.slogdet(a64))
+    routes = [("staged|panel", dict(method="exact", update="panel", k=k)),
+              ("staged|rank1", dict(method="exact", update="rank1", k=k)),
+              ("ge", dict(method="ge"))]
+    launches, grads = {}, {}
+    for name, kw in routes:
+        want = (baseline_launches(n, 1, 0, "ge", 1) if name == "ge"
+                else expected_launches(n, k, kw["update"], False))
+        p = repro_torch.plan(a, **kw)
+        (res, g), _, vag_counts = counted(p.value_and_grad)
+        x = a.clone().requires_grad_()
+        ld, fwd_s, fwd_counts = counted(lambda: p.logdet(x))
+        _, bwd_s, bwd_counts = counted(ld.backward)
+        s, ld_v = res.sign.item(), res.logabsdet.item()
+        say("grad", route=name, n=n, sign=s, logabsdet=ld_v,
+            ref_logabsdet=ld_ref,
+            value_and_grad_wall_s=res.diagnostics.wall_time_s,
+            forward_wall_s=fwd_s, backward_wall_s=bwd_s,
+            launches=vag_counts, forward_launches=fwd_counts,
+            backward_launches=bwd_counts, expected_launches=want)
+        if name in phase4:
+            s4, ld4 = phase4[name]
+            require(torch.equal(res.sign, s4)
+                    and torch.equal(res.logabsdet, ld4),
+                    f"grad {name}: ({s}, {ld_v}) != phase 4's "
+                    f"({s4.item()}, {ld4.item()})")
+        else:
+            require(s == s_ref and abs(ld_v - ld_ref)
+                    <= E2E_RTOL[None] * abs(ld_ref),
+                    f"grad {name}: ({s}, {ld_v}) vs slogdet ({s_ref}, "
+                    f"{ld_ref})")
+        require(torch.equal(ld.detach(), res.logabsdet),
+                f"grad {name}: autograd forward {ld.item()} != {ld_v}")
+        require(vag_counts == want and fwd_counts == want,
+                f"grad {name}: launches {vag_counts} / {fwd_counts} != "
+                f"{want}")
+        require(not any(bwd_counts.values()),
+                f"grad {name}: the backward launched {bwd_counts}")
+        require(torch.equal(x.grad, g), f"grad {name}: autograd's gradient "
+                "differs from value_and_grad's")
+        grads[name] = g
+        launches[f"grad|{name}|forward"] = fwd_counts
+        launches[f"grad|{name}|backward"] = bwd_counts
+        del x, ld
+    g = grads["staged|panel"]
+    for name, other in grads.items():
+        require(torch.equal(other, g),
+                f"grad {name}: gradient differs from staged|panel's")
+    inv_ms = time_ms(lambda: torch.linalg.inv(a), warmup=1, iters=3)
+    g64 = g.double()
+    eye = torch.eye(n, device=a.device, dtype=torch.float64)
+    resid = (torch.linalg.matrix_norm(a64 @ g64.T - eye) / n ** 0.5).item()
+    del eye
+    e = torch.randn(n, n, generator=gen, device=a.device,
+                    dtype=torch.float64) / n ** 0.5
+    dd = (g64 * e).sum().item()
+    fd = ((torch.linalg.slogdet(a64 + FD_STEP * e)[1]
+           - torch.linalg.slogdet(a64 - FD_STEP * e)[1]).item()
+          / (2 * FD_STEP))
+    # <G, E> has standard deviation ||G||_F / sqrt(N) over E
+    scale = abs(fd) + torch.linalg.matrix_norm(g64).item() / n ** 0.5
+    say("grad", route="exact", n=n, grads_bitwise_equal=True,
+        inverse_ms=inv_ms, residual=resid, residual_bound=INV_RESIDUAL,
+        directional=dd, central_difference=fd, fd_step=FD_STEP,
+        fd_abs_err=abs(dd - fd), fd_tol=FD_RTOL * scale)
+    require(resid <= INV_RESIDUAL, f"grad exact: ||A G^T - I|| / sqrt(N) = "
+            f"{resid}")
+    require(abs(dd - fd) <= FD_RTOL * scale,
+            f"grad exact: <G, E> {dd} vs central difference {fd}")
+    return launches
+
+
+def grad_dense(seed: int) -> dict:
+    """Phase 7 on the dense estimator cell: slq, and chebyshev with
+    bounds."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    a = dense_spd(EST_N, gen, torch.float32)
+    n, k = EST_N, PROBES
+    a64 = a.double()
+    inv_t = torch.linalg.inv(a64).T
+    op = est.DenseOperator(a)
+    launches = {}
+    for method, kw in (("slq", dict(num_steps=NUM_STEPS)),
+                       ("chebyshev", dict(degree=DEGREE,
+                                          lmin=CHEB_BOUNDS[0],
+                                          lmax=CHEB_BOUNDS[1]))):
+        route = f"dense|{method}"
+        p = repro_torch.plan(a, method=method, num_probes=k,
+                             grad_cg_tol=GRAD_CG_TOL, **kw)
+        call = p(generator=default_generator(dev, seed))
+        (res, g), _, vag_counts = counted(
+            lambda: p.value_and_grad(generator=default_generator(dev, seed)))
+        x = a.clone().requires_grad_()
+        ld, fwd_s, fwd_counts = counted(
+            lambda: p.logdet(x, generator=default_generator(dev, seed)))
+        _, bwd_s, bwd_counts = counted(ld.backward)
+        # the backward's two parts on the same probes: the transposed CG,
+        # then (g / k) W Z^T
+        z = est.shared_probes(method, op, default_generator(dev, seed),
+                              {"num_probes": k})
+        cg, cg_s = timed(lambda: est.cg_solve(op, z, transpose=True,
+                                              tol=GRAD_CG_TOL, device=dev))
+        bar, cg2 = est.hutchinson_pullback(op, a, z, 1.0,
+                                           cg_tol=GRAD_CG_TOL)
+        w, z64 = cg.x.double(), z.double()
+        true_res = (torch.linalg.vector_norm(z64 - a64.T @ w, dim=0)
+                    / torch.linalg.vector_norm(z64, dim=0)).max().item()
+        g64 = g.double()
+        err = torch.linalg.matrix_norm(g64 - inv_t).item()
+        # per entry: the sample variance of w[i, c] z[j, c] over the probes,
+        # z^2 = 1: (sum_c w[i, c]^2 - k G[i, j]^2) / (k - 1)
+        sem2 = ((n * (w * w).sum() - k * (g64 * g64).sum())
+                / (k * (k - 1))).item()
+        bound = 3.0 * sem2 ** 0.5
+        want = expected_estimator_launches(route)
+        say("grad", route=route, n=n, estimate=res.logabsdet.item(),
+            call_estimate=call.logabsdet.item(),
+            cg_iters=res.diagnostics.cg_iters, cg_tol=GRAD_CG_TOL,
+            true_rel_residual_f64=true_res, grad_err_fro=err,
+            three_sem_fro=bound,
+            value_and_grad_wall_s=res.diagnostics.wall_time_s,
+            forward_wall_s=fwd_s, backward_wall_s=bwd_s, cg_wall_s=cg_s,
+            cg_share_of_backward=cg_s / bwd_s, launches=vag_counts,
+            forward_launches=fwd_counts, backward_launches=bwd_counts,
+            expected_launches=want)
+        require(torch.equal(res.logabsdet, call.logabsdet)
+                and torch.equal(res.sem, call.sem),
+                f"grad {route}: value {res.logabsdet.item()} != __call__'s "
+                f"{call.logabsdet.item()}")
+        require(vag_counts == want and fwd_counts == want,
+                f"grad {route}: launches {vag_counts} / {fwd_counts} != "
+                f"{want}")
+        require(not any(bwd_counts.values()),
+                f"grad {route}: the backward launched {bwd_counts}")
+        require(torch.equal(x.grad, g),
+                f"grad {route}: autograd's gradient differs")
+        require(torch.equal(bar, g) and cg2.iters == res.diagnostics.cg_iters,
+                f"grad {route}: hutchinson_pullback differs from "
+                "value_and_grad's")
+        require(true_res <= GRAD_CG_TOL,
+                f"grad {route}: true residual {true_res}")
+        require(err <= bound, f"grad {route}: ||G - inv(A)^T|| = {err} > "
+                f"3 sem {bound}")
+        launches[f"grad|{route}|forward"] = fwd_counts
+        launches[f"grad|{route}|backward"] = bwd_counts
+        del x, ld, g, bar, g64, w
+        torch.cuda.empty_cache()
+    return launches
+
+
+def band_of(dense, offsets):
+    """``out[d, i] = dense[i, i + offsets[d]]``, zero outside [0, n)."""
+    import torch
+    n = dense.shape[0]
+    i = torch.arange(n, device=dense.device)
+    out = torch.zeros((len(offsets), n), dtype=dense.dtype,
+                      device=dense.device)
+    for d, off in enumerate(offsets):
+        keep = (i + off >= 0) & (i + off < n)
+        out[d, keep] = dense[i[keep], i[keep] + off]
+    return out
+
+
+def in_band(op):
+    """(nb, n) mask of the band entries whose column lies in [0, n)."""
+    import torch
+    i = torch.arange(op.n, device=op.bands.device)
+    return torch.stack([(i + off >= 0) & (i + off < op.n)
+                        for off in op.offsets])
+
+
+def grad_lattice(seed: int) -> dict:
+    """Phase 7 on the lattice (slq), and on a SMALL_SIDE^2 lattice against
+    a dense f64 inverse."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+    from repro_torch.kernels import ref
+
+    dev = "cuda"
+    kw = dict(method="slq", num_steps=NUM_STEPS, num_probes=PROBES,
+              grad_cg_tol=GRAD_CG_TOL)
+    op = lattice_operator(SIDE, torch.float32)
+    n, route = op.n, "lattice|slq"
+    p = repro_torch.plan(op, **kw)
+    call = p(generator=default_generator(dev, seed))
+    (res, g), _, vag_counts = counted(
+        lambda: p.value_and_grad(generator=default_generator(dev, seed)))
+    iters = res.diagnostics.cg_iters
+    b = op.bands.clone().requires_grad_()
+    pg = repro_torch.plan(est.StencilOperator(op.offsets, b), **kw)
+    ld, fwd_s, fwd_counts = counted(
+        lambda: pg.logdet(generator=default_generator(dev, seed)))
+    _, bwd_s, bwd_counts = counted(ld.backward)
+    want_fwd = expected_estimator_launches(route)
+    want_bwd = dict(dict.fromkeys(KERNEL_META, 0), stencil_mv=iters + 1)
+    want = dict(want_fwd, stencil_mv=NUM_STEPS + iters + 1)
+    # the same pullback with the bilinear apply through the plain
+    # ref.stencil_mv_ref on the card (check only): the same CG, then
+    # autograd's band cotangent; the two sum k products in their own
+    # orders, within 2 k eps sum_c |w2[i, c] z[i + off, c]| (z = +-1)
+    z = est.shared_probes("slq", op, default_generator(dev, seed),
+                          {"num_probes": PROBES})
+    plain = est.OperatorGradInfo(
+        params=lambda o: o.bands,
+        rebuild=lambda o, bb: est.StencilOperator(o.offsets, bb),
+        apply=lambda o, bb, zz: ref.stencil_mv_ref(bb, zz,
+                                                   offsets=o.offsets))
+    bar, cg = est.hutchinson_pullback(op, op.bands, z, 1.0, info=plain,
+                                      cg_tol=GRAD_CG_TOL)
+    eps = torch.finfo(torch.float32).eps
+    tol = (2 * PROBES * eps * (cg.x.abs() / PROBES).sum(1))[None, :]         * in_band(op)
+    excess = ((g - bar).abs() - tol).max().item()
+    say("grad", route=route, n=n, estimate=res.logabsdet.item(),
+        call_estimate=call.logabsdet.item(), cg_iters=iters,
+        grad_shape=list(g.shape), plain_bitwise=bool(torch.equal(g, bar)),
+        plain_max_abs_diff=(g - bar).abs().max().item(),
+        value_and_grad_wall_s=res.diagnostics.wall_time_s,
+        forward_wall_s=fwd_s, backward_wall_s=bwd_s, launches=vag_counts,
+        forward_launches=fwd_counts, backward_launches=bwd_counts,
+        expected_backward_launches=want_bwd)
+    require(torch.equal(res.logabsdet, call.logabsdet),
+            f"grad {route}: value {res.logabsdet.item()} != __call__'s")
+    require(tuple(g.shape) == (5, n) and bool(torch.isfinite(g).all()),
+            f"grad {route}: band gradient {tuple(g.shape)} or not finite")
+    require(vag_counts == want and fwd_counts == want_fwd
+            and bwd_counts == want_bwd,
+            f"grad {route}: launches {vag_counts}, {fwd_counts}, "
+            f"{bwd_counts} != {want}, {want_fwd}, {want_bwd}")
+    require(torch.equal(b.grad, g),
+            f"grad {route}: autograd's gradient differs")
+    require(cg.iters == iters and excess <= 0.0,
+            f"grad {route}: the plain pullback differs beyond its bound "
+            f"({excess} over)")
+    launches = {f"grad|{route}|forward": fwd_counts,
+                f"grad|{route}|backward": bwd_counts}
+    del op, b, ld, g, bar, z, cg, pg, p
+    torch.cuda.empty_cache()
+
+    small = lattice_operator(SMALL_SIDE, torch.float32)
+    res, g = repro_torch.plan(small, **kw).value_and_grad(
+        generator=default_generator(dev, seed))
+    want_g = band_of(torch.linalg.inv(small.to_dense().double()).T,
+                     small.offsets)
+    z = est.shared_probes("slq", small, default_generator(dev, seed),
+                          {"num_probes": PROBES})
+    _, cg = est.hutchinson_pullback(small, small.bands, z, 1.0,
+                                    cg_tol=GRAD_CG_TOL)
+    w2 = (cg.x.double() ** 2).sum(1)[None, :]
+    g64 = g.double()
+    var = (w2 - PROBES * g64 * g64) / (PROBES - 1) * in_band(small)
+    bound = 3.0 * (var.sum() / PROBES).item() ** 0.5
+    err = torch.linalg.vector_norm(g64 - want_g).item()
+    say("grad", route=f"lattice{SMALL_SIDE}|slq", n=small.n,
+        cg_iters=res.diagnostics.cg_iters, grad_err_fro=err,
+        three_sem_fro=bound)
+    require(err <= bound, f"grad lattice{SMALL_SIDE}: ||G - band(inv(A)^T)|| "
+            f"= {err} > 3 sem {bound}")
+    return launches
+
+
+def grad_phase(cell, k: int, seed: int, gen) -> dict:
+    """Phase 7 on one card; returns its launch counts by route."""
+    a, phase4 = cell
+    launches = grad_exact(a, phase4, k, gen)
+    launches.update(grad_dense(seed))
+    launches.update(grad_lattice(seed))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1749,13 +2157,18 @@ def main(argv=None) -> int:
                                  | {"bound_ms": v["bound"][0]}
                                  for t, v in mv.items()})
     # phase 4: the main path
-    launches, walls = main_path_phase(args.n, args.k, gen)
+    launches, walls, cell = main_path_phase(args.n, args.k, gen)
     # phase 4b: method="auto" on the port's measured table
     launches.update(auto_phase(args.n, gen, walls))
     # phase 5: the estimators
     launches.update(estimator_phase(EST_N, SIDE, args.seed))
     # phase 6: the mesh (the ranks are spawned: CUDA is initialized here)
     launches.update(mesh_phase(args.n, args.k, args.seed))
+    # phase 7: gradients (their mesh checks ran in phase 6's ranks)
+    t7 = time.perf_counter()
+    launches.update(grad_phase(cell, args.k, args.seed, gen))
+    del cell
+    say("grad", seconds=time.perf_counter() - t7)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -131,7 +131,6 @@ class ChebyshevConfig:
                      call time
     ``lmin``/``lmax`` spectral bounds; None -> power-iteration bracket
     ``grad_cg_tol``/``grad_cg_maxiter`` backward-pass CG solve control
-                     (kept for the config dict; gradients are not ported)
     """
     degree: int = 64
     num_probes: int = 32
@@ -168,7 +167,9 @@ class ChebyshevConfig:
     def estimator_kwargs(self) -> dict:
         """Keywords for `repro_torch.estimators.estimate_logdet`."""
         kw = dict(degree=self.degree, num_probes=self.num_probes,
-                  probe_kind=self.probe_kind, seed=self.seed)
+                  probe_kind=self.probe_kind, seed=self.seed,
+                  grad_cg_tol=self.grad_cg_tol,
+                  grad_cg_maxiter=self.grad_cg_maxiter)
         if self.lmin is not None:
             kw["lmin"] = self.lmin
         if self.lmax is not None:
@@ -185,7 +186,6 @@ class SLQConfig:
     ``seed``         seed of the plan's generator when none is passed at
                      call time
     ``grad_cg_tol``/``grad_cg_maxiter`` backward-pass CG solve control
-                     (kept for the config dict; gradients are not ported)
     """
     num_steps: int = 25
     num_probes: int = 32
@@ -202,7 +202,8 @@ class SLQConfig:
     def estimator_kwargs(self) -> dict:
         """Keywords for `repro_torch.estimators.estimate_logdet`."""
         return dict(num_steps=self.num_steps, num_probes=self.num_probes,
-                    seed=self.seed)
+                    seed=self.seed, grad_cg_tol=self.grad_cg_tol,
+                    grad_cg_maxiter=self.grad_cg_maxiter)
 
 
 LogdetConfig = Union[ExactConfig, ChebyshevConfig, SLQConfig]

@@ -40,10 +40,21 @@ port's table (``bench_out/torch_roofline_calibration.json``, measured on
 the card by ``tools/torch_calibrate.py``) adds the host's dispatch time
 per eliminated row to every exact route.
 
+Gradients follow one autograd rule per path (`estimators.grad`), never
+the elimination or the estimator recurrence: ``plan(...).logdet(x)`` of an
+``x`` that requires a gradient backpropagates ``g * inv(x).T`` on every
+exact method, and on an estimator the Hutchinson pullback on the forward's
+own probes (one transposed CG solve) onto the matrix or the operator's
+parameters (a stencil's bands).  ``value_and_grad(a, generator=...)``
+returns the value and that gradient together, the estimators' backward CG
+iterations in ``diagnostics.cg_iters``; ``plan(..., grad=True)`` builds
+that callable with the plan.  On a mesh every rank gets the full
+gradient: the exact methods invert the matrix on each rank's device, the
+sharded estimators solve through ``ShardedOperator.rmm``.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-gradients (items 5 and 7), ``explain`` (item 9), ``export`` (item 10),
-``audit`` (item 11), the legacy route strings (item 12), and batched
-stacks (items 3 and 7).
+``explain`` (item 9), ``export`` (item 10), ``audit`` (item 11), the
+legacy route strings (item 12), and batched stacks (items 3 and 7).
 """
 from __future__ import annotations
 
@@ -70,10 +81,12 @@ from repro_torch.core.mesh import Mesh
 from repro_torch.core.result import Diagnostics, LogdetResult
 from repro_torch.core.scalapack import parallel_slogdet_lu
 from repro_torch.estimators import (
-    ESTIMATOR_METHODS, ShardedOperator, estimate_logdet, is_operator,
-    operator_on,
+    ESTIMATOR_METHODS, ShardedOperator, estimate_logdet, exact_slogdet_vjp,
+    hutchinson_pullback, is_operator, operator_grad_info, operator_on,
+    shared_probes,
 )
-from repro_torch.estimators.operators.base import resolve_device
+from repro_torch.estimators.chebyshev import default_generator
+from repro_torch.estimators.operators.base import device_of, resolve_device
 
 __all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of", "select_method",
            "select_route", "clear_plan_cache"]
@@ -327,10 +340,12 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
             core = parallel_slogdet_ge(mesh)
         else:
             core = parallel_slogdet_lu(mesh, nb=cfg.nb)
+        # the VJP wraps the padding too: the gradient is n x n
+        wrapped = exact_slogdet_vjp(lambda x: core(pad_to_multiple(x, mult)))
 
         def fwd(a):
             a = torch.as_tensor(a).to(device=device, dtype=dtype)
-            sign, ld = core(pad_to_multiple(a, mult))
+            sign, ld = wrapped(a)
             return sign, ld, torch.zeros_like(ld)
 
         return fwd, -(-spec.n // mult) * mult
@@ -339,27 +354,21 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
         padded_n = spec.n
         if method == "exact" and cfg.update == "panel" and spec.n:
             padded_n = -(-spec.n // cfg.k) * cfg.k
-        core = _serial_exact_core(method, cfg)
+        wrapped = exact_slogdet_vjp(_serial_exact_core(method, cfg))
 
         def fwd(a):
-            sign, ld = core(torch.as_tensor(a).to(device=device,
-                                                  dtype=dtype))
+            sign, ld = wrapped(torch.as_tensor(a).to(device=device,
+                                                     dtype=dtype))
             return sign, ld, torch.zeros_like(ld)
 
         return fwd, padded_n
 
     est_kw = cfg.estimator_kwargs()
-    # on a mesh (dense input only) a ShardedOperator of diag(A, I)
     size = mesh.size if mesh is not None else 1
     padded_n = -(-spec.n // size) * size
 
     def fwd(x, generator=None, probes=None, lmin=None, lmax=None):
-        if spec.kind == "operator":
-            op = operator_on(x, device)
-        else:
-            op = torch.as_tensor(x).to(device=device, dtype=dtype)
-            if mesh is not None:
-                op = ShardedOperator(pad_to_multiple(op, size), mesh)
+        op = _estimator_operator(x, spec, device, mesh)
         kw = dict(est_kw)
         if lmin is not None:
             kw["lmin"] = lmin
@@ -374,6 +383,73 @@ def _build_forward(spec: ProblemSpec, method: str, cfg: LogdetConfig,
         return torch.ones_like(res.est), res.est, res.sem
 
     return fwd, padded_n
+
+
+def _estimator_operator(x, spec: ProblemSpec, device: torch.device,
+                        mesh: Optional[Mesh]):
+    """The operator an estimator plan runs on: an operator input on
+    ``device``; a dense input as a `DenseOperator` there, or on a mesh a
+    `ShardedOperator` of diag(A, I) padded to a multiple of its size."""
+    if spec.kind == "operator":
+        return operator_on(x, device)
+    a = torch.as_tensor(x).to(device=device, dtype=getattr(torch, spec.dtype))
+    if mesh is not None:
+        return ShardedOperator(pad_to_multiple(a, mesh.size), mesh)
+    return operator_on(a, device)
+
+
+def _build_value_and_grad(spec: ProblemSpec, method: str, cfg: LogdetConfig,
+                          device: torch.device, mesh: Optional[Mesh],
+                          fwd: Callable) -> Callable:
+    """vag(x, generator) -> ((sign, logabsdet, sem), grad, cg_iters).
+
+    The gradient of ``logabsdet`` with respect to the input: the dense
+    matrix, or an operator's own parameters.  Exact methods run the plan's
+    own forward ``fwd``, then ``inv(a).T`` (no collective on a mesh: every
+    rank inverts the full matrix).  Estimators draw the probes as the
+    forward does, so the value equals ``__call__``'s with the same
+    generator, and run `hutchinson_pullback` explicitly so that its CG
+    iteration count (else None) can be reported.
+    """
+    dtype = getattr(torch, spec.dtype)
+    if method in _EXACT_METHODS:
+        def vag(x, generator=None):
+            a = torch.as_tensor(x).to(device=device, dtype=dtype)
+            sign, ld, sem = fwd(a)
+            if a.shape[-1] == 0:
+                return (sign, ld, sem), torch.zeros_like(a), None
+            return (sign, ld, sem), torch.linalg.inv(a).mT, None
+
+        return vag
+
+    est_kw = cfg.estimator_kwargs()
+    # the forward widens Chebyshev bounds only where the mesh padded
+    padded = mesh is not None and spec.n % mesh.size != 0
+
+    def vag(x, generator=None):
+        op = _estimator_operator(x, spec, device, mesh)
+        info = operator_grad_info(op)
+        if info is None:
+            raise TypeError(
+                f"value_and_grad needs an operator with a gradient "
+                f"registration; {type(op).__name__} has none (see "
+                "repro_torch.estimators.register_operator_grad)")
+        if generator is None:
+            generator = default_generator(device_of(op), cfg.seed)
+        probes = shared_probes(method, op, generator, est_kw)
+        kw = _widen_bounds_for_padding(est_kw) if padded else est_kw
+        res = estimate_logdet(op, method=method, device=device,
+                              generator=generator, probes=probes, **kw)
+        bar, cg = hutchinson_pullback(
+            op, info.params(op), probes, torch.ones_like(res.est),
+            info=info, cg_tol=cfg.grad_cg_tol, cg_maxiter=cfg.grad_cg_maxiter)
+        if mesh is not None:
+            # d logdet(diag(A, I)) / dA is the A-block of the padded
+            # pullback
+            bar = bar[:spec.n, :spec.n]
+        return (torch.ones_like(res.est), res.est, res.sem), bar, cg.iters
+
+    return vag
 
 
 def _is_mesh_exact(method: str, cfg: LogdetConfig) -> bool:
@@ -409,9 +485,13 @@ class LogdetPlan:
     method: str
     config: LogdetConfig
     device: torch.device
+    grad: bool = False
     validate: bool = True
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     _fwd: Callable = field(default=None, repr=False, compare=False)
+    _mesh: Optional[Mesh] = field(default=None, repr=False, compare=False)
+    # the value_and_grad callable, built on first use or by grad=True
+    _cache: dict = field(default_factory=dict, repr=False, compare=False)
     _bound: Any = field(default=None, repr=False, compare=False)
 
     def __call__(self, a=None, *, generator=None, probes=None, lmin=None,
@@ -445,12 +525,40 @@ class LogdetPlan:
 
     def logdet(self, a=None, *, generator=None, probes=None, lmin=None,
                lmax=None) -> torch.Tensor:
-        """``log|det|`` alone."""
+        """``log|det|`` alone, differentiable in the input (or the
+        operator's parameters)."""
         return self.slogdet(a, generator=generator, probes=probes,
                             lmin=lmin, lmax=lmax)[1]
 
     def value_and_grad(self, a=None, *, generator=None):
-        raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
+        """Forward and backward -> ``(LogdetResult, grad)``.
+
+        ``grad`` is d logabsdet / d input: (n, n) for a matrix, shaped like
+        the parameters for an operator (a stencil's bands).  Estimator
+        plans draw the probes from ``generator`` (else the config's
+        ``seed``) as ``__call__`` does, so the value is the same, and
+        report the backward CG's iterations in ``diagnostics.cg_iters``;
+        ``wall_time_s`` covers both passes.
+        """
+        x = self._input(a)
+        x = self._check(x, generator, None, None, None)
+        t0 = time.perf_counter()
+        vag = self._cache.get("vag")
+        if vag is None:
+            vag = self._cache["vag"] = self._build_vag()
+        with torch.no_grad():
+            (sign, ld, sem), bar, iters = vag(x, generator)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        diags = dataclasses.replace(
+            self.diagnostics, wall_time_s=time.perf_counter() - t0,
+            cg_iters=iters)
+        return LogdetResult(sign=sign, logabsdet=ld, sem=sem,
+                            method_used=self.method, diagnostics=diags), bar
+
+    def _build_vag(self) -> Callable:
+        return _build_value_and_grad(self.spec, self.method, self.config,
+                                     self.device, self._mesh, self._fwd)
 
     def audit(self, passes=None, include_grad: bool = False):
         raise _not_ported("the plan audit (ROADMAP Queue 1 item 11)")
@@ -572,6 +680,8 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                    matrix over its ranks (exact: the mesh schedule;
                    estimators: a `ShardedOperator`).  Every rank builds
                    and calls the same plan.
+    ``grad``       build the ``value_and_grad`` callable now rather than
+                   at its first call.
     ``validate``   screen a dense estimator input for symmetry and a
                    positive diagonal at call time.
     ``rtol``       requested relative accuracy; steers ``method="auto"``
@@ -613,8 +723,6 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
     if getattr(torch, spec.dtype) not in _DTYPES:
         raise TypeError(f"repro_torch plans take float32 or float64 input, "
                         f"got {spec.dtype}")
-    if grad:
-        raise _not_ported("gradients (ROADMAP Queue 1 items 5 and 7)")
     if method == "auto":
         if config is not None:
             raise ValueError(
@@ -691,18 +799,24 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
             _PLAN_CACHE.move_to_end(key)
-            if cached.validate != validate:
-                cached = dataclasses.replace(cached, validate=validate)
+            if grad and "vag" not in cached._cache:
+                cached._cache["vag"] = cached._build_vag()
+            if cached.validate != validate or cached.grad != grad:
+                cached = dataclasses.replace(cached, validate=validate,
+                                             grad=grad)
             return _bind(cached, x)
     if spec.kind == "operator" and not isinstance(x, ProblemSpec):
         x = operator_on(x, dev)         # raises if it cannot be moved
     fwd, padded_n = _build_forward(spec, method, cfg, dev, run_mesh)
     cols, flops = _flops_est(method, spec, cfg, devices)
     p = LogdetPlan(
-        spec=spec, method=method, config=cfg, device=dev, validate=validate,
+        spec=spec, method=method, config=cfg, device=dev, grad=grad,
+        validate=validate,
         diagnostics=Diagnostics(matvec_cols=cols, flops_est=flops,
                                 padded_n=padded_n, device_count=devices),
-        _fwd=fwd)
+        _fwd=fwd, _mesh=run_mesh)
+    if grad:
+        p._cache["vag"] = p._build_vag()
     if key is not None:
         _PLAN_CACHE[key] = p
         while len(_PLAN_CACHE) > _PLAN_CACHE_SIZE:

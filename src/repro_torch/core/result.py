@@ -23,8 +23,8 @@ class Diagnostics:
     ``matvec_cols``   operator matvec columns of an estimator pass; None
                       for exact methods, whose cost is ``flops_est``.
     ``flops_est``     dense-equivalent FLOP estimate of the path.
-    ``cg_iters``      CG iterations of the last gradient pullback (None:
-                      gradients are not ported yet).
+    ``cg_iters``      CG iterations of the backward solve of an
+                      estimator's ``value_and_grad`` (else None).
     ``wall_time_s``   host wall time of this execution, taken after
                       ``torch.cuda.synchronize()`` on the card.
     ``padded_n``      problem size after `pad_to_multiple` embedding.

@@ -9,18 +9,21 @@ Counterpart of `repro.estimators`:
   operators    the `LinearOperator` protocol, the dense, stencil (K8)
                and mesh-sharded (K5) backends, and conjugate gradient
                `cg_solve` (dense: K7)
-  grad         `estimate_logdet`, the forward half of the JAX package's
-               differentiable dispatch
+  grad         the autograd rules: `estimate_logdet` (differentiable
+               dispatch), `exact_slogdet_vjp`, `hutchinson_pullback` and
+               the operator registry (`register_operator_grad`)
 
 Randomness comes from explicit `torch.Generator`s (``generator=``) or a
-``seed``.  Not ported yet: the batched, Kronecker and Toeplitz backends,
-the gradients and `hutchinson_pullback`, and `logdet_batched`.
+``seed``.  Not ported yet: the batched, Kronecker and Toeplitz backends
+(and their gradient registrations), and `logdet_batched`.
 """
 from repro_torch.estimators.chebyshev import (
     chebyshev_coeffs_log, logdet_chebyshev, spectral_bounds,
 )
 from repro_torch.estimators.grad import (
-    ESTIMATOR_METHODS, estimate_logdet, shared_probes,
+    ESTIMATOR_METHODS, OperatorGradInfo, estimate_logdet, exact_slogdet_vjp,
+    hutchinson_pullback, operator_grad_info, register_operator_grad,
+    shared_probes, stencil_apply,
 )
 from repro_torch.estimators.hutchinson import (
     TraceEstimate, hutchinson_trace, make_probes, mean_sem,
@@ -41,4 +44,6 @@ __all__ = [
     "ShardedOperator", "as_operator", "operator_on", "is_operator",
     "CGResult", "cg_solve",
     "ESTIMATOR_METHODS", "estimate_logdet", "shared_probes",
+    "exact_slogdet_vjp", "hutchinson_pullback", "stencil_apply",
+    "OperatorGradInfo", "register_operator_grad", "operator_grad_info",
 ]

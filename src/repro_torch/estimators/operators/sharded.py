@@ -32,7 +32,9 @@ class ShardedOperator(LinearOperator):
 
     ``n`` must be divisible by the mesh size (pad with
     `repro_torch.core.pad_to_multiple`, which leaves the determinant
-    unchanged).  This rank's block is copied to ``mesh.device``.
+    unchanged).  This rank's block is copied to ``mesh.device``; ``a``
+    keeps the full matrix it was built from (the gradient rules'
+    parameter, `estimators.grad`).
     """
 
     def __init__(self, a: torch.Tensor, mesh: _mesh.Mesh):
@@ -43,6 +45,7 @@ class ShardedOperator(LinearOperator):
                 f"N={a.shape[0]} not divisible by mesh size {mesh.size}; "
                 "pad with repro_torch.core.pad_to_multiple first")
         self.mesh = mesh
+        self.a = a
         self.shape = tuple(a.shape)
         self.dtype = a.dtype
         self.device = mesh.device

@@ -429,9 +429,12 @@ def test_estimate_logdet_draws_the_shared_probes(method):
 
 
 def test_estimate_logdet_rejects_gradients_and_unknown_methods():
+    """Gradients are no longer rejected: an input that requires one
+    backpropagates (tests/test_torch_grad.py holds the values); an
+    unknown method still raises."""
     a = torch.from_numpy(_spd(8)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="gradients"):
-        est.estimate_logdet(a, method="slq", device="cpu")
+    est.estimate_logdet(a, method="slq", device="cpu").est.backward()
+    assert a.grad.shape == (8, 8) and torch.isfinite(a.grad).all()
     with pytest.raises(ValueError, match="unknown estimator"):
         est.estimate_logdet(a.detach(), method="exact", device="cpu")
     assert est.ESTIMATOR_METHODS == jest.ESTIMATOR_METHODS

@@ -17,7 +17,10 @@ same rows of the full call, as the mesh lookahead needs), K6 and K7
 within twice the rounding bound of one evaluation (`ref.cheb_step_bound`,
 `ref.cg_step_bound`), K5 within `ref.matvec_bound`.  The estimators on
 the card against the same calls on the CPU, with the same probes and
-bounds, and their launch counts; the mesh routes on one rank under NCCL.
+bounds, and their launch counts; the gradients of the exact plans
+(inv(A)^T, no launch in the backward) and of the estimators (K7 never,
+K8 on the lattice once per CG iteration plus one); the mesh routes on
+one rank under NCCL.
 """
 import numpy as np
 import pytest
@@ -488,6 +491,76 @@ def test_estimator_plans_on_the_card(cuda, kind, method, dt):
     elif method == "chebyshev":
         want["cheb_step"] = kw["degree"] - 1
     assert counts == want
+
+
+@pytest.mark.parametrize("kw", [dict(method="ge"),
+                                dict(method="exact", update="rank1"),
+                                dict(method="exact", update="panel", k=8),
+                                dict(method="exact", update="rank1",
+                                     fused=True)],
+                         ids=["ge", "rank1", "panel", "fused"])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_exact_grad_on_the_card(cuda, kw, dt):
+    """The gradient of an exact plan on a CUDA tensor is inv(A)^T (before
+    the VJP, the kernels' outputs cut the graph after their first
+    launch); the forward launches the route's kernels, the backward
+    none, and value_and_grad gives the same bits."""
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal((150, 150))
+                         * 0.3 + 2.0 * np.eye(150))
+    x = a.to(device=cuda, dtype=dt).requires_grad_()
+    p = repro_torch.plan(x.detach(), **kw)
+    ops.reset_launch_counts()
+    ld = p.logdet(x)
+    forward = ops.launch_counts()
+    ops.reset_launch_counts()
+    ld.backward()
+    assert sum(ops.launch_counts().values()) == 0
+    assert forward["rank1_update"] + forward["fused_step"] > 0
+    rtol = 1e-4 if dt == torch.float32 else 1e-10
+    want = torch.linalg.inv(a).T
+    assert (x.grad.cpu().double() - want).abs().max() <= rtol * want.abs().max()
+    res, g = p.value_and_grad()
+    assert torch.equal(g, x.grad) and torch.equal(res.logabsdet, ld.detach())
+
+
+@pytest.mark.parametrize("kind", ["dense", "lattice"])
+@pytest.mark.parametrize("method", ["chebyshev", "slq"])
+def test_estimator_grad_on_the_card(cuda, kind, method):
+    """The estimator backward on the card: the transposed CG takes rmm,
+    so K7 never launches; on the lattice K8 launches once per CG
+    iteration plus once for the bilinear apply.  The gradient equals the
+    CPU's with the same probes and bounds (f64)."""
+    dt = torch.float64
+    x = _dense(200, dt) if kind == "dense" else _lattice(16, dt, "cpu")
+    n = 200 if kind == "dense" else 256
+    probes = est.make_probes(torch.Generator().manual_seed(8), n, 16,
+                             dtype=dt)
+    kw = (dict(degree=24, num_probes=16, lmin=0.05, lmax=9.0)
+          if method == "chebyshev" else dict(num_steps=12, num_probes=16))
+
+    def grad(device):
+        if kind == "dense":
+            leaf = x.detach().to(device).requires_grad_()
+            arg = leaf
+        else:
+            leaf = x.bands.detach().to(device).requires_grad_()
+            arg = est.StencilOperator(x.offsets, leaf)
+        ld = repro_torch.plan(arg, method=method, device=device, **kw) \
+            .logdet(probes=probes)
+        ops.reset_launch_counts()
+        ld.backward()
+        return leaf.grad, ops.launch_counts()
+
+    cpu, _ = grad("cpu")
+    card, counts = grad(cuda)
+    op = est.as_operator(x)
+    _, cg = est.hutchinson_pullback(op, est.operator_grad_info(op)
+                                    .params(op), probes, 1.0)
+    want = dict.fromkeys(counts, 0)
+    if kind == "lattice":
+        want["stencil_mv"] = cg.iters + 1
+    assert counts == want
+    assert (card.cpu() - cpu).abs().max() <= 1e-8 * cpu.abs().max()
 
 
 @pytest.mark.parametrize("kind", ["dense", "lattice"])

@@ -161,7 +161,7 @@ def test_unported_methods_name_their_roadmap_item(method):
 
 @pytest.mark.parametrize("kw,exc", [
     ({"mesh": object()}, TypeError),
-    ({"grad": True}, NotImplementedError),
+    ({"grad_cg_tol": 1e-6}, TypeError),
     ({"schedule": "mesh"}, ValueError),
     ({"lookahead": True}, ValueError),
     ({"backend": "xla"}, ValueError),
@@ -214,8 +214,7 @@ def test_rejected_inputs_raise():
 
 def test_unported_plan_methods_raise():
     p = repro_torch.plan(_matrix(), method="exact", device="cpu")
-    for call in (p.value_and_grad, p.audit, p.explain,
-                 lambda: p.export("x")):
+    for call in (p.audit, p.explain, lambda: p.export("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
@@ -435,7 +434,7 @@ def test_validate_spd_like_rejects(method):
 
 
 @pytest.mark.parametrize("x,kw,exc", [
-    ("dense", {"method": "slq", "grad": True}, NotImplementedError),
+    ("dense", {"method": "slq", "degree": 8}, TypeError),
     ("dense", {"method": "chebyshev", "mesh": object()}, TypeError),
     ("batched", {"method": "slq"}, NotImplementedError),
     ("stencil", {"method": "exact"}, TypeError),
@@ -460,10 +459,8 @@ def test_estimator_plan_rejects_runtime_inputs_on_exact():
     p = repro_torch.plan(_matrix(), method="exact", device="cpu")
     with pytest.raises(TypeError, match="no generator"):
         p(probes=np.ones((50, 2)))
-    p = repro_torch.plan(_matrix(n=20, neg_row=False), method="slq",
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="gradients"):
-        p.value_and_grad()
+    with pytest.raises(TypeError, match="no generator"):
+        p.value_and_grad(generator=torch.Generator())
 
 
 @pytest.mark.parametrize("method", ["chebyshev", "slq"])

@@ -143,6 +143,48 @@ def plans(mesh, a_exact: np.ndarray, a_spd: np.ndarray,
     return out
 
 
+def grad_routes(mesh, a: np.ndarray, spd: np.ndarray, probes: np.ndarray,
+                bounds, nbs) -> dict:
+    """Gradients on the mesh, f64.  ``"exact|update|la"``, ``"pge"`` and
+    ``"plu<nb>"`` on ``a``: ``(logabsdet, autograd grad, grad_fn name,
+    value_and_grad logabsdet, value_and_grad grad)``; ``"chebyshev"`` and
+    ``"slq"`` on ``spd``: ``(logabsdet, autograd grad)`` on ``probes``
+    (Chebyshev on ``bounds``), then ``value_and_grad``'s ``(logabsdet,
+    grad, cg_iters)`` and ``__call__``'s logabsdet at one seed."""
+    torch.set_num_threads(1)
+    clear_plan_cache()
+    out = {}
+    routes = [(f"exact|{u}|{int(la)}",
+               dict(method="exact", update=u, k=PANEL_K, lookahead=la))
+              for u in ("rank1", "panel") for la in (False, True)]
+    routes += [("pge", dict(method="pge"))]
+    routes += [(f"plu{nb}", dict(method="plu", nb=nb)) for nb in nbs]
+    for name, kw in routes:
+        x = torch.from_numpy(a).requires_grad_()
+        p = repro_torch.plan(a, mesh=mesh, **kw)
+        ld = p.logdet(x)
+        ld.backward()
+        res, g = p.value_and_grad()
+        out[name] = (float(ld.detach()), x.grad.numpy(), ld.grad_fn.name(),
+                     float(res.logabsdet), g.numpy())
+    for method, kw in (("chebyshev", dict(degree=16, lmin=bounds[0],
+                                          lmax=bounds[1])),
+                       ("slq", dict(num_steps=12))):
+        x = torch.from_numpy(spd).requires_grad_()
+        p = repro_torch.plan(spd, method=method, num_probes=probes.shape[1],
+                             mesh=mesh, **kw)
+        padded = p.diagnostics.padded_n
+        ld = p.logdet(x, probes=torch.from_numpy(probes[:padded]))
+        ld.backward()
+        res, g = p.value_and_grad(generator=torch.Generator().manual_seed(7))
+        call = p(generator=torch.Generator().manual_seed(7))
+        out[method] = (float(ld.detach()), x.grad.numpy(),
+                       float(res.logabsdet),
+                       g.numpy(), res.diagnostics.cg_iters,
+                       float(call.logabsdet))
+    return out
+
+
 def everything(mesh, payload: dict) -> dict:
     """One spawn per mesh size: the parts ``payload`` names."""
     out = {"exact": exact_routes(mesh, payload["cases"],
