@@ -36,7 +36,13 @@ printed line each, any failure ends the run:
             operands and on the mesh lookahead's 32 rows, K1 also on its
             one row and beside a pure copy of its bytes (`copy_ms`), K6
             and K7 beside cuBLAS's product alone (`matmul_ms`) and K5's
-            (`matvec_ms`, the tile they share);
+            (`matvec_ms`, the tile they share); K1-K4 on the STACKS
+            shapes, one launch for the whole stack (their batch grids):
+            bitwise against the batched plain version (K2 within its
+            bound), matrix b bitwise equal to the single-matrix launch on
+            it, each time beside B times the single launch's, its bound
+            and `torch.baddbmm` (K1, K2) or `torch.linalg.lu_factor_ex`
+            (K4);
 4. main path ``repro_torch.plan(a, method="exact", ...)`` on the card at
             N = 8192 f32 (the paper's largest size, rounded to the panel
             width) for staged x rank1 and staged x panel, each unfused and
@@ -99,7 +105,27 @@ printed line each, any failure ends the run:
             ranks (run there), mesh x panel plain and lookahead: every
             rank's gradient equal to rank 0's and to the single-device
             plan's, and sharded Chebyshev's equal to dense Chebyshev's
-            (same probes and bounds) within ROUTE_RTOL's f32 figure.
+            (same probes and bounds) within ROUTE_RTOL's f32 figure;
+8. stacks   (B, n, n) stacks through ``repro_torch.plan`` (STACKS: the
+            UBM stack 2048 x 60 x 60 and 16 x 4096 x 4096, f32, x x^T / n
+            + 2 I per matrix, one with a negated row): the exact routes
+            (staged x rank1, the default, serial x rank1, serial x panel
+            at the autotuned K, fused, bf16 operands, ge; on the large
+            stack staged x rank1 and x panel) with every sign exact,
+            log|det| within E2E_RTOL of each matrix's f64 slogdet, the
+            launches of ONE matrix's formula whatever B, matrix b against
+            the single-matrix plan on it (bitwise; panel within
+            STACK_PANEL_RTOL, bitwise or not printed) and the stack's
+            wall beside B times the single wall; ``method="auto"`` on the
+            UBM stack beside the two routes it prices; a NaN matrix
+            leaving the other seven alone; `BatchedOperator` slq,
+            chebyshev with bounds and cg_solve on the large SPD stack
+            (against the f64 Cholesky reference, the true residual, no
+            kernel launched); value_and_grad on the stacks (exact: G
+            bitwise across serial x panel and ge, the inverse residual;
+            slq: within 3 sqrt(sum sem^2) of inv(A)^T); and
+            examples/gmm_fit_torch.py's train() for 5 SGD steps at dim
+            60, 64 components, 4096 samples, exact and slq.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -591,6 +617,184 @@ def panel_update_auto_phase(gen) -> dict:
         say("timing", kernel="panel_update", variant=name_dt,
             shape=[n, n], k=k, **t)
         del a, c, r, got, want, tol, diff
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 3 and 8: the stacks.  STACKS: name -> (B, n), the UBM stack (a
+# full-covariance universal background model of speaker recognition:
+# 2048 components over 60-dimensional features) and a few-but-large
+# stack; their kernel shapes in phase 3 (K2 and K4 at the panel widths
+# the routes run: K = 8 on the UBM stack padded to 64, 32 and 64 on the
+# large one); STACK_SAMPLES matrices of each stack held against the
+# single-matrix launch or plan
+STACKS = {"ubm": (2048, 60), "large": (16, 4096)}
+STACK_K2 = [("ubm", 64, 8), ("large", 4096, 32), ("large", 4096, 64)]
+STACK_K4 = [("ubm", 8, 64, 64), ("large", 32, 4096, 4096),
+            ("large", 64, 4096, 4096)]
+STACK_SAMPLES = {"ubm": 8, "large": 2}
+# phase 8: a panel route's matrix b of a stack against the single-matrix
+# plan on it when not bitwise (a batched triangular solve may round
+# otherwise)
+STACK_PANEL_RTOL = 1e-6
+
+
+def stack_samples(name: str) -> list:
+    """The matrices of stack ``name`` held against single-matrix runs:
+    STACK_SAMPLES evenly spaced from the first to the last, and matrix 1
+    (phase 8 negates one of its rows)."""
+    b, k = STACKS[name][0], STACK_SAMPLES[name]
+    return sorted({round(i * (b - 1) / (k - 1)) for i in range(k)} | {1})
+
+
+def stack_kernel_phase(gen) -> dict:
+    """K1-K4 on the STACKS shapes, f32: one launch for the whole stack,
+    bitwise (K1, K3, K4's R and ls) or within the summation-order bound
+    (K2) of the batched plain version, and matrix b bitwise equal to the
+    single-matrix launch on it at `stack_samples`; then times beside B
+    times the single launch's, the bound (B times the single one's), the
+    plain version and the one PyTorch call computing the same function
+    (K1 and K2: `torch.baddbmm`; K4: `torch.linalg.lu_factor_ex` on the
+    transposed live panels; K3: none).  Returns ``{kernel: {shape tag:
+    fields}}``."""
+    import torch
+    from repro_torch.kernels import condense_step, fused_step, ref
+    from repro_torch.kernels import panel_factor as k4
+    from repro_torch.kernels import panel_update as k2
+
+    dt, size, name_dt = torch.float32, 4, "float32"
+    out = {n: {} for n in ("rank1_update", "fused_step", "panel_update",
+                           "panel_factor")}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float64).to(dt)
+
+    def record(kernel, tag, b, launch, single, plain, library, bound, err,
+               **extra):
+        """Time a stack launch beside B single launches (queued: a single
+        small launch is shorter than the host's enqueue)."""
+        ms = time_ms(launch)
+        one = time_ms(single, queued=True)
+        t = dict(max_abs_err=err, ms=ms, single_ms=one,
+                 b_times_single_ms=b * one,
+                 plain_ms=time_ms(plain, warmup=1, iters=3),
+                 library_ms=None if library is None else time_ms(library),
+                 bound_ms=bound[0], bound_by=bound[1], batch=b, **extra)
+        out[kernel][tag] = t
+        say("timing", kernel=kernel, variant=name_dt, stack=tag, **t)
+
+    for name, (b, n) in STACKS.items():
+        samples = stack_samples(name)
+        # K1 and K3 at step 0 of the rank-1 routes: (B, n, n)
+        a = randn(b, n, n)
+        pc, pr = randn(b, n), randn(b, n)
+        l = torch.randint(0, n, (b,), generator=gen, device="cuda")
+        last = n - 1
+        col_l = a.gather(2, l[:, None, None].expand(b, n, 1))[..., 0]
+        col_last = a[:, :, last].contiguous()
+        got, want = condense_step.rank1_update(a, pc, pr), \
+            ref.rank1_update_ref(a, pc, pr)
+        got3 = fused_step.fused_step(a, l, last, pc, pr, col_l, col_last)
+        want3 = ref.fused_step_ref(a, l, last, pc, pr, col_l, col_last)
+        torch.cuda.synchronize()
+        tag = f"{b}x{n}x{n}"
+        require(torch.equal(got, want), f"K1 stack {tag}: not bitwise")
+        require(torch.equal(got3, want3), f"K3 stack {tag}: not bitwise")
+        for i in samples:
+            require(torch.equal(got[i], condense_step.rank1_update(
+                a[i], pc[i], pr[i])), f"K1 stack {tag}: matrix {i} differs "
+                "from its single launch")
+            require(torch.equal(got3[i], fused_step.fused_step(
+                a[i], l[i:i + 1], last, pc[i], pr[i], col_l[i],
+                col_last[i])), f"K3 stack {tag}: matrix {i} differs from "
+                "its single launch")
+        say("kernels", stack=tag, rank1_update_bitwise=True,
+            fused_step_bitwise=True, samples_bitwise=samples)
+        a0, pc0, pr0 = a[0], pc[0], pr[0]
+        record("rank1_update", tag, b,
+               lambda: condense_step.rank1_update(a, pc, pr),
+               lambda: condense_step.rank1_update(a0, pc0, pr0),
+               lambda: ref.rank1_update_ref(a, pc, pr),
+               lambda: torch.baddbmm(a, pc[..., None], pr[..., None, :],
+                                     alpha=-1),
+               bound_ms(b * (2 * n * n + 2 * n) * size, b * 2 * n * n,
+                        name_dt), 0.0)
+        l0, cl0, cla0 = l[:1], col_l[0], col_last[0]
+        record("fused_step", tag, b,
+               lambda: fused_step.fused_step(a, l, last, pc, pr, col_l,
+                                             col_last),
+               lambda: fused_step.fused_step(a0, l0, last, pc0, pr0, cl0,
+                                             cla0),
+               lambda: ref.fused_step_ref(a, l, last, pc, pr, col_l,
+                                          col_last),
+               None, bound_ms(b * ((2 * n * n + 4 * n) * size + 8),
+                              b * 2 * n * n, name_dt), 0.0)
+        del a, pc, pr, col_l, col_last, got, want, got3, want3
+        torch.cuda.empty_cache()
+
+    for name, n, k in STACK_K2:
+        b = STACKS[name][0]
+        samples = stack_samples(name)
+        a, c, r = randn(b, n, n), randn(b, n, k), randn(b, k, n)
+        got, want = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
+        tol = ref.panel_update_bound(a, c, r, want)
+        diff = (got - want).abs()
+        tag = f"{b}x{n}x{n}x{k}"
+        require(bool((diff <= tol).all()),
+                f"K2 stack {tag}: outside the summation-order bound")
+        for i in samples:
+            require(torch.equal(got[i], k2.panel_update(a[i], c[i], r[i])),
+                    f"K2 stack {tag}: matrix {i} differs from its single "
+                    "launch")
+        say("kernels", stack=tag, panel_update_within_bound=True,
+            samples_bitwise=samples)
+        a0, c0, r0 = a[0], c[0], r[0]
+        record("panel_update", tag, b,
+               lambda: k2.panel_update(a, c, r),
+               lambda: k2.panel_update(a0, c0, r0),
+               lambda: ref.panel_update_ref(a, c, r),
+               lambda: torch.baddbmm(a, c, r, alpha=-1),
+               bound_ms(b * (2 * n * n + 2 * n * k) * size,
+                        b * (2 * n * n * k + n * n), name_dt),
+               diff.max().item(), k=k)
+        del a, c, r, got, want, tol, diff
+        torch.cuda.empty_cache()
+
+    for name, k, n, m0 in STACK_K4:
+        b = STACKS[name][0]
+        samples = stack_samples(name)
+        panel = randn(b, k, n)
+        R, ls, s, ld = k4.panel_factor(panel, m0)
+        R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, m0)
+        torch.cuda.synchronize()
+        tag = f"{b}x{k}x{n}"
+        require(same_bits(R, R0) and torch.equal(ls, ls0),
+                f"K4 stack {tag}: R or ls not bitwise")
+        require(torch.equal(s, s0), f"K4 stack {tag}: signs differ")
+        require(torch.allclose(ld, ld0, rtol=LOGDET_RTOL[name_dt], atol=0),
+                f"K4 stack {tag}: logdet differs")
+        for i in samples:
+            R1, ls1, s1, ld1 = k4.panel_factor(panel[i], m0)
+            require(same_bits(R[i], R1) and torch.equal(ls[i], ls1)
+                    and torch.equal(s[i], s1) and torch.equal(ld[i], ld1),
+                    f"K4 stack {tag}: matrix {i} differs from its single "
+                    "launch")
+        plan = k4.plan(k, n, dt)
+        say("kernels", stack=tag, panel_factor_R_ls_bitwise=True,
+            samples_bitwise=samples, plan=plan._asdict())
+        lu_in = panel[..., :m0].mT.contiguous()
+        p0 = panel[0]
+        record("panel_factor", tag, b,
+               lambda: k4.panel_factor(panel, m0),
+               lambda: k4.panel_factor(p0, m0),
+               lambda: ref.panel_factor_ref(panel, m0),
+               lambda: torch.linalg.lu_factor_ex(lu_in),
+               bound_ms(b * (2 * k * n * size + k * 8 + 2 * size),
+                        b * k * (n + 2 * k * n + n), name_dt),
+               (R - R0).abs().nan_to_num().max().item(),
+               plan=plan._asdict())
+        del panel, R, R0, lu_in
         torch.cuda.empty_cache()
     return out
 
@@ -2094,6 +2298,337 @@ def grad_phase(cell, k: int, seed: int, gen) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: stacks, end to end
+# --------------------------------------------------------------------------
+
+def stack_cell(b: int, n: int, gen, negate: bool = True):
+    """B matrices x x^T / n + 2 I made in f64 on the card, matrix 1's row 3
+    negated (sign -1) if ``negate``; stored in f32, with the f64 slogdet
+    of each matrix."""
+    import torch
+    x = torch.randn(b, n, n, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    a = x @ x.mT / n
+    del x
+    a.diagonal(dim1=-2, dim2=-1).add_(2.0)
+    if negate:
+        a[1, 3] = -a[1, 3]
+    s, ld = torch.linalg.slogdet(a)
+    return a.to(torch.float32).contiguous(), s, ld
+
+
+def stack_routes(k: int) -> dict:
+    """Phase 8's exact routes on a stack: route name -> plan keywords."""
+    return {"staged|rank1": dict(method="exact"),
+            "serial|rank1": dict(method="exact", schedule="serial",
+                                 update="rank1"),
+            "serial|panel": dict(method="exact", schedule="serial",
+                                 update="panel", k=k),
+            "staged|rank1|fused": dict(method="exact", fused=True),
+            "staged|panel|bf16": dict(method="exact", update="panel", k=k,
+                                      precision="bf16"),
+            "staged|panel": dict(method="exact", update="panel", k=k),
+            "ge": dict(method="ge")}
+
+
+def stack_expected_launches(route: str, n: int, k: int) -> dict:
+    """K1-K4 launches of a route on a stack of side n: one matrix's
+    formula, whatever the stack's size (panel routes pad n to a multiple
+    of k)."""
+    if route == "ge":
+        return baseline_launches(n, 1, 0, "ge", 1)
+    update = "panel" if "panel" in route else "rank1"
+    fused = "fused" in route
+    n_p = -(-n // k) * k if update == "panel" else n
+    if route.startswith("staged"):
+        return expected_launches(n_p, k, update, fused)
+    panels = (n_p - 1) // k if update == "panel" and n_p > k else 0
+    rank1 = n_p - 1 - panels * k
+    counts = dict.fromkeys(KERNEL_META, 0)
+    counts.update(rank1_update=0 if fused else rank1,
+                  fused_step=rank1 if fused else 0, panel_update=panels,
+                  panel_factor=panels)
+    return counts
+
+
+def stack_route(cell: str, route: str, kw: dict, a, s_ref, ld_ref,
+                k: int) -> dict:
+    """One exact route on a stack: sign exact and log|det| within E2E_RTOL
+    of each matrix's f64 slogdet, the launches of one matrix's formula,
+    matrix b against the single-matrix plan on it at `stack_samples`
+    (bitwise; panel routes within STACK_PANEL_RTOL, bitwise or not
+    reported), and the wall beside B times the fastest single wall.
+    Returns the phase's fields (``launches``, ``result``)."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+
+    b, n = a.shape[0], a.shape[-1]
+    p = repro_torch.plan(a, **kw)
+    p()                                           # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = p()
+    counts = ops.launch_counts()
+    prec = kw.get("precision")
+    want = stack_expected_launches(route, n, k)
+    rel = ((res.logabsdet.double() - ld_ref).abs() / ld_ref.abs()).max()
+    rel = rel.item()
+    bitwise, walls, worst = True, [], 0.0
+    for i in stack_samples(cell):
+        one = repro_torch.plan(a[i], **kw)()
+        walls.append(one.diagnostics.wall_time_s)
+        same = (torch.equal(res.sign[i], one.sign)
+                and torch.equal(res.logabsdet[i], one.logabsdet))
+        bitwise = bitwise and same
+        worst = max(worst, abs(res.logabsdet[i].item()
+                               - one.logabsdet.item())
+                    / abs(one.logabsdet.item()))
+    say("stacks", cell=cell, route=route, shape=[b, n, n],
+        wall_s=res.diagnostics.wall_time_s, single_wall_s=min(walls),
+        b_times_single_s=b * min(walls), max_rel_err=rel,
+        rtol=E2E_RTOL[prec], samples=stack_samples(cell),
+        samples_bitwise=bitwise, samples_max_rel_diff=worst,
+        launches=counts, expected_launches=want)
+    require(torch.equal(res.sign, s_ref.to(res.sign.dtype)),
+            f"stack {cell} {route}: a sign differs from the f64 slogdet's")
+    require(rel <= E2E_RTOL[prec], f"stack {cell} {route}: rel err {rel}")
+    require(counts == want, f"stack {cell} {route}: launches {counts} != "
+            f"{want}")
+    if "panel" in route:
+        require(worst <= STACK_PANEL_RTOL,
+                f"stack {cell} {route}: matrix b {worst} from its single "
+                "plan")
+    else:
+        require(bitwise, f"stack {cell} {route}: matrix b differs from "
+                "its single plan")
+    return dict(launches=counts, result=res, wall=res.diagnostics.wall_time_s)
+
+
+def stack_estimators(a, seed: int) -> dict:
+    """The large SPD stack through `BatchedOperator`: slq, and chebyshev
+    with bounds, each matrix within N_SEM sem + EST_RTOL of its f64
+    Cholesky log|det|; cg_solve with a (B, n, PROBES) right-hand side
+    under CG_RESIDUAL; no kernel launched (K6/K7 take one matrix)."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+
+    b, n = a.shape[0], a.shape[-1]
+    ref = 2.0 * torch.linalg.cholesky(a.double()).diagonal(
+        dim1=-2, dim2=-1).log().sum(-1)
+    launches = {}
+    for method, kw in (("slq", dict(num_steps=NUM_STEPS)),
+                       ("chebyshev", dict(degree=DEGREE,
+                                          lmin=CHEB_BOUNDS[0],
+                                          lmax=CHEB_BOUNDS[1]))):
+        p = repro_torch.plan(a, method=method, num_probes=PROBES, **kw)
+        res, secs, counts = counted(
+            lambda: p(generator=default_generator("cuda", seed)))
+        err = (res.logabsdet.double() - ref).abs()
+        tol = N_SEM * res.sem.double() + EST_RTOL * ref.abs()
+        say("stacks", cell="large", route=f"batched|{method}",
+            shape=[b, n, n], wall_s=secs, max_err=err.max().item(),
+            max_err_over_tol=(err / tol).max().item(),
+            sem=res.sem.tolist(), launches=counts)
+        require(bool((err <= tol).all()),
+                f"stack large batched|{method}: outside N_SEM sem + EST_RTOL")
+        require(not any(counts.values()),
+                f"stack large batched|{method}: launched {counts}")
+        launches[f"stack|large|batched|{method}"] = counts
+    rhs = torch.randn(b, n, PROBES, generator=default_generator("cuda",
+                                                                seed + 1),
+                      device="cuda", dtype=torch.float32)
+    cg, secs, counts = counted(lambda: est.cg_solve(a, rhs, tol=CG_TOL))
+    a64, x64, r64 = a.double(), cg.x.double(), rhs.double()
+    true_res = (torch.linalg.vector_norm(r64 - a64 @ x64, dim=-2)
+                / torch.linalg.vector_norm(r64, dim=-2)).max().item()
+    say("stacks", cell="large", route="batched|cg", rhs=[b, n, PROBES],
+        iters=cg.iters, wall_s=secs, true_rel_residual_f64=true_res,
+        launches=counts)
+    require(true_res <= CG_RESIDUAL, f"stack large cg: residual {true_res}")
+    require(not any(counts.values()), f"stack large cg: launched {counts}")
+    launches["stack|large|batched|cg"] = counts
+    return launches
+
+
+def stack_nan(a, k: int) -> None:
+    """A NaN entry in matrix 5 of an 8-matrix stack: that matrix's sign
+    and log|det| NaN, every other one its single-matrix result (panel:
+    within STACK_PANEL_RTOL)."""
+    import torch
+    import repro_torch
+    st = a[:8].clone()
+    st[5, 7, 11] = float("nan")
+    for route in ("staged|rank1", "serial|panel", "ge"):
+        kw = stack_routes(k)[route]
+        res = repro_torch.plan(st, **kw)()
+        worst = 0.0
+        for i in range(8):
+            if i == 5:
+                continue
+            one = repro_torch.plan(st[i], **kw)()
+            require(torch.equal(res.sign[i], one.sign),
+                    f"stack nan {route}: matrix {i}'s sign changed")
+            diff = abs(res.logabsdet[i].item() - one.logabsdet.item())
+            worst = max(worst, diff / abs(one.logabsdet.item()))
+            require(diff == 0 or ("panel" in route and worst
+                                  <= STACK_PANEL_RTOL),
+                    f"stack nan {route}: matrix {i} changed by {diff}")
+        s5, l5 = res.sign[5].item(), res.logabsdet[5].item()
+        say("stacks", cell="nan", route=route, shape=list(st.shape),
+            nan_matrix=[s5, l5], others_max_rel_diff=worst)
+        require(s5 != s5 and l5 != l5,
+                f"stack nan {route}: matrix 5 gave ({s5}, {l5})")
+
+
+def stack_grads(ubm, ubm_results: dict, spd, k: int, seed: int) -> dict:
+    """value_and_grad on stacks: exact serial x panel and ge on the UBM
+    stack (values bitwise the forward's, G bitwise across the routes,
+    ||A_b G_b^T - I||_F / sqrt(n) under INV_RESIDUAL, no launch in the
+    backward); slq on the large SPD stack, each G_b within 3 sqrt(sum
+    sem^2) of inv(A_b)^T, K7 never launched."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+
+    launches, grads = {}, {}
+    n = ubm.shape[-1]
+    eye = torch.eye(n, device="cuda", dtype=torch.float64)
+    for route in ("serial|panel", "ge"):
+        kw = stack_routes(k)[route]
+        p = repro_torch.plan(ubm, **kw)
+        (res, g), secs, counts = counted(p.value_and_grad)
+        fwd = ubm_results[route]
+        resid = (torch.linalg.matrix_norm(ubm.double() @ g.double().mT - eye)
+                 / n ** 0.5).max().item()
+        want = stack_expected_launches(route, n, k)
+        say("stacks", cell="ubm", route=f"grad|{route}", wall_s=secs,
+            max_inv_residual=resid, launches=counts, expected_launches=want)
+        require(torch.equal(res.logabsdet, fwd.logabsdet)
+                and torch.equal(res.sign, fwd.sign),
+                f"stack grad {route}: value differs from the forward's")
+        require(resid <= INV_RESIDUAL, f"stack grad {route}: {resid}")
+        require(counts == want, f"stack grad {route}: launches {counts}")
+        grads[route] = g
+        launches[f"stack|ubm|grad|{route}"] = counts
+    require(torch.equal(grads["serial|panel"], grads["ge"]),
+            "stack grad: the routes' gradients differ")
+
+    b, n = spd.shape[0], spd.shape[-1]
+    kk = PROBES
+    p = repro_torch.plan(spd, method="slq", num_steps=NUM_STEPS,
+                         num_probes=kk, grad_cg_tol=GRAD_CG_TOL)
+    (res, g), secs, counts = counted(
+        lambda: p.value_and_grad(generator=default_generator("cuda", seed)))
+    op = est.BatchedOperator(spd)
+    z = est.shared_probes("slq", op, default_generator("cuda", seed),
+                          {"num_probes": kk})
+    w = est.cg_solve(op, z, transpose=True, tol=GRAD_CG_TOL).x.double()
+    g64 = g.double()
+    err = torch.linalg.matrix_norm(g64 - torch.linalg.inv(
+        spd.double()).mT)
+    sem2 = ((n * (w * w).sum((-2, -1)) - kk * (g64 * g64).sum((-2, -1)))
+            / (kk * (kk - 1)))
+    bound = 3.0 * sem2.sqrt()
+    say("stacks", cell="large", route="grad|batched|slq", wall_s=secs,
+        cg_iters=res.diagnostics.cg_iters, grad_err_fro=err.tolist(),
+        three_sem_fro=bound.tolist(), launches=counts)
+    require(bool((err <= bound).all()),
+            "stack grad slq: ||G - inv(A)^T|| above 3 sem")
+    require(not any(counts.values()), f"stack grad slq: launched {counts}")
+    launches["stack|large|grad|batched|slq"] = counts
+    return launches
+
+
+def stack_twin() -> None:
+    """examples/gmm_fit_torch.py: 5 SGD steps on the card at dim 60, 64
+    components, 4096 samples, exact and slq: every nll finite and the
+    last below the first."""
+    import math
+    sys.path.insert(0, str(ROOT / "examples"))
+    import gmm_fit_torch
+    for method in ("exact", "slq"):
+        h = gmm_fit_torch.train(dim=60, components=64, samples=4096,
+                                steps=5, method=method, device="cuda",
+                                log_every=0)
+        nll = h["nll"].tolist()
+        say("stacks", cell="gmm_fit_torch", method=method, dim=60,
+            components=64, samples=4096, nll=nll,
+            ld_gap=h["ld_gap"].tolist(), step_s=h["step_s"].tolist())
+        require(all(math.isfinite(v) for v in nll) and nll[-1] < nll[0],
+                f"gmm_fit_torch {method}: nll {nll}")
+
+
+def stacks_phase(seed: int) -> dict:
+    """Phase 8; returns its launch counts by route."""
+    import torch
+    import repro_torch
+    from repro_torch.core.calibration import exact_cost, load_calibration
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import resolved_panel_k
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    launches = {}
+    b, n = STACKS["ubm"]
+    k = resolved_panel_k(n, itemsize=4)
+    ubm, s_ref, ld_ref = stack_cell(b, n, gen)
+    results = {}
+    for route, kw in stack_routes(k).items():
+        if route == "staged|panel":     # at n = 60, serial x panel's run
+            continue
+        out = stack_route("ubm", route, kw, ubm, s_ref, ld_ref, k)
+        launches[f"stack|ubm|{route}"] = out["launches"]
+        results[route] = out["result"]
+        results[route + "|wall"] = out["wall"]
+    # method="auto" on the stack, beside the two serial routes it prices
+    cal = load_calibration()
+    p = repro_torch.plan(ubm)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = p()
+    counts = ops.launch_counts()
+    walls = {r: results[r + "|wall"] for r in ("serial|rank1",
+                                               "serial|panel")}
+    model = {r: exact_cost(n, 1, cal, update=r.split("|")[1], panel_k=k,
+                           itemsize=4, batch=b) for r in walls}
+    picked = (p.method, p.config.schedule, p.config.update, p.config.k) \
+        if p.method == "exact" else (p.method,)
+    say("stacks", cell="ubm", route="auto", picked=list(picked),
+        walls_s=walls, model_s=model, faster=min(walls, key=walls.get),
+        auto_wall_s=res.diagnostics.wall_time_s, launches=counts)
+    require(p.method == "exact" and p.config.schedule == "serial",
+            f"auto on the UBM stack: {picked}")
+    require(torch.equal(res.sign, s_ref.to(res.sign.dtype)),
+            "auto on the UBM stack: a sign differs")
+    launches["stack|ubm|auto"] = counts
+    stack_nan(ubm, k)
+    k_ubm, t_ubm = k, time.perf_counter() - t0
+
+    b, n = STACKS["large"]
+    k = resolved_panel_k(n, itemsize=4)
+    spd, _, _ = stack_cell(b, n, gen, negate=False)
+    a = spd.clone()
+    a[1, 3] = -a[1, 3]
+    s64, ld64 = torch.linalg.slogdet(a.double())
+    for route in ("staged|rank1", "staged|panel"):
+        out = stack_route("large", route, stack_routes(k)[route], a, s64,
+                          ld64, k)
+        launches[f"stack|large|{route}"] = out["launches"]
+    del a, s64, ld64
+    launches.update(stack_estimators(spd, seed))
+    launches.update(stack_grads(ubm, results, spd, k_ubm, seed))
+    del spd, ubm, results
+    torch.cuda.empty_cache()
+    stack_twin()
+    say("stacks", seconds=time.perf_counter() - t0, ubm_seconds=t_ubm)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192,
@@ -2137,6 +2672,7 @@ def main(argv=None) -> int:
     # phase 3: kernels against their plain versions, and their times
     timings = kernel_phase(args.n, args.k, gen)
     timings["panel_update"]["shapes"].update(panel_update_auto_phase(gen))
+    stack_times = stack_kernel_phase(gen)
     k4_times = panel_factor_phase(gen)
     timings["panel_factor"] = dict(
         k4_times["float32|32|8192"], float64=k4_times["float64|32|8192"],
@@ -2144,6 +2680,9 @@ def main(argv=None) -> int:
                                       "library_ms", "library_default_ms",
                                       "plan")}
                 | {"bound_ms": v["bound"][0]} for t, v in k4_times.items()})
+    for name, by_shape in stack_times.items():
+        timings[name].setdefault("shapes", {}).update(
+            {f"stack {t}": v for t, v in by_shape.items()})
     est_timings = estimator_kernel_phase(EST_N, SIDE, gen)
     for name, by_dtype in est_timings.items():
         timings[name] = dict(by_dtype["float32"],
@@ -2169,6 +2708,9 @@ def main(argv=None) -> int:
     launches.update(grad_phase(cell, args.k, args.seed, gen))
     del cell
     say("grad", seconds=time.perf_counter() - t7)
+    torch.cuda.empty_cache()
+    # phase 8: stacks
+    launches.update(stacks_phase(args.seed))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

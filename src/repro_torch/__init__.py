@@ -18,7 +18,10 @@ first use):
   and K8 (every stencil product);
 - the mesh (``mesh=`` a `core.mesh.Mesh`, one process per rank): the
   paper's parallel condensation (`engine.build_mesh`, K1, K2, K4) and
-  the row-sharded estimators (`estimators.ShardedOperator`, K5).
+  the row-sharded estimators (`estimators.ShardedOperator`, K5);
+- (B, n, n) stacks on one device: the exact routes and ``ge`` with every
+  step on the whole stack (K1-K4's batch grids), the estimators on an
+  `estimators.BatchedOperator` (batched products), and their gradients.
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.

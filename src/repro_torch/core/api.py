@@ -12,17 +12,19 @@ __all__ = ["pad_to_multiple"]
 
 
 def pad_to_multiple(a: torch.Tensor, mult: int) -> torch.Tensor:
-    """Embed ``a`` in ``diag(a, I_pad)`` so N becomes a multiple of ``mult``.
+    """Embed ``a`` in ``diag(a, I_pad)`` so N becomes a multiple of ``mult``;
+    each matrix of a (B, N, N) stack alike.
 
     The result keeps ``a``'s dtype and device; ``a`` is returned as is
     when no padding is needed.
     """
-    n = a.shape[0]
+    n = a.shape[-1]
     pad = (-n) % mult
     if pad == 0:
         return a
-    out = torch.zeros((n + pad, n + pad), dtype=a.dtype, device=a.device)
-    out[:n, :n] = a
+    out = torch.zeros((*a.shape[:-2], n + pad, n + pad), dtype=a.dtype,
+                      device=a.device)
+    out[..., :n, :n] = a
     idx = torch.arange(n, n + pad, device=a.device)
-    out[idx, idx] = 1
+    out[..., idx, idx] = 1
     return out

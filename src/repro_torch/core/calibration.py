@@ -21,7 +21,8 @@ On the card an exact route is paced by the host, which enqueues a few
 dozen small PyTorch operations around every kernel launch, not by the
 kernels' FLOPs and bytes; `exact_cost` adds ``n * host_<update>_row_s``
 to every exact route (the mesh routes too: each rank loops over all n
-rows).  Both default to 0, and a table in the JAX package's format has
+rows; a (B, n, n) stack too, whose every step runs all B matrices at once
+in the same few operations and launches).  Both default to 0, and a table in the JAX package's format has
 neither, so on such a table every cost here equals the JAX package's.
 
 The table is written by ``python3 tools/torch_calibrate.py`` on the card.
@@ -168,9 +169,12 @@ def exact_cost(n: int, devices: int, cal: Calibration, *,
     The JAX package's model (`repro.core.calibration.exact_cost`: the
     compute term split over ``devices``, a mesh's per-step collectives
     not split, lookahead hiding the collectives behind the bulk update),
-    plus the host's dispatch, ``batch * n * cal.host_row_s(update)``,
-    which no device count divides: every rank runs the loop over all n
-    rows, and each matrix of a stack its own.
+    plus the host's dispatch, ``n * cal.host_row_s(update)``, which no
+    device count divides (every rank runs the loop over all n rows) and
+    no stack multiplies: a stack's step runs all B matrices at once, in
+    the operations and launches of one matrix's step
+    (``tools/torch_calibrate.py`` times a stack route beside one matrix
+    of the same side on the card).
 
     ``panel_k=None`` resolves through the tile autotuner
     (`repro_torch.kernels.autotune`).
@@ -210,7 +214,7 @@ def exact_cost(n: int, devices: int, cal: Calibration, *,
             cost += (comm - hidden) + overhead
         else:
             cost += comm
-    return cost + batch * n * cal.host_row_s(update)
+    return cost + n * cal.host_row_s(update)
 
 
 def estimator_cost(n: int, cols: int, matvec_flops: float, devices: int,

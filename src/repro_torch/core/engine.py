@@ -35,6 +35,16 @@ on the card's main path.
 Buffers: every public entry point copies its input once and never modifies
 the caller's tensor; later buffers are the engine's own and are updated
 in place (the column swaps) or replaced by kernel outputs.
+
+Stacks: the serial and staged schedules also take a (B, n, n) stack and
+return (B,) signs and log-determinants.  One step runs all B matrices at
+once -- each kernel launches once for the stack (K1-K4's batch grids),
+and the bookkeeping is the same few PyTorch ops on a leading batch axis,
+never a Python loop over the matrices -- which is what `vmap` does to the
+JAX package's serial core.  Each matrix pivots on its own, and its
+arithmetic is the single matrix's (the triangular solve of the panel
+route may round otherwise when batched).  The mesh schedule takes one
+matrix.
 """
 from __future__ import annotations
 
@@ -48,7 +58,8 @@ import torch
 
 from repro_torch.core import mesh as _mesh
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import guarded_pivot, nan_sign, swap_positions
+from repro_torch.kernels.ref import (guarded_pivot, nan_sign, swap_positions,
+                                     swap_positions_batched)
 
 __all__ = [
     "EngineConfig", "SCHEDULES", "UPDATES", "BACKENDS", "build_serial",
@@ -162,21 +173,24 @@ def perm_parity(perm: np.ndarray) -> float:
 
 
 def _own(a: torch.Tensor) -> torch.Tensor:
-    """The engine's private contiguous copy of a square input."""
-    if a.dim() != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError(f"expected square matrix, got {tuple(a.shape)}")
+    """The engine's private contiguous copy of a square input or a
+    (B, n, n) stack."""
+    if a.dim() not in (2, 3) or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"expected square matrix (n, n) or stack (B, n, n), "
+                         f"got {tuple(a.shape)}")
     return a.clone(memory_format=torch.contiguous_format)
 
 
 def _unit(ref: torch.Tensor):
-    """(sign, logdet) = (1, 0) in ``ref``'s dtype and device."""
-    return (torch.ones((), dtype=ref.dtype, device=ref.device),
-            torch.zeros((), dtype=ref.dtype, device=ref.device))
+    """(sign, logdet) = (1, 0) in ``ref``'s dtype and device, one per
+    matrix of a stack (0-d for one matrix)."""
+    return (torch.ones(ref.shape[:-2], dtype=ref.dtype, device=ref.device),
+            torch.zeros(ref.shape[:-2], dtype=ref.dtype, device=ref.device))
 
 
 def _close(buf: torch.Tensor, sign, logdet):
-    """Fold the final 1x1 pivot ``buf[n-1, 0]`` into (sign, logdet)."""
-    p = buf[-1, 0]
+    """Fold the final 1x1 pivot ``buf[..., n-1, 0]`` into (sign, logdet)."""
+    p = buf[..., -1, 0]
     return sign * nan_sign(p), logdet + torch.log(torch.abs(p))
 
 
@@ -189,21 +203,29 @@ def _condense_step(buf: torch.Tensor, t: int, sign, logdet, *,
     """One condensation step on the full buffer; returns (buf, sign, logdet).
 
     Live region at step ``t``: rows [t, N), cols [0, N - t).  ``buf`` is
-    the engine's own: the unfused swap writes it in place before K1.
+    the engine's own: the unfused swap writes it in place before K1.  On
+    a (B, N, N) stack every matrix takes its own pivot (``l``, ``p``
+    (B,)), in one launch.
     """
-    n = buf.shape[0]
+    stack = buf.dim() == 3
+    n = buf.shape[-1]
     m = n - t
     last = m - 1
     if fused:
         buf, l, p = ops.fused_condense_step(buf, t, precision=precision)
     else:
         l, p, pc, pr, col_l, col_last = ops.pivot_operands(buf, t)
-        buf.index_copy_(1, l, col_last[:, None])
-        buf[:, last] = col_l
+        if stack:
+            buf.scatter_(2, l[:, None, None].expand(buf.shape[0], n, 1),
+                         col_last[:, :, None])
+        else:
+            buf.index_copy_(1, l, col_last[:, None])
+        buf[..., last] = col_l
         buf = ops.rank1_update(buf, pc, pr, precision=precision)
     # sign: pivot sign, column swap, and the Laplace expansion of the
     # pivot (active row 0, active column m-1) => (-1)^(m-1)
-    swap_sign = torch.where(l[0] == last, 1.0, -1.0).to(buf.dtype)
+    swap_sign = torch.where((l if stack else l[0]) == last, 1.0,
+                            -1.0).to(buf.dtype)
     parity = 1.0 if (m - 1) % 2 == 0 else -1.0
     sign = sign * nan_sign(p) * swap_sign * parity
     logdet = logdet + torch.log(torch.abs(p))
@@ -226,7 +248,7 @@ def condense_full(a: torch.Tensor, *, fused: bool = False,
                   precision: Optional[str] = None):
     """Full serial rank-1 condensation -> (sign, logabsdet)."""
     buf = _own(a)
-    n = buf.shape[0]
+    n = buf.shape[-1]
     if n == 0:
         return _unit(buf)
     buf, sign, logdet = condense_steps(buf, n - 1, fused=fused,
@@ -251,7 +273,8 @@ def panel_factor(panel: torch.Tensor, m0: int, *, r_pos: int = 0):
 def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
                   m0: int, *, fused: bool = False) -> torch.Tensor:
     """Replay a factorized panel's K column swaps on ``block`` (Lb, N), in
-    place, and return its multipliers ``C`` (Lb, K): ``C @ T = Pc``.
+    place, and return its multipliers ``C`` (Lb, K): ``C @ T = Pc``.  A
+    stack (B, Lb, N) replays each matrix's own swaps (``ls`` (B, K)).
 
     ``fused=True`` composes the K swaps on an index vector and applies
     them as ONE gather restricted to the 2K columns the swaps can move
@@ -259,9 +282,11 @@ def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
     Lb) elements, not the whole block; the result is the same data
     movement, bit for bit.
     """
-    n = block.shape[1]
-    k = R.shape[0]
-    if fused:
+    if block.dim() == 3:
+        _replay_swaps_stack(block, ls, m0, fused)
+    elif fused:
+        n = block.shape[1]
+        k = R.shape[0]
         idx = torch.arange(n, device=block.device)
         for j in range(k):
             swap_positions(idx, 0, ls[j:j + 1], m0 - 1 - j)
@@ -269,16 +294,37 @@ def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
         block.index_copy_(1, moved,
                           block.index_select(1, idx.index_select(0, moved)))
     else:
-        for j in range(k):
+        for j in range(R.shape[0]):
             swap_positions(block, 1, ls[j:j + 1], m0 - 1 - j)
 
+    k = R.shape[-2]
     # pivot-column block, reversed so column j corresponds to pivot j
-    pc_cols = block[:, m0 - k:m0].flip(1)                 # (Lb, K)
+    pc_cols = block[..., m0 - k:m0].flip(-1)              # (Lb, K)
     # T[j', j] = R[j', pos(pivot j)] -- unit upper-triangular
-    tri = R[:, m0 - k:m0].flip(1)                         # (K, K)
+    tri = R[..., m0 - k:m0].flip(-1)                      # (K, K)
     # C @ T = Pc
     return torch.linalg.solve_triangular(tri, pc_cols, upper=True,
                                          left=False, unitriangular=True)
+
+
+def _replay_swaps_stack(block: torch.Tensor, ls: torch.Tensor, m0: int,
+                        fused: bool) -> None:
+    """`_panel_operand`'s swaps on a (B, Lb, N) stack, in place: matrix b
+    takes its own ``ls[b]``."""
+    b, rows, n = block.shape
+    k = ls.shape[1]
+    if not fused:
+        for j in range(k):
+            swap_positions_batched(block, 2, ls[:, j], m0 - 1 - j)
+        return
+    idx = torch.arange(n, device=block.device).expand(b, n).clone()
+    for j in range(k):
+        swap_positions_batched(idx, 1, ls[:, j], m0 - 1 - j)
+    tail = torch.arange(m0 - k, m0, device=block.device).expand(b, k)
+    moved = torch.cat([ls, tail], dim=1)                       # (B, 2K)
+    src = idx.gather(1, moved)[:, None, :].expand(b, rows, 2 * k)
+    block.scatter_(2, moved[:, None, :].expand(b, rows, 2 * k),
+                   block.gather(2, src))
 
 
 def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
@@ -300,18 +346,18 @@ def panel_rounds_serial(buf: torch.Tensor, n_panels: int, k: int, *,
                         precision: Optional[str] = None):
     """Run ``n_panels`` serial K-panels from panel ``q0`` on the engine's
     own buffer.  Returns (buf, sign, logdet) contributions."""
-    n = buf.shape[0]
+    n = buf.shape[-1]
     rows = torch.arange(n, device=buf.device)
     sign, logdet = _unit(buf)
     for q in range(q0, q0 + n_panels):
         t0 = q * k
         m0 = n - t0
-        R, ls, psign, plogdet = panel_factor(buf[t0:t0 + k], m0)
+        R, ls, psign, plogdet = panel_factor(buf[..., t0:t0 + k, :], m0)
         row_mask = (rows >= t0 + k).to(buf.dtype)
         buf = apply_panel(buf, R, ls, m0, row_mask, fused=fused,
                           precision=precision)
         # park the factorized rows so the dead region stays finite
-        buf[t0:t0 + k] = R
+        buf[..., t0:t0 + k, :] = R
         sign, logdet = sign * psign, logdet + plogdet
     return buf, sign, logdet
 
@@ -319,7 +365,7 @@ def panel_rounds_serial(buf: torch.Tensor, n_panels: int, k: int, *,
 def blocked_full(a: torch.Tensor, *, k: int = 32, fused: bool = False,
                  precision: Optional[str] = None):
     """Serial blocked condensation: K-row panels, then rank-1 steps."""
-    n = a.shape[0]
+    n = a.shape[-1]
     if n <= k:
         return condense_full(a, fused=fused, precision=precision)
     n_panels = (n - 1) // k
@@ -351,8 +397,8 @@ def stage_schedule(n: int, shrink: float, min_size: int):
 
 
 def _live(buf: torch.Tensor, steps: int) -> torch.Tensor:
-    n = buf.shape[0]
-    return buf[steps:, :n - steps].contiguous()
+    n = buf.shape[-1]
+    return buf[..., steps:, :n - steps].contiguous()
 
 
 def _staged_stage_rank1(buf, steps: int, fused: bool,
@@ -384,7 +430,7 @@ def staged_full(a: torch.Tensor, *, shrink: float = 0.75, min_size: int = 64,
     stages, so later steps stream a smaller buffer.  ``update="panel"``
     runs each stage as K-panels plus rank-1 remainder steps.
     """
-    n = a.shape[0]
+    n = a.shape[-1]
     kw = dict(fused=fused, precision=precision)
     if n <= min_size:
         if update == "panel" and n > k:
@@ -393,7 +439,7 @@ def staged_full(a: torch.Tensor, *, shrink: float = 0.75, min_size: int = 64,
     parts = []
     buf = _own(a)
     for size, steps in stage_schedule(n, shrink, min_size):
-        if buf.shape[0] != size:  # defensive; schedule and buffer must agree
+        if buf.shape[-1] != size:  # defensive; schedule and buffer must agree
             raise AssertionError((tuple(buf.shape), size))
         if size - steps <= 1:
             if update == "panel" and size > k:
@@ -408,7 +454,7 @@ def staged_full(a: torch.Tensor, *, shrink: float = 0.75, min_size: int = 64,
             buf, s, ld = _staged_stage_rank1(buf, steps, fused, precision)
         parts.append((s, ld))
     if buf is not None:
-        if update == "panel" and buf.shape[0] > k:
+        if update == "panel" and buf.shape[-1] > k:
             parts.append(blocked_full(buf, k=k, **kw))
         else:
             parts.append(condense_full(buf, **kw))

@@ -6,7 +6,8 @@ must eliminate top to bottom: load balance needs a **cyclic row
 distribution**, and partial pivoting a **global pivot search and a row
 exchange across ranks** every step -- the two costs condensation avoids.
 
-  * `slogdet_ge`            serial GE with partial pivoting.
+  * `slogdet_ge`            serial GE with partial pivoting (one matrix or
+                            a (B, n, n) stack).
   * `parallel_slogdet_ge`   GE over a `core.mesh.Mesh`: cyclic rows (global
                             row g on rank g mod P), the global pivot search,
                             and the pivot row and the displaced row sent to
@@ -36,7 +37,7 @@ from repro_torch.core import mesh as _mesh
 from repro_torch.core.engine import (_own, _unit, cyclic_perm, guarded_pivot,
                                      nan_sign, perm_parity)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import swap_positions
+from repro_torch.kernels.ref import swap_positions, swap_positions_batched
 
 __all__ = ["slogdet_ge", "parallel_slogdet_ge", "ge_step_fn", "cyclic_perm",
            "perm_parity"]
@@ -50,9 +51,14 @@ def slogdet_ge(a: torch.Tensor):
     ``live`` holds the rows not yet eliminated; step t swaps the first
     max-abs entry of column t (NaN counts as the maximum, as in
     ``jnp.argmax``) to the top and replaces the rows below by their K1
-    update.  No host synchronization inside the loop.
+    update.  No host synchronization inside the loop.  A (B, n, n) stack
+    runs every step on all B matrices, each with its own pivot row, and
+    one K1 launch (its batch grid, on the rows below each pivot row in
+    place, a strided view): (B,) results.
     """
     live = _own(a)
+    if live.dim() == 3:
+        return _slogdet_ge_stack(live)
     n = live.shape[0]
     sign, logdet = _unit(live)
     for t in range(n):
@@ -64,6 +70,23 @@ def slogdet_ge(a: torch.Tensor):
             rest = live[1:]
             live = ops.rank1_update(rest, rest[:, t] / guarded_pivot(p),
                                     live[0])
+    return sign, logdet
+
+
+def _slogdet_ge_stack(live: torch.Tensor):
+    """`slogdet_ge`'s steps on the engine's own (B, n, n) stack."""
+    n = live.shape[-1]
+    sign, logdet = _unit(live)
+    for t in range(n):
+        r = live[:, :, t].abs().argmax(-1)                      # (B,)
+        swap_positions_batched(live, 1, r, 0)
+        p = live[:, 0, t]
+        sign, logdet = _fold(sign, logdet, p, r != 0)
+        if t + 1 < n:
+            rest = live[:, 1:]
+            live = ops.rank1_update(rest, rest[:, :, t]
+                                    / guarded_pivot(p)[:, None],
+                                    live[:, 0].contiguous())
     return sign, logdet
 
 

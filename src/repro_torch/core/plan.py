@@ -52,9 +52,19 @@ that callable with the plan.  On a mesh every rank gets the full
 gradient: the exact methods invert the matrix on each rank's device, the
 sharded estimators solve through ``ShardedOperator.rmm``.
 
+A (B, n, n) stack (a tensor or array, or a
+`repro_torch.estimators.BatchedOperator`) gives (B,) results: the exact
+methods ``exact`` (any serial or staged route) and ``ge`` run every step
+on the whole stack at once, each kernel launching once for it (K1-K4's
+batch grids), each matrix padded on its own; the estimators run a
+`BatchedOperator` (batched matmuls, per-matrix bounds and probes
+(B, n, k)).  ``value_and_grad`` returns the (B, n, n) gradient of each
+matrix's log|det|.  A mesh, ``pge`` and ``plu`` take one matrix and raise
+`TypeError` on a stack, as in the JAX package.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``explain`` (item 9), ``export`` (item 10), ``audit`` (item 11), the
-legacy route strings (item 12), and batched stacks (items 3 and 7).
+``explain`` (item 9), ``export`` (item 10), ``audit`` (item 11) and the
+legacy route strings (item 12).
 """
 from __future__ import annotations
 
@@ -97,8 +107,6 @@ _NOT_PORTED = {
           "method='exact' with schedule=/update="
        for m in ("mc", "mc_staged", "mc_blocked", "pmc", "pmc_blocked")},
 }
-_BATCHED_TODO = ("batched (B, n, n) stacks (ROADMAP Queue 1 items 3 and "
-                 "7, still open)")
 _DTYPES = (torch.float32, torch.float64)
 _EXACT_METHODS = ("exact", *BASELINE_METHODS)
 _METHODS = (*_EXACT_METHODS, *ESTIMATOR_METHODS)
@@ -300,12 +308,15 @@ def _best_exact_route(spec: ProblemSpec, devices: int, cal: Calibration,
 # --------------------------------------------------------------------------
 
 def _serial_exact_core(method: str, cfg: ExactConfig) -> Callable:
+    """``a -> (sign, logabsdet)`` of one matrix, or of each matrix of a
+    stack at once."""
     if method == "ge":
         return slogdet_ge
     ecfg = cfg.engine_config()
     fn = build_serial(ecfg)
     if ecfg.update == "panel":
-        # pad so every panel is full; diag(A, I) preserves the result
+        # pad so every panel is full; diag(A, I) preserves the result (of
+        # each matrix of a stack)
         k = ecfg.panel_k
         return lambda x: fn(pad_to_multiple(x, k))
     return fn
@@ -418,6 +429,7 @@ def _build_value_and_grad(spec: ProblemSpec, method: str, cfg: LogdetConfig,
             sign, ld, sem = fwd(a)
             if a.shape[-1] == 0:
                 return (sign, ld, sem), torch.zeros_like(a), None
+            # one (batched) inverse: each matrix's A^{-T}
             return (sign, ld, sem), torch.linalg.inv(a).mT, None
 
         return vag
@@ -461,16 +473,17 @@ def _is_mesh_exact(method: str, cfg: LogdetConfig) -> bool:
 def _flops_est(method: str, spec: ProblemSpec, cfg: LogdetConfig,
                devices: int) -> Tuple[Optional[int], float]:
     """(matvec_cols, flops_est) diagnostics for the resolved path, per
-    device."""
+    device (all matrices of a stack)."""
+    b = spec.batch or 1
     if method in _EXACT_METHODS:
-        return None, (2.0 / 3.0) * spec.n ** 3 / devices
+        return None, b * (2.0 / 3.0) * spec.n ** 3 / devices
     if isinstance(cfg, ChebyshevConfig):
         cols = cfg.degree * cfg.num_probes
         if cfg.lmin is None or cfg.lmax is None:
             cols += _BOUNDS_COLS
     else:
         cols = min(cfg.num_steps, spec.n) * cfg.num_probes
-    return cols, cols * spec.matvec_flops / devices
+    return cols, b * cols * spec.matvec_flops / devices
 
 
 # --------------------------------------------------------------------------
@@ -583,9 +596,12 @@ class LogdetPlan:
                             "the matrix (or operator) to execute on")
         if self.spec.kind != "operator":
             shape = tuple(getattr(a, "shape", ()))
-            if shape != (self.spec.n, self.spec.n):
-                raise ValueError(f"plan was built for shape "
-                                 f"{(self.spec.n, self.spec.n)}, got {shape}")
+            want = (self.spec.n, self.spec.n)
+            if self.spec.batch is not None:
+                want = (self.spec.batch, *want)
+            if shape != want:
+                raise ValueError(f"plan was built for shape {want}, got "
+                                 f"{shape}")
         return a
 
     def _check(self, x, generator, probes, lmin, lmax):
@@ -718,8 +734,6 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
             "mesh sharding applies to a single (n, n) matrix; batched "
             "stacks run one device per matrix -- drop mesh, or map a "
             "single-matrix plan over the stack")
-    if spec.kind == "batched" or spec.batch is not None:
-        raise _not_ported(_BATCHED_TODO)
     if getattr(torch, spec.dtype) not in _DTYPES:
         raise TypeError(f"repro_torch plans take float32 or float64 input, "
                         f"got {spec.dtype}")
@@ -784,6 +798,10 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
             raise TypeError("operator inputs carry their own distribution; "
                             "mesh is only accepted for dense array inputs")
     mesh_exact = _is_mesh_exact(method, cfg)
+    if mesh_exact and spec.batch is not None:
+        raise TypeError(
+            f"method {method!r} (mesh schedule) distributes ONE matrix over "
+            "the mesh; batched stacks need a serial or staged schedule")
     if mesh_exact and mesh is None:
         raise ValueError("engine schedule 'mesh' requires a mesh"
                          if method == "exact"

@@ -6,17 +6,21 @@ Counterpart of `repro.estimators`:
   chebyshev    stochastic Chebyshev expansion of log on a spectral interval
                (dense operators through the fused step K6)
   slq          stochastic Lanczos quadrature (no spectral bounds needed)
-  operators    the `LinearOperator` protocol, the dense, stencil (K8)
-               and mesh-sharded (K5) backends, and conjugate gradient
-               `cg_solve` (dense: K7)
+  operators    the `LinearOperator` protocol, the dense, batched-stack,
+               stencil (K8) and mesh-sharded (K5) backends, and
+               conjugate gradient `cg_solve` (dense: K7)
   grad         the autograd rules: `estimate_logdet` (differentiable
                dispatch), `exact_slogdet_vjp`, `hutchinson_pullback` and
                the operator registry (`register_operator_grad`)
 
 Randomness comes from explicit `torch.Generator`s (``generator=``) or a
-``seed``.  Not ported yet: the batched, Kronecker and Toeplitz backends
-(and their gradient registrations), and `logdet_batched`.
+``seed``.  `logdet_batched` is the entry point for a (B, n, n) stack of
+SPD matrices (GMM covariances).  Not ported yet: the Kronecker and
+Toeplitz backends and their gradient registrations (ROADMAP Queue 1
+item 7).
 """
+import torch
+
 from repro_torch.estimators.chebyshev import (
     chebyshev_coeffs_log, logdet_chebyshev, spectral_bounds,
 )
@@ -43,7 +47,44 @@ __all__ = [
     "BatchedOperator", "KroneckerOperator", "ToeplitzOperator",
     "ShardedOperator", "as_operator", "operator_on", "is_operator",
     "CGResult", "cg_solve",
-    "ESTIMATOR_METHODS", "estimate_logdet", "shared_probes",
+    "ESTIMATOR_METHODS", "estimate_logdet", "logdet_batched",
+    "shared_probes",
     "exact_slogdet_vjp", "hutchinson_pullback", "stencil_apply",
     "OperatorGradInfo", "register_operator_grad", "operator_grad_info",
 ]
+
+
+def logdet_batched(stack, *, method: str = "chebyshev", device=None, **kw):
+    """``log|det|`` of every matrix of an SPD (B, n, n) stack -> (B,), on
+    ``device`` (``None`` is the card, ``"cpu"`` the plain versions).
+
+    ``stack`` is a (B, n, n) tensor or array, or a batched operator (one
+    with a ``batch`` axis, such as `BatchedOperator`), which needs an
+    estimator method.  ``method`` is an estimator name or an exact route
+    of one device (``"exact"`` with ``schedule=``/``update=``/``k=``...,
+    or ``"ge"``), run on the whole stack through a plan
+    (`repro_torch.plan`, which also raises for the mesh routes).  The
+    other keywords go to the estimator or the plan (``num_probes``,
+    ``degree`` / ``num_steps``, ``seed``, ``generator``, ``probes``, ...).
+    Counterpart of `repro.estimators.logdet_batched`.
+    """
+    if is_operator(stack):
+        if getattr(stack, "batch", None) is None:
+            raise ValueError(
+                "logdet_batched needs a batched operator (with a .batch "
+                "axis); use estimate_logdet for a single operator")
+        if method not in ESTIMATOR_METHODS:
+            raise TypeError(
+                f"method {method!r} needs a materialized (B, n, n) stack; "
+                "operator inputs require an estimator method "
+                f"{ESTIMATOR_METHODS}")
+        return estimate_logdet(stack, method=method, device=device, **kw).est
+    stack = torch.as_tensor(stack)
+    if stack.dim() != 3 or stack.shape[1] != stack.shape[2]:
+        raise ValueError(f"expected (B, n, n) stack, got {tuple(stack.shape)}")
+    if method not in ESTIMATOR_METHODS:
+        from repro_torch.core.plan import plan as _make_plan
+        p = _make_plan(stack, method=method, device=device, validate=False,
+                       **kw)
+        return p.logdet(stack)
+    return estimate_logdet(stack, method=method, device=device, **kw).est

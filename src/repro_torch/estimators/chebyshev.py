@@ -14,7 +14,9 @@ num_probes) matvecs, no factorization.
 A dense operator runs the recurrence through the fused step (K6 on the
 card, `repro_torch.kernels.ops.fused_cheb_step`): one pass over A per
 degree.  ``center``, ``width`` and the coefficients stay device tensors,
-so the degree loop never waits on the host.
+so the degree loop never waits on the host.  A `BatchedOperator` stack
+carries a leading batch axis through everything: probes (B, n, k), bounds
+and estimates (B,), coefficients (B, degree + 1).
 """
 from __future__ import annotations
 
@@ -46,10 +48,13 @@ def spectral_bounds(op, generator: torch.Generator, *, iters: int = 32,
     Power iteration from a Gaussian start vector (drawn from
     ``generator``) gives ``lmax``; a second power iteration on the shifted
     operator ``lmax I - A`` gives ``lmin``.  ``safety`` widens the bracket.
-    Costs ``2 (iters + 1)`` single-column products.
+    Costs ``2 (iters + 1)`` single-column products; a stack's bounds are
+    (B,), one per matrix.
     """
     n = op.shape[-1]
-    v0 = torch.randn((n, 1), generator=generator, device=generator.device,
+    batch = getattr(op, "batch", None)
+    shape = (batch, n, 1) if batch else (n, 1)
+    v0 = torch.randn(shape, generator=generator, device=generator.device,
                      dtype=op.dtype).to(device_of(op))
 
     def power(mv_fn):
@@ -61,7 +66,8 @@ def spectral_bounds(op, generator: torch.Generator, *, iters: int = 32,
         return (v * w).sum((-2, -1)) / (v * v).sum((-2, -1))
 
     lmax = power(op.mm) * safety
-    shifted = power(lambda v: lmax * v - op.mm(v))
+    lmax_b = lmax[..., None, None]
+    shifted = power(lambda v: lmax_b * v - op.mm(v))
     lmin = (lmax - shifted) / safety
     return torch.maximum(lmin, lmax * 1e-12), lmax
 
@@ -111,12 +117,14 @@ def logdet_chebyshev(a, *, degree: int = 64, num_probes: int = 32,
     n = op.shape[-1]
     dtype = op.dtype
     dev = device_of(op)
+    batch = getattr(op, "batch", None)
     if generator is None:
         generator = default_generator(dev, seed)
 
     if probes is None:
         v = make_probes(generator, n, num_probes, kind=probe_kind,
-                        dtype=dtype, device=dev)
+                        dtype=dtype, device=dev,
+                        batch_shape=(batch,) if batch else ())
     else:
         v = torch.as_tensor(probes).to(device=dev, dtype=dtype).contiguous()
         if v.shape[-2] != n:
@@ -128,28 +136,31 @@ def logdet_chebyshev(a, *, degree: int = 64, num_probes: int = 32,
         lmax = hi if lmax is None else lmax
     lmin = torch.as_tensor(lmin, dtype=dtype, device=dev)
     lmax = torch.as_tensor(lmax, dtype=dtype, device=dev)
-    c = chebyshev_coeffs_log(lmin, lmax, degree, dtype, dev)   # (deg+1,)
+    if batch:                          # one bracket per matrix
+        lmin, lmax = lmin.expand(batch), lmax.expand(batch)
+    c = chebyshev_coeffs_log(lmin, lmax, degree, dtype, dev)   # (..., deg+1)
 
-    center = (lmax + lmin).reshape(1, 1)
-    width = (lmax - lmin).reshape(1, 1)
+    center = (lmax + lmin)[..., None, None]
+    width = (lmax - lmin)[..., None, None]
 
     def mv_b(v):                       # spectrum-normalized operator B
         return (2.0 * op.mm(v) - center * v) / width
 
     w_prev, w = v, mv_b(v)
-    samples = c[0] * (v * v).sum(-2) + c[1] * (v * w).sum(-2)    # (k,)
+    samples = (c[..., 0, None] * (v * v).sum(-2)
+               + c[..., 1, None] * (v * w).sum(-2))              # (..., k)
     if isinstance(op, DenseOperator):
         # shifted matvec, axpy and probe dot in one pass over A (K6)
         a_mat = op.a.contiguous()
         for j in range(2, degree + 1):
             w_next, dots = _kops.fused_cheb_step(a_mat, w, w_prev, v,
                                                  center, width)
-            samples = samples + c[j] * dots
+            samples = samples + c[..., j, None] * dots
             w_prev, w = w, w_next
     else:
         for j in range(2, degree + 1):
             w_next = 2.0 * mv_b(w) - w_prev
-            samples = samples + c[j] * (v * w_next).sum(-2)
+            samples = samples + c[..., j, None] * (v * w_next).sum(-2)
             w_prev, w = w, w_next
     est, sem = mean_sem(samples)
     return TraceEstimate(est, sem, samples)

@@ -29,9 +29,12 @@ Estimator methods (``chebyshev``, ``slq``)
 Operators opt in through `register_operator_grad`, with the JAX package's
 four fields; ``params`` is a tensor or a flat tuple/list of tensors.  An
 unregistered operator runs the plain forward (autograd then sees whatever
-its ``mm`` records).  Not ported yet: the batched, Kronecker and Toeplitz
-registrations, which come with their operators (ROADMAP, batched stacks).
-The rules are once-differentiable.
+its ``mm`` records).  A `BatchedOperator` stack is registered as dense
+(its parameters are the (B, n, n) entries): one batched transposed CG,
+then ``(g_b/k) W_b Z_b^T`` per matrix with ``g`` (B,); the exact backward
+of a stack is one batched inverse.  Not ported yet: the Kronecker and
+Toeplitz registrations, which come with their operators (ROADMAP Queue 1
+item 7).  The rules are once-differentiable.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ from repro_torch.estimators.chebyshev import (
 )
 from repro_torch.estimators.hutchinson import TraceEstimate, make_probes
 from repro_torch.estimators.operators import (
-    DenseOperator, ShardedOperator, StencilOperator, cg_solve, operator_on,
+    BatchedOperator, DenseOperator, ShardedOperator, StencilOperator,
+    cg_solve, operator_on,
 )
 from repro_torch.estimators.operators.base import device_of
 from repro_torch.estimators.operators.stencil import _transpose_bands
@@ -150,6 +154,11 @@ register_operator_grad(
     rebuild=lambda op, a: DenseOperator(a),
     dense=True)
 register_operator_grad(
+    BatchedOperator,
+    params=lambda op: op.stack,
+    rebuild=lambda op, s: BatchedOperator(s),
+    dense=True)
+register_operator_grad(
     ShardedOperator,
     params=lambda op: op.a,
     rebuild=lambda op, a: ShardedOperator(a, op.mesh),
@@ -191,7 +200,9 @@ class _ExactSlogdet(torch.autograd.Function):
         (a,) = ctx.saved_tensors
         if a.shape[-1] == 0:
             return torch.zeros_like(a), None
-        return (g_ld * torch.linalg.inv(a).mT).to(a.dtype), None
+        # g_ld is 0-d, or (B,) for a stack: each matrix's cotangent
+        return (g_ld[..., None, None] * torch.linalg.inv(a).mT).to(a.dtype), \
+            None
 
 
 def exact_slogdet_vjp(fn: Callable[[torch.Tensor], Any]):
@@ -200,6 +211,7 @@ def exact_slogdet_vjp(fn: Callable[[torch.Tensor], Any]):
     ``fn`` runs on the detached input with gradients off, so no graph is
     built through the elimination; the backward is ``g * inv(a).T`` in
     ``a``'s dtype (zeros at n = 0), and the sign's cotangent is dropped.
+    A (B, n, n) stack takes one batched inverse.
     """
     def f(a):
         return _ExactSlogdet.apply(a, fn)
@@ -214,12 +226,14 @@ def shared_probes(method: str, op, generator: torch.Generator,
                   kw: dict) -> torch.Tensor:
     """The probe slab the named estimator would draw from ``generator``:
     ``kw["num_probes"]`` columns (default 32), Rademacher, or
-    ``kw["probe_kind"]`` for Chebyshev."""
+    ``kw["probe_kind"]`` for Chebyshev; (B, n, k) for a stack."""
     num = kw.get("num_probes", 32)
     kind = (kw.get("probe_kind", "rademacher") if method == "chebyshev"
             else "rademacher")
+    batch = getattr(op, "batch", None)
     return make_probes(generator, op.shape[-1], num, kind=kind,
-                       dtype=op.dtype, device=device_of(op))
+                       dtype=op.dtype, device=device_of(op),
+                       batch_shape=(batch,) if batch else ())
 
 
 def hutchinson_pullback(op, params, probes, g, *, info=None,
@@ -230,7 +244,8 @@ def hutchinson_pullback(op, params, probes, g, *, info=None,
     Solves ``A^T W = Z`` (``Z`` = ``probes``, one transposed CG through
     ``rmm``) on ``rebuild(op, params)``, then returns ``(g/k) W Z^T`` for
     a dense registration, else the gradient of ``sum((g/k) W * apply(op,
-    params, Z))`` with respect to ``params`` (shaped like them).
+    params, Z))`` with respect to ``params`` (shaped like them).  On a
+    stack ``g`` is (B,) and every matrix takes its own ``g_b``.
     """
     info = operator_grad_info(op) if info is None else info
     if info is None:
@@ -245,7 +260,7 @@ def hutchinson_pullback(op, params, probes, g, *, info=None,
     k = probes.shape[-1]
     scale = torch.as_tensor(g, dtype=probes.dtype,
                             device=probes.device) / k
-    w2 = scale * w                      # (n, k): cheaper than scaling bar
+    w2 = scale[..., None, None] * w     # (..., n, k): cheaper than bar
     if info.dense:
         return w2 @ probes.mT, cg
     apply_fn = info.apply or (lambda o, pp, zz: info.rebuild(o, pp).mm(zz))

@@ -6,7 +6,9 @@ Counterpart of `repro.estimators.hutchinson`:
 
 with Rademacher (entries +-1, the variance-minimizing classical choice)
 or Gaussian probes.  Probe slabs are (n, k), k probes as columns;
-quadratic-form samples (k,); estimates 0-d.
+quadratic-form samples (k,); estimates 0-d -- or, for a
+`BatchedOperator` stack, with a leading batch axis: (B, n, k), (B, k),
+(B,).
 
 Randomness comes from an explicit `torch.Generator`; there is no global
 random state.  The JAX package's keys and PyTorch's generators give other
@@ -16,7 +18,7 @@ same ``probes``.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,16 +32,17 @@ PROBE_KINDS = ("rademacher", "gaussian")
 
 class TraceEstimate(NamedTuple):
     """Estimate with uncertainty: ``est`` +- ``sem`` from ``samples``."""
-    est: torch.Tensor       # () mean over probes
-    sem: torch.Tensor       # () standard error of the mean
-    samples: torch.Tensor   # (k,) per-probe quadratic forms
+    est: torch.Tensor       # (...,) mean over probes
+    sem: torch.Tensor       # (...,) standard error of the mean
+    samples: torch.Tensor   # (..., k) per-probe quadratic forms
 
 
 def make_probes(generator: torch.Generator, n: int, num: int, *,
                 kind: str = "rademacher",
                 dtype: Optional[torch.dtype] = None,
-                device=None) -> torch.Tensor:
-    """(n, num) slab of i.i.d. probe columns, E[v v^T] = I.
+                device=None, batch_shape: Tuple[int, ...] = ()
+                ) -> torch.Tensor:
+    """(*batch_shape, n, num) slab of i.i.d. probe columns, E[v v^T] = I.
 
     Drawn on the generator's device and moved to ``device`` (default: the
     generator's).  ``dtype`` should be threaded from the operator
@@ -52,12 +55,12 @@ def make_probes(generator: torch.Generator, n: int, num: int, *,
     if not dtype.is_floating_point:
         raise ValueError(f"probes must be real floating, got {dtype}")
     gdev = generator.device
+    shape = (*batch_shape, n, num)
     if kind == "rademacher":
-        bits = torch.randint(0, 2, (n, num), generator=generator,
-                             device=gdev)
+        bits = torch.randint(0, 2, shape, generator=generator, device=gdev)
         v = (2 * bits - 1).to(dtype)
     else:
-        v = torch.randn((n, num), generator=generator, device=gdev,
+        v = torch.randn(shape, generator=generator, device=gdev,
                         dtype=dtype)
     return v if device is None else v.to(device)
 
@@ -74,7 +77,7 @@ def mean_sem(samples: torch.Tensor):
 def hutchinson_trace(mm, probes, *, device=None) -> TraceEstimate:
     """Trace of the operator behind ``mm`` from a probe slab.
 
-    ``mm`` maps (n, k) -> (n, k) on ``device`` (`resolve_device`: ``None``
+    ``mm`` maps (..., n, k) -> (..., n, k) on ``device`` (`resolve_device`: ``None``
     is the card, ``"cpu"`` the CPU); ``probes`` is the slab from
     `make_probes`, moved there.  Returns the estimate with its standard
     error.

@@ -5,13 +5,14 @@ in `repro_torch.estimators` touches the matrix only through the
 `LinearOperator` protocol (base.py).  Ported backends:
 
   DenseOperator      in-memory (n, n) tensor
+  BatchedOperator    (B, n, n) stack, one batched product per step
   StencilOperator    banded product through K8 -- O(nb n) memory
   ShardedOperator    row block per rank of a mesh, products through K5
 
 plus `cg_solve` (solve.py), Jacobi-preconditioned conjugate gradient on
 any of them.  Not ported yet, each raising `NotImplementedError` with its
-ROADMAP item when constructed: `BatchedOperator`, `KroneckerOperator` and
-`ToeplitzOperator` (Queue 1 item 7).
+ROADMAP item when constructed: `KroneckerOperator` and `ToeplitzOperator`
+(Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.estimators.operators.base import (
     LinearOperator, PlanHints, check_square, device_of, is_operator,
     resolve_device,
 )
+from repro_torch.estimators.operators.batched import BatchedOperator
 from repro_torch.estimators.operators.dense import DenseOperator
 from repro_torch.estimators.operators.sharded import ShardedOperator
 from repro_torch.estimators.operators.stencil import StencilOperator
@@ -31,10 +33,6 @@ __all__ = [
     "ShardedOperator", "as_operator", "operator_on", "is_operator",
     "check_square", "device_of", "resolve_device", "CGResult", "cg_solve",
 ]
-
-_BATCHED_TODO = ("batched (B, n, n) stacks and BatchedOperator (ROADMAP "
-                 "Queue 1 item 7)")
-
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"repro_torch does not run {what} yet")
@@ -49,7 +47,6 @@ def _unported_backend(name: str, what: str):
                    f"NotImplementedError naming {what}."})
 
 
-BatchedOperator = _unported_backend("BatchedOperator", _BATCHED_TODO)
 KroneckerOperator = _unported_backend(
     "KroneckerOperator", "KroneckerOperator (ROADMAP Queue 1 item 7)")
 ToeplitzOperator = _unported_backend(
@@ -61,15 +58,15 @@ def as_operator(a, *, mesh=None) -> LinearOperator:
 
     An (n, n) tensor or array becomes a `DenseOperator` (a tensor keeps
     its device), or with a ``mesh`` of more than one rank a
-    `ShardedOperator` (this rank's rows on ``mesh.device``), as in the JAX
-    package; an existing operator, including a duck-typed one, passes
-    through untouched.  A (B, n, n) stack raises `NotImplementedError`.
+    `ShardedOperator` (this rank's rows on ``mesh.device``); a (B, n, n)
+    stack a `BatchedOperator`, as in the JAX package; an existing
+    operator, including a duck-typed one, passes through untouched.
     """
     if is_operator(a):
         return a
     a = torch.as_tensor(a)
     if a.dim() == 3:
-        raise _not_ported(_BATCHED_TODO)
+        return BatchedOperator(a)
     if mesh is not None and mesh.size > 1:
         return ShardedOperator(a, mesh)
     return DenseOperator(a)
@@ -80,10 +77,12 @@ def operator_on(a, device, *, mesh=None) -> LinearOperator:
     the card).  An array or tensor is moved there; an operator on another
     device through its ``to``, and one without ``to`` raises.  The
     caller's tensor or operator is left alone.  With a ``mesh`` of more
-    than one rank an array or tensor becomes a `ShardedOperator` on
-    ``mesh.device``, which ``device`` must then name (or leave ``None``).
+    than one rank an (n, n) array or tensor becomes a `ShardedOperator` on
+    ``mesh.device``, which ``device`` must then name (or leave ``None``); a
+    stack stays a `BatchedOperator` on ``device``.
     """
-    if mesh is not None and mesh.size > 1 and not is_operator(a):
+    if (mesh is not None and mesh.size > 1 and not is_operator(a)
+            and getattr(a, "ndim", 2) != 3):
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device!r} is not the mesh's device "
                              f"{mesh.device} on this rank")

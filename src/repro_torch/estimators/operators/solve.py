@@ -2,8 +2,10 @@
 
 Counterpart of `repro.estimators.operators.solve`.  Solves ``A X = B``
 for SPD ``A`` touching the operator only through ``mm``: one slab product
-per iteration, batched over the columns of ``B (n, k)``.  Jacobi
-preconditioning from ``op.diag()`` divides out diagonal disparity.
+per iteration, batched over the columns of ``B (n, k)`` -- and over the
+matrices of a `BatchedOperator` stack, ``B (B, n, k)``, each column of
+each matrix with its own step length.  Jacobi preconditioning from
+``op.diag()`` divides out diagonal disparity.
 
 All columns iterate in lockstep: the loop stops when EVERY column's
 residual passes ``||r|| <= tol * ||b|| + atol``, or at ``maxiter``;
@@ -27,9 +29,9 @@ __all__ = ["CGResult", "cg_solve"]
 
 class CGResult(NamedTuple):
     """Solution with convergence evidence."""
-    x: torch.Tensor           # (n, k) solution slab (or (n,) for a vector)
+    x: torch.Tensor           # (..., n, k) solution slab (or (..., n))
     iters: int                # iterations taken
-    resnorm: torch.Tensor     # (k,) final residual 2-norms per column
+    resnorm: torch.Tensor     # (..., k) final residual 2-norms per column
     converged: torch.Tensor   # () all columns under tolerance?
 
 
@@ -46,8 +48,9 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
              x0=None, transpose: bool = False, device=None) -> CGResult:
     """Preconditioned conjugate gradient: solve SPD ``a @ x = b``.
 
-    ``a`` is anything `as_operator` accepts: an (n, n) tensor or array, or
-    any `LinearOperator`; ``b`` is a slab (n, k) or a vector (n,).  All of
+    ``a`` is anything `as_operator` accepts: an (n, n) tensor or array, a
+    (B, n, n) stack, or any `LinearOperator`; ``b`` is a slab (n, k) or a
+    vector (n,), with a leading (B,) for a stack.  All of
     them are moved to ``device`` (`operator_on`): ``None`` is the card,
     and raises when there is none; ``"cpu"`` runs the plain versions.
     ``precondition`` uses Jacobi scaling from ``op.diag()`` when the
@@ -71,12 +74,14 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
         maxiter = 10 * n
     dev = device_of(op)
     b = torch.as_tensor(b).to(device=dev, dtype=op.dtype)
-    if b.dim() not in (1, 2):
-        raise NotImplementedError(
-            "cg_solve takes an (n,) or (n, k) right-hand side; batched "
-            "operators are not ported yet (ROADMAP Queue 1 item 7)")
-    vec = b.dim() == 1
-    b2 = (b[:, None] if vec else b).contiguous()
+    lead = 0 if getattr(op, "batch", None) is None else 1
+    if b.dim() not in (1 + lead, 2 + lead):
+        raise ValueError(
+            f"cg_solve: right-hand side {tuple(b.shape)} for an operator "
+            f"{'with' if lead else 'without'} a batch axis; expected "
+            f"{'(B, n) or (B, n, k)' if lead else '(n,) or (n, k)'}")
+    vec = b.dim() == 1 + lead
+    b2 = (b[..., :, None] if vec else b).contiguous()
     if b2.shape[-2] != n:
         raise ValueError(f"rhs rows {tuple(b2.shape)} do not match "
                          f"operator n={n}")
@@ -88,12 +93,12 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
     else:
         tiny = torch.finfo(op.dtype).tiny
         dinv = torch.where(d.abs() > tiny, 1.0 / d,
-                           torch.ones_like(d))[:, None]
+                           torch.ones_like(d))[..., :, None]
 
         def apply_minv(r):
             return dinv * r
 
-    bnorm = torch.linalg.vector_norm(b2, dim=-2)              # (k,)
+    bnorm = torch.linalg.vector_norm(b2, dim=-2)              # (..., k)
     zero_rhs = bnorm == 0                                    # x = 0 exactly
     thresh = tol * bnorm + atol
 
@@ -102,11 +107,11 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
         r = b2
     else:
         x = torch.as_tensor(x0).to(device=dev, dtype=op.dtype)
-        x = (x[:, None] if vec else x).contiguous()
+        x = (x[..., :, None] if vec else x).contiguous()
         r = b2 - mm(x)
     z = apply_minv(r)
     p = z
-    rz = (r * z).sum(-2)                                     # (k,)
+    rz = (r * z).sum(-2)                                     # (..., k)
 
     def resnorm(r):
         return torch.linalg.vector_norm(r, dim=-2)
@@ -120,16 +125,16 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
             x, r = _kops.fused_cg_step(fused_a, p, x, r, rz)
         else:
             ap = mm(p)
-            alpha = _safe_div(rz, (p * ap).sum(-2))[None, :]
+            alpha = _safe_div(rz, (p * ap).sum(-2))[..., None, :]
             x = x + alpha * p
             r = r - alpha * ap
         z = apply_minv(r)
         rz_new = (r * z).sum(-2)
-        beta = _safe_div(rz_new, rz)[None, :]
+        beta = _safe_div(rz_new, rz)[..., None, :]
         p = z + beta * p
         rz = rz_new
         it += 1
-    x = torch.where(zero_rhs[None, :], torch.zeros_like(x), x)
+    x = torch.where(zero_rhs[..., None, :], torch.zeros_like(x), x)
     rn = torch.where(zero_rhs, torch.zeros_like(bnorm), resnorm(r))
-    out = x[:, 0] if vec else x
+    out = x[..., :, 0] if vec else x
     return CGResult(out, it, rn, torch.all((rn <= thresh) | zero_rhs))

@@ -9,7 +9,10 @@ Every Lanczos step is one slab product through the operator backend (K8
 for a `StencilOperator`; `torch.matmul` for a dense one, as the JAX
 package leaves it to XLA), with full re-orthogonalization against the
 stored basis; the final eigendecompositions batch over probes in one
-`torch.linalg.eigh` call.  There is no kernel of this module's own.
+`torch.linalg.eigh` call.  A `BatchedOperator` stack carries a leading
+batch axis (probes (B, n, k), estimates (B,)): one batched product a
+step, one `eigh` over every matrix and probe.  There is no kernel of
+this module's own.
 """
 from __future__ import annotations
 
@@ -28,39 +31,40 @@ __all__ = ["lanczos", "logdet_slq", "beta_pad"]
 def lanczos(mm, v0: torch.Tensor, num_steps: int):
     """Blocked Lanczos with full re-orthogonalization.
 
-    ``mm`` maps (n, k) -> (n, k); ``v0`` is a slab of k starting vectors
-    (normalized here).  Returns ``(alpha, beta)`` of shapes (k, m) and
-    (k, m-1): per-column tridiagonal coefficients.  On exact breakdown
-    (beta ~ 0) the recurrence continues with a zero vector, whose zero
-    block carries no e_1 weight.
+    ``mm`` maps (..., n, k) -> (..., n, k); ``v0`` is a slab of k starting
+    vectors (normalized here).  Returns ``(alpha, beta)`` of shapes
+    (..., k, m) and (..., k, m-1): per-column tridiagonal coefficients.
+    On exact breakdown (beta ~ 0) the recurrence continues with a zero
+    vector, whose zero block carries no e_1 weight.
     """
     m = num_steps
     q = v0 / torch.linalg.vector_norm(v0, dim=-2, keepdim=True)
-    n, k = q.shape
-    basis = torch.zeros((m, n, k), dtype=q.dtype, device=q.device)
-    alpha = torch.zeros((m, k), dtype=q.dtype, device=q.device)
-    beta = torch.zeros((m, k), dtype=q.dtype, device=q.device)
+    shape = q.shape                                      # (..., n, k)
+    cols = (*shape[:-2], shape[-1])
+    basis = torch.zeros((m, *shape), dtype=q.dtype, device=q.device)
+    alpha = torch.zeros((m, *cols), dtype=q.dtype, device=q.device)
+    beta = torch.zeros((m, *cols), dtype=q.dtype, device=q.device)
     eps = torch.finfo(q.dtype).eps
     q_prev = torch.zeros_like(q)
-    b_prev = torch.zeros(k, dtype=q.dtype, device=q.device)
+    b_prev = torch.zeros(cols, dtype=q.dtype, device=q.device)
     for j in range(m):
         basis[j] = q
         w = mm(q)
-        a_j = (q * w).sum(-2)                            # (k,)
-        w = w - a_j[None, :] * q - b_prev[None, :] * q_prev
+        a_j = (q * w).sum(-2)                            # (..., k)
+        w = w - a_j[..., None, :] * q - b_prev[..., None, :] * q_prev
         # full re-orthogonalization against the basis so far (rows > j
         # are zero and project out nothing)
-        proj = (basis * w).sum(-2)                       # (m, k)
-        w = w - (basis * proj[:, None, :]).sum(0)
-        b_j = torch.linalg.vector_norm(w, dim=-2)        # (k,)
+        proj = (basis * w).sum(-2)                       # (m, ..., k)
+        w = w - (basis * proj[..., None, :]).sum(0)
+        b_j = torch.linalg.vector_norm(w, dim=-2)        # (..., k)
         big = b_j > eps
         safe = torch.where(big, b_j, torch.ones_like(b_j))
-        q_next = torch.where(big[None, :], w / safe[None, :],
+        q_next = torch.where(big[..., None, :], w / safe[..., None, :],
                              torch.zeros_like(w))
         alpha[j] = a_j
         beta[j] = b_j
         q_prev, q, b_prev = q, q_next, b_j
-    return alpha.T, beta[:-1].T
+    return alpha.movedim(0, -1), beta[:-1].movedim(0, -1)
 
 
 def beta_pad(beta: torch.Tensor, m: int) -> torch.Tensor:
@@ -75,8 +79,9 @@ def logdet_slq(a, *, num_steps: int = 25, num_probes: int = 32,
     ``device`` (`operator_on`: ``None`` is the card, ``"cpu"`` the plain
     versions).
 
-    Returns a `TraceEstimate`.  ``probes`` supplies a pre-drawn (n, k)
-    slab instead of ``num_probes`` Rademacher probes from ``generator``
+    Returns a `TraceEstimate` ((B,) fields for a stack).  ``probes``
+    supplies a pre-drawn (..., n, k) slab instead of ``num_probes``
+    Rademacher probes from ``generator``
     (default: a fresh one on the operator's device seeded with ``seed``).
     Each sample is weighted by its probe's squared norm, so any isotropic
     probe distribution is weighted correctly.
@@ -86,10 +91,12 @@ def logdet_slq(a, *, num_steps: int = 25, num_probes: int = 32,
     m = min(num_steps, n)
     dtype = op.dtype
     dev = device_of(op)
+    batch = getattr(op, "batch", None)
     if probes is None:
         if generator is None:
             generator = default_generator(dev, seed)
-        v0 = make_probes(generator, n, num_probes, dtype=dtype, device=dev)
+        v0 = make_probes(generator, n, num_probes, dtype=dtype, device=dev,
+                         batch_shape=(batch,) if batch else ())
     else:
         v0 = torch.as_tensor(probes).to(device=dev, dtype=dtype).contiguous()
         if v0.shape[-2] != n:
@@ -104,11 +111,11 @@ def logdet_slq(a, *, num_steps: int = 25, num_probes: int = 32,
     upper = beta_pad(beta, m)[..., None] * shift
     t = diag + upper + upper.transpose(-1, -2)
     theta, u = torch.linalg.eigh(t)
-    tau2 = u[..., 0, :] ** 2                             # (k, m)
+    tau2 = u[..., 0, :] ** 2                             # (..., k, m)
     # zero-block eigenvalues from early breakdown arrive as theta ~ 0 with
     # tau ~ 0; clip so log stays finite before the weight kills the term
     tiny = torch.finfo(dtype).tiny
-    quad = (tau2 * torch.log(theta.clamp_min(tiny))).sum(-1)    # (k,)
+    quad = (tau2 * torch.log(theta.clamp_min(tiny))).sum(-1)    # (..., k)
     samples = (v0 * v0).sum(-2) * quad
     est, sem = mean_sem(samples)
     return TraceEstimate(est, sem, samples)

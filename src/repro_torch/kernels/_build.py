@@ -50,10 +50,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "rank1_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _P),
-    "panel_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
-    "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P),
-    "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+    "rank1_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "panel_update": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "fused_step": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                   _P),
+    "panel_factor": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                      _LL, _LL, _P),
     "cheb_step": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                   _LL, _LL, _LL, _LL, _LL, _P),
@@ -192,17 +193,29 @@ def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def require_cuda(name: str, buffer: torch.Tensor, operands=()) -> None:
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """A (B, M, N) stack whose matrices are each contiguous, any distance
+    apart but not overlapping."""
+    b, m, n = t.shape
+    return (t.stride(2) == 1 and (m <= 1 or t.stride(1) == n)
+            and (b <= 1 or t.stride(0) >= m * n))
+
+
+def require_cuda(name: str, buffer: torch.Tensor, operands=(), *,
+                 batch_stride: bool = False) -> None:
     """Raise unless the launch is one the kernel takes: every tensor
-    contiguous on one CUDA device, the buffer f32/f64, the operands in
-    the buffer's dtype or all bf16."""
+    contiguous on one CUDA device (with ``batch_stride``, a (B, M, N)
+    buffer only each matrix), the buffer f32/f64, the operands in the
+    buffer's dtype or all bf16."""
     tensors = (buffer, *operands)
     dev = buffer.device
     for t in tensors:
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name}: every tensor must lie on one CUDA "
                              f"device, got {[str(x.device) for x in tensors]}")
-        if not t.is_contiguous():
+        strided = (batch_stride and t is buffer and t.dim() == 3
+                   and _rows_contiguous(t))
+        if not (t.is_contiguous() or strided):
             raise ValueError(f"{name}: tensors must be contiguous")
     if buffer.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: buffer dtype {buffer.dtype} unsupported "

@@ -40,6 +40,12 @@
 // the pivot row and those above it included, takes the update (0 * inf is
 // NaN, 0 - 0 * x turns -0 into +0): R and ls equal the plain version
 // (kernels/ref.py:panel_factor_ref) bit for bit.
+// A (B, K, N) stack of panels is one launch of B clusters, gridDim =
+// (cluster, B, 1) (the port of what `vmap` does to the Pallas call's
+// grid), on either branch; each cluster factorizes its matrix with the
+// single panel's arithmetic (m0 and r_pos are the stack's, every matrix
+// being at the same step), so matrix b equals the one-panel launch on it
+// bit for bit.
 #include "repro_kernels.cuh"
 
 #include <cooperative_groups.h>
@@ -59,6 +65,7 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxRows = 1024;
 constexpr int kMaxCluster = 16;   // non-portable: above the portable 8
+constexpr long long kMaxGridY = 65535;   // clusters of a stack in flight at once
 
 // The argmax's order as an unsigned key: a larger |x| has a larger key,
 // every NaN the largest, 0 no candidate; ties go to the LOWEST index, as
@@ -157,11 +164,15 @@ __device__ __forceinline__ void update_rows(const T* src, T* x, I stride,
     x[i * stride] = repro::sub_rn(y(i), repro::mul_rn(pc[i], pr));
 }
 
-template <typename T, bool kShared>
+// kStack: a stack of more than one panel; else the kernel is the single
+// panel's, without the loop over matrices (which cost 6 % at (32, 8192)
+// f32 on an H100, tools/panel_route_time.py)
+template <typename T, bool kShared, bool kStack>
 __global__ void __launch_bounds__(kThreads, 1)
-panel_factor_kernel(const T* __restrict__ panel, T* __restrict__ R,
-                    long long* __restrict__ ls, T* __restrict__ sign_logdet,
-                    int K, int n, int m0, long long r_pos, int cols) {
+panel_factor_kernel(const T* __restrict__ panels, T* __restrict__ Rs,
+                    long long* __restrict__ lss, T* __restrict__ sign_logdets,
+                    int K, int n, int m0, long long r_pos, int cols,
+                    long long batch) {
   // dynamic shared memory (kernels/panel_factor.py:smem_bytes): the copies
   // of columns l and last, the published columns by parity, the pivots,
   // the slice (kShared), ls
@@ -192,125 +203,135 @@ panel_factor_kernel(const T* __restrict__ panel, T* __restrict__ R,
   // a slice in shared memory is indexed in 32 bits
   using Index = typename std::conditional<kShared, int, long long>::type;
   const Index stride = kShared ? cols : n;
-  T* slice = kShared ? s_slice : R + c0;
+  // the cluster's matrices of a stack: blockIdx.y, then every gridDim.y-th
+  // (every block of a cluster has the same blockIdx.y); the barrier ending
+  // one matrix is passed before the next reuses the buffers
+  for (long long b = kStack ? blockIdx.y : 0; b < (kStack ? batch : 1);
+       b += kStack ? gridDim.y : 1) {
+    const T* panel = panels + b * K * n;
+    T* R = Rs + b * K * n;
+    long long* ls = lss + b * K;
+    T* sign_logdet = sign_logdets + 2 * b;
+    T* slice = kShared ? s_slice : R + c0;
 
-  for (int i = 0; i < K; ++i)
-    for (int c = tid; c < width; c += threads)
-      slice[i * stride + c] = panel[(long long)i * n + c0 + c];
-  __syncthreads();
-
-  // the argmax candidates of row 0
-  unsigned long long key = 0;
-  int at = -1;
-  for (int c = tid; c < min(width, m0 - c0); c += threads)
-    keep(slice[c], c0 + c, key, at);
-
-  for (int j = 0; j < K; ++j) {
-    const int m = m0 - j;
-    const int last = m - 1;
-    const int own_last = last / cols;
-    const int par = j & 1;
-
-    // 1. this block's candidate for row j; publish it and its column
-    warp_best(key, at);
-    if (lane == 0) {
-      s_wk[warp] = key;
-      s_wi[warp] = at;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      key = lane < warps ? s_wk[lane] : 0ull;
-      at = lane < warps ? s_wi[lane] : -1;
-      warp_best(key, at);
-      if (lane == 0) s_cand[par] = Candidate{key, at};
-      if (at >= 0)
-        for (int i = lane; i < K; i += 32)
-          s_pub[par * K + i] = slice[i * stride + (at - c0)];
-    }
-    if (warp == last_warp && rank == own_last)
-      for (int i = lane; i < K; i += 32)
-        s_pub_last[par * K + i] = slice[i * stride + (last - c0)];
-
-    // 2. every block's candidate and columns are published
-    cluster_sync();
-
-    // 3. the pivot column l and the copies of columns l and last
-    if (warp == 0) {
-      key = 0;
-      at = -1;
-      if (lane < blocks) {
-        const Candidate* cand = cluster.map_shared_rank(s_cand + par, lane);
-        key = cand->key;
-        at = cand->i;
-      }
-      warp_best(key, at);
-      const T* col = cluster.map_shared_rank(s_pub + par * K, at / cols);
-      for (int i = lane; i < K; i += 32) s_col[i] = col[i];
-      if (lane == 0) s_l = at;
-    }
-    if (warp == last_warp) {
-      const T* col = cluster.map_shared_rank(s_pub_last + par * K, own_last);
-      for (int i = lane; i < K; i += 32) s_last[i] = col[i];
-    }
-    __syncthreads();
-    const int l = s_l;
-    const T pv = s_col[j];
-    if (rank == 0 && tid == 0) {
-      s_ls[j] = l;
-      s_pv[j] = pv;
-    }
-
-    // 4. normalize and update the owned columns, swapped (column last
-    // takes the old column l, pr[last] = 1 or 0 for a zero pivot; column
-    // l the old column last), and keep the candidates of row j + 1 among
-    // the next step's live columns [0, last); a thread owns whole columns,
-    // so it reads a column's pivot-row entry before rewriting it
-    key = 0;
-    at = -1;
-    for (int c = tid; c < width; c += threads) {
-      const int g = c0 + c;
-      T* x = slice + c;
-      if (g == last)
-        update_rows<true>(s_col, x, stride, s_col, pv == T(0) ? T(0) : T(1),
-                          K, j, false, g, key, at);
-      else if (g == l)
-        update_rows<true>(s_last, x, stride, s_col, normalized(s_last[j], pv),
-                          K, j, g < last, g, key, at);
-      else
-        update_rows<false>(x, x, stride, s_col, normalized(x[j * stride], pv),
-                           K, j, g < last, g, key, at);
-    }
-  }
-  __syncthreads();
-
-  if constexpr (kShared) {
     for (int i = 0; i < K; ++i)
       for (int c = tid; c < width; c += threads)
-        R[(long long)i * n + c0 + c] = s_slice[i * cols + c];
-  }
-  if (rank == 0) {
-    for (int j = tid; j < K; j += threads) ls[j] = s_ls[j];
-    if (tid == 0) {
-      // the sign (NaN for a NaN pivot, as ref.nan_sign) and log|det|,
-      // accumulated in step order
-      T sign = T(1);
-      T logdet = T(0);
-      for (int j = 0; j < K; ++j) {
-        const T pv = s_pv[j];
-        const int m = m0 - j;
-        const T parity = (r_pos + m - 1) % 2 == 0 ? T(1) : T(-1);
-        const T swap_sign = s_ls[j] == m - 1 ? T(1) : T(-1);
-        const T sgn = isnan(pv) ? pv : T(T(0) < pv) - T(pv < T(0));
-        sign = sign * sgn * swap_sign * parity;
-        logdet = logdet + repro::log_(repro::abs_(pv));
+        slice[i * stride + c] = panel[(long long)i * n + c0 + c];
+    __syncthreads();
+
+    // the argmax candidates of row 0
+    unsigned long long key = 0;
+    int at = -1;
+    for (int c = tid; c < min(width, m0 - c0); c += threads)
+      keep(slice[c], c0 + c, key, at);
+
+    for (int j = 0; j < K; ++j) {
+      const int m = m0 - j;
+      const int last = m - 1;
+      const int own_last = last / cols;
+      const int par = j & 1;
+
+      // 1. this block's candidate for row j; publish it and its column
+      warp_best(key, at);
+      if (lane == 0) {
+        s_wk[warp] = key;
+        s_wi[warp] = at;
       }
-      sign_logdet[0] = sign;
-      sign_logdet[1] = logdet;
+      __syncthreads();
+      if (warp == 0) {
+        key = lane < warps ? s_wk[lane] : 0ull;
+        at = lane < warps ? s_wi[lane] : -1;
+        warp_best(key, at);
+        if (lane == 0) s_cand[par] = Candidate{key, at};
+        if (at >= 0)
+          for (int i = lane; i < K; i += 32)
+            s_pub[par * K + i] = slice[i * stride + (at - c0)];
+      }
+      if (warp == last_warp && rank == own_last)
+        for (int i = lane; i < K; i += 32)
+          s_pub_last[par * K + i] = slice[i * stride + (last - c0)];
+
+      // 2. every block's candidate and columns are published
+      cluster_sync();
+
+      // 3. the pivot column l and the copies of columns l and last
+      if (warp == 0) {
+        key = 0;
+        at = -1;
+        if (lane < blocks) {
+          const Candidate* cand = cluster.map_shared_rank(s_cand + par, lane);
+          key = cand->key;
+          at = cand->i;
+        }
+        warp_best(key, at);
+        const T* col = cluster.map_shared_rank(s_pub + par * K, at / cols);
+        for (int i = lane; i < K; i += 32) s_col[i] = col[i];
+        if (lane == 0) s_l = at;
+      }
+      if (warp == last_warp) {
+        const T* col = cluster.map_shared_rank(s_pub_last + par * K, own_last);
+        for (int i = lane; i < K; i += 32) s_last[i] = col[i];
+      }
+      __syncthreads();
+      const int l = s_l;
+      const T pv = s_col[j];
+      if (rank == 0 && tid == 0) {
+        s_ls[j] = l;
+        s_pv[j] = pv;
+      }
+
+      // 4. normalize and update the owned columns, swapped (column last
+      // takes the old column l, pr[last] = 1 or 0 for a zero pivot; column
+      // l the old column last), and keep the candidates of row j + 1 among
+      // the next step's live columns [0, last); a thread owns whole columns,
+      // so it reads a column's pivot-row entry before rewriting it
+      key = 0;
+      at = -1;
+      for (int c = tid; c < width; c += threads) {
+        const int g = c0 + c;
+        T* x = slice + c;
+        if (g == last)
+          update_rows<true>(s_col, x, stride, s_col, pv == T(0) ? T(0) : T(1),
+                            K, j, false, g, key, at);
+        else if (g == l)
+          update_rows<true>(s_last, x, stride, s_col, normalized(s_last[j], pv),
+                            K, j, g < last, g, key, at);
+        else
+          update_rows<false>(x, x, stride, s_col, normalized(x[j * stride], pv),
+                             K, j, g < last, g, key, at);
+      }
     }
+    __syncthreads();
+
+    if constexpr (kShared) {
+      for (int i = 0; i < K; ++i)
+        for (int c = tid; c < width; c += threads)
+          R[(long long)i * n + c0 + c] = s_slice[i * cols + c];
+    }
+    if (rank == 0) {
+      for (int j = tid; j < K; j += threads) ls[j] = s_ls[j];
+      if (tid == 0) {
+        // the sign (NaN for a NaN pivot, as ref.nan_sign) and log|det|,
+        // accumulated in step order
+        T sign = T(1);
+        T logdet = T(0);
+        for (int j = 0; j < K; ++j) {
+          const T pv = s_pv[j];
+          const int m = m0 - j;
+          const T parity = (r_pos + m - 1) % 2 == 0 ? T(1) : T(-1);
+          const T swap_sign = s_ls[j] == m - 1 ? T(1) : T(-1);
+          const T sgn = isnan(pv) ? pv : T(T(0) < pv) - T(pv < T(0));
+          sign = sign * sgn * swap_sign * parity;
+          logdet = logdet + repro::log_(repro::abs_(pv));
+        }
+        sign_logdet[0] = sign;
+        sign_logdet[1] = logdet;
+      }
+    }
+    // no block leaves while another may still read its buffers: the last
+    // reads (step 3 of step K - 1) end before the barrier below
+    cluster_sync();
   }
-  // no block leaves while another may still read its buffers: the last
-  // reads (step 3 of step K - 1) end before the barrier below
-  cluster_sync();
 }
 
 // per device and kernel instance: the attributes set so far and the
@@ -328,13 +349,13 @@ int fail(cudaError_t e) {
   return (int)e;
 }
 
-template <typename T, bool kShared>
-int launch(const void* panel, void* r, void* ls, void* sign_logdet, int k,
-           int n, int m0, long long r_pos, int cluster, int cols, size_t smem,
-           cudaStream_t stream) {
+template <typename T, bool kShared, bool kStack>
+int launch(const void* panel, void* r, void* ls, void* sign_logdet,
+           long long batch, int k, int n, int m0, long long r_pos, int cluster,
+           int cols, size_t smem, cudaStream_t stream) {
   static std::mutex mu;
   static std::map<int, LaunchState> states;
-  const auto kernel = panel_factor_kernel<T, kShared>;
+  const auto kernel = panel_factor_kernel<T, kShared, kStack>;
 
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -342,7 +363,8 @@ int launch(const void* panel, void* r, void* ls, void* sign_logdet, int k,
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(cluster, 1, 1);
+  // one cluster per matrix of a stack, up to kMaxGridY clusters a launch
+  cfg.gridDim = dim3(cluster, (unsigned)(batch < kMaxGridY ? batch : kMaxGridY), 1);
   // one thread per column of the slice, up to kThreads
   cfg.blockDim = dim3(std::min(kThreads, (cols + 31) / 32 * 32), 1, 1);
   cfg.dynamicSmemBytes = smem;
@@ -380,19 +402,36 @@ int launch(const void* panel, void* r, void* ls, void* sign_logdet, int k,
   }
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, (const T*)panel, (T*)r, (long long*)ls, (T*)sign_logdet,
-      k, n, m0, r_pos, cols);
+      k, n, m0, r_pos, cols, batch);
   if (e != cudaSuccess) return fail(e);
   return (int)cudaGetLastError();
+}
+
+// the instance for the branch and whether a stack is launched
+template <typename T>
+int launch_for(bool shared, bool stack, const void* panel, void* r, void* ls,
+               void* sign_logdet, long long batch, int K, int N, int M0,
+               long long r_pos, int C, int W, size_t smem, cudaStream_t s) {
+  if (shared)
+    return stack ? launch<T, true, true>(panel, r, ls, sign_logdet, batch, K,
+                                         N, M0, r_pos, C, W, smem, s)
+                 : launch<T, true, false>(panel, r, ls, sign_logdet, batch, K,
+                                          N, M0, r_pos, C, W, smem, s);
+  return stack ? launch<T, false, true>(panel, r, ls, sign_logdet, batch, K, N,
+                                        M0, r_pos, C, W, smem, s)
+               : launch<T, false, false>(panel, r, ls, sign_logdet, batch, K,
+                                         N, M0, r_pos, C, W, smem, s);
 }
 
 }  // namespace
 
 extern "C" int repro_panel_factor(int dtype, const void* panel, void* r,
-                                  void* ls, void* sign_logdet, long long k,
-                                  long long n, long long m0, long long r_pos,
-                                  long long cluster, long long cols,
-                                  long long shared, long long smem_bytes,
-                                  void* stream) {
+                                  void* ls, void* sign_logdet, long long batch,
+                                  long long k, long long n, long long m0,
+                                  long long r_pos, long long cluster,
+                                  long long cols, long long shared,
+                                  long long smem_bytes, void* stream) {
+  if (batch <= 0) return 0;
   if (k <= 0 || k > kMaxRows || m0 < k || m0 > n || n > INT_MAX)
     return (int)cudaErrorInvalidValue;
   // the plan's slices must cover [0, n) exactly once, none empty
@@ -408,12 +447,8 @@ extern "C" int repro_panel_factor(int dtype, const void* panel, void* r,
   const int K = (int)k, N = (int)n, M0 = (int)m0, C = (int)cluster,
             W = (int)cols;
   if (dtype == REPRO_F32)
-    return shared ? launch<float, true>(panel, r, ls, sign_logdet, K, N, M0,
-                                        r_pos, C, W, smem, s)
-                  : launch<float, false>(panel, r, ls, sign_logdet, K, N, M0,
-                                         r_pos, C, W, smem, s);
-  return shared ? launch<double, true>(panel, r, ls, sign_logdet, K, N, M0,
-                                       r_pos, C, W, smem, s)
-                : launch<double, false>(panel, r, ls, sign_logdet, K, N, M0,
-                                        r_pos, C, W, smem, s);
+    return launch_for<float>(shared != 0, batch > 1, panel, r, ls, sign_logdet,
+                             batch, K, N, M0, r_pos, C, W, smem, s);
+  return launch_for<double>(shared != 0, batch > 1, panel, r, ls, sign_logdet,
+                            batch, K, N, M0, r_pos, C, W, smem, s);
 }

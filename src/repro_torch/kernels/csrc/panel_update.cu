@@ -36,9 +36,14 @@
 // same rows of a larger call bit for bit (the mesh lookahead relies on
 // it), and a repeated call is bitwise equal.  The order differs from
 // cuBLAS's: the plain version is matched to a rounding bound, not bitwise.
+// A (B, M, N) stack is one launch (the port of what `vmap` does to the
+// Pallas call's grid): the tile space is B x the matrix's tiles, matrix
+// slowest, walked by the same blocks (persistent, or one tile each), so
+// matrix b of a stack equals the one-matrix launch on it bit for bit.
 #include "repro_kernels.cuh"
 #include "skinny_mma.cuh"   // the cp.async helpers
 
+#include <climits>
 #include <map>
 #include <mutex>
 
@@ -193,16 +198,21 @@ __device__ __forceinline__ void multiply(T (&acc)[L::TM][L::J][L::W], const T* c
   }
 }
 
+// kStack: a stack of more than one matrix (else the tile index is the
+// matrix's own, and the kernel is the single-matrix one instruction for
+// instruction: the batch decomposition cost 3 % at (8192, 8192, K = 32)
+// on an H100, tools/panel_route_time.py).
 // VEC: n a multiple of W and a, out 16-byte aligned (16-byte copies of a
 // and a 16-byte epilogue).  A template parameter, not a run-time flag: as
 // a flag it cost 4-9 % with bf16 operands at (8192, 8192, K = 32) on an
 // H100, nothing in f32, and moved f64 by -3 % to +2 % between two calls
 // (tools/k2_variants.py, vec_at_run_time)
-template <typename T, typename OpT, bool VEC>
+template <typename T, typename OpT, bool VEC, bool kStack>
 __global__ void __launch_bounds__(kThreads)
 panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
                     const OpT* __restrict__ r, T* __restrict__ out, long long m,
-                    long long n, long long k, long long tiles_n, long long tiles) {
+                    long long n, long long k, long long tiles_n, long long tiles_per,
+                    long long tiles) {
   using L = Layout<T, OpT>;
   using V = typename L::V;
   constexpr int S = L::S, W = L::W;
@@ -218,18 +228,39 @@ panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
   auto stage = [&](int s) { return smem + s * L::STAGE_ELEMS; };
   Fetched<T, OpT> fetched;   // bf16 operands only
 
+  // tile t of the stack: its matrix's a, c and r, and its first row and
+  // column (one matrix: t is the tile)
+  struct Tile {
+    const T* a;
+    const OpT* c;
+    const OpT* r;
+    T* out;
+    long long row0, col0;
+  };
+  auto tile = [&](long long t) {
+    long long b = 0, u = t;
+    if constexpr (kStack) {
+      b = t / tiles_per;
+      u = t - b * tiles_per;
+    }
+    return Tile{a + b * m * n, c + b * m * k, r + b * k * n, out + b * m * n,
+                u / tiles_n * L::BM, u % tiles_n * L::BN};
+  };
+
   // tile t's a and first chunk of c and r into stage s, as one commit
   // group; bf16 c and r reach the stage now if `now`, else at `fetched.store`
   auto fill = [&](long long t, int s, bool now) {
     if (t < tiles) {
       T* st = stage(s);
-      const long long row0 = t / tiles_n * L::BM, col0 = t % tiles_n * L::BN;
-      copy_async<T, L::BM, L::BN>(st, a, m, n, n, row0, col0, VEC);
+      const Tile tl = tile(t);
+      const long long row0 = tl.row0, col0 = tl.col0;
+      copy_async<T, L::BM, L::BN>(st, tl.a, m, n, n, row0, col0, VEC);
       if constexpr (kSameType) {
-        copy_async<T, L::BM, kChunk>(st + L::A_ELEMS, c, m, k, k, row0, 0, c_vec);
-        copy_async<T, kChunk, L::BN>(st + L::A_ELEMS + L::C_ELEMS, r, k, n, n, 0, col0, r_vec);
+        copy_async<T, L::BM, kChunk>(st + L::A_ELEMS, tl.c, m, k, k, row0, 0, c_vec);
+        copy_async<T, kChunk, L::BN>(st + L::A_ELEMS + L::C_ELEMS, tl.r, k, n, n, 0, col0,
+                                     r_vec);
       } else {
-        fetched.load(c, r, m, n, k, row0, col0);
+        fetched.load(tl.c, tl.r, m, n, k, row0, col0);
         if (now) fetched.store(st + L::A_ELEMS, st + L::A_ELEMS + L::C_ELEMS);
       }
     }
@@ -249,7 +280,8 @@ panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
     T* st = stage(s);
     T* cs = st + L::A_ELEMS;
     T* rs = cs + L::C_ELEMS;
-    const long long row0 = t / tiles_n * L::BM, col0 = t % tiles_n * L::BN;
+    const Tile tl = tile(t);
+    const long long row0 = tl.row0, col0 = tl.col0;
 
     T acc[L::TM][L::J][W];
 #pragma unroll
@@ -261,8 +293,8 @@ panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
     multiply<T, L>(acc, cs, rs, tx, ty);
     for (long long ch = 1; ch < chunks; ++ch) {   // K > 32: further chunks
       __syncthreads();
-      copy_widen<T, L::BM, kChunk>(cs, c, m, k, k, row0, ch * kChunk);
-      copy_widen<T, kChunk, L::BN>(rs, r, k, n, n, ch * kChunk, col0);
+      copy_widen<T, L::BM, kChunk>(cs, tl.c, m, k, k, row0, ch * kChunk);
+      copy_widen<T, kChunk, L::BN>(rs, tl.r, k, n, n, ch * kChunk, col0);
       __syncthreads();
       multiply<T, L>(acc, cs, rs, tx, ty);
     }
@@ -277,7 +309,7 @@ panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
         const int cc = W * tx + 16 * W * jj;
         const long long gj = col0 + cc;
         const T* ap = st + rr * L::BN + cc;
-        T* op = out + gi * n + gj;
+        T* op = tl.out + gi * n + gj;
         if constexpr (VEC) {
           if (gj < n) {
             T x[W];
@@ -301,11 +333,11 @@ panel_update_kernel(const T* __restrict__ a, const OpT* __restrict__ c,
   cp_async_wait<0>();
 }
 
-template <typename T, typename OpT, bool VEC>
-int launch_kernel(const void* a, const void* c, const void* r, void* out, long long m,
-                  long long n, long long k, void* stream) {
+template <typename T, typename OpT, bool VEC, bool kStack>
+int launch_kernel(const void* a, const void* c, const void* r, void* out, long long batch,
+                  long long m, long long n, long long k, void* stream) {
   using L = Layout<T, OpT>;
-  const auto kernel = panel_update_kernel<T, OpT, VEC>;
+  const auto kernel = panel_update_kernel<T, OpT, VEC, kStack>;
   // per device, set up at its first launch: the shared-memory attribute,
   // and for a persistent config the blocks the card holds at once
   static std::mutex mu;
@@ -334,36 +366,41 @@ int launch_kernel(const void* a, const void* c, const void* r, void* out, long l
     cap = it->second;
   }
   const long long tiles_n = (n + L::BN - 1) / L::BN;
-  const long long tiles = (m + L::BM - 1) / L::BM * tiles_n;
+  const long long tiles_per = (m + L::BM - 1) / L::BM * tiles_n;
+  const long long tiles = batch * tiles_per;
   const long long grid = L::C::PERSIST && tiles > cap ? cap : tiles;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)grid, kThreads, L::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const T*)a, (const OpT*)c, (const OpT*)r, (T*)out, m, n, k, tiles_n, tiles);
+      (const T*)a, (const OpT*)c, (const OpT*)r, (T*)out, m, n, k, tiles_n, tiles_per, tiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename OpT>
-int launch(const void* a, const void* c, const void* r, void* out, long long m, long long n,
-           long long k, void* stream) {
+int launch(const void* a, const void* c, const void* r, void* out, long long batch,
+           long long m, long long n, long long k, void* stream) {
   const bool vec = n % repro::Vec16<T>::n == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  return vec ? launch_kernel<T, OpT, true>(a, c, r, out, m, n, k, stream)
-             : launch_kernel<T, OpT, false>(a, c, r, out, m, n, k, stream);
+  if (batch > 1)
+    return vec ? launch_kernel<T, OpT, true, true>(a, c, r, out, batch, m, n, k, stream)
+               : launch_kernel<T, OpT, false, true>(a, c, r, out, batch, m, n, k, stream);
+  return vec ? launch_kernel<T, OpT, true, false>(a, c, r, out, batch, m, n, k, stream)
+             : launch_kernel<T, OpT, false, false>(a, c, r, out, batch, m, n, k, stream);
 }
 
 }  // namespace
 
 extern "C" int repro_panel_update(int dtype, int op_dtype, const void* a,
                                   const void* c, const void* r, void* out,
-                                  long long m, long long n, long long k,
-                                  void* stream) {
-  if (m <= 0 || n <= 0) return 0;
+                                  long long batch, long long m, long long n,
+                                  long long k, void* stream) {
+  if (batch <= 0 || m <= 0 || n <= 0) return 0;
   if (dtype == REPRO_F32 && op_dtype == REPRO_F32)
-    return launch<float, float>(a, c, r, out, m, n, k, stream);
+    return launch<float, float>(a, c, r, out, batch, m, n, k, stream);
   if (dtype == REPRO_F32 && op_dtype == REPRO_BF16)
-    return launch<float, __nv_bfloat16>(a, c, r, out, m, n, k, stream);
+    return launch<float, __nv_bfloat16>(a, c, r, out, batch, m, n, k, stream);
   if (dtype == REPRO_F64 && op_dtype == REPRO_F64)
-    return launch<double, double>(a, c, r, out, m, n, k, stream);
+    return launch<double, double>(a, c, r, out, batch, m, n, k, stream);
   if (dtype == REPRO_F64 && op_dtype == REPRO_BF16)
-    return launch<double, __nv_bfloat16>(a, c, r, out, m, n, k, stream);
+    return launch<double, __nv_bfloat16>(a, c, r, out, batch, m, n, k, stream);
   return (int)cudaErrorInvalidValue;
 }

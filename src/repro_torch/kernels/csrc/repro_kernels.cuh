@@ -28,30 +28,38 @@
 extern "C" {
 #endif
 
-// K1: out = a - outer(pc, pr); a, out (m, n) in dtype; pc (m,), pr (n,) in op_dtype.
+// K1-K4 take a stack of `batch` matrices in one launch (batch = 1: one
+// matrix); matrix b of every array follows matrix b - 1 contiguously,
+// except K1's `a`, whose matrices lie `a_stride` elements apart.
+
+// K1: out = a - outer(pc, pr); a, out (batch, m, n) in dtype; pc (batch, m),
+// pr (batch, n) in op_dtype.
 int repro_rank1_update(int dtype, int op_dtype, const void* a, const void* pc,
-                       const void* pr, void* out, long long m, long long n,
-                       void* stream);
+                       const void* pr, void* out, long long batch, long long m,
+                       long long n, long long a_stride, void* stream);
 
-// K2: out = a - c @ r; a, out (m, n) in dtype; c (m, k), r (k, n) in op_dtype.
+// K2: out = a - c @ r; a, out (batch, m, n) in dtype; c (batch, m, k),
+// r (batch, k, n) in op_dtype.
 int repro_panel_update(int dtype, int op_dtype, const void* a, const void* c,
-                       const void* r, void* out, long long m, long long n,
-                       long long k, void* stream);
+                       const void* r, void* out, long long batch, long long m,
+                       long long n, long long k, void* stream);
 
-// K3: out = swap_select(a; l <-> last) - outer(pc, pr); l is a device int64.
+// K3: out = swap_select(a; l <-> last) - outer(pc, pr), shapes as K1's;
+// l (batch,) is device int64, one pivot column per matrix.
 int repro_fused_step(int dtype, int op_dtype, const void* a, const void* l,
                      long long last, const void* pc, const void* pr,
                      const void* col_l, const void* col_last, void* out,
-                     long long m, long long n, void* stream);
+                     long long batch, long long m, long long n, void* stream);
 
-// K4: factorize a (k, n) panel; r (k, n) out, ls (k,) int64 out,
-// sign_logdet (2,) out in dtype; one cluster of `cluster` blocks of `cols`
-// columns each, slices in shared memory if `shared`, smem_bytes of dynamic
-// shared memory per block (the cut is kernels/panel_factor.py:plan's).
+// K4: factorize (batch, k, n) panels; r (batch, k, n) out, ls (batch, k)
+// int64 out, sign_logdet (batch, 2) out in dtype; one cluster of `cluster`
+// blocks of `cols` columns each per panel, slices in shared memory if
+// `shared`, smem_bytes of dynamic shared memory per block (the cut is
+// kernels/panel_factor.py:plan's).
 int repro_panel_factor(int dtype, const void* panel, void* r, void* ls,
-                       void* sign_logdet, long long k, long long n,
-                       long long m0, long long r_pos, long long cluster,
-                       long long cols, long long shared,
+                       void* sign_logdet, long long batch, long long k,
+                       long long n, long long m0, long long r_pos,
+                       long long cluster, long long cols, long long shared,
                        long long smem_bytes, void* stream);
 
 // K5: o (m, k) = a (m, n) @ x (n, k), every tensor in dtype; the cut

@@ -22,18 +22,28 @@ def fused_step(a: torch.Tensor, l: torch.Tensor, last: int,
 
     ``l`` is an int64 tensor on the card (its first element is read by
     the kernel, so the host never waits for the argmax); ``last`` is a
-    host int; ``col_l``/``col_last`` are the two pre-swap columns.
+    host int; ``col_l``/``col_last`` are the two pre-swap columns.  For a
+    stack ``a (B, M, N)``: ``l (B,)``, one pivot column per matrix, ``pc``,
+    ``col_l``, ``col_last`` (B, M) and ``pr`` (B, N), one launch.
     """
     global launches
     _build.require_cuda("fused_step", a, (pc, pr))
     _build.require_cuda("fused_step", a, (col_l, col_last))
-    m, n = a.shape
-    if (pc.shape != (m,) or pr.shape != (n,) or col_l.shape != (m,)
-            or col_last.shape != (m,)):
-        raise ValueError(f"fused_step: a={tuple(a.shape)} needs (M,) pc, "
-                         "col_l, col_last and an (N,) pr")
-    if l.device != a.device or l.dtype != torch.int64 or l.numel() < 1:
-        raise TypeError("fused_step: l must be an int64 tensor on a's device")
+    if a.dim() not in (2, 3):
+        raise ValueError(f"fused_step: a must be (M, N) or (B, M, N), got "
+                         f"{tuple(a.shape)}")
+    *lead, m, n = a.shape
+    batch = lead[0] if lead else 1
+    lead = tuple(lead)
+    if (pc.shape != (*lead, m) or pr.shape != (*lead, n)
+            or col_l.shape != (*lead, m) or col_last.shape != (*lead, m)):
+        raise ValueError(f"fused_step: a={tuple(a.shape)} needs {lead} x "
+                         "(M,) pc, col_l, col_last and an (N,) pr")
+    if (l.device != a.device or l.dtype != torch.int64
+            or not l.is_contiguous()
+            or (l.numel() < 1 if not lead else l.shape != lead)):
+        raise TypeError("fused_step: l must be an int64 tensor on a's "
+                        f"device, one element per matrix ({lead or 1})")
     if not 0 <= last < n:
         raise ValueError(f"fused_step: last={last} outside [0, {n})")
     out = torch.empty_like(a)
@@ -42,7 +52,7 @@ def fused_step(a: torch.Tensor, l: torch.Tensor, last: int,
         rc = fn(_build.dtype_code(a.dtype), _build.dtype_code(pc.dtype),
                 a.data_ptr(), l.data_ptr(), last, pc.data_ptr(),
                 pr.data_ptr(), col_l.data_ptr(), col_last.data_ptr(),
-                out.data_ptr(), m, n, _build.stream(a))
+                out.data_ptr(), batch, m, n, _build.stream(a))
     _build.check(rc, "fused_step")
     launches += 1
     return out

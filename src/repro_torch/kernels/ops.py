@@ -9,7 +9,10 @@ count of zero on the card means the path did not run.
 The engine (core/engine.py) calls the four condensation operations and
 `fused_condense_step`; the O(n) pivot bookkeeping around the rank-1
 kernels (`pivot_operands`) stays in PyTorch on the tensor's device, with
-no host synchronization.  The estimators call `fused_cheb_step` (dense
+no host synchronization.  Each takes one matrix or a (B, n, n) stack: a
+stack is one launch of the kernel's batch grid (the port of what `vmap`
+does to the JAX package's kernels) and one set of PyTorch ops, never a
+loop over its matrices.  The estimators call `fused_cheb_step` (dense
 Chebyshev), `fused_cg_step` (dense CG), `stencil_mv` (every
 `StencilOperator` product) and `matvec` (the local product of every
 `ShardedOperator` product).
@@ -17,7 +20,9 @@ Chebyshev), `fused_cg_step` (dense CG), `stencil_mv` (every
 Deliberate difference from `repro.kernels.ops`: the JAX package sends
 K6/K7 operands above an 8 MiB VMEM budget, and batched ``a.ndim == 3``
 operands, to the jnp reference.  Here a CUDA tensor runs K6/K7 at every n,
-and a batched operand raises.
+and a batched operand raises `ValueError`: a stack runs as a
+`BatchedOperator`, whose products never reach K6/K7, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -104,7 +109,11 @@ def panel_update(a: torch.Tensor, c: torch.Tensor, r: torch.Tensor, *,
 
 
 def panel_factor(panel: torch.Tensor, m0: int, r_pos: int = 0):
-    """K-step panel factorization -> ``(R, ls, sign, logdet)`` (K4)."""
+    """K-step panel factorization -> ``(R, ls, sign, logdet)`` (K4); a
+    stack's panels (B, K, N), a strided view of its rows, are gathered
+    into one contiguous operand first."""
+    if panel.dim() == 3:
+        panel = panel.contiguous()
     if _on_card(panel, "panel_factor"):
         return _k4.panel_factor(panel, m0, r_pos)
     return _ref.panel_factor_ref(panel, m0, r_pos)
@@ -119,8 +128,12 @@ def pivot_operands(buf: torch.Tensor, t: int):
     int64 tensor, the pivot value (0-d), the pivot column zeroed at rows
     ``<= t``, the pivot row in swapped coordinates normalized so that
     ``pr[last] == 1`` (all zero for a zero pivot), and the two pre-swap
-    columns.  Everything stays on ``buf``'s device.
+    columns.  For a (B, n, n) stack, each matrix's own: ``l`` and ``p``
+    (B,), the vectors (B, n), first-index ties as ``argmax``.  Everything
+    stays on ``buf``'s device.
     """
+    if buf.dim() == 3:
+        return _pivot_operands_stack(buf, t)
     n = buf.shape[0]
     last = n - t - 1
     row = buf[t]
@@ -138,6 +151,24 @@ def pivot_operands(buf: torch.Tensor, t: int):
     return l, p, pc, pr, col_l, col_last
 
 
+def _pivot_operands_stack(buf: torch.Tensor, t: int):
+    b, n = buf.shape[0], buf.shape[-1]
+    last = n - t - 1
+    row = buf[:, t]
+    l = row[:, :last + 1].abs().argmax(-1)                     # (B,)
+    p = row.gather(1, l[:, None])[:, 0]                        # (B,)
+    col_l = buf.gather(2, l[:, None, None].expand(b, n, 1))[..., 0]
+    col_last = buf[:, :, last].clone()
+    row = row.clone()
+    row.scatter_(1, l[:, None], buf[:, t, last:last + 1])
+    row[:, last] = p
+    pr = torch.where(p[:, None] == 0, torch.zeros_like(row),
+                     row / _ref.guarded_pivot(p)[:, None])
+    pc = col_l.clone()
+    pc[:, :t + 1] = 0
+    return l, p, pc, pr, col_l, col_last
+
+
 def fused_condense_step(buf: torch.Tensor, t: int, *,
                         precision: Optional[str] = None):
     """One-pass condensation step at pivot row ``t`` -> ``(buf', l, p)``.
@@ -145,11 +176,11 @@ def fused_condense_step(buf: torch.Tensor, t: int, *,
     The O(n) bookkeeping runs in PyTorch (`pivot_operands`); the O(n^2)
     column swap and rank-1 update are one pass (K3 on the card), bitwise
     equal to the scatter swap followed by `rank1_update`.  ``buf`` is not
-    modified.
+    modified; on a stack ``l`` and ``p`` are (B,).
     """
     l, p, pc, pr, col_l, col_last = pivot_operands(buf, t)
     pc, pr = _quantize(precision, pc, pr)
-    last = buf.shape[0] - t - 1
+    last = buf.shape[-1] - t - 1
     if _on_card(buf, "fused_step"):
         out = _k3.fused_step(buf, l, last, pc, pr, col_l, col_last)
     else:
@@ -159,9 +190,10 @@ def fused_condense_step(buf: torch.Tensor, t: int, *,
 
 def _unbatched(op: str, a: torch.Tensor) -> None:
     if a.dim() != 2:
-        raise NotImplementedError(
-            f"{op}: batched (B, n, n) operands are not ported yet (ROADMAP "
-            "Queue 1 item 7, BatchedOperator)")
+        raise ValueError(
+            f"{op}: takes one (n, n) matrix, got {tuple(a.shape)}; a (B, n, "
+            "n) stack runs as a BatchedOperator, whose products are batched "
+            "matmuls")
 
 
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ their slices in shared memory for all K steps, exchanging each step's
 argmax and pivot column through distributed shared memory, one cluster
 barrier a step.  `plan` makes that cut from the shape alone; the C entry
 checks and obeys it, and raises (through `_build.check`) when the card
-refuses the launch.
+refuses the launch.  A (B, K, N) stack of panels is one launch of B such
+clusters, each with the single panel's cut.
 """
 from __future__ import annotations
 
@@ -88,24 +89,30 @@ def panel_factor(panel: torch.Tensor, m0: int, r_pos: int = 0):
 
     Same contract as `ref.panel_factor_ref`: ``R`` (K, N) in the panel's
     dtype, ``ls`` (K,) int64, ``sign``/``logdet`` 0-d tensors, all on the
-    card, written by one cluster launch.  ``m0`` and ``r_pos`` are host
-    ints.
+    card, written by one cluster launch.  A (B, K, N) stack of panels
+    gives ``R`` (B, K, N), ``ls`` (B, K), ``sign``/``logdet`` (B,), one
+    launch of B clusters.  ``m0`` and ``r_pos`` are host ints, the same
+    for every panel of a stack.
     """
     global launches
     _build.require_cuda("panel_factor", panel)
-    k, n = panel.shape
+    if panel.dim() not in (2, 3):
+        raise ValueError(f"panel_factor: panel must be (K, N) or (B, K, N), "
+                         f"got {tuple(panel.shape)}")
+    *lead, k, n = panel.shape
     if not k <= m0 <= n:
         raise ValueError(f"panel_factor: m0={m0} outside [K={k}, N={n}]")
     p = plan(k, n, panel.dtype)
     r = torch.empty_like(panel)
-    ls = torch.empty(k, dtype=torch.int64, device=panel.device)
-    sign_logdet = torch.empty(2, dtype=panel.dtype, device=panel.device)
+    ls = torch.empty((*lead, k), dtype=torch.int64, device=panel.device)
+    sign_logdet = torch.empty((*lead, 2), dtype=panel.dtype,
+                              device=panel.device)
     fn = _build.function("panel_factor")
     with torch.cuda.device(panel.device):
         rc = fn(_build.dtype_code(panel.dtype), panel.data_ptr(),
-                r.data_ptr(), ls.data_ptr(), sign_logdet.data_ptr(), k, n,
-                int(m0), int(r_pos), p.cluster, p.cols, int(p.shared),
-                p.smem_bytes, _build.stream(panel))
+                r.data_ptr(), ls.data_ptr(), sign_logdet.data_ptr(),
+                lead[0] if lead else 1, k, n, int(m0), int(r_pos), p.cluster,
+                p.cols, int(p.shared), p.smem_bytes, _build.stream(panel))
     _build.check(rc, "panel_factor")
     launches += 1
-    return r, ls, sign_logdet[0], sign_logdet[1]
+    return r, ls, sign_logdet[..., 0], sign_logdet[..., 1]

@@ -10,6 +10,11 @@ bitwise comparable with them.  K5, K6 and K7 sum ``A @ w`` (and K6/K7
 their column dots) in another order than the kernels, so they agree to a
 tolerance: `matvec_bound`, `cheb_step_bound`, `cg_step_bound`.
 
+K1-K4 also take a stack with a leading batch axis, matrix by matrix the
+same arithmetic (the port of what `vmap` does to the JAX package's
+kernels), so each matrix of a stack equals the single-matrix result bit
+for bit.
+
 Counterparts: `repro.kernels.ref` (K1-K3, K5-K8) and `repro.core.engine
 .panel_factor` (K4).
 """
@@ -22,7 +27,7 @@ __all__ = ["rank1_update_ref", "panel_update_ref", "fused_step_ref",
            "stencil_mv_ref", "matvec_bound", "cheb_step_bound",
            "cg_step_bound", "panel_update_bound",
            "ERROR_LAMBDA", "accumulator_dtype", "guarded_pivot", "nan_sign",
-           "swap_positions"]
+           "swap_positions", "swap_positions_batched"]
 
 
 def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -51,24 +56,47 @@ def swap_positions(x: torch.Tensor, dim: int, l: torch.Tensor,
     x.narrow(dim, last, 1).copy_(at_l)
 
 
+def swap_positions_batched(x: torch.Tensor, dim: int, l: torch.Tensor,
+                           last: int) -> None:
+    """In place, per matrix of a stack: swap index ``l[b]`` with index
+    ``last`` along ``dim`` (>= 1) of ``x[b]``; ``l`` is a (B,) int64
+    tensor, so the host never reads it."""
+    shape = list(x.shape)
+    shape[dim] = 1
+    idx = l.view([-1] + [1] * (x.dim() - 1)).expand(shape)
+    at_l = x.gather(dim, idx)
+    at_last = x.narrow(dim, last, 1).clone()
+    x.scatter_(dim, idx, at_last)
+    x.narrow(dim, last, 1).copy_(at_l)
+
+
 def rank1_update_ref(a: torch.Tensor, pc: torch.Tensor,
                      pr: torch.Tensor) -> torch.Tensor:
-    """a (M, N) - outer(pc, pr), the product rounded in the operand dtype.
+    """a (M, N) - outer(pc, pr), the product rounded in the operand dtype;
+    for a stack a (B, M, N), pc (B, M), pr (B, N) per matrix.
 
     With bf16 operands the product is a bf16 product, widened to
-    ``a.dtype`` before the subtraction.
+    ``a.dtype`` before the subtraction.  (``torch.outer`` is this
+    broadcast product.)
     """
-    return (a - torch.outer(pc, pr)).to(a.dtype)
+    return (a - pc[..., :, None] * pr[..., None, :]).to(a.dtype)
 
 
 def panel_update_ref(a: torch.Tensor, c: torch.Tensor,
                      r: torch.Tensor) -> torch.Tensor:
-    """a (M, N) - c (M, K) @ r (K, N), accumulated in f32 (f64 for f64).
+    """a (M, N) - c (M, K) @ r (K, N), accumulated in f32 (f64 for f64);
+    a stack (B, M, N) matrix by matrix.
 
     Follows the Pallas kernel (`repro.kernels.panel_update`), not the
     jnp oracle: bf16 operands are widened before the product, so the
-    contraction never rounds to bf16.
+    contraction never rounds to bf16.  A stack takes one product per
+    matrix, not a batched one: PyTorch's batched product of small shapes
+    sums in another order than its single one (a CPU build measured),
+    and each matrix must equal the single-matrix result bit for bit.
     """
+    if a.dim() == 3:
+        return torch.stack([panel_update_ref(a[i], c[i], r[i])
+                            for i in range(a.shape[0])])
     acc = accumulator_dtype(a.dtype)
     return a - (c.to(acc) @ r.to(acc)).to(a.dtype)
 
@@ -81,7 +109,7 @@ def panel_update_bound(a: torch.Tensor, c: torch.Tensor, r: torch.Tensor,
     either order, then one rounding of the subtract.  ``plain`` is
     `panel_update_ref`'s result."""
     acc = accumulator_dtype(a.dtype)
-    return (2 * c.shape[1] * torch.finfo(acc).eps
+    return (2 * c.shape[-1] * torch.finfo(acc).eps
             * (c.to(acc).abs() @ r.to(acc).abs())
             + torch.finfo(a.dtype).eps * plain.abs())
 
@@ -91,14 +119,18 @@ def fused_step_ref(a: torch.Tensor, l, last: int, pc: torch.Tensor,
                    col_last: torch.Tensor) -> torch.Tensor:
     """Column swap (l <-> last) and rank-1 update as one select pass.
 
-    ``l`` may be a 0-d device tensor.  Bitwise equal to the scatter swap
-    followed by `rank1_update_ref`: the swap moves data, the
-    multiply-subtract is the same arithmetic.
+    ``l`` may be a 0-d device tensor; for a stack a (B, M, N) it is (B,),
+    one pivot column per matrix, and the other operands carry the batch
+    axis.  Bitwise equal to the scatter swap followed by
+    `rank1_update_ref`: the swap moves data, the multiply-subtract is the
+    same arithmetic.
     """
-    cols = torch.arange(a.shape[1], device=a.device)
-    sw = torch.where(cols[None, :] == l, col_last[:, None],
-                     torch.where(cols[None, :] == last, col_l[:, None], a))
-    return sw - (pc[:, None] * pr[None, :]).to(a.dtype)
+    cols = torch.arange(a.shape[-1], device=a.device)
+    if a.dim() == 3:
+        l = l.view(-1, 1, 1)
+    sw = torch.where(cols == l, col_last[..., :, None],
+                     torch.where(cols == last, col_l[..., :, None], a))
+    return sw - (pc[..., :, None] * pr[..., None, :]).to(a.dtype)
 
 
 def panel_factor_ref(panel: torch.Tensor, m0: int, r_pos: int = 0):
@@ -109,32 +141,38 @@ def panel_factor_ref(panel: torch.Tensor, m0: int, r_pos: int = 0):
     ``(R, ls, sign, logdet)``: the normalized pivot rows in the final
     swapped coordinates, the (K,) int64 pivot column chosen at each step
     (in that step's coordinates), and the panel's contribution to the
-    sign and log|det| as 0-d tensors.  The input is not modified.
+    sign and log|det| as 0-d tensors.  A (B, K, N) stack of panels gives
+    (B, K, N), (B, K), (B,) and (B,), each panel pivoting on its own (one
+    panel runs as a stack of one: the same arithmetic).  The input is not
+    modified.
     """
-    k_rows, n = panel.shape
+    if panel.dim() == 2:
+        R, ls, sign, logdet = panel_factor_ref(panel[None], m0, r_pos)
+        return R[0], ls[0], sign[0], logdet[0]
+    b, k_rows, n = panel.shape
     dt = panel.dtype
     buf = panel.clone()
     rows = torch.arange(k_rows, device=panel.device)
-    ls = torch.zeros(k_rows, dtype=torch.int64, device=panel.device)
+    ls = torch.zeros((b, k_rows), dtype=torch.int64, device=panel.device)
     one = torch.ones((), dtype=dt, device=panel.device)
-    sign = one
-    logdet = torch.zeros((), dtype=dt, device=panel.device)
+    sign = torch.ones(b, dtype=dt, device=panel.device)
+    logdet = torch.zeros(b, dtype=dt, device=panel.device)
     for k in range(k_rows):
         m = m0 - k
         last = m - 1
-        l = buf[k, :m].abs().argmax().view(1)
-        pv = buf[k].index_select(0, l)[0]
-        swap_positions(buf, 1, l, last)
-        row = buf[k]
-        pr = torch.where(pv == 0, torch.zeros_like(row),
-                         row / guarded_pivot(pv))
-        pr[last] = torch.where(pv == 0, pr[last], one)
-        buf[k] = pr
-        pc = torch.where(rows <= k, 0.0, buf[:, last]).to(dt)
-        buf = buf - torch.outer(pc, pr)
-        ls[k] = l[0]
+        l = buf[:, k, :m].abs().argmax(-1)                       # (B,)
+        pv = buf[:, k].gather(1, l[:, None])[:, 0]               # (B,)
+        swap_positions_batched(buf, 2, l, last)
+        row = buf[:, k]
+        pr = torch.where(pv[:, None] == 0, torch.zeros_like(row),
+                         row / guarded_pivot(pv)[:, None])
+        pr[:, last] = torch.where(pv == 0, pr[:, last], one)
+        buf[:, k] = pr
+        pc = torch.where(rows <= k, 0.0, buf[:, :, last]).to(dt)
+        buf = buf - pc[:, :, None] * pr[:, None, :]
+        ls[:, k] = l
         parity = 1.0 if (r_pos + m - 1) % 2 == 0 else -1.0
-        swap_sign = torch.where(l[0] == last, 1.0, -1.0).to(dt)
+        swap_sign = torch.where(l == last, 1.0, -1.0).to(dt)
         sign = sign * nan_sign(pv) * swap_sign * parity
         logdet = logdet + torch.log(torch.abs(pv))
     return buf, ls, sign, logdet

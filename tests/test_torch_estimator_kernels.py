@@ -175,11 +175,14 @@ def test_estimator_wrappers_refuse_cpu_tensors(rng):
 
 
 def test_batched_operands_raise(rng):
+    """K6/K7 take one matrix: a stack runs as a `BatchedOperator`, whose
+    products never reach them (the JAX package silently takes its jnp
+    reference there)."""
     a = torch.zeros((2, 4, 4))
     w = torch.zeros((2, 4, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="BatchedOperator"):
         ops.fused_cheb_step(a, w, w, w, 1.0, 2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="BatchedOperator"):
         ops.fused_cg_step(a, w, w, w, torch.ones(2, 1))
 
 

@@ -379,22 +379,28 @@ def test_dense_operator_surface():
     assert est.as_operator(op) is op
 
 
-@pytest.mark.parametrize("name", ["BatchedOperator", "KroneckerOperator",
-                                  "ToeplitzOperator"])
-def test_unported_backends_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+@pytest.mark.parametrize("name,exc,match", [
+    # ported: it takes a (B, n, n) stack, not one matrix
+    ("BatchedOperator", ValueError, r"\(B, n, n\) stack"),
+    ("KroneckerOperator", NotImplementedError, "ROADMAP Queue 1 item"),
+    ("ToeplitzOperator", NotImplementedError, "ROADMAP Queue 1 item")])
+def test_unported_backends_raise(name, exc, match):
+    with pytest.raises(exc, match=match):
         getattr(est, name)(torch.eye(2))
 
 
 def test_as_operator_rejects_stacks_and_shards_on_a_mesh():
-    """A stack raises; with a mesh of more than one rank a matrix becomes
-    a `ShardedOperator` of this rank's rows, and with one rank a
-    `DenseOperator`, as in the JAX package (the sharded products run in
-    tests/test_torch_mesh.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.as_operator(torch.zeros(2, 3, 3))
-    a = torch.arange(16.0).reshape(4, 4)
+    """A stack becomes a `BatchedOperator` (with or without a mesh); with a
+    mesh of more than one rank a matrix becomes a `ShardedOperator` of
+    this rank's rows, and with one rank a `DenseOperator`, as in the JAX
+    package (the sharded products run in tests/test_torch_mesh.py)."""
     two = Mesh(group=None, size=2, rank=1, device=torch.device("cpu"))
+    stack = torch.arange(18.0).reshape(2, 3, 3)
+    for mesh in (None, two):
+        op = est.as_operator(stack, mesh=mesh)
+        assert isinstance(op, est.BatchedOperator)
+        assert op.batch == 2 and op.shape == (3, 3) and op.stack is stack
+    a = torch.arange(16.0).reshape(4, 4)
     op = est.as_operator(a, mesh=two)
     assert isinstance(op, est.ShardedOperator)
     assert torch.equal(op.local, a[2:]) and op.shape == (4, 4)

@@ -718,3 +718,203 @@ def test_pge_and_plu_at_one_rank_on_the_card(cuda):
         assert counts["panel_update"] == panels, name
         assert colls == {"broadcast": n, "all_sum": 2 * n + (
             0 if name == "pge" else n // nb)}, name
+
+
+# ------------------------------------------------------------------ stacks
+# K1-K4 on (B, ...) stacks: one launch (their batch grids), bitwise (K2:
+# within its bound) against the batched plain version, and matrix b bit
+# for bit the single-matrix launch on it; then the exact routes, the
+# estimators on a BatchedOperator and the gradients of a stack on the card
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 129), (3, 64, 64), (5, 33, 257),
+                                   (4, 129, 7), (70, 60, 60), (2, 1, 8192)])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_stack_rank1_and_fused_step_bitwise(cuda, shape, dt, op):
+    gen = torch.Generator().manual_seed(4)
+    b, m, n = shape
+    a = _randn(gen, b, m, n, dtype=dt, device=cuda)
+    pc = _randn(gen, b, m, dtype=op, device=cuda)
+    pr = _randn(gen, b, n, dtype=op, device=cuda)
+    l = torch.randint(0, n, (b,), generator=gen).to(cuda)
+    last = n - 1
+    cl = a.gather(2, l[:, None, None].expand(b, m, 1))[..., 0].contiguous()
+    clast = a[:, :, last].contiguous()
+    before = condense_step.launches, fused_step.launches
+    got = condense_step.rank1_update(a, pc, pr)
+    got3 = fused_step.fused_step(a, l, last, pc, pr, cl, clast)
+    assert (condense_step.launches, fused_step.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, ref.rank1_update_ref(a, pc, pr))
+    assert torch.equal(got3, ref.fused_step_ref(a, l, last, pc, pr, cl,
+                                                clast))
+    for i in range(b):
+        assert torch.equal(got[i], condense_step.rank1_update(a[i], pc[i],
+                                                              pr[i]))
+        assert torch.equal(got3[i], fused_step.fused_step(
+            a[i], l[i:i + 1], last, pc[i], pr[i], cl[i], clast[i]))
+
+
+@pytest.mark.parametrize("rows", [1, 5, 64])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_stack_rank1_update_takes_a_batch_stride(cuda, rows, dt):
+    """Gaussian elimination's rows below the pivot: a strided view of the
+    stack, each matrix's rows contiguous."""
+    gen = torch.Generator().manual_seed(5)
+    buf = _randn(gen, 3, rows + 1, 130, dtype=dt, device=cuda)
+    a = buf[:, 1:]
+    pc = _randn(gen, 3, rows, dtype=dt, device=cuda)
+    pr = _randn(gen, 3, 130, dtype=dt, device=cuda)
+    got = condense_step.rank1_update(a, pc, pr)
+    assert got.is_contiguous()
+    assert torch.equal(got, ref.rank1_update_ref(a, pc, pr))
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 129, 3), (3, 65, 190, 33),
+                                   (5, 64, 64, 8), (2, 129, 257, 64),
+                                   (40, 64, 64, 8)])
+@pytest.mark.parametrize("dt,op", VARIANTS)
+def test_stack_panel_update_within_bound(cuda, shape, dt, op):
+    gen = torch.Generator().manual_seed(6)
+    b, m, n, k = shape
+    a = _randn(gen, b, m, n, dtype=dt, device=cuda)
+    c = _randn(gen, b, m, k, dtype=op, device=cuda)
+    r = _randn(gen, b, k, n, dtype=op, device=cuda)
+    got, want = k2.panel_update(a, c, r), ref.panel_update_ref(a, c, r)
+    assert bool(((got - want).abs()
+                 <= ref.panel_update_bound(a, c, r, want)).all())
+    for i in range(b):
+        assert torch.equal(got[i], k2.panel_update(a[i], c[i], r[i]))
+
+
+@pytest.mark.parametrize("b,k,n,m0", [(1, 8, 64, 64), (3, 8, 64, 60),
+                                      (40, 8, 64, 64), (4, 32, 300, 260),
+                                      (2, 32, 8192, 8000),
+                                      (2, 32, 28673, 28000)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_stack_panel_factor_bitwise(cuda, b, k, n, m0, dt):
+    gen = torch.Generator().manual_seed(7)
+    panel = _randn(gen, b, k, n, dtype=dt, device=cuda)
+    panel[-1, 1, 3] = float("nan")
+    before = k4.launches
+    R, ls, s, ld = k4.panel_factor(panel, m0, 1)
+    assert k4.launches == before + 1
+    R0, ls0, s0, ld0 = ref.panel_factor_ref(panel, m0, 1)
+    assert _same_bits(R, R0) and torch.equal(ls, ls0)
+    assert _same_bits(s, s0)
+    rtol = 1e-6 if dt == torch.float32 else 1e-14
+    for i in range(b):
+        assert _same_value(ld[i].item(), ld0[i].item(), rtol)
+        R1, ls1, s1, ld1 = k4.panel_factor(panel[i], m0, 1)
+        assert _same_bits(R[i], R1) and torch.equal(ls[i], ls1)
+        assert _same_bits(s[i], s1) and _same_bits(ld[i], ld1)
+
+
+STACK_ROUTES = {
+    "staged|rank1": dict(method="exact"),
+    "serial|panel": dict(method="exact", schedule="serial", update="panel",
+                         k=8),
+    "staged|panel": dict(method="exact", update="panel", k=8, min_size=16),
+    "staged|rank1|fused": dict(method="exact", fused=True),
+    "staged|panel|bf16": dict(method="exact", update="panel", k=8,
+                              precision="bf16"),
+    "ge": dict(method="ge"),
+}
+
+
+@pytest.mark.parametrize("route", sorted(STACK_ROUTES))
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_stack_plans_on_the_card(cuda, route, dt):
+    """Each exact route on a (9, 70, 70) stack: the CPU's signs, log|det|
+    within 1e-4 (f32) / 1e-10 (f64) (5e-3 with bf16 operands), matrix b
+    bitwise the single-matrix plan on the card (panel: 1e-6 / 1e-12), and
+    the single matrix's launch counts."""
+    kw = STACK_ROUTES[route]
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (9, 70, 70)) + 4.0 * np.eye(70)).to(dt)
+    ops.reset_launch_counts()
+    res = repro_torch.plan(x.to(cuda), **kw)()
+    counts = ops.launch_counts()
+    cpu = repro_torch.plan(x, device="cpu", **kw)()
+    rtol = 5e-3 if "bf16" in route else (1e-4 if dt == torch.float32
+                                         else 1e-10)
+    assert torch.equal(res.sign.cpu(), cpu.sign)
+    np.testing.assert_allclose(res.logabsdet.cpu().numpy(),
+                               cpu.logabsdet.numpy(), rtol=rtol)
+    for i in range(9):
+        ops.reset_launch_counts()
+        one = repro_torch.plan(x[i].to(cuda), **kw)()
+        assert ops.launch_counts() == counts
+        assert torch.equal(res.sign[i], one.sign)
+        if "panel" in route:
+            tol = 1e-6 if dt == torch.float32 else 1e-12
+            assert abs(res.logabsdet[i].item() - one.logabsdet.item()) <= \
+                tol * abs(one.logabsdet.item())
+        else:
+            assert torch.equal(res.logabsdet[i], one.logabsdet)
+
+
+@pytest.mark.parametrize("method", ["chebyshev", "slq"])
+def test_batched_estimators_on_the_card(cuda, method):
+    """A BatchedOperator on the card against the CPU with the same probes
+    (and bounds): f64 rtol 1e-8; no kernel launched."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4, 80, 160))
+    stack = torch.from_numpy(x @ x.transpose(0, 2, 1) / 160
+                             + 2.0 * np.eye(80))
+    z = torch.from_numpy(np.where(rng.random((4, 80, 16)) < 0.5, -1.0, 1.0))
+    kw = dict(lmin=1.5, lmax=7.0) if method == "chebyshev" else {}
+    ops.reset_launch_counts()
+    got = repro_torch.plan(stack.to(cuda), method=method)(probes=z, **kw)
+    assert not any(ops.launch_counts().values())
+    want = repro_torch.plan(stack, method=method, device="cpu")(probes=z,
+                                                                **kw)
+    np.testing.assert_allclose(got.logabsdet.cpu().numpy(),
+                               want.logabsdet.numpy(), rtol=1e-8)
+    b = torch.from_numpy(rng.standard_normal((4, 80, 3)))
+    cg = est.cg_solve(stack.to(cuda), b)
+    assert bool(cg.converged) and not any(ops.launch_counts().values())
+    np.testing.assert_allclose(cg.x.cpu().numpy(), torch.linalg.solve(
+        stack, b).numpy(), rtol=1e-7, atol=1e-9)
+
+
+def test_stack_grads_on_the_card(cuda):
+    """value_and_grad on a stack: exact inv(A)^T with the forward's
+    launches only; slq's pullback, no K7."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((5, 40, 80))
+    stack = torch.from_numpy(x @ x.transpose(0, 2, 1) / 80
+                             + 2.0 * np.eye(40)).to(cuda)
+    inv_t = torch.linalg.inv(stack).mT
+    p = repro_torch.plan(stack, method="exact", update="panel", k=8)
+    ops.reset_launch_counts()
+    p()
+    fwd = ops.launch_counts()
+    ops.reset_launch_counts()
+    _, g = p.value_and_grad()
+    assert ops.launch_counts() == fwd
+    assert torch.allclose(g, inv_t, rtol=1e-10, atol=1e-12)
+    ops.reset_launch_counts()
+    res, g = repro_torch.plan(stack, method="slq").value_and_grad()
+    assert ops.launch_counts()["cg_step"] == 0
+    assert g.shape == stack.shape and res.logabsdet.shape == (5,)
+    assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("method", ["exact", "chebyshev", "slq"])
+def test_gmm_fit_torch_on_the_card(cuda, method):
+    """examples/gmm_fit_torch.py trains on the card through its one
+    (K, d, d) plan with each method: every nll finite, the last below the
+    first, exact's log|det| at the Cholesky reference."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "examples"))
+    import gmm_fit_torch
+    hist = gmm_fit_torch.train(dim=16, components=4, samples=800, steps=5,
+                               method=method, device=cuda, log_every=0)
+    assert hist["device"].startswith("cuda")
+    nll = hist["nll"]
+    assert np.isfinite(nll).all() and nll[-1] < nll[0]
+    if method == "exact":
+        assert hist["ld_gap"].max() < 1e-10

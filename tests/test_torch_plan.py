@@ -199,8 +199,9 @@ def test_mesh_rejections_match_jax(mesh1, x, kw):
 
 
 def test_rejected_inputs_raise():
-    with pytest.raises(NotImplementedError, match="batched"):
-        repro_torch.plan((2, 8, 8), method="exact", device="cpu")
+    # a stack runs the exact routes of one device; pge spans a mesh
+    with pytest.raises(TypeError, match="ONE matrix"):
+        repro_torch.plan((2, 8, 8), method="pge", device="cpu")
     with pytest.raises(TypeError, match="float32 or float64"):
         repro_torch.plan(np.eye(4, dtype=np.int32), method="exact",
                          device="cpu")
@@ -436,7 +437,9 @@ def test_validate_spd_like_rejects(method):
 @pytest.mark.parametrize("x,kw,exc", [
     ("dense", {"method": "slq", "degree": 8}, TypeError),
     ("dense", {"method": "chebyshev", "mesh": object()}, TypeError),
-    ("batched", {"method": "slq"}, NotImplementedError),
+    ("batched", {"method": "slq",
+                 "mesh": Mesh(group=None, size=1, rank=0,
+                              device=torch.device("cpu"))}, TypeError),
     ("stencil", {"method": "exact"}, TypeError),
     ("stencil", {"method": "slq", "precision": "float64"}, ValueError),
     ("dense", {"method": "chebyshev", "precision": "bf16"}, ValueError),

@@ -190,8 +190,9 @@ def _crossover(cal):
 def test_host_terms_move_the_crossover_not_the_width():
     """Host dispatch per row (H100-like figures) moves dense SPD input to
     slq at a far smaller n, adds exactly n times the route's term to
-    every exact cost (mesh routes included, batch times over), and leaves
-    the panel width alone."""
+    every exact cost (mesh routes included; once for a whole stack, whose
+    steps run all its matrices at once), and leaves the panel width
+    alone."""
     base = tcal.Calibration(**SYNTHETIC)
     host = dataclasses.replace(base, host_rank1_row_s=4e-4,
                                host_panel_row_s=5e-5)
@@ -208,7 +209,7 @@ def test_host_terms_move_the_crossover_not_the_width():
                     np.testing.assert_allclose(
                         tcal.exact_cost(n, devices, host, **kw)
                         - tcal.exact_cost(n, devices, base, **kw),
-                        batch * n * term, rtol=1e-9)
+                        n * term, rtol=1e-9)
     # at the exact cell, the host terms make panel the exact route and
     # slq the estimator choice (the JAX model alone picks exact there)
     spec = ProblemSpec("dense", 8192, None, "float32",

@@ -83,14 +83,14 @@ K1_VARIANTS = {
         "  for (long long i0 = (long long)blockIdx.y * R; i0 < m;"
         " i0 += (long long)gridDim.y * R) {\n"
         "  const int rows = (int)(m - i0 < R ? m - i0 : R);\n",
-        "                repro::sub_rn(x[r][v], repro::product<T>(c[r], "
-        "prv[v]));\n      }\n  }\n}\n":
-        "                repro::sub_rn(x[r][v], repro::product<T>(c[r], "
-        "prv[v]));\n      }\n  }\n  }\n}\n",
-        "(unsigned)groups), kThreads": "(unsigned)grid_y), kThreads"},
+        "                  repro::sub_rn(x[r][v], repro::product<T>(c[r], "
+        "prv[v]));\n        }\n    }\n  }\n}\n":
+        "                  repro::sub_rn(x[r][v], repro::product<T>(c[r], "
+        "prv[v]));\n        }\n    }\n  }\n  }\n}\n",
+        "(unsigned)groups, (unsigned)mats)": "(unsigned)grid_y, (unsigned)mats)"},
     # calls of fewer than eight rows through the eight-row instance too
-    "k1_no_one_row_instance": {"  return m < kRows ? launch_kernel":
-                               "  return false ? launch_kernel"},
+    "k1_no_one_row_instance": {"  return m < kRows\n":
+                               "  return false\n"},
 }
 K1_CHECK = [(1, 1), (7, 129), (129, 7), (255, 383), (33, 257), (1, 8192),
             (100, 1023), (100, 1025), (3000, 2048)]

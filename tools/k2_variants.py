@@ -100,13 +100,13 @@ VARIANTS = {
         "  const bool r_vec = n % W == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;\n"
         "  const bool a_vec = n % W == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&\n"
         "                     reinterpret_cast<uintptr_t>(out) % 16 == 0;\n",
-        "      copy_async<T, L::BM, L::BN>(st, a, m, n, n, row0, col0, VEC);":
-        "      copy_async<T, L::BM, L::BN>(st, a, m, n, n, row0, col0, a_vec);",
+        "      copy_async<T, L::BM, L::BN>(st, tl.a, m, n, n, row0, col0, VEC);":
+        "      copy_async<T, L::BM, L::BN>(st, tl.a, m, n, n, row0, col0, a_vec);",
         "        if constexpr (VEC) {\n          if (gj < n) {":
         "        if (a_vec) {\n          if (gj < n) {",
-        "  return vec ? launch_kernel<T, OpT, true>(a, c, r, out, m, n, k, stream)\n"
-        "             : launch_kernel<T, OpT, false>(a, c, r, out, m, n, k, stream);":
-        "  return launch_kernel<T, OpT, false>(a, c, r, out, m, n, k, stream);"},
+        "  return vec ? launch_kernel<T, OpT, true, false>(a, c, r, out, batch, m, n, k, stream)\n"
+        "             : launch_kernel<T, OpT, false, false>(a, c, r, out, batch, m, n, k, stream);":
+        "  return launch_kernel<T, OpT, false, false>(a, c, r, out, batch, m, n, k, stream);"},
     # a's tile into its stage by the copy engine: one `cp.async.bulk` a row
     # (BM rows of BN elements), counted on the stage's mbarrier,
     # in place of 16-byte cp.async copies by every thread
@@ -124,7 +124,7 @@ VARIANTS = {
         "\"memory\");\n"
         "  }\n"
         "  __syncthreads();\n",
-        "      copy_async<T, L::BM, L::BN>(st, a, m, n, n, row0, col0, VEC);":
+        "      copy_async<T, L::BM, L::BN>(st, tl.a, m, n, n, row0, col0, VEC);":
         "      if constexpr (VEC) {\n"
         "        const int rows = m - row0 < L::BM ? (int)(m - row0) : L::BM;\n"
         "        const unsigned bytes = (unsigned)((n - col0 < L::BN ? "
@@ -135,10 +135,10 @@ VARIANTS = {
         "          asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
         "\"memory\");\n"
         "          repro::skinny::bulk_copy(st + threadIdx.x * L::BN, "
-        "a + (row0 + threadIdx.x) * n + col0, bytes, bars + s);\n"
+        "tl.a + (row0 + threadIdx.x) * n + col0, bytes, bars + s);\n"
         "        }\n"
         "      } else {\n"
-        "        copy_async<T, L::BM, L::BN>(st, a, m, n, n, row0, col0, "
+        "        copy_async<T, L::BM, L::BN>(st, tl.a, m, n, n, row0, col0, "
         "VEC);\n"
         "      }",
         "    cp_async_wait<S - 1>();   // this thread's copies of stage s "

@@ -39,10 +39,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-NO_UPDATE = {"    for (int c = tid; c < width; c += threads) {\n"
-             "      const int g = c0 + c;":
-             "    for (int c = tid; c < 0; c += threads) {\n"
-             "      const int g = c0 + c;"}
+NO_UPDATE = {"      for (int c = tid; c < width; c += threads) {\n"
+             "        const int g = c0 + c;":
+             "      for (int c = tid; c < 0; c += threads) {\n"
+             "        const int g = c0 + c;"}
 LOCAL = {'  asm volatile("barrier.cluster.arrive.release;\\n" ::: "memory");\n'
          '  asm volatile("barrier.cluster.wait.acquire;\\n" ::: "memory");':
          "  __syncthreads();",
@@ -57,11 +57,11 @@ CLOCK = {"  const cg::cluster_group cluster = cg::this_cluster();":
          "  const long long clk0 = clock64();\n"
          "  unsigned long long ns0;\n"
          '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));',
-         "      sign_logdet[0] = sign;\n      sign_logdet[1] = logdet;":
-         "      unsigned long long ns1;\n"
-         '      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));\n'
-         "      sign_logdet[0] = T(clock64() - clk0);\n"
-         "      sign_logdet[1] = T(ns1 - ns0);"}
+         "        sign_logdet[0] = sign;\n        sign_logdet[1] = logdet;":
+         "        unsigned long long ns1;\n"
+         '        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));\n'
+         "        sign_logdet[0] = T(clock64() - clk0);\n"
+         "        sign_logdet[1] = T(ns1 - ns0);"}
 def persistent_grid(blocks: int) -> dict:
     """The alternative to a cluster: a grid of up to ``blocks`` (at most 32,
     one warp reduces their candidates) ordinary blocks, all resident at once, that keep their slices in shared memory
@@ -101,27 +101,27 @@ def persistent_grid(blocks: int) -> dict:
         "  const int rank = (int)cluster.block_rank();\n"
         "  const int blocks = (int)cluster.num_blocks();":
         "  const int rank = blockIdx.x;\n  const int blocks = gridDim.x;",
-        "      if (lane == 0) s_cand[par] = Candidate{key, at};":
-        "      if (lane == 0) g_cand[rank][par] = Candidate{key, at};",
-        "          s_pub[par * K + i] = slice[i * stride + (at - c0)];":
-        "          reinterpret_cast<T*>(g_pub[rank])[par * K + i] =\n"
-        "              slice[i * stride + (at - c0)];",
-        "        s_pub_last[par * K + i] = slice[i * stride + (last - c0)];":
-        "        reinterpret_cast<T*>(g_pub[rank])[(2 + par) * K + i] =\n"
-        "            slice[i * stride + (last - c0)];",
-        "        const Candidate* cand = cluster.map_shared_rank(s_cand + par, lane);\n"
-        "        key = cand->key;\n        at = cand->i;":
-        "        key = __ldcg(&g_cand[lane][par].key);\n"
-        "        at = __ldcg(&g_cand[lane][par].i);",
-        "      const T* col = cluster.map_shared_rank(s_pub + par * K, at / cols);\n"
-        "      for (int i = lane; i < K; i += 32) s_col[i] = col[i];":
-        "      const T* col = reinterpret_cast<const T*>(g_pub[at / cols]) + par * K;\n"
-        "      for (int i = lane; i < K; i += 32) s_col[i] = __ldcg(col + i);",
-        "      const T* col = cluster.map_shared_rank(s_pub_last + par * K, own_last);\n"
-        "      for (int i = lane; i < K; i += 32) s_last[i] = col[i];":
-        "      const T* col =\n"
-        "          reinterpret_cast<const T*>(g_pub[own_last]) + (2 + par) * K;\n"
-        "      for (int i = lane; i < K; i += 32) s_last[i] = __ldcg(col + i);",
+        "        if (lane == 0) s_cand[par] = Candidate{key, at};":
+        "        if (lane == 0) g_cand[rank][par] = Candidate{key, at};",
+        "            s_pub[par * K + i] = slice[i * stride + (at - c0)];":
+        "            reinterpret_cast<T*>(g_pub[rank])[par * K + i] =\n"
+        "                slice[i * stride + (at - c0)];",
+        "          s_pub_last[par * K + i] = slice[i * stride + (last - c0)];":
+        "          reinterpret_cast<T*>(g_pub[rank])[(2 + par) * K + i] =\n"
+        "              slice[i * stride + (last - c0)];",
+        "          const Candidate* cand = cluster.map_shared_rank(s_cand + par, lane);\n"
+        "          key = cand->key;\n          at = cand->i;":
+        "          key = __ldcg(&g_cand[lane][par].key);\n"
+        "          at = __ldcg(&g_cand[lane][par].i);",
+        "        const T* col = cluster.map_shared_rank(s_pub + par * K, at / cols);\n"
+        "        for (int i = lane; i < K; i += 32) s_col[i] = col[i];":
+        "        const T* col = reinterpret_cast<const T*>(g_pub[at / cols]) + par * K;\n"
+        "        for (int i = lane; i < K; i += 32) s_col[i] = __ldcg(col + i);",
+        "        const T* col = cluster.map_shared_rank(s_pub_last + par * K, own_last);\n"
+        "        for (int i = lane; i < K; i += 32) s_last[i] = col[i];":
+        "        const T* col =\n"
+        "            reinterpret_cast<const T*>(g_pub[own_last]) + (2 + par) * K;\n"
+        "        for (int i = lane; i < K; i += 32) s_last[i] = __ldcg(col + i);",
         "  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;",
         "      e = cudaOccupancyMaxActiveClusters(&count, (const void*)kernel, &cfg);":
         "      count = 1;  // a grid of at most 32 blocks is resident at once",

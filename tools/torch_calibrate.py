@@ -21,12 +21,23 @@ the port runs for it:
                     launch's shape timed alone, behind a sleeping kernel
                     (tools/card_timing.py), times its count
 
+and, printed and kept in the table's ``meta`` (the model has no term for
+it), the host time per row of the routes ``method="auto"`` offers a
+(B, n, n) stack -- serial x rank1 and serial x panel -- on STACK_CELLS,
+for the stack and for one of its matrices: the model charges a stack
+``n * host_<update>_row_s``, once per step, since a step runs all B
+matrices in one launch and the ops of one matrix; a per-matrix share
+would show as the stack's row time above the single matrix's.
+
 Run from the repository root on a machine with a card:
 
     python3 tools/torch_calibrate.py [--n 8192] [--out PATH]
+    python3 tools/torch_calibrate.py --stacks-only
 
 Prints the card's name and power limit and one JSON line per term, and
-writes the table (default ``bench_out/torch_roofline_calibration.json``).
+writes the table (default ``bench_out/torch_roofline_calibration.json``);
+``--stacks-only`` measures and prints the stack rows alone and writes
+nothing.
 """
 from __future__ import annotations
 
@@ -47,6 +58,9 @@ RANKS = 4
 PAYLOADS = (256, 65536)          # f32 elements per broadcast
 BCAST_STEPS = 200
 CALLS = 3
+# (B, n): the UBM stack of speaker recognition (2048 components over 60
+# features) and a few-but-large one
+STACK_CELLS = ((2048, 60), (64, 1024))
 
 
 def event_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -150,37 +164,70 @@ def card_ms(launches: Counter, dtype) -> float:
     total = 0.0
     for (name, key), count in launches.items():
         if name == "rank1_update":
-            (m, n), _, _ = key
-            a, pc, pr = randn(m, n), randn(m), randn(n)
+            a, pc, pr = (randn(*shape) for shape in key)
             ms = queued_ms(lambda: condense_step.rank1_update(a, pc, pr))
         elif name == "panel_update":
-            (m, n), (_, k), _ = key
-            a, c, r = randn(m, n), randn(m, k), randn(k, n)
+            a, c, r = (randn(*shape) for shape in key)
             ms = queued_ms(lambda: panel_update.panel_update(a, c, r))
         else:
-            (k, n), m0 = key
-            p = randn(k, n)
+            shape, m0 = key
+            p = randn(*shape)
             ms = queued_ms(lambda: panel_factor.panel_factor(p, m0))
         total += count * ms
     return total
 
 
-def host_term(a, update: str, k: int) -> dict:
-    """(median wall of CALLS calls - card time of the kernels) / n."""
+def host_term(a, update: str, k: int, schedule: str = "staged") -> dict:
+    """(median wall of CALLS calls - card time of the kernels) / n, for
+    one matrix or a (B, n, n) stack."""
     import torch
     import repro_torch
-    n = a.shape[0]
-    plan = repro_torch.plan(a, method="exact", update=update, k=k)
+    n = a.shape[-1]
+    plan = repro_torch.plan(a, method="exact", schedule=schedule,
+                            update=update, k=k)
     plan()                                          # warm-up
     walls = [plan().diagnostics.wall_time_s for _ in range(CALLS)]
     launches = record_launches(plan)
     torch.cuda.synchronize()
     card_s = card_ms(launches, a.dtype) / 1e3
     wall = statistics.median(walls)
-    return dict(route=f"staged|{update}", n=n, k=k, walls_s=walls,
+    return dict(route=f"{schedule}|{update}", shape=list(a.shape), k=k,
+                walls_s=walls,
                 median_wall_s=wall, kernel_card_s=card_s,
                 launches=sum(launches.values()),
                 row_s=max(0.0, (wall - card_s) / n))
+
+
+def stack_host_terms(gen) -> list:
+    """The host's time per row of the serial routes on each STACK_CELLS
+    stack and on one of its matrices (f32 SPD input), and the share per
+    matrix it implies, ``(stack - single) / (B - 1)`` per row."""
+    import torch
+    from repro_torch.core.calibration import STATIC_DEFAULT
+    from repro_torch.kernels.autotune import resolved_panel_k
+    out = []
+    for b, n in STACK_CELLS:
+        x = torch.randn(b, n, n, generator=gen, device="cuda",
+                        dtype=torch.float64)
+        spd = x @ x.mT / n
+        del x
+        spd.diagonal(dim1=-2, dim2=-1).add_(2.0)
+        spd = spd.to(torch.float32)
+        k = resolved_panel_k(n, itemsize=4, cal=STATIC_DEFAULT)
+        for update in ("rank1", "panel"):
+            stack = host_term(spd, update, k, schedule="serial")
+            single = host_term(spd[0].contiguous(), update, k,
+                               schedule="serial")
+            row = dict(term="stack_host_row_s", route=f"serial|{update}",
+                       shape=[b, n, n], k=k, stack_row_s=stack["row_s"],
+                       single_row_s=single["row_s"],
+                       per_matrix_row_s=(stack["row_s"] - single["row_s"])
+                       / (b - 1), stack=stack, single=single)
+            print(json.dumps(row), flush=True)
+            out.append(row)
+        del spd
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -188,6 +235,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--out", default=str(
         ROOT / "bench_out" / "torch_roofline_calibration.json"))
+    ap.add_argument("--stacks-only", action="store_true",
+                    help="measure and print the stack rows, write nothing")
     args = ap.parse_args(argv)
 
     import torch
@@ -209,6 +258,9 @@ def main(argv=None) -> int:
     # the autotuner's width depends on n alone: its terms' rates cancel
     k = resolved_panel_k(n, itemsize=4, cal=STATIC_DEFAULT)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.stacks_only:
+        stack_host_terms(gen)
+        return 0
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -244,6 +296,7 @@ def main(argv=None) -> int:
     del spd
     torch.cuda.empty_cache()
 
+    stacks = stack_host_terms(gen)
     lat, bw, raw, backend = measure_collectives(RANKS)
     print(json.dumps({"term": "collective", "collective_lat": lat,
                       "collective_bytes": bw, "ranks": RANKS,
@@ -272,6 +325,10 @@ def main(argv=None) -> int:
                            "backend": backend,
                            "raw_s_per_broadcast": raw},
             "host": hosts,
+            "stacks": [{f: r[f] for f in ("route", "shape", "k",
+                                          "stack_row_s", "single_row_s",
+                                          "per_matrix_row_s")}
+                       for r in stacks],
             "unix_time": time.time(),
         },
     }
