@@ -125,7 +125,35 @@ printed line each, any failure ends the run:
             bitwise across serial x panel and ge, the inverse residual;
             slq: within 3 sqrt(sum sem^2) of inv(A)^T); and
             examples/gmm_fit_torch.py's train() for 5 SGD steps at dim
-            60, 64 components, 4096 samples, exact and slq.
+            60, 64 components, 4096 samples, exact and slq;
+9. structured  `estimators.KroneckerOperator` (KRON_SIDE x KRON_SIDE
+            factors x x^T / (2 side) + 2 I: n = 1,048,576, a spatio-
+            temporal GP's 1024 sites x 1024 times) and
+            `estimators.ToeplitzOperator` (the AR(1) column AR_RHO^k, n =
+            2^20), f32 on the card: chebyshev (on the spectrum's closed-
+            form bounds), slq and auto (PROBES probes) within N_SEM sem +
+            EST_RTOL of the closed forms
+            nB log|A| + nA log|B| and (n - 1) log(1 - rho^2), cg_solve
+            with PROBES right-hand sides (true residual in f64), and
+            value_and_grad of slq against the closed-form gradients (nB
+            A^-T and nA B^-T; the Toeplitz column's d/dc_0, d/dc_1, zero
+            beyond) within 3 sqrt(sum sem^2) of the probe noise (the
+            Toeplitz entries c_0, c_1 also within N_SEM of their own
+            sem); no kernel launched (their products are GEMMs and FFTs);
+            then examples/gmm_loglik_torch.py, one EM run at dim TWIN_DIM
+            with slq and CG and one exact with direct solves: finite, each
+            slq logdet within N_SEM sem of the exact one and the
+            log-likelihoods within N_SEM sem;
+10. trace   staged x panel and staged x rank1 on phase 4's matrix under
+            obs off, metrics and trace (`repro_torch.obs`): the same bits
+            in the three modes, no engine or kernel range in a profile of
+            the off call, the launches of phase 4's formula; of the traced
+            call inside `torch.profiler` (CPU and CUDA), the host time per
+            stage from the spans, the card time per kernel, the card's
+            idle share (staged x panel's off call profiled too); the spans
+            as a Chrome trace in obs_out/, checked by
+            ``python -m repro_torch.obs validate`` (the staged x panel
+            profile beside it).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2629,6 +2657,417 @@ def stacks_phase(seed: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: structured operators at full size
+# --------------------------------------------------------------------------
+
+# Kronecker A (x) B of two KRON_SIDE-sided factors x x^T / (2 side) + 2 I,
+# x (side, 2 side) from the seed (benchmarks/estimators_bench.py:
+# make_operator's family); the AR(1) Toeplitz c_k = AR_RHO^k of side
+# TOEPLITZ_N (spectrum in [1/3, 3] at rho = 0.5)
+KRON_SIDE, TOEPLITZ_N, AR_RHO = 1024, 1 << 20, 0.5
+# the gmm_loglik.py twin: one EM run each way at this dimension
+TWIN_DIM, TWIN_ITERS = 512, 5
+
+
+def kron_factor(side: int, gen):
+    """x x^T / (2 side) + 2 I in f64, x (side, 2 side) from ``gen``."""
+    import torch
+    x = torch.randn(side, 2 * side, generator=gen, device=gen.device,
+                    dtype=torch.float64)
+    a = x @ x.T / (2 * side)
+    a.diagonal().add_(2.0)
+    return a
+
+
+def structured_cells(gen):
+    """name -> (f32 operator on the card, f64 operator, exact log|det|,
+    closed-form gradient of log|det| in the operator's parameters, the
+    spectrum's bounds in closed form: the products of the factors'
+    extreme eigenvalues, and the AR(1) symbol's range [(1 - rho) / (1 +
+    rho), (1 + rho) / (1 - rho)])."""
+    import math
+    import torch
+    from repro_torch import estimators as est
+    a64, b64 = kron_factor(KRON_SIDE, gen), kron_factor(KRON_SIDE, gen)
+    na = nb = KRON_SIDE
+    ld = (nb * 2.0 * torch.log(torch.linalg.cholesky(a64).diagonal()).sum()
+          + na * 2.0 * torch.log(torch.linalg.cholesky(b64).diagonal()).sum())
+    kron_grad = (nb * torch.linalg.inv(a64).T, na * torch.linalg.inv(b64).T)
+    ea, eb = torch.linalg.eigvalsh(a64), torch.linalg.eigvalsh(b64)
+    kron_bounds = ((ea[0] * eb[0]).item(), (ea[-1] * eb[-1]).item())
+    n, rho = TOEPLITZ_N, AR_RHO
+    c64 = rho ** torch.arange(n, device="cuda", dtype=torch.float64)
+    # T^{-1} of AR(1) is tridiagonal: d/dc_0 = tr(T^{-1}), d/dc_1 = the sum
+    # over both first off-diagonals, 0 beyond
+    g = torch.zeros(n, device="cuda", dtype=torch.float64)
+    g[0] = (2 + (n - 2) * (1 + rho ** 2)) / (1 - rho ** 2)
+    g[1] = -2 * rho * (n - 1) / (1 - rho ** 2)
+    return {
+        "kron": (est.KroneckerOperator(a64.float(), b64.float()),
+                 est.KroneckerOperator(a64, b64), ld.item(), kron_grad,
+                 kron_bounds),
+        "toeplitz": (est.ToeplitzOperator(c64.float()),
+                     est.ToeplitzOperator(c64),
+                     (n - 1) * math.log(1 - rho ** 2), (g,),
+                     ((1 - rho) / (1 + rho), (1 + rho) / (1 - rho))),
+    }
+
+
+def probe_samples(name: str, op64, w, z):
+    """Per-probe samples of the Hutchinson pullback (f64), flattened: the
+    Kronecker factors' ``W_c B Z_c^T`` and ``W_c^T A Z_c``, the symmetric
+    Toeplitz column's cross-correlation ``sum_i w[i] z[i + k] + w[i + k]
+    z[i]`` (k >= 1; k = 0 once)."""
+    import torch
+    k = z.shape[1]
+    if name == "kron":
+        na, nb = op64.na, op64.nb
+        wc = w.T.reshape(k, na, nb)
+        zc = z.T.reshape(k, na, nb)
+        s_a = wc @ op64.b @ zc.mT
+        s_b = wc.mT @ op64.a @ zc
+        return torch.cat([s_a.reshape(k, -1), s_b.reshape(k, -1)], dim=1)
+    n = w.shape[0]
+    wf = torch.fft.rfft(w, n=2 * n, dim=0)
+    zf = torch.fft.rfft(z, n=2 * n, dim=0)
+    fwd = torch.fft.irfft(wf.conj() * zf, n=2 * n, dim=0)[:n]   # w[i] z[i+k]
+    bwd = torch.fft.irfft(zf.conj() * wf, n=2 * n, dim=0)[:n]   # z[i] w[i+k]
+    s = fwd + bwd
+    s[0] = fwd[0]
+    return s.T
+
+
+def structured_grad(name, op, op64, grad_ref, seed: int) -> dict:
+    """value_and_grad of slq on ``op`` against the closed form, within 3
+    sqrt(sum sem^2) of the probe noise (phase 7's bound: the per-entry
+    sample variance of the pullback over the probes, summed)."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+    p = repro_torch.plan(op, method="slq", num_steps=NUM_STEPS,
+                         num_probes=PROBES, grad_cg_tol=GRAD_CG_TOL)
+    (res, bar), seconds, counts = counted(
+        lambda: p.value_and_grad(generator=default_generator("cuda", seed)))
+    if name == "toeplitz":
+        # one column serves as c and r: both halves of the cotangent
+        bar = (bar[0] + bar[1],)
+    z = est.shared_probes("slq", op, default_generator("cuda", seed),
+                          {"num_probes": PROBES})
+    cg = est.cg_solve(op, z, transpose=True, tol=GRAD_CG_TOL)
+    s = probe_samples(name, op64, cg.x.double(), z.double())
+    k = s.shape[0]
+    mean = s.mean(0)
+    sem2 = ((s * s).sum() - k * (mean * mean).sum()).item() / (k * (k - 1))
+    err = torch.sqrt(sum(((b.double() - r) ** 2).sum()
+                         for b, r in zip(bar, grad_ref))).item()
+    bound = 3.0 * sem2 ** 0.5
+    fields = dict(cg_iters=res.diagnostics.cg_iters, grad_err=err,
+                  three_sem=bound, seconds=seconds, launches=counts)
+    entries = []
+    if name == "toeplitz":
+        # the two nonzero entries, each within N_SEM of its own sem
+        sem_k = ((s[:, :2] ** 2).sum(0) - k * mean[:2] ** 2) / (k * (k - 1))
+        for j in (0, 1):
+            got, want = bar[0][j].item(), grad_ref[0][j].item()
+            tol = N_SEM * sem_k[j].sqrt().item()
+            fields.update({f"dc{j}": got, f"dc{j}_ref": want,
+                           f"dc{j}_tol": tol})
+            entries.append((j, got, want, tol))
+    say("structured", operator=name, route="grad|slq", **fields)
+    for j, got, want, tol in entries:
+        require(abs(got - want) <= tol,
+                f"toeplitz grad: d/dc{j} {got} vs {want} (tol {tol})")
+    require(all(torch.isfinite(b).all() for b in bar),
+            f"{name} grad: not finite")
+    require(err <= bound, f"{name} grad: error {err} > 3 sem {bound}")
+    require(not any(counts.values()), f"{name} grad launched {counts}")
+    return counts
+
+
+def structured_operator(name: str, cell, seed: int) -> dict:
+    """Estimators, CG and the gradient on one structured operator.
+
+    Chebyshev takes the spectrum's closed-form bounds: the power-iteration
+    bracket (the JAX package's, followed by the port) lands above the
+    Kronecker cell's lmin, where the f32 recurrence amplifies rounding; it
+    runs once more on that bracket, printed and not gated
+    (``chebyshev|bracket``)."""
+    import torch
+    import repro_torch
+    from repro_torch import estimators as est
+    from repro_torch.estimators.chebyshev import default_generator
+    op, op64, ref, grad_ref, (lmin, lmax) = cell
+    n = op.n
+    launches = {}
+    for route, method, kw in (
+            ("chebyshev", "chebyshev",
+             dict(degree=DEGREE, lmin=lmin, lmax=lmax)),
+            ("slq", "slq", dict(num_steps=NUM_STEPS)),
+            ("auto", "auto", {}),
+            ("chebyshev|bracket", "chebyshev", dict(degree=DEGREE))):
+        p = repro_torch.plan(op, method=method, num_probes=PROBES, **kw)
+        res, seconds, counts = counted(
+            lambda: p(generator=default_generator("cuda", seed)))
+        estimate, sem = res.logabsdet.item(), res.sem.item()
+        tol = N_SEM * sem + EST_RTOL * abs(ref)
+        gated = route != "chebyshev|bracket"
+        say("structured", operator=name, n=n, route=route,
+            method_used=p.method, estimate=estimate, sem=sem, ref=ref,
+            abs_err=abs(estimate - ref), tol=tol, gated=gated,
+            wall_s=seconds, launches=counts)
+        require(not gated or abs(estimate - ref) <= tol,
+                f"{name} {route}: {estimate} vs {ref} (tol {tol})")
+        require(not any(counts.values()), f"{name} {route} launched {counts}")
+        launches[f"structured|{name}|{route}"] = counts
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    b = torch.randn(n, PROBES, generator=gen, device="cuda")
+    cg, seconds, counts = counted(lambda: est.cg_solve(op, b, tol=CG_TOL))
+    b64 = b.double()
+    true_res = (torch.linalg.vector_norm(b64 - op64.mm(cg.x.double()), dim=0)
+                / torch.linalg.vector_norm(b64, dim=0)).max().item()
+    say("structured", operator=name, route="cg", rhs=PROBES, tol=CG_TOL,
+        iters=cg.iters, true_rel_residual_f64=true_res, wall_s=seconds,
+        launches=counts)
+    require(true_res <= CG_RESIDUAL, f"{name} cg: true residual {true_res}")
+    require(not any(counts.values()), f"{name} cg launched {counts}")
+    launches[f"structured|{name}|cg"] = counts
+    launches[f"structured|{name}|grad"] = structured_grad(
+        name, op, op64, grad_ref, seed)
+    return launches
+
+
+def loglik_twin() -> None:
+    """examples/gmm_loglik_torch.py on the card: one EM run with slq and
+    CG, one exact with direct solves; every log-likelihood finite, each
+    slq logdet within N_SEM sem of the exact one, and the two
+    log-likelihoods within N_SEM sem of their difference (a mean over the
+    components of -ld/2)."""
+    import math
+    sys.path.insert(0, str(ROOT / "examples"))
+    import gmm_loglik_torch
+    runs = {}
+    for logdet, solver in (("slq", "cg"), ("exact", "direct")):
+        (h, seconds) = timed(lambda: gmm_loglik_torch.run(
+            dim=TWIN_DIM, iters=TWIN_ITERS, logdet=logdet, solver=solver,
+            device="cuda", log=False))
+        say("structured", cell="gmm_loglik_torch", logdet=h["logdet"],
+            solver=solver, dim=TWIN_DIM, ll=h["ll"], cg_iters=h["cg_iters"],
+            seconds=seconds)
+        require(all(math.isfinite(v) for v in h["ll"]),
+                f"gmm_loglik_torch {logdet}/{solver}: ll {h['ll']}")
+        runs[solver] = h
+    a, b = runs["cg"], runs["direct"]
+    worst = 0.0
+    for ll_a, ll_b, ld_a, ld_b, sem in zip(a["ll"], b["ll"], a["ld"],
+                                           b["ld"], a["sem"]):
+        for x, y, s in zip(ld_a, ld_b, sem):
+            # an absolute floor where the exact logdet is 0 (the first
+            # iteration's identity covariances)
+            require(abs(x - y) <= N_SEM * s + EST_RTOL * max(abs(y), 1.0),
+                    f"gmm_loglik_torch: logdet {x} vs exact {y} (sem {s})")
+        sem_ll = 0.5 * math.sqrt(sum(v * v for v in sem)) / len(sem)
+        tol = N_SEM * sem_ll + EST_RTOL * max(abs(ll_b), 1.0)
+        worst = max(worst, abs(ll_a - ll_b) / tol)
+        require(abs(ll_a - ll_b) <= tol,
+                f"gmm_loglik_torch: ll {ll_a} vs exact {ll_b} (tol {tol})")
+    say("structured", cell="gmm_loglik_torch", worst_ll_gap_over_tol=worst)
+
+
+def structured_phase(seed: int) -> dict:
+    """Phase 9; returns its launch counts by route (all zero)."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    launches = {}
+    cells = structured_cells(gen)
+    for name in list(cells):
+        launches.update(structured_operator(name, cells.pop(name), seed))
+        torch.cuda.empty_cache()
+    loglik_twin()
+    say("structured", seconds=time.perf_counter() - t0)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 10: the first trace of the exact routes
+# --------------------------------------------------------------------------
+
+# the routes traced at phase 4's N and panel width, each under obs off,
+# metrics and trace
+TRACE_ROUTES = ("staged|panel", "staged|rank1")
+OBS_DIR = ROOT / "obs_out"
+# the port's CUDA kernels by the prefix of their function names
+CUDA_KERNEL_OF = (("rank1_update_kernel", "rank1_update"),
+                  ("panel_update_kernel", "panel_update"),
+                  ("fused_step_kernel", "fused_step"),
+                  ("panel_factor_kernel", "panel_factor"),
+                  ("matvec_", "matvec"), ("split_sum_kernel", "matvec"),
+                  ("cheb_", "cheb_step"), ("cg_", "cg_step"),
+                  ("stencil_mv_kernel", "stencil_mv"))
+
+
+def kernel_of(cuda_name: str):
+    """The port's kernel a CUDA function name belongs to, else None."""
+    import re
+    for prefix, name in CUDA_KERNEL_OF:
+        if re.search(r"(^|[^A-Za-z0-9_])" + prefix, cuda_name):
+            return name
+    return None
+
+
+def profiled(fn, cuda: bool):
+    """``(fn(), events)``: the raw profiler events (``kineto_results``,
+    read without building the profiler's Python event tree, which takes
+    about 70 us an event) of ``fn`` on the host, and on the card with
+    ``cuda``, and the profile itself."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        out = fn()
+    return out, prof.profiler.kineto_results.events(), prof
+
+
+def device_breakdown(events, wall_s: float) -> dict:
+    """The card's time per kernel (the port's by kernel name, the rest by
+    CUDA name, top 8), its busy time (the union of its events' spans) and
+    its idle share of the call's wall ``wall_s``, from the events of one
+    traced plan call.  The card-side copies of the host's ranges (user
+    annotations) are not device work; host events are skipped on their
+    device type alone (reading each one's name would cost seconds on
+    staged x rank1's million events)."""
+    from torch.autograd import DeviceType
+    cuda = DeviceType.CUDA
+    spans = []
+    per = {}
+    for e in events:
+        if e.device_type() != cuda or e.is_user_annotation():
+            continue
+        t0, t1 = e.start_ns(), e.end_ns()
+        spans.append((t0, t1))
+        key = kernel_of(e.name()) or e.name()
+        per[key] = per.get(key, 0) + (t1 - t0)
+    busy, end = 0, None
+    for t0, t1 in sorted(spans):
+        if end is not None:
+            t0 = max(t0, end)
+        if t1 > t0:
+            busy += t1 - t0
+            end = t1
+    ported = set(dict(CUDA_KERNEL_OF).values())
+    ports = {k: v / 1e6 for k, v in per.items() if k in ported}
+    others = sorted(((v / 1e6, k) for k, v in per.items()
+                     if k not in ported), reverse=True)
+    return {"device_events": len(spans), "kernel_ms": ports,
+            "other_ms": {k[:60]: v for v, k in others[:8]},
+            "other_total_ms": sum(v for v, _ in others),
+            "busy_ms": busy / 1e6, "wall_ms": wall_s * 1e3,
+            "idle_share": 1.0 - busy / 1e9 / wall_s}
+
+
+def host_breakdown(events) -> dict:
+    """Host ms summed per stage name (nested stages counted in each), and
+    the share of ``plan.execute`` outside every top-level stage."""
+    per, count = {}, {}
+    execute = [e for e in events if e["name"] == "plan.execute"]
+    for e in events:
+        per[e["name"]] = per.get(e["name"], 0.0) + e["dur"] / 1e3
+        count[e["name"]] = count.get(e["name"], 0) + 1
+    top = sum(e["dur"] for e in events
+              if e["depth"] == execute[0]["depth"] + 1) / 1e3
+    total = execute[0]["dur"] / 1e3
+    return {"ms": per, "count": count, "execute_ms": total,
+            "outside_stages_ms": total - top}
+
+
+def trace_route(route: str, a, k: int) -> dict:
+    """One route under obs off, metrics and trace: the same bits in each,
+    nothing recorded under off (and, on staged x panel, whose remainder
+    rows run every rank-1 stage too, no engine or kernel range in a
+    profile of the off call: profiling staged x rank1's 8191 rows twice
+    would double the phase), the launches of phase 4's formula; the
+    traced call's host and card breakdown, and each mode's seconds with
+    the profiler's stop and read."""
+    import torch
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    update = route.split("|")[1]
+    n = a.shape[0]
+    p = repro_torch.plan(a, method="exact", update=update, k=k)
+    want = expected_launches(p.diagnostics.padded_n, k, update, False)
+    out, walls, seconds = {}, {}, {}
+    for mode in ("off", "metrics", "trace"):
+        obs.configure(mode)
+        before = len(obs.events())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if mode == "trace" or (mode == "off" and update == "panel"):
+            res, events, prof = profiled(p, cuda=mode == "trace")
+        else:
+            res, events, prof = p(), None, None
+        seconds[mode] = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        obs.configure("off")
+        require(counts == want, f"trace {route} {mode}: launches {counts} "
+                f"!= {want}")
+        out[mode] = (res.sign, res.logabsdet)
+        walls[mode] = res.diagnostics.wall_time_s
+        if mode == "off":
+            staged = {e.name() for e in events or ()
+                      if e.name().startswith(("engine.", "kernel."))}
+            require(not staged and len(obs.events()) == before,
+                    f"trace {route}: obs off recorded {sorted(staged)}")
+        if mode == "trace":
+            card = device_breakdown(events, res.diagnostics.wall_time_s)
+            if update == "panel":
+                prof.export_chrome_trace(
+                    str(OBS_DIR / "torch_profile_staged_panel.json"))
+            host = host_breakdown(obs.events()[before:])
+            seconds["trace_read"] = time.perf_counter() - t0 \
+                - seconds[mode]
+        del events, prof
+    for mode in ("metrics", "trace"):
+        require(torch.equal(out[mode][0], out["off"][0])
+                and torch.equal(out[mode][1], out["off"][1]),
+                f"trace {route}: {mode} gives {out[mode][1].item()!r}, off "
+                f"{out['off'][1].item()!r}")
+    say("trace", route=route, n=n, k=k, walls_s=walls,
+        seconds_with_profiler=seconds, bitwise_across_modes=True,
+        launches=counts,
+        host_ms_per_stage=host["ms"], host_stage_counts=host["count"],
+        host_execute_ms=host["execute_ms"],
+        host_outside_stages_ms=host["outside_stages_ms"],
+        host_ms_per_row=host["execute_ms"] / n, card=card)
+    return counts
+
+
+def trace_phase(a, k: int) -> dict:
+    """Phase 10 on phase 4's matrix; returns the traced runs' launches."""
+    import os
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    OBS_DIR.mkdir(exist_ok=True)
+    obs.reset()
+    launches = {}
+    for route in TRACE_ROUTES:
+        launches[f"trace|{route}"] = trace_route(route, a, k)
+    path = obs.export_chrome_trace(str(OBS_DIR / obs.ARTIFACTS["trace"]))
+    obs.reset()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    check = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "validate", path,
+         "--require", "engine.pivot", "--require", "engine.panel_apply",
+         "--require", "kernel.panel_factor_vmem", "--require-prefix",
+         "kernel."], env=env, capture_output=True, text=True, timeout=120)
+    say("trace", validate=check.stdout.strip() or check.stderr.strip(),
+        trace=path, seconds=time.perf_counter() - t0)
+    require(check.returncode == 0, f"trace: {path} failed validation")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192,
@@ -2706,11 +3145,17 @@ def main(argv=None) -> int:
     # phase 7: gradients (their mesh checks ran in phase 6's ranks)
     t7 = time.perf_counter()
     launches.update(grad_phase(cell, args.k, args.seed, gen))
+    exact_a = cell[0]
     del cell
     say("grad", seconds=time.perf_counter() - t7)
     torch.cuda.empty_cache()
     # phase 8: stacks
     launches.update(stacks_phase(args.seed))
+    # phase 9: structured operators
+    launches.update(structured_phase(args.seed))
+    # phase 10: the first trace of the exact routes, on phase 4's matrix
+    launches.update(trace_phase(exact_a, args.k))
+    del exact_a
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

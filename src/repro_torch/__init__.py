@@ -13,7 +13,8 @@ first use):
   K1-K4, and the paper's baselines ``ge``, ``pge`` and ``plu``
   (`core.gaussian`, `core.scalapack`) through K1 and K2;
 - the estimators on one device (``method="chebyshev"|"slq"`` on a dense
-  SPD matrix or a `estimators.StencilOperator`, and
+  SPD matrix or an operator -- `estimators.StencilOperator`,
+  `estimators.KroneckerOperator`, `estimators.ToeplitzOperator` -- and
   `estimators.cg_solve`), through K6 (dense Chebyshev), K7 (dense CG)
   and K8 (every stencil product);
 - the mesh (``mesh=`` a `core.mesh.Mesh`, one process per rank): the
@@ -21,7 +22,11 @@ first use):
   the row-sharded estimators (`estimators.ShardedOperator`, K5);
 - (B, n, n) stacks on one device: the exact routes and ``ge`` with every
   step on the whole stack (K1-K4's batch grids), the estimators on an
-  `estimators.BatchedOperator` (batched products), and their gradients.
+  `estimators.BatchedOperator` (batched products), and their gradients;
+- observability (`obs`, ``REPRO_OBS=off|metrics|trace``): spans, counters
+  and convergence telemetry under the JAX package's names, each engine
+  and kernel stage a `torch.profiler` and NVTX range in trace mode, and
+  ``LogdetPlan.explain``.
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.
@@ -35,9 +40,16 @@ This package imports ``torch`` and never ``jax`` or ``repro``.
 """
 # core first: its mesh module must exist before the estimators' sharded
 # backend imports it (core.plan imports the estimators in turn)
-from repro_torch.core import (ChebyshevConfig, EngineConfig, ExactConfig,
-                              LogdetPlan, LogdetResult, SLQConfig, plan)
-from repro_torch import estimators
+from repro_torch.core import (Calibration, ChebyshevConfig, Diagnostics,
+                              EngineConfig, ExactConfig, LogdetPlan,
+                              LogdetResult, ProblemSpec, SLQConfig,
+                              load_calibration, plan, select_method,
+                              select_route, spec_of)
+from repro_torch import estimators, obs
 
-__all__ = ["plan", "LogdetPlan", "ExactConfig", "ChebyshevConfig",
-           "SLQConfig", "EngineConfig", "LogdetResult", "estimators"]
+# the JAX package's names, all but load_plan (AOT serving, ROADMAP Queue 1
+# item 10)
+__all__ = ["plan", "LogdetPlan", "ProblemSpec", "select_method",
+           "select_route", "spec_of", "ExactConfig", "EngineConfig",
+           "ChebyshevConfig", "SLQConfig", "Calibration", "load_calibration",
+           "LogdetResult", "Diagnostics", "estimators", "obs"]

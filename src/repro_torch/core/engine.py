@@ -32,6 +32,14 @@ inline in jnp even with a kernel backend, every rank-1 update here goes
 through K1 (or K3): the arithmetic is the same, and no plain version runs
 on the card's main path.
 
+Observability: each step runs inside the JAX package's stage names
+(`repro_torch.obs.stage`): ``engine.pivot``, ``engine.swap``,
+``engine.update`` or ``engine.fused_step`` per rank-1 step,
+``engine.panel_factor``, ``engine.panel_swap_gather`` (fused) and
+``engine.panel_apply`` per panel, and on the mesh ``engine.broadcast``,
+``engine.lookahead_factor`` and ``engine.mesh_tail``.  With obs off a
+stage is one shared no-op object.
+
 Buffers: every public entry point copies its input once and never modifies
 the caller's tensor; later buffers are the engine's own and are updated
 in place (the column swaps) or replaced by kernel outputs.
@@ -56,6 +64,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mesh as _mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (guarded_pivot, nan_sign, swap_positions,
@@ -212,16 +221,20 @@ def _condense_step(buf: torch.Tensor, t: int, sign, logdet, *,
     m = n - t
     last = m - 1
     if fused:
-        buf, l, p = ops.fused_condense_step(buf, t, precision=precision)
+        with obs.stage("engine.fused_step"):
+            buf, l, p = ops.fused_condense_step(buf, t, precision=precision)
     else:
-        l, p, pc, pr, col_l, col_last = ops.pivot_operands(buf, t)
-        if stack:
-            buf.scatter_(2, l[:, None, None].expand(buf.shape[0], n, 1),
-                         col_last[:, :, None])
-        else:
-            buf.index_copy_(1, l, col_last[:, None])
-        buf[..., last] = col_l
-        buf = ops.rank1_update(buf, pc, pr, precision=precision)
+        with obs.stage("engine.pivot"):
+            l, p, pc, pr, col_l, col_last = ops.pivot_operands(buf, t)
+        with obs.stage("engine.swap"):
+            if stack:
+                buf.scatter_(2, l[:, None, None].expand(buf.shape[0], n, 1),
+                             col_last[:, :, None])
+            else:
+                buf.index_copy_(1, l, col_last[:, None])
+            buf[..., last] = col_l
+        with obs.stage("engine.update"):
+            buf = ops.rank1_update(buf, pc, pr, precision=precision)
     # sign: pivot sign, column swap, and the Laplace expansion of the
     # pivot (active row 0, active column m-1) => (-1)^(m-1)
     swap_sign = torch.where((l if stack else l[0]) == last, 1.0,
@@ -267,7 +280,8 @@ def panel_factor(panel: torch.Tensor, m0: int, *, r_pos: int = 0):
     live rows above it (sign parity only).  ``ls[k]`` is the pivot column
     chosen at step k in that step's coordinates.
     """
-    return ops.panel_factor(panel, m0, r_pos)
+    with obs.stage("engine.panel_factor"):
+        return ops.panel_factor(panel, m0, r_pos)
 
 
 def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
@@ -285,14 +299,17 @@ def _panel_operand(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
     if block.dim() == 3:
         _replay_swaps_stack(block, ls, m0, fused)
     elif fused:
-        n = block.shape[1]
-        k = R.shape[0]
-        idx = torch.arange(n, device=block.device)
-        for j in range(k):
-            swap_positions(idx, 0, ls[j:j + 1], m0 - 1 - j)
-        moved = torch.cat([ls, torch.arange(m0 - k, m0, device=block.device)])
-        block.index_copy_(1, moved,
-                          block.index_select(1, idx.index_select(0, moved)))
+        with obs.stage("engine.panel_swap_gather"):
+            n = block.shape[1]
+            k = R.shape[0]
+            idx = torch.arange(n, device=block.device)
+            for j in range(k):
+                swap_positions(idx, 0, ls[j:j + 1], m0 - 1 - j)
+            moved = torch.cat([ls, torch.arange(m0 - k, m0,
+                                                device=block.device)])
+            block.index_copy_(1, moved,
+                              block.index_select(1,
+                                                 idx.index_select(0, moved)))
     else:
         for j in range(R.shape[0]):
             swap_positions(block, 1, ls[j:j + 1], m0 - 1 - j)
@@ -317,14 +334,15 @@ def _replay_swaps_stack(block: torch.Tensor, ls: torch.Tensor, m0: int,
         for j in range(k):
             swap_positions_batched(block, 2, ls[:, j], m0 - 1 - j)
         return
-    idx = torch.arange(n, device=block.device).expand(b, n).clone()
-    for j in range(k):
-        swap_positions_batched(idx, 1, ls[:, j], m0 - 1 - j)
-    tail = torch.arange(m0 - k, m0, device=block.device).expand(b, k)
-    moved = torch.cat([ls, tail], dim=1)                       # (B, 2K)
-    src = idx.gather(1, moved)[:, None, :].expand(b, rows, 2 * k)
-    block.scatter_(2, moved[:, None, :].expand(b, rows, 2 * k),
-                   block.gather(2, src))
+    with obs.stage("engine.panel_swap_gather"):
+        idx = torch.arange(n, device=block.device).expand(b, n).clone()
+        for j in range(k):
+            swap_positions_batched(idx, 1, ls[:, j], m0 - 1 - j)
+        tail = torch.arange(m0 - k, m0, device=block.device).expand(b, k)
+        moved = torch.cat([ls, tail], dim=1)                   # (B, 2K)
+        src = idx.gather(1, moved)[:, None, :].expand(b, rows, 2 * k)
+        block.scatter_(2, moved[:, None, :].expand(b, rows, 2 * k),
+                       block.gather(2, src))
 
 
 def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
@@ -337,8 +355,9 @@ def apply_panel(block: torch.Tensor, R: torch.Tensor, ls: torch.Tensor,
     are left alone.  The trailing GEMM is K2.
     """
     c = _panel_operand(block, R, ls, m0, fused=fused)
-    return ops.panel_update(block, (c * row_mask[:, None]).contiguous(), R,
-                            precision=precision)
+    with obs.stage("engine.panel_apply"):
+        return ops.panel_update(block, (c * row_mask[:, None]).contiguous(),
+                                R, precision=precision)
 
 
 def panel_rounds_serial(buf: torch.Tensor, n_panels: int, k: int, *,
@@ -515,10 +534,12 @@ def _mesh_update(local: torch.Tensor, pr_b, l_b, last: int, dead: int,
                  precision: Optional[str]) -> torch.Tensor:
     """Every rank: swap columns ``l_b`` <-> ``last`` of its block in place,
     then the rank-1 update (K1) of its rows from ``dead`` on."""
-    swap_positions(local, 1, l_b, last)
-    pc = local[:, last].clone()
-    pc[:dead] = 0
-    return ops.rank1_update(local, pc, pr_b, precision=precision)
+    with obs.stage("engine.swap"):
+        swap_positions(local, 1, l_b, last)
+    with obs.stage("engine.update"):
+        pc = local[:, last].clone()
+        pc[:dead] = 0
+        return ops.rank1_update(local, pc, pr_b, precision=precision)
 
 
 def _empty(local: torch.Tensor, size: int) -> torch.Tensor:
@@ -540,13 +561,16 @@ def mc_local_phase(local: torch.Tensor, mesh, *, t0: int = 0,
     for t in range(t0, t0 + n_steps):
         i, p = divmod(t, P)
         m = N - t
-        if me == p:
-            pr, l, pv = _select_pivot(local[i], m)
-            buf = _pack(pr, l)
-            sign, logdet = _step_sign(pv, l, m, p * (L - 1 - i), sign, logdet)
-        else:
-            buf = _empty(local, N + 1)
-        _mesh.broadcast(mesh, buf, p)
+        with obs.stage("engine.pivot"):
+            if me == p:
+                pr, l, pv = _select_pivot(local[i], m)
+                buf = _pack(pr, l)
+                sign, logdet = _step_sign(pv, l, m, p * (L - 1 - i), sign,
+                                          logdet)
+            else:
+                buf = _empty(local, N + 1)
+        with obs.stage("engine.broadcast"):
+            _mesh.broadcast(mesh, buf, p)
         pr_b, l_b = _unpack(buf, (N,))
         local = _mesh_update(local, pr_b, l_b, m - 1, i + (me <= p),
                              precision)
@@ -564,13 +588,14 @@ def mesh_tail(local: torch.Tensor, sign, logdet, mesh):
     """
     L, N = local.shape
     P = mesh.size
-    buf = torch.zeros((P, P + 2), dtype=local.dtype, device=local.device)
-    buf[mesh.rank, :P] = local[L - 1, :P]
-    buf[mesh.rank, P] = sign
-    buf[mesh.rank, P + 1] = logdet
-    _mesh.all_sum(mesh, buf)
-    tsign, tlogdet = condense_full(buf[:, :P])
-    return torch.prod(buf[:, P]) * tsign, buf[:, P + 1].sum() + tlogdet
+    with obs.stage("engine.mesh_tail"):
+        buf = torch.zeros((P, P + 2), dtype=local.dtype, device=local.device)
+        buf[mesh.rank, :P] = local[L - 1, :P]
+        buf[mesh.rank, P] = sign
+        buf[mesh.rank, P + 1] = logdet
+        _mesh.all_sum(mesh, buf)
+        tsign, tlogdet = condense_full(buf[:, :P])
+        return torch.prod(buf[:, P]) * tsign, buf[:, P + 1].sum() + tlogdet
 
 
 def _mesh_rank1(local, mesh, precision):
@@ -600,27 +625,31 @@ def _mesh_rank1_lookahead(local, mesh, precision):
             sign, logdet = _step_sign(pv, l, N, 0, sign, logdet)
         else:
             buf = _empty(local, N + 1)
-        work = _mesh.broadcast(mesh, buf, 0, async_op=True)
+        with obs.stage("engine.broadcast"):
+            work = _mesh.broadcast(mesh, buf, 0, async_op=True)
     for t in range(n_steps):
         i, p = divmod(t, P)
         m = N - t
         last = m - 1
-        work.wait()
+        with obs.stage("engine.broadcast"):
+            work.wait()
         pr_b, l_b = _unpack(buf, (N,))
         if t + 1 < n_steps:
             i1, p1 = divmod(t + 1, P)
-            if me == p1:
-                row = local[i1:i1 + 1].clone()
-                swap_positions(row, 1, l_b, last)
-                row = ops.rank1_update(row, row[:, last].clone(), pr_b,
-                                       precision=precision)
-                pr, l, pv = _select_pivot(row[0], m - 1)
-                nbuf = _pack(pr, l)
-                sign, logdet = _step_sign(pv, l, m - 1, p1 * (L - 1 - i1),
-                                          sign, logdet)
-            else:
-                nbuf = _empty(local, N + 1)
-            nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
+            with obs.stage("engine.lookahead_factor"):
+                if me == p1:
+                    row = local[i1:i1 + 1].clone()
+                    swap_positions(row, 1, l_b, last)
+                    row = ops.rank1_update(row, row[:, last].clone(), pr_b,
+                                           precision=precision)
+                    pr, l, pv = _select_pivot(row[0], m - 1)
+                    nbuf = _pack(pr, l)
+                    sign, logdet = _step_sign(pv, l, m - 1,
+                                              p1 * (L - 1 - i1), sign, logdet)
+                else:
+                    nbuf = _empty(local, N + 1)
+            with obs.stage("engine.broadcast"):
+                nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
         local = _mesh_update(local, pr_b, l_b, last, i + (me <= p), precision)
         if t + 1 < n_steps:
             buf, work = nbuf, nwork
@@ -667,31 +696,37 @@ def _mesh_panel(local, mesh, k: int, precision, lookahead: bool):
 
     if lookahead and n_panels:
         buf = factor(local[:k], 0) if me == 0 else _empty(local, size)
-        work = _mesh.broadcast(mesh, buf, 0, async_op=True)
+        with obs.stage("engine.broadcast"):
+            work = _mesh.broadcast(mesh, buf, 0, async_op=True)
     for g in range(n_panels):
         r, p = divmod(g, P)
         m0 = N - g * k
         if lookahead:
-            work.wait()
+            with obs.stage("engine.broadcast"):
+                work.wait()
         else:
             buf = factor(local[r * k:(r + 1) * k], g) if me == p \
                 else _empty(local, size)
-            _mesh.broadcast(mesh, buf, p)
+            with obs.stage("engine.broadcast"):
+                _mesh.broadcast(mesh, buf, p)
         R_b, ls_b = _unpack(buf, (k, N))
         c = _panel_operand(local, R_b, ls_b, m0)
         if lookahead and g + 1 < n_panels:
             r1, p1 = divmod(g + 1, P)
-            if me == p1:
-                rows = slice(r1 * k, (r1 + 1) * k)
-                nxt = ops.panel_update(local[rows], c[rows].contiguous(), R_b,
-                                       precision=precision)
-                nbuf = factor(nxt, g + 1)
-            else:
-                nbuf = _empty(local, size)
-            nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
-        mask = _dead_mask(local, me, r, p, k)
-        local = ops.panel_update(local, (c * mask[:, None]).contiguous(), R_b,
-                                 precision=precision)
+            with obs.stage("engine.lookahead_factor"):
+                if me == p1:
+                    rows = slice(r1 * k, (r1 + 1) * k)
+                    nxt = ops.panel_update(local[rows], c[rows].contiguous(),
+                                           R_b, precision=precision)
+                    nbuf = factor(nxt, g + 1)
+                else:
+                    nbuf = _empty(local, size)
+            with obs.stage("engine.broadcast"):
+                nwork = _mesh.broadcast(mesh, nbuf, p1, async_op=True)
+        with obs.stage("engine.panel_apply"):
+            mask = _dead_mask(local, me, r, p, k)
+            local = ops.panel_update(local, (c * mask[:, None]).contiguous(),
+                                     R_b, precision=precision)
         if lookahead and g + 1 < n_panels:
             buf, work = nbuf, nwork
 

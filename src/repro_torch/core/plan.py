@@ -62,9 +62,19 @@ batch grids), each matrix padded on its own; the estimators run a
 matrix's log|det|.  A mesh, ``pge`` and ``plu`` take one matrix and raise
 `TypeError` on a stack, as in the JAX package.
 
+Observability (`repro_torch.obs`, ``REPRO_OBS=off|metrics|trace``) uses
+the JAX package's names: the spans ``plan.build``, ``plan.execute`` and
+``plan.backward``, the counters ``plan.cache.hits`` / ``misses``,
+``plan.executions`` and ``estimator.probes``, the gauge
+``plan.flops_est``, the histogram ``cg.iters``, and in ``trace`` mode the
+estimators' convergence telemetry in ``diagnostics.convergence``.  The
+JAX package's ``plan.traces`` / ``plan.retraces`` and ``plan.compile``
+count jit traces, which eager PyTorch has not.  ``explain`` prints what a
+plan resolved to and what it has observed.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``explain`` (item 9), ``export`` (item 10), ``audit`` (item 11) and the
-legacy route strings (item 12).
+``export`` (item 10), ``audit`` (item 11) and the legacy route strings
+(item 12).
 """
 from __future__ import annotations
 
@@ -78,6 +88,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.api import pad_to_multiple
 from repro_torch.core.calibration import (Calibration, estimator_cost,
                                           exact_cost, load_calibration)
@@ -519,12 +530,19 @@ class LogdetPlan:
         """
         x = self._input(a)
         x = self._check(x, generator, probes, lmin, lmax)
+        tele = _telemetry_start()
         t0 = time.perf_counter()
-        sign, ld, sem = self._run(x, generator, probes, lmin, lmax)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t0
-        diags = dataclasses.replace(self.diagnostics, wall_time_s=wall)
+        with obs.span("plan.execute", method=self.method):
+            sign, ld, sem = self._run(x, generator, probes, lmin, lmax)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
+            conv = self._telemetry_end(tele)
+            obs.inc("plan.executions", method=self.method)
+            if self.method in ESTIMATOR_METHODS:
+                obs.inc("estimator.probes", self.config.num_probes)
+        diags = dataclasses.replace(self.diagnostics, wall_time_s=wall,
+                                    convergence=conv)
         return LogdetResult(sign=sign, logabsdet=ld, sem=sem,
                             method_used=self.method, diagnostics=diags)
 
@@ -555,19 +573,35 @@ class LogdetPlan:
         """
         x = self._input(a)
         x = self._check(x, generator, None, None, None)
+        tele = _telemetry_start()
         t0 = time.perf_counter()
-        vag = self._cache.get("vag")
-        if vag is None:
-            vag = self._cache["vag"] = self._build_vag()
-        with torch.no_grad():
-            (sign, ld, sem), bar, iters = vag(x, generator)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        diags = dataclasses.replace(
-            self.diagnostics, wall_time_s=time.perf_counter() - t0,
-            cg_iters=iters)
+        with obs.span("plan.backward", method=self.method):
+            vag = self._cache.get("vag")
+            if vag is None:
+                vag = self._cache["vag"] = self._build_vag()
+            with torch.no_grad():
+                (sign, ld, sem), bar, iters = vag(x, generator)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
+            conv = self._telemetry_end(tele)
+            if iters is not None:
+                obs.observe("cg.iters", iters, method=self.method)
+        diags = dataclasses.replace(self.diagnostics, wall_time_s=wall,
+                                    cg_iters=iters, convergence=conv)
         return LogdetResult(sign=sign, logabsdet=ld, sem=sem,
                             method_used=self.method, diagnostics=diags), bar
+
+    def _telemetry_end(self, tele: bool):
+        """This execution's convergence streams (trace mode), also kept
+        for `explain`."""
+        if not tele:
+            return None
+        obs.flush_telemetry()
+        conv = obs.drain_telemetry() or None
+        if conv:
+            self._cache["last_convergence"] = conv
+        return conv
 
     def _build_vag(self) -> Callable:
         return _build_value_and_grad(self.spec, self.method, self.config,
@@ -580,7 +614,66 @@ class LogdetPlan:
         raise _not_ported("AOT plan export (ROADMAP Queue 1 item 10)")
 
     def explain(self) -> str:
-        raise _not_ported("plan explain (ROADMAP Queue 1 item 9)")
+        """What this plan resolved to and what it has observed: the spec,
+        the config, precision and tiles of an exact plan, the modeled
+        cost, the last convergence telemetry (after an execution under
+        ``REPRO_OBS=trace``) and the obs state.  No device work.
+
+        The JAX package's lines, but the execution line reads "eager" and
+        the device, and there is no ``traces:`` line: nothing is traced.
+        """
+        spec, d = self.spec, self.diagnostics
+        shape = f"n={spec.n}" if spec.batch is None \
+            else f"batch={spec.batch} n={spec.n}"
+        lines = [
+            f"LogdetPlan[{self.method}]",
+            f"  spec: {spec.kind} {shape} dtype={spec.dtype} "
+            f"structure={spec.structure}",
+            f"  config: {self.config}",
+            f"  execution: eager on {self.device}, "
+            f"devices={d.device_count}"
+            + (f", padded {spec.n} -> {d.padded_n}"
+               if d.padded_n not in (None, spec.n) else ""),
+            f"  modeled cost: flops_est={d.flops_est:.3g}"
+            + (f", matvec_cols={d.matvec_cols}"
+               if d.matvec_cols is not None else "")
+            + (f", backward cg_iters={d.cg_iters}"
+               if d.cg_iters is not None else ""),
+        ]
+        if self.method == "exact" and isinstance(self.config, ExactConfig):
+            from repro_torch.kernels.autotune import tile_config
+            prec = self.config.precision
+            tiles = tile_config(spec.n,
+                                itemsize=_torch_dtype(spec.dtype).itemsize,
+                                precision=prec)
+            lines.insert(3, f"  precision: {prec or 'native'}"
+                         + (" (bf16 GEMM operands, full-precision "
+                            "accumulators)" if prec == "bf16" else ""))
+            lines.insert(4, f"  tiles[{tiles.source}]: "
+                         f"panel_k={self.config.k} "
+                         f"(autotuned {tiles.panel_k}), "
+                         f"block={tiles.block_m}x{tiles.block_n}")
+        conv = self._cache.get("last_convergence")
+        if conv:
+            lines.append("  last convergence (REPRO_OBS=trace):")
+            for name, vals in sorted(conv.items()):
+                finite = [v for v in vals if math.isfinite(v)]
+                final = f"{finite[-1]:.3g}" if finite else "n/a"
+                lines.append(
+                    f"    {name}: {len(vals)} points, final {final}")
+        elif obs.trace_enabled() and self.method not in _EXACT_METHODS:
+            lines.append("  last convergence: none recorded yet "
+                         "(execute the plan first)")
+        if obs.metrics_enabled():
+            hits = obs.counter_value("plan.cache.hits")
+            misses = obs.counter_value("plan.cache.misses")
+            lines.append(f"  obs[{obs.mode()}]: plan cache "
+                         f"{hits:g} hits / {misses:g} misses "
+                         f"(process-wide)")
+        else:
+            lines.append("  obs: off (set REPRO_OBS=metrics|trace for "
+                         "counters and convergence telemetry)")
+        return "\n".join(lines)
 
     def _run(self, x, generator, probes, lmin, lmax):
         if self.method in _EXACT_METHODS:
@@ -619,6 +712,16 @@ class LogdetPlan:
         if self.validate:
             _validate_spd_like(x, self.method)
         return x
+
+
+def _telemetry_start() -> bool:
+    """In trace mode, drop telemetry buffered before this execution (a
+    direct estimator call, another plan) and return True."""
+    if not obs.trace_enabled():
+        return False
+    obs.flush_telemetry()
+    obs.drain_telemetry()
+    return True
 
 
 def _validate_spd_like(a: torch.Tensor, method: str) -> None:
@@ -815,6 +918,8 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
     if spec.kind != "operator":
         key = (spec, method, cfg, str(dev), run_mesh)
         cached = _PLAN_CACHE.get(key)
+        obs.inc("plan.cache.hits" if cached is not None
+                else "plan.cache.misses")
         if cached is not None:
             _PLAN_CACHE.move_to_end(key)
             if grad and "vag" not in cached._cache:
@@ -825,16 +930,18 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
             return _bind(cached, x)
     if spec.kind == "operator" and not isinstance(x, ProblemSpec):
         x = operator_on(x, dev)         # raises if it cannot be moved
-    fwd, padded_n = _build_forward(spec, method, cfg, dev, run_mesh)
-    cols, flops = _flops_est(method, spec, cfg, devices)
-    p = LogdetPlan(
-        spec=spec, method=method, config=cfg, device=dev, grad=grad,
-        validate=validate,
-        diagnostics=Diagnostics(matvec_cols=cols, flops_est=flops,
-                                padded_n=padded_n, device_count=devices),
-        _fwd=fwd, _mesh=run_mesh)
-    if grad:
-        p._cache["vag"] = p._build_vag()
+    with obs.span("plan.build", method=method, n=spec.n):
+        fwd, padded_n = _build_forward(spec, method, cfg, dev, run_mesh)
+        cols, flops = _flops_est(method, spec, cfg, devices)
+        p = LogdetPlan(
+            spec=spec, method=method, config=cfg, device=dev, grad=grad,
+            validate=validate,
+            diagnostics=Diagnostics(matvec_cols=cols, flops_est=flops,
+                                    padded_n=padded_n, device_count=devices),
+            _fwd=fwd, _mesh=run_mesh)
+        if grad:
+            p._cache["vag"] = p._build_vag()
+    obs.set_gauge("plan.flops_est", flops, method=method)
     if key is not None:
         _PLAN_CACHE[key] = p
         while len(_PLAN_CACHE) > _PLAN_CACHE_SIZE:

@@ -29,7 +29,8 @@ class Diagnostics:
                       ``torch.cuda.synchronize()`` on the card.
     ``padded_n``      problem size after `pad_to_multiple` embedding.
     ``device_count``  devices the execution spanned.
-    ``convergence``   convergence telemetry (None: not ported yet).
+    ``convergence``   convergence telemetry of this execution under
+                      ``REPRO_OBS=trace`` (`repro_torch.obs`), else None.
     """
     matvec_cols: Optional[int] = None
     flops_est: Optional[float] = None

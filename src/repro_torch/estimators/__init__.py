@@ -7,17 +7,15 @@ Counterpart of `repro.estimators`:
                (dense operators through the fused step K6)
   slq          stochastic Lanczos quadrature (no spectral bounds needed)
   operators    the `LinearOperator` protocol, the dense, batched-stack,
-               stencil (K8) and mesh-sharded (K5) backends, and
-               conjugate gradient `cg_solve` (dense: K7)
+               stencil (K8), mesh-sharded (K5), Kronecker and Toeplitz
+               backends, and conjugate gradient `cg_solve` (dense: K7)
   grad         the autograd rules: `estimate_logdet` (differentiable
                dispatch), `exact_slogdet_vjp`, `hutchinson_pullback` and
                the operator registry (`register_operator_grad`)
 
 Randomness comes from explicit `torch.Generator`s (``generator=``) or a
 ``seed``.  `logdet_batched` is the entry point for a (B, n, n) stack of
-SPD matrices (GMM covariances).  Not ported yet: the Kronecker and
-Toeplitz backends and their gradient registrations (ROADMAP Queue 1
-item 7).
+SPD matrices (GMM covariances).
 """
 import torch
 

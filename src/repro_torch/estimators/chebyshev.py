@@ -30,6 +30,7 @@ from repro_torch.estimators.hutchinson import (
 from repro_torch.estimators.operators import DenseOperator, operator_on
 from repro_torch.estimators.operators.base import device_of, resolve_device
 from repro_torch.kernels import ops as _kops
+from repro_torch.obs import telemetry as _telemetry
 
 __all__ = ["spectral_bounds", "chebyshev_coeffs_log", "logdet_chebyshev",
            "default_generator"]
@@ -163,4 +164,7 @@ def logdet_chebyshev(a, *, degree: int = 64, num_probes: int = 32,
             samples = samples + c[..., j, None] * (v * w_next).sum(-2)
             w_prev, w = w, w_next
     est, sem = mean_sem(samples)
+    if _telemetry.enabled():
+        # REPRO_OBS=trace: the sem-vs-probes curve to the host buffer
+        _telemetry.emit_curve("chebyshev.sem", _telemetry.running_sem(samples))
     return TraceEstimate(est, sem, samples)

@@ -32,9 +32,12 @@ unregistered operator runs the plain forward (autograd then sees whatever
 its ``mm`` records).  A `BatchedOperator` stack is registered as dense
 (its parameters are the (B, n, n) entries): one batched transposed CG,
 then ``(g_b/k) W_b Z_b^T`` per matrix with ``g`` (B,); the exact backward
-of a stack is one batched inverse.  Not ported yet: the Kronecker and
-Toeplitz registrations, which come with their operators (ROADMAP Queue 1
-item 7).  The rules are once-differentiable.
+of a stack is one batched inverse.  `KroneckerOperator` (parameters ``(a,
+b)``) and `ToeplitzOperator` (``(c, r)``) take the bilinear pullback
+through their own ``mm`` (reshaped products, FFTs: autograd sees them,
+since no ctypes kernel runs there), so their cotangents are
+factor-shaped and column/row-shaped, never (n, n).  The rules are
+once-differentiable.
 """
 from __future__ import annotations
 
@@ -48,8 +51,8 @@ from repro_torch.estimators.chebyshev import (
 )
 from repro_torch.estimators.hutchinson import TraceEstimate, make_probes
 from repro_torch.estimators.operators import (
-    BatchedOperator, DenseOperator, ShardedOperator, StencilOperator,
-    cg_solve, operator_on,
+    BatchedOperator, DenseOperator, KroneckerOperator, ShardedOperator,
+    StencilOperator, ToeplitzOperator, cg_solve, operator_on,
 )
 from repro_torch.estimators.operators.base import device_of
 from repro_torch.estimators.operators.stencil import _transpose_bands
@@ -163,6 +166,17 @@ register_operator_grad(
     params=lambda op: op.a,
     rebuild=lambda op, a: ShardedOperator(a, op.mesh),
     dense=True)
+register_operator_grad(
+    KroneckerOperator,
+    params=lambda op: (op.a, op.b),
+    rebuild=lambda op, p: KroneckerOperator(p[0], p[1]))
+register_operator_grad(
+    ToeplitzOperator,
+    # a symmetric operator holds the same tensor as c and r: it enters the
+    # autograd Function twice, so both halves of the cotangent flow back
+    # into the one first-column parameter
+    params=lambda op: (op.c, op.r),
+    rebuild=lambda op, p: ToeplitzOperator(p[0], p[1]))
 register_operator_grad(
     StencilOperator,
     params=lambda op: op.bands,

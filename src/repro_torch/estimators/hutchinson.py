@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.estimators.operators.base import resolve_device
+from repro_torch.obs import telemetry as _telemetry
 
 __all__ = ["make_probes", "mean_sem", "hutchinson_trace", "TraceEstimate",
            "PROBE_KINDS"]
@@ -85,4 +86,7 @@ def hutchinson_trace(mm, probes, *, device=None) -> TraceEstimate:
     probes = torch.as_tensor(probes).to(resolve_device(device))
     samples = (probes * mm(probes)).sum(-2)          # v_i^T A v_i per column
     est, sem = mean_sem(samples)
+    if _telemetry.enabled():
+        # REPRO_OBS=trace: the sem-vs-probes curve to the host buffer
+        _telemetry.emit_curve("hutchinson.sem", _telemetry.running_sem(samples))
     return TraceEstimate(est, sem, samples)

@@ -8,11 +8,11 @@ in `repro_torch.estimators` touches the matrix only through the
   BatchedOperator    (B, n, n) stack, one batched product per step
   StencilOperator    banded product through K8 -- O(nb n) memory
   ShardedOperator    row block per rank of a mesh, products through K5
+  KroneckerOperator  A ⊗ B from its factors, two reshaped products
+  ToeplitzOperator   first column (and row), a circulant FFT product
 
 plus `cg_solve` (solve.py), Jacobi-preconditioned conjugate gradient on
-any of them.  Not ported yet, each raising `NotImplementedError` with its
-ROADMAP item when constructed: `KroneckerOperator` and `ToeplitzOperator`
-(Queue 1 item 7).
+any of them.
 """
 from __future__ import annotations
 
@@ -24,8 +24,10 @@ from repro_torch.estimators.operators.base import (
 )
 from repro_torch.estimators.operators.batched import BatchedOperator
 from repro_torch.estimators.operators.dense import DenseOperator
+from repro_torch.estimators.operators.kron import KroneckerOperator
 from repro_torch.estimators.operators.sharded import ShardedOperator
 from repro_torch.estimators.operators.stencil import StencilOperator
+from repro_torch.estimators.operators.toeplitz import ToeplitzOperator
 
 __all__ = [
     "LinearOperator", "PlanHints", "DenseOperator", "StencilOperator",
@@ -33,25 +35,6 @@ __all__ = [
     "ShardedOperator", "as_operator", "operator_on", "is_operator",
     "check_square", "device_of", "resolve_device", "CGResult", "cg_solve",
 ]
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"repro_torch does not run {what} yet")
-
-
-def _unported_backend(name: str, what: str):
-    def __init__(self, *args, **kwargs):
-        raise _not_ported(what)
-    return type(name, (LinearOperator,), {
-        "__init__": __init__,
-        "__doc__": f"Not ported yet: constructing one raises "
-                   f"NotImplementedError naming {what}."})
-
-
-KroneckerOperator = _unported_backend(
-    "KroneckerOperator", "KroneckerOperator (ROADMAP Queue 1 item 7)")
-ToeplitzOperator = _unported_backend(
-    "ToeplitzOperator", "ToeplitzOperator (ROADMAP Queue 1 item 7)")
-
 
 def as_operator(a, *, mesh=None) -> LinearOperator:
     """Coerce a matrix or an operator to the estimator protocol.

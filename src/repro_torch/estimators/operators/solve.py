@@ -23,6 +23,7 @@ import torch
 from repro_torch.estimators.operators import DenseOperator, operator_on
 from repro_torch.estimators.operators.base import device_of
 from repro_torch.kernels import ops as _kops
+from repro_torch.obs import telemetry as _telemetry
 
 __all__ = ["CGResult", "cg_solve"]
 
@@ -61,7 +62,9 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
     The loop's stopping test needs the residual norms on the host: the
     JAX package keeps the loop on the device (``lax.while_loop``), which
     has no PyTorch counterpart, so each iteration makes exactly one
-    device-to-host read (one ``.item()``).  Returns a `CGResult`; check
+    device-to-host read (one ``.item()``).  With ``REPRO_OBS=trace`` the
+    worst column's residual of each step (``cg.resnorm``, the JAX
+    package's stream) rides on that read.  Returns a `CGResult`; check
     ``converged`` (or ``resnorm``) rather than assuming ``maxiter``
     sufficed.
     """
@@ -116,10 +119,19 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
     def resnorm(r):
         return torch.linalg.vector_norm(r, dim=-2)
 
+    trace = _telemetry.enabled()
     it = 0
     while it < maxiter:
-        live = (resnorm(r) > thresh) & ~zero_rhs
-        if not bool(live.any().item()):      # the one host read per step
+        rn = resnorm(r)
+        live = (rn > thresh) & ~zero_rhs
+        if trace and it:
+            # the previous step's worst residual, in the same host read
+            more, worst = torch.stack([live.any().to(rn.dtype),
+                                       rn.amax()]).tolist()
+            _telemetry.emit_point("cg.resnorm", worst, it - 1)
+        else:
+            more = live.any().item()         # the one host read per step
+        if not more:
             break
         if fused_a is not None:
             x, r = _kops.fused_cg_step(fused_a, p, x, r, rz)
@@ -134,6 +146,8 @@ def cg_solve(a, b, *, tol: float = 1e-10, atol: float = 0.0,
         p = z + beta * p
         rz = rz_new
         it += 1
+    if trace and it and it == maxiter:
+        _telemetry.emit_point("cg.resnorm", resnorm(r).amax(), it - 1)
     x = torch.where(zero_rhs[..., None, :], torch.zeros_like(x), x)
     rn = torch.where(zero_rhs, torch.zeros_like(bnorm), resnorm(r))
     out = x[..., :, 0] if vec else x

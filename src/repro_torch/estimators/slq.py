@@ -24,6 +24,7 @@ from repro_torch.estimators.hutchinson import (
 )
 from repro_torch.estimators.operators import operator_on
 from repro_torch.estimators.operators.base import device_of
+from repro_torch.obs import telemetry as _telemetry
 
 __all__ = ["lanczos", "logdet_slq", "beta_pad"]
 
@@ -118,4 +119,7 @@ def logdet_slq(a, *, num_steps: int = 25, num_probes: int = 32,
     quad = (tau2 * torch.log(theta.clamp_min(tiny))).sum(-1)    # (..., k)
     samples = (v0 * v0).sum(-2) * quad
     est, sem = mean_sem(samples)
+    if _telemetry.enabled():
+        # REPRO_OBS=trace: the sem-vs-probes curve to the host buffer
+        _telemetry.emit_curve("slq.sem", _telemetry.running_sem(samples))
     return TraceEstimate(est, sem, samples)

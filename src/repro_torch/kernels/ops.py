@@ -17,6 +17,13 @@ Chebyshev), `fused_cg_step` (dense CG), `stencil_mv` (every
 `StencilOperator` product) and `matvec` (the local product of every
 `ShardedOperator` product).
 
+Observability, with the JAX package's names: every entry counts a
+``kernel.dispatch`` (labels ``op`` and ``backend``: ``"cuda"`` for a
+kernel launch, ``"torch"`` for the CPU's plain version) and runs inside a
+``kernel.<op>`` stage (`repro_torch.obs`); K4's keeps the JAX package's
+``panel_factor_vmem``.  Both are no-ops with obs off.  `launch_counts`
+is separate: it counts launches on the card in every mode.
+
 Deliberate difference from `repro.kernels.ops`: the JAX package sends
 K6/K7 operands above an 8 MiB VMEM budget, and batched ``a.ndim == 3``
 operands, to the jnp reference.  Here a CUDA tensor runs K6/K7 at every n,
@@ -30,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.kernels import condense_step as _k1
 from repro_torch.kernels import fused_est as _k67
 from repro_torch.kernels import fused_step as _k3
@@ -75,6 +83,16 @@ def _on_card(t: torch.Tensor, op: str) -> bool:
                      f"{t.device} (cuda or cpu)")
 
 
+def _dispatch(t: torch.Tensor, op: str, stage: str):
+    """``(card, stage)``: whether ``t`` launches the kernel (`_on_card`),
+    and the ``stage`` to run it in; the ``kernel.dispatch`` counter of
+    ``op`` is counted (backend ``cuda`` or ``torch``)."""
+    card = _on_card(t, op)
+    backend = "cuda" if card else "torch"
+    _obs.inc("kernel.dispatch", op=op, backend=backend)
+    return card, _obs.stage(stage, backend=backend)
+
+
 def _quantize(precision: Optional[str], *operands):
     """Cast multiply operands for a mixed-precision route.
 
@@ -94,18 +112,22 @@ def rank1_update(a: torch.Tensor, pc: torch.Tensor, pr: torch.Tensor, *,
                  precision: Optional[str] = None) -> torch.Tensor:
     """``a - outer(pc, pr)`` (K1 on the card)."""
     pc, pr = _quantize(precision, pc, pr)
-    if _on_card(a, "rank1_update"):
-        return _k1.rank1_update(a, pc, pr)
-    return _ref.rank1_update_ref(a, pc, pr)
+    card, stage = _dispatch(a, "rank1_update", "kernel.rank1_update")
+    with stage:
+        if card:
+            return _k1.rank1_update(a, pc, pr)
+        return _ref.rank1_update_ref(a, pc, pr)
 
 
 def panel_update(a: torch.Tensor, c: torch.Tensor, r: torch.Tensor, *,
                  precision: Optional[str] = None) -> torch.Tensor:
     """``a - c @ r`` (K2 on the card)."""
     c, r = _quantize(precision, c, r)
-    if _on_card(a, "panel_update"):
-        return _k2.panel_update(a, c, r)
-    return _ref.panel_update_ref(a, c, r)
+    card, stage = _dispatch(a, "panel_update", "kernel.panel_update")
+    with stage:
+        if card:
+            return _k2.panel_update(a, c, r)
+        return _ref.panel_update_ref(a, c, r)
 
 
 def panel_factor(panel: torch.Tensor, m0: int, r_pos: int = 0):
@@ -114,9 +136,12 @@ def panel_factor(panel: torch.Tensor, m0: int, r_pos: int = 0):
     into one contiguous operand first."""
     if panel.dim() == 3:
         panel = panel.contiguous()
-    if _on_card(panel, "panel_factor"):
-        return _k4.panel_factor(panel, m0, r_pos)
-    return _ref.panel_factor_ref(panel, m0, r_pos)
+    card, stage = _dispatch(panel, "panel_factor_vmem",
+                            "kernel.panel_factor_vmem")
+    with stage:
+        if card:
+            return _k4.panel_factor(panel, m0, r_pos)
+        return _ref.panel_factor_ref(panel, m0, r_pos)
 
 
 def pivot_operands(buf: torch.Tensor, t: int):
@@ -178,13 +203,15 @@ def fused_condense_step(buf: torch.Tensor, t: int, *,
     equal to the scatter swap followed by `rank1_update`.  ``buf`` is not
     modified; on a stack ``l`` and ``p`` are (B,).
     """
+    card, stage = _dispatch(buf, "fused_condense_step", "kernel.fused_step")
     l, p, pc, pr, col_l, col_last = pivot_operands(buf, t)
     pc, pr = _quantize(precision, pc, pr)
     last = buf.shape[-1] - t - 1
-    if _on_card(buf, "fused_step"):
-        out = _k3.fused_step(buf, l, last, pc, pr, col_l, col_last)
-    else:
-        out = _ref.fused_step_ref(buf, l, last, pc, pr, col_l, col_last)
+    with stage:
+        if card:
+            out = _k3.fused_step(buf, l, last, pc, pr, col_l, col_last)
+        else:
+            out = _ref.fused_step_ref(buf, l, last, pc, pr, col_l, col_last)
     return out, l, p
 
 
@@ -199,9 +226,11 @@ def _unbatched(op: str, a: torch.Tensor) -> None:
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a (m, n) @ x (n,) or (n, k)``, ``x`` cast to ``a``'s dtype (K5 on
     the card)."""
-    if _on_card(a, "matvec"):
-        return _k5.matvec(a, x)
-    return _ref.matvec_ref(a, x)
+    card, stage = _dispatch(a, "matvec", "kernel.matvec")
+    with stage:
+        if card:
+            return _k5.matvec(a, x)
+        return _ref.matvec_ref(a, x)
 
 
 def fused_cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
@@ -214,9 +243,11 @@ def fused_cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
     one-element tensors there; on the CPU they may be numbers.
     """
     _unbatched("fused_cheb_step", a)
-    if _on_card(a, "fused_cheb_step"):
-        return _k67.cheb_step(a, w, w_prev, v, center, width)
-    return _ref.cheb_step_ref(a, w, w_prev, v, center, width)
+    card, stage = _dispatch(a, "fused_cheb_step", "kernel.fused_cheb_step")
+    with stage:
+        if card:
+            return _k67.cheb_step(a, w, w_prev, v, center, width)
+        return _ref.cheb_step_ref(a, w, w_prev, v, center, width)
 
 
 def fused_cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
@@ -225,9 +256,11 @@ def fused_cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
     r_new)`` (K7 on the card): ``ap = a p; alpha = rz / (p . ap)``
     (guarded 0/0 -> 0), ``x + alpha p``, ``r - alpha ap``."""
     _unbatched("fused_cg_step", a)
-    if _on_card(a, "fused_cg_step"):
-        return _k67.cg_step(a, p, x, r, rz)
-    return _ref.cg_step_ref(a, p, x, r, rz)
+    card, stage = _dispatch(a, "fused_cg_step", "kernel.fused_cg_step")
+    with stage:
+        if card:
+            return _k67.cg_step(a, p, x, r, rz)
+        return _ref.cg_step_ref(a, p, x, r, rz)
 
 
 def stencil_mv(bands: torch.Tensor, x: torch.Tensor, *,
@@ -235,6 +268,8 @@ def stencil_mv(bands: torch.Tensor, x: torch.Tensor, *,
     """Banded product ``y[i] = sum_d bands[d, i] * x[i + offsets[d]]``,
     zero outside ``[0, n)``, for ``x (n,)`` or ``(n, k)`` (K8 on the
     card)."""
-    if _on_card(bands, "stencil_mv"):
-        return _k8.stencil_mv(bands, x, offsets)
-    return _ref.stencil_mv_ref(bands, x, offsets=offsets)
+    card, stage = _dispatch(bands, "stencil_mv", "kernel.stencil_mv")
+    with stage:
+        if card:
+            return _k8.stencil_mv(bands, x, offsets)
+        return _ref.stencil_mv_ref(bands, x, offsets=offsets)

@@ -381,12 +381,30 @@ def test_dense_operator_surface():
 
 @pytest.mark.parametrize("name,exc,match", [
     # ported: it takes a (B, n, n) stack, not one matrix
-    ("BatchedOperator", ValueError, r"\(B, n, n\) stack"),
-    ("KroneckerOperator", NotImplementedError, "ROADMAP Queue 1 item"),
-    ("ToeplitzOperator", NotImplementedError, "ROADMAP Queue 1 item")])
+    ("BatchedOperator", ValueError, r"\(B, n, n\) stack")])
 def test_unported_backends_raise(name, exc, match):
     with pytest.raises(exc, match=match):
         getattr(est, name)(torch.eye(2))
+
+
+@pytest.mark.parametrize("name", ["KroneckerOperator", "ToeplitzOperator"])
+def test_structured_backends_construct(name):
+    """Ported (tests/test_torch_structured.py holds them against the JAX
+    package): each builds from tensors, and its dense form is the
+    operator's."""
+    if name == "KroneckerOperator":
+        a = torch.tensor([[2.0, 1.0], [0.0, 3.0]], dtype=torch.float64)
+        op = est.KroneckerOperator(a, torch.eye(3, dtype=torch.float64))
+        want = torch.kron(a, torch.eye(3, dtype=torch.float64))
+    else:
+        c = torch.tensor([2.0, 0.5, 0.25], dtype=torch.float64)
+        op = est.ToeplitzOperator(c)
+        want = torch.tensor([[2.0, 0.5, 0.25], [0.5, 2.0, 0.5],
+                             [0.25, 0.5, 2.0]], dtype=torch.float64)
+    assert est.is_operator(op) and op.shape == tuple(want.shape)
+    assert torch.equal(op.to_dense(), want)
+    v = torch.arange(want.shape[0] * 2, dtype=torch.float64).reshape(-1, 2)
+    assert torch.allclose(op.mm(v), want @ v, rtol=1e-14, atol=1e-14)
 
 
 def test_as_operator_rejects_stacks_and_shards_on_a_mesh():

@@ -215,9 +215,18 @@ def test_rejected_inputs_raise():
 
 def test_unported_plan_methods_raise():
     p = repro_torch.plan(_matrix(), method="exact", device="cpu")
-    for call in (p.audit, p.explain, lambda: p.export("x")):
+    for call in (p.audit, lambda: p.export("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_explain_describes_the_plan():
+    """``explain`` is ported (tests/test_torch_obs.py holds its lines
+    against the JAX package's): the method, spec and eager execution."""
+    p = repro_torch.plan(_matrix(), method="exact", device="cpu")
+    text = p.explain()
+    assert text.startswith("LogdetPlan[exact]")
+    assert "execution: eager on cpu" in text and "traces:" not in text
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
@@ -293,7 +302,10 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_calibrate.py",
-              ROOT / "examples" / "quickstart_torch.py"]
+              ROOT / "tools" / "obs_cost.py",
+              ROOT / "examples" / "quickstart_torch.py",
+              ROOT / "examples" / "gmm_fit_torch.py",
+              ROOT / "examples" / "gmm_loglik_torch.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -452,10 +464,22 @@ def test_estimator_plans_reject(x, kw, exc):
 
 
 @pytest.mark.parametrize("name", ["KroneckerOperator", "ToeplitzOperator"])
-def test_structured_backends_raise(name):
+def test_structured_backends_plan(name):
+    """Ported: a plan on either operator takes an estimator (auto: slq),
+    and its estimate lies within 5 sem of the dense log|det|."""
     from repro_torch import estimators
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        getattr(estimators, name)(torch.eye(2), torch.eye(2))
+    if name == "KroneckerOperator":
+        op = estimators.KroneckerOperator(
+            torch.from_numpy(_matrix(n=4, neg_row=False)),
+            torch.from_numpy(_matrix(n=3, neg_row=False)))
+    else:
+        op = estimators.ToeplitzOperator(
+            torch.tensor([2.0, 0.6, 0.2, 0.05], dtype=torch.float64))
+    p = repro_torch.plan(op, device="cpu", num_steps=10, num_probes=16)
+    res = p(generator=torch.Generator().manual_seed(0))
+    exact = torch.linalg.slogdet(op.to_dense())[1]
+    assert p.method == "slq" and p.spec.kind == "operator"
+    assert abs(float(res.logabsdet - exact)) <= 5 * float(res.sem) + 1e-10
 
 
 def test_estimator_plan_rejects_runtime_inputs_on_exact():

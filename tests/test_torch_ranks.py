@@ -277,6 +277,38 @@ def card_baselines(mesh, a: np.ndarray, nbs) -> dict:
     return out
 
 
+def obs_mesh_names(mesh, a: np.ndarray, k: int) -> dict:
+    """``{"update|lookahead": (stage names, metric names)}`` the port's
+    obs records in trace mode on each exact mesh route (tests/
+    test_torch_obs.py), then the same routes' results under obs off,
+    metrics and trace (``"update|lookahead|mode"``), for the bitwise
+    check."""
+    from repro_torch import obs
+    x = torch.from_numpy(a)
+    out = {}
+    try:
+        for update in ("rank1", "panel"):
+            for la in (False, True):
+                route = f"{update}|{la}"
+                for mode in ("off", "metrics", "trace"):
+                    obs.reset()
+                    obs.configure(mode)
+                    clear_plan_cache()
+                    res = repro_torch.plan(x, method="exact", mesh=mesh,
+                                           update=update, k=k,
+                                           lookahead=la)()
+                    out[f"{route}|{mode}"] = _pair(res)
+                names = sorted({e["name"] for e in obs.events()})
+                metrics = sorted({key.split("{")[0]
+                                  for group in obs.snapshot().values()
+                                  for key in group})
+                out[route] = (names, metrics)
+    finally:
+        obs.reset()
+        obs.configure("off")
+    return out
+
+
 def fail_on_rank(mesh, bad: int):
     """Rank ``bad`` raises; the others wait for it in a collective."""
     if mesh.rank == bad:
