@@ -153,7 +153,28 @@ printed line each, any failure ends the run:
             idle share (staged x panel's off call profiled too); the spans
             as a Chrome trace in obs_out/, checked by
             ``python -m repro_torch.obs validate`` (the staged x panel
-            profile beside it).
+            profile beside it);
+11. serve   `repro_torch.serve` on the card with the traffic of
+            ``benchmarks/serve_bench.py`` (SERVE_REQUESTS f64 matrices,
+            sides uniform in SERVE_N, exact, open-loop) in its three
+            modes: naive (a plan per request), bucketed (the service at
+            max_batch 1) and batched (max_batch SERVE_MAX_BATCH), under
+            obs metrics: every sign exact and log|det| within SERVE_RTOL
+            of numpy's, each batched result bitwise the same request's
+            bucketed one, after warmup no plan-cache miss, K1 launching
+            sum over batches of (bucket - 1) and no other kernel;
+            throughput, p50 / p99 latency and warmup printed per mode
+            (not gated); slq requests through the default ladder within
+            N_SEM sem + EST_RTOL, no launch; then ``python -m
+            repro_torch.serve export`` of the ladder and a fresh
+            ``--plan-dir`` server process: its HTTP answers bitwise the
+            in-process service's, every plan and the kernels' libraries
+            loaded at warmup and nothing loaded or built by the requests,
+            the artifacts' fingerprint naming this card, capability
+            (9, 0) and this kernel build; last, K1 in f64 at every shape
+            the drains gave it, bitwise the plain version and each
+            matrix its single launch, SERVE_K1_TIMED timed for the
+            kernels line.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3068,6 +3089,407 @@ def trace_phase(a, k: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11: serving
+# --------------------------------------------------------------------------
+
+# benchmarks/serve_bench.py's traffic and service settings (its defaults):
+# SERVE_REQUESTS matrices randn(n, n) + 2 sqrt(n) I made with numpy from the
+# seed, n uniform in SERVE_N, f64, method "exact", submitted open-loop, on
+# the ladder SERVE_BUCKETS with max_batch SERVE_MAX_BATCH and
+# max_wait_ms SERVE_WAIT_MS; log|det| within SERVE_RTOL of numpy's
+SERVE_REQUESTS, SERVE_N = 128, (64, 512)
+SERVE_BUCKETS = (64, 128, 192, 256, 384, 512)
+SERVE_MAX_BATCH, SERVE_WAIT_MS, SERVE_RTOL = 8, 2.0, 1e-9
+# estimator requests: SPD x x^T / n + 2 I, n uniform in SERVE_EST_N, slq,
+# each within N_SEM sem + EST_RTOL of the f64 Cholesky log|det|
+SERVE_EST_REQUESTS, SERVE_EST_N = 16, (600, 1024)
+# the exported service in a process of its own: requests over HTTP (sides
+# at most SERVE_HTTP_MAX_N, from the workload) and its time limit (s)
+SERVE_HTTP_REQUESTS, SERVE_HTTP_MAX_N, SERVE_PROC_TIMEOUT = 3, 128, 300
+# K1 in f64 timed at these (B, b) stacks of the service's exact batches
+# (every shape the drains gave it is checked)
+SERVE_K1_TIMED = ((8, 512), (8, 64), (1, 512))
+
+
+def serve_workload(seed: int):
+    """benchmarks/serve_bench.py:make_workload: (matrices, numpy's signs,
+    numpy's log|det|)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(SERVE_N[0], SERVE_N[1] + 1, SERVE_REQUESTS)
+    mats = [rng.standard_normal((n, n)) + np.eye(n) * (2.0 * np.sqrt(n))
+            for n in sizes]
+    signs, lds = zip(*(np.linalg.slogdet(a) for a in mats))
+    return mats, np.asarray(signs), np.asarray(lds)
+
+
+def serve_record(mode: str, out, lat, seconds: float, signs, lds,
+                 warmup_s: float, counts: dict, **extra) -> dict:
+    """One mode's line; requires every sign exact and every log|det|
+    within SERVE_RTOL of numpy's (each request against its own matrix:
+    the results are unpermuted)."""
+    import numpy as np
+    got_s = np.array([s for s, _ in out])
+    got_ld = np.array([ld for _, ld in out])
+    rel = np.abs(got_ld - lds) / np.maximum(np.abs(lds), 1.0)
+    rec = dict(mode=mode, requests=len(out), seconds=seconds,
+               throughput_rps=len(out) / seconds,
+               p50_ms=float(np.quantile(lat, 0.5) * 1e3),
+               p99_ms=float(np.quantile(lat, 0.99) * 1e3),
+               warmup_s=warmup_s, rel_err_max=float(rel.max()),
+               k1_launches=counts["rank1_update"], **extra)
+    say("serve", **rec)
+    require(np.array_equal(got_s, signs), f"serve {mode}: a sign differs "
+            "from numpy's")
+    require(rel.max() <= SERVE_RTOL, f"serve {mode}: rel err {rel.max()}")
+    return rec
+
+
+def serve_naive(mats, signs, lds) -> tuple:
+    """A plan per request, one at a time, as a user without the service
+    runs them."""
+    import repro_torch
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.kernels import ops
+
+    clear_plan_cache()
+    out, lat = [], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for a in mats:
+        t1 = time.perf_counter()
+        r = repro_torch.plan(a.shape, method="exact", precision="float64",
+                             validate=False)(a)
+        out.append((r.sign.item(), r.logabsdet.item()))
+        lat.append(time.perf_counter() - t1)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(KERNEL_META, 0)
+    for a in mats:
+        for name, c in expected_launches(a.shape[0], 32, "rank1",
+                                         False).items():
+            want[name] += c
+    rec = serve_record("naive", out, lat, seconds, signs, lds, 0.0, counts,
+                       expected_launches=want)
+    require(counts == want, f"serve naive: launches {counts} != {want}")
+    return rec, counts
+
+
+def serve_service(mode: str, max_batch: int, mats, signs, lds) -> tuple:
+    """The workload through a `LogdetService` on the card (warmed up
+    before the timed drain, submitted open-loop).  After warmup the drain
+    builds no plan, and launches K1 once per step of each batch: sum over
+    batches of (bucket - 1), whatever the batch's size.  Returns (record,
+    launches, results, the shapes K1 was given in the drain)."""
+    from repro_torch import obs
+    from repro_torch.kernels import condense_step, ops
+    from repro_torch.serve import LogdetService, ServeConfig
+
+    cfg = ServeConfig(buckets=SERVE_BUCKETS, max_batch=max_batch,
+                      max_wait_ms=SERVE_WAIT_MS, cache_capacity=128,
+                      default_method="exact")
+    require(cfg.device.type == "cuda", f"serve {mode}: the service's "
+            f"default device is {cfg.device}")
+    shapes, k1 = set(), condense_step.rank1_update
+
+    def recorded_k1(a, pc, pr):
+        shapes.add(tuple(a.shape))
+        return k1(a, pc, pr)
+
+    try:
+        with LogdetService(cfg) as svc:
+            warmup_s = svc.warmup()
+            condense_step.rank1_update = recorded_k1
+            misses = obs.counter_value("serve.plan_cache.misses")
+            batches = {b: obs.counter_value("serve.batches", method="exact",
+                                            bucket=b)
+                       for b in SERVE_BUCKETS}
+            plain = obs.counter_value("kernel.dispatch", op="rank1_update",
+                                      backend="torch")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            futs = [svc.submit(a) for a in mats]
+            done = [(f.result(timeout=600), time.perf_counter())
+                    for f in futs]
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            batches = {b: obs.counter_value("serve.batches", method="exact",
+                                            bucket=b) - c
+                       for b, c in batches.items()}
+            new_misses = obs.counter_value("serve.plan_cache.misses") - misses
+            plain = obs.counter_value("kernel.dispatch", op="rank1_update",
+                                      backend="torch") - plain
+    finally:
+        condense_step.rank1_update = k1
+    want = dict.fromkeys(KERNEL_META, 0)
+    for b, count in batches.items():
+        for name, c in expected_launches(b, 32, "rank1", False).items():
+            want[name] += int(count) * c
+    results = [(r.sign, r.logabsdet) for r, _ in done]
+    rec = serve_record(
+        mode, results, [t - t0 for _, t in done], seconds, signs, lds,
+        warmup_s, counts, batches={str(b): int(c) for b, c in
+                                   batches.items() if c},
+        expected_launches=want, plan_cache_misses_after_warmup=new_misses,
+        plain_k1_calls=plain, k1_shapes=len(shapes))
+    require(sum(batches.values()) > 0, f"serve {mode}: no batch counted")
+    require(new_misses == 0, f"serve {mode}: {new_misses} plans built "
+            "after warmup")
+    require(plain == 0, f"serve {mode}: {plain} plain K1 calls")
+    require(want["rank1_update"] == sum(int(c) * (b - 1)
+                                        for b, c in batches.items()),
+            f"serve {mode}: the schedule's K1 steps are not bucket - 1")
+    require(counts == want, f"serve {mode}: launches {counts} != {want}")
+    return rec, counts, results, shapes
+
+
+def serve_kernel(shapes, gen) -> dict:
+    """K1 in f64 at every shape a service drain gave it (``shapes``: the
+    batched drain's (B, m, m) stacks and the bucketed one's (m, m)
+    matrices) and at SERVE_K1_TIMED: bitwise equal to the plain version
+    on the same inputs, each matrix of a stack bitwise its single launch;
+    then the SERVE_K1_TIMED stacks timed beside the plain version, their
+    bound and `torch.baddbmm`.  Returns ``{shape tag: fields}`` for the
+    kernels line."""
+    import torch
+    from repro_torch.kernels import condense_step, ref
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float64)
+
+    timed = {(b, n, n) for b, n in SERVE_K1_TIMED}
+    checked = sorted(set(shapes) | timed, key=lambda s: (len(s), s))
+    out = {}
+    for shape in checked:
+        *lead, m, n = shape
+        a, pc, pr = randn(*shape), randn(*lead, m), randn(*lead, n)
+        got = condense_step.rank1_update(a, pc, pr)
+        tag = "x".join(map(str, shape))
+        require(torch.equal(got, ref.rank1_update_ref(a, pc, pr)),
+                f"K1 f64 {tag} (serving): not bitwise")
+        for i in range(lead[0] if lead else 0):
+            require(torch.equal(got[i], condense_step.rank1_update(
+                a[i], pc[i], pr[i])), f"K1 f64 {tag} (serving): matrix {i} "
+                "differs from its single launch")
+        if shape in timed:
+            b = lead[0]
+            t = dict(max_abs_err=0.0,
+                     ms=time_ms(lambda: condense_step.rank1_update(a, pc, pr),
+                                queued=True),
+                     plain_ms=time_ms(lambda: ref.rank1_update_ref(a, pc, pr),
+                                      warmup=1, iters=3),
+                     library_ms=time_ms(lambda: torch.baddbmm(
+                         a, pc[..., None], pr[..., None, :], alpha=-1),
+                         queued=True), batch=b)
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                b * (2 * m * n + m + n) * 8, b * 2 * m * n, "float64")
+            out[f"serve f64 {tag}"] = t
+            say("timing", kernel="rank1_update", variant="float64",
+                stack=tag, **t)
+    say("kernels", serve_k1_f64_shapes=checked, rank1_update_bitwise=True,
+        matrices_bitwise_single=True)
+    return out
+
+
+def serve_estimators(seed: int) -> dict:
+    """SERVE_EST_REQUESTS slq requests through a service with the default
+    ladder (rungs 768 and 1024, warmed on identity stacks): each within
+    N_SEM sem + EST_RTOL of the f64 Cholesky log|det|, no kernel
+    launched.  An identity request gives log|det| 0."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LogdetService, ServeConfig
+
+    rng = np.random.default_rng(seed + 11)
+    sizes = rng.integers(SERVE_EST_N[0], SERVE_EST_N[1] + 1,
+                         SERVE_EST_REQUESTS)
+    mats, refs = [], []
+    for n in sizes:
+        x = rng.standard_normal((n, n))
+        a = x @ x.T / n + 2.0 * np.eye(n)
+        mats.append(a)
+        refs.append(2.0 * np.log(np.diag(np.linalg.cholesky(a))).sum())
+    cfg = ServeConfig(max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    with LogdetService(cfg) as svc:
+        warmup_s = svc.warmup(methods=["slq"], buckets=(768, 1024))
+        eye = svc.logdet(np.eye(700), method="slq", timeout=600)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [svc.submit(a, method="slq") for a in mats]
+        res = [f.result(timeout=600) for f in futs]
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    err_sem = [float(abs(r.logabsdet - ref) / r.sem)
+               for r, ref in zip(res, refs)]
+    ok = [abs(r.logabsdet - ref) <= N_SEM * r.sem + EST_RTOL * abs(ref)
+          for r, ref in zip(res, refs)]
+    say("serve", mode="slq", requests=len(mats), sizes=sizes.tolist(),
+        seconds=seconds, warmup_s=warmup_s, err_in_sem=err_sem,
+        identity=[float(eye.sign), float(eye.logabsdet), float(eye.sem)],
+        launches=counts)
+    require(all(ok), f"serve slq: errors in sem {err_sem}")
+    require(all(np.isfinite([r.sem for r in res])), "serve slq: sem")
+    require(float(eye.sign) == 1.0 and abs(float(eye.logabsdet)) <= 1e-9
+            and np.isfinite(float(eye.sem)),
+            f"serve slq on the identity: {eye}")
+    require(not any(counts.values()), f"serve slq: launches {counts}")
+    return counts
+
+
+def serve_process(mats, results) -> None:
+    """``python -m repro_torch.serve export`` of the ladder, then a fresh
+    ``python -m repro_torch.serve --plan-dir`` process: its HTTP answers
+    to SERVE_HTTP_REQUESTS workload matrices bitwise equal to the
+    in-process service's ``results``; its plans and the kernels'
+    libraries all loaded at warmup (its /stats before the first request
+    shows every plan-cache miss and ``kernel_loads`` 1, and the same after
+    the requests); the artifacts' fingerprint names this card, capability
+    (9, 0) and this kernel build."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aot import read_header
+
+    t0 = time.perf_counter()
+    plan_dir = tempfile.mkdtemp(prefix="serve_plans.",
+                                dir=ROOT / "build")
+    obs_dir = tempfile.mkdtemp(prefix="serve_obs.", dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_OBS="metrics", REPRO_OBS_DIR=obs_dir)
+    ladder = ["--buckets", ",".join(map(str, SERVE_BUCKETS)),
+              "--max-batch", str(SERVE_MAX_BATCH), "--method", "exact"]
+    proc, lines = None, []
+    try:
+        exp = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serve", "export", "--out",
+             plan_dir, *ladder], env=env, capture_output=True, text=True,
+            timeout=SERVE_PROC_TIMEOUT)
+        require(exp.returncode == 0, f"serve export failed: {exp.stderr}")
+        files = sorted(os.listdir(plan_dir))
+        fp = read_header(os.path.join(plan_dir, files[0]))["fingerprint"]
+        build = Path(_build.build()["dir"]).name
+        require(len(files) == len(SERVE_BUCKETS) * 4,
+                f"serve export wrote {files}")
+        require(fp["device_kind"] == torch.cuda.get_device_name(0)
+                and fp["capability"] == [9, 0]
+                and fp["kernel_build"] == build,
+                f"serve export: fingerprint {fp}")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.serve", "--plan-dir",
+             plan_dir, "--port", "0", *ladder], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        watchdog = threading.Timer(SERVE_PROC_TIMEOUT, proc.kill)
+        watchdog.start()
+        port = None
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+                break
+        require(port is not None, "serve process never became ready: "
+                + "\n".join(lines[-20:]))
+        base = f"http://127.0.0.1:{port}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                return resp.read().decode()
+
+        warm_stats = json.loads(get("/stats"))
+        warm = warm_stats["counters"]
+        picks = [i for i, a in enumerate(mats)
+                 if a.shape[0] <= SERVE_HTTP_MAX_N][:SERVE_HTTP_REQUESTS]
+        req = urllib.request.Request(
+            base + "/v1/logdet", data=json.dumps(
+                {"matrices": [mats[i].tolist() for i in picks],
+                 "method": "exact"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            answers = json.load(resp)["results"]
+        health = json.loads(get("/healthz"))
+        stats = json.loads(get("/stats"))
+        metrics = get("/metrics")
+        watchdog.cancel()
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                lines += proc.communicate(timeout=30)[0].splitlines()
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(plan_dir, ignore_errors=True)
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    got = [(a["sign"], a["logabsdet"]) for a in answers]
+    want = [tuple(float(v) for v in results[i]) for i in picks]
+    say("serve", mode="process", sides=[mats[i].shape[0] for i in picks],
+        answers=got, in_process=want, fingerprint=fp, artifacts=len(files),
+        health=health["status"], counters=stats["counters"],
+        metrics_lines=len(metrics.splitlines()),
+        kernel_loads=[warm_stats["kernel_loads"], stats["kernel_loads"]],
+        seconds=time.perf_counter() - t0)
+    require(len(picks) == SERVE_HTTP_REQUESTS and got == want,
+            "serve process: HTTP answers differ from the in-process "
+            "service's")
+    loads = stats["counters"].get("serve.aot.loads{method=exact}")
+    require(loads == len(files), f"serve process: {loads} plans loaded")
+    require(stats["counters"].get("serve.plan_cache.misses")
+            == warm.get("serve.plan_cache.misses") == len(files),
+            f"serve process: plan-cache misses {warm} -> "
+            f"{stats['counters']}")
+    require(warm_stats["kernel_loads"] == stats["kernel_loads"] == 1,
+            "serve process: the kernels' libraries were loaded "
+            f"{warm_stats['kernel_loads']} times by warmup, "
+            f"{stats['kernel_loads']} after the requests")
+    require(health["status"] == "ok" and stats["device"] == "cuda:0"
+            and "repro_torch_serve_responses_total" in metrics,
+            "serve process: /healthz, /stats or /metrics")
+
+
+def serve_phase(seed: int, gen) -> tuple:
+    """Phase 11; returns its launch counts by mode and K1's f64 timings
+    at the service's shapes (`serve_kernel`)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core.plan import select_method
+    from repro_torch.serve import DEFAULT_BUCKETS
+
+    t0 = time.perf_counter()
+    obs.configure("metrics")
+    obs.reset()
+    mats, signs, lds = serve_workload(seed)
+    launches, records = {}, {}
+    records["naive"], launches["serve|naive"] = serve_naive(mats, signs, lds)
+    records["bucketed"], launches["serve|bucketed"], bucketed, shapes = \
+        serve_service("bucketed", 1, mats, signs, lds)
+    records["batched"], launches["serve|batched"], batched, stacks = \
+        serve_service("batched", SERVE_MAX_BATCH, mats, signs, lds)
+    same = all(np.array_equal(np.float64(x), np.float64(y))
+               for p, q in zip(batched, bucketed) for x, y in zip(p, q))
+    say("serve", batched_over_naive=records["batched"]["throughput_rps"]
+        / records["naive"]["throughput_rps"],
+        batched_over_bucketed=records["batched"]["throughput_rps"]
+        / records["bucketed"]["throughput_rps"],
+        batched_equals_bucketed_bitwise=same,
+        auto_resolution={b: select_method((b, b)) for b in DEFAULT_BUCKETS})
+    require(same, "serve: a batched result differs from the same request's "
+            "bucketed one")
+    launches["serve|slq"] = serve_estimators(seed)
+    serve_process(mats, batched)
+    obs.reset()
+    obs.configure("off")
+    k1_times = serve_kernel(shapes | stacks, gen)
+    say("serve", seconds=time.perf_counter() - t0)
+    return launches, k1_times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192,
@@ -3156,6 +3578,11 @@ def main(argv=None) -> int:
     # phase 10: the first trace of the exact routes, on phase 4's matrix
     launches.update(trace_phase(exact_a, args.k))
     del exact_a
+    torch.cuda.empty_cache()
+    # phase 11: the service
+    serve_launches, serve_k1 = serve_phase(args.seed, gen)
+    launches.update(serve_launches)
+    timings["rank1_update"].setdefault("shapes", {}).update(serve_k1)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

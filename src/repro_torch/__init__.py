@@ -26,7 +26,11 @@ first use):
 - observability (`obs`, ``REPRO_OBS=off|metrics|trace``): spans, counters
   and convergence telemetry under the JAX package's names, each engine
   and kernel stage a `torch.profiler` and NVTX range in trace mode, and
-  ``LogdetPlan.explain``.
+  ``LogdetPlan.explain``;
+- serving (`serve`, ``python -m repro_torch.serve``): a bucketed,
+  continuously batching `serve.LogdetService` whose exact stacks run
+  through K1's batch grid, an HTTP front end, and ``LogdetPlan.export``
+  / `load_plan` for plans resolved ahead of time.
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.
@@ -47,9 +51,16 @@ from repro_torch.core import (Calibration, ChebyshevConfig, Diagnostics,
                               select_route, spec_of)
 from repro_torch import estimators, obs
 
-# the JAX package's names, all but load_plan (AOT serving, ROADMAP Queue 1
-# item 10)
+# the JAX package's names
 __all__ = ["plan", "LogdetPlan", "ProblemSpec", "select_method",
            "select_route", "spec_of", "ExactConfig", "EngineConfig",
            "ChebyshevConfig", "SLQConfig", "Calibration", "load_calibration",
-           "LogdetResult", "Diagnostics", "estimators", "obs"]
+           "LogdetResult", "Diagnostics", "estimators", "obs", "load_plan"]
+
+
+def load_plan(path: str, **kwargs) -> LogdetPlan:
+    """Load a plan written by ``LogdetPlan.export`` (on the card unless
+    ``device="cpu"``).  Delegates to `repro_torch.serve.aot.load_plan`,
+    imported here lazily, as the JAX package does."""
+    from repro_torch.serve.aot import load_plan as _load
+    return _load(path, **kwargs)

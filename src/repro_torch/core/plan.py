@@ -72,9 +72,13 @@ JAX package's ``plan.traces`` / ``plan.retraces`` and ``plan.compile``
 count jit traces, which eager PyTorch has not.  ``explain`` prints what a
 plan resolved to and what it has observed.
 
+``export`` writes the plan's resolved form for ``repro_torch.load_plan``
+(`repro_torch.serve.aot`: the spec, the explicit config and a fingerprint
+naming the card and the kernel build; no executable, as the port has
+none to serialize).
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``export`` (item 10), ``audit`` (item 11) and the legacy route strings
-(item 12).
+``audit`` (item 11) and the legacy route strings (item 12).
 """
 from __future__ import annotations
 
@@ -611,7 +615,12 @@ class LogdetPlan:
         raise _not_ported("the plan audit (ROADMAP Queue 1 item 11)")
 
     def export(self, path: str) -> str:
-        raise _not_ported("AOT plan export (ROADMAP Queue 1 item 10)")
+        """Write this plan's resolved form to ``path`` for
+        `repro_torch.load_plan` in another process on the same card and
+        kernel build (`repro_torch.serve.aot`).  Runs nothing; mesh and
+        operator plans raise `PlanExportError`."""
+        from repro_torch.serve.aot import export_plan
+        return export_plan(self, path)
 
     def explain(self) -> str:
         """What this plan resolved to and what it has observed: the spec,

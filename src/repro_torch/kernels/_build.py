@@ -35,8 +35,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_ROOT", "build", "ensure_built", "function",
-           "check", "dtype_code", "require_cuda", "stream"]
+__all__ = ["SOURCES", "BUILD_ROOT", "build", "digest", "ensure_built",
+           "function", "check", "dtype_code", "require_cuda", "stream"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -69,6 +69,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _lock = threading.Lock()
 _functions: dict = {}
 _report: dict = {}
+loads = 0       # times this process loaded the kernels' libraries (0 or 1)
 
 
 def _nvcc() -> str:
@@ -82,7 +83,9 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _digest() -> str:
+def digest() -> str:
+    """The hash of the sources and nvcc flags that names a build's
+    directory."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode())
@@ -155,10 +158,11 @@ def ensure_built(out_dir: Path) -> bool:
 def build() -> dict:
     """Build (or load the cached build of) every kernel; returns the
     report: ``{"dir", "cached", "nvcc_seconds", "kernels": {name: ptxas}}``."""
+    global loads
     with _lock:
         if _functions:
             return _report
-        out_dir = BUILD_ROOT / _digest()
+        out_dir = BUILD_ROOT / digest()
         cached = ensure_built(out_dir)
         for name in SOURCES:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
@@ -166,6 +170,7 @@ def build() -> dict:
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
             _functions[name] = fn
+        loads += 1
         _report.update(
             dir=str(out_dir), cached=cached,
             nvcc_seconds=float((out_dir / "build_seconds.txt").read_text()),

@@ -918,3 +918,131 @@ def test_gmm_fit_torch_on_the_card(cuda, method):
     assert np.isfinite(nll).all() and nll[-1] < nll[0]
     if method == "exact":
         assert hist["ld_gap"].max() < 1e-10
+
+
+# serving: mixed sides over three rungs, f64, dominant diagonals (so the
+# relative error of log|det| is a few ulps)
+SERVE_SIDES = (5, 8, 13, 16, 30, 7, 9, 32, 61, 64)
+
+
+def _dominant(rng, n):
+    return rng.standard_normal((n, n)) + 2.0 * np.sqrt(n) * np.eye(n)
+
+
+def _spd_host(rng, n):
+    x = rng.standard_normal((n, 2 * n))
+    return x @ x.T / (2 * n) + 2.0 * np.eye(n)
+
+
+def test_service_drain_on_the_card(cuda):
+    """`ServeConfig()` resolves to the card; a mixed-size drain run by the
+    drain thread gives numpy's sign and log|det| within 1e-12 relative,
+    each batched result bitwise the bucketed service's, K1 launching
+    bucket - 1 times a batch and nothing else, and the kernels' libraries
+    loaded by warmup."""
+    from repro_torch import obs
+    from repro_torch.serve import LogdetService, ServeConfig
+
+    rng = np.random.default_rng(11)
+    mats = [_dominant(rng, n) for n in SERVE_SIDES]
+    prev = obs.mode()
+    obs.configure("metrics")
+    obs.reset()
+    results = {}
+    try:
+        for max_batch in (1, 4):
+            cfg = ServeConfig(buckets=(16, 32, 64), max_batch=max_batch,
+                              max_wait_ms=5.0, default_method="exact")
+            assert cfg.device.type == "cuda"
+            with LogdetService(cfg) as svc:
+                svc.warmup()
+                assert svc.stats()["kernel_loads"] == 1
+                before = {b: obs.counter_value("serve.batches",
+                                               method="exact", bucket=b)
+                          for b in cfg.buckets}
+                ops.reset_launch_counts()
+                futs = [svc.submit(a) for a in mats]
+                got = [f.result(timeout=120) for f in futs]
+                counts = ops.launch_counts()
+                batches = {b: obs.counter_value("serve.batches",
+                                                method="exact", bucket=b)
+                           - c for b, c in before.items()}
+                assert svc.stats()["kernel_loads"] == 1
+            assert counts.pop("rank1_update") == sum(
+                int(c) * (b - 1) for b, c in batches.items())
+            assert not any(counts.values())
+            for a, r in zip(mats, got):
+                s, ld = np.linalg.slogdet(a)
+                assert r.sign == s
+                assert abs(r.logabsdet - ld) <= 1e-12 * abs(ld)
+            results[max_batch] = [(r.sign, r.logabsdet) for r in got]
+    finally:
+        obs.reset()
+        obs.configure(prev)
+    assert results[4] == results[1]
+
+
+def test_load_plan_on_the_card(cuda, tmp_path):
+    """A plan exported on the card and loaded with no device runs on the
+    card, bitwise the live plan (exact launching K1; slq with the same
+    CUDA generator), its fingerprint naming the card and the kernel
+    build."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aot import read_header
+
+    rng = np.random.default_rng(12)
+    a, x = _dominant(rng, 40), _spd_host(rng, 48)
+    for method, m in (("exact", a), ("slq", x)):
+        p = repro_torch.plan(m.shape, method=method, precision="float64",
+                             validate=False)
+        path = str(tmp_path / f"{method}.repro-torch-plan")
+        p.export(path)
+        fp = read_header(path)["fingerprint"]
+        assert fp["platform"] == "cuda"
+        assert fp["device_kind"] == torch.cuda.get_device_name(0)
+        assert fp["capability"] == list(torch.cuda.get_device_capability(0))
+        assert fp["kernel_build"] == _build.digest()
+        q = repro_torch.load_plan(path)
+        assert q.device.type == "cuda" and q.diagnostics == p.diagnostics
+        ops.reset_launch_counts()
+        if method == "exact":
+            got = q(m)
+            assert ops.launch_counts()["rank1_update"] == 39
+            want = p(m)
+        else:
+            got = q(m, generator=torch.Generator(device=cuda).manual_seed(3))
+            assert not any(ops.launch_counts().values())
+            want = p(m, generator=torch.Generator(device=cuda).manual_seed(3))
+        assert got.logabsdet.device.type == "cuda"
+        assert torch.equal(got.sign, want.sign)
+        assert torch.equal(got.logabsdet, want.logabsdet)
+
+
+def test_service_estimator_batch_on_the_card(cuda):
+    """slq requests through the service on the card: each result bitwise
+    the stack plan on the same padded stack with the CUDA generator the
+    service draws for the batch (seeded by its counter), within 5 sem +
+    1e-4 relative of Cholesky's log|det|, no kernel launched."""
+    from repro_torch.serve import (
+        LogdetService, ServeConfig, bucket_batch, stack_to_bucket,
+    )
+
+    rng = np.random.default_rng(13)
+    mats = [_spd_host(rng, n) for n in (40, 50, 64)]
+    cfg = ServeConfig(buckets=(64,), max_batch=4, max_wait_ms=1000.0,
+                      seed=7)
+    with LogdetService(cfg) as svc:
+        ops.reset_launch_counts()
+        futs = [svc.submit(a, method="slq") for a in mats]
+        got = [f.result(timeout=120) for f in futs]
+        counts = ops.launch_counts()
+    assert not any(counts.values())
+    stack = stack_to_bucket(mats, 64, bucket_batch(len(mats), 4))
+    want = repro_torch.plan(stack.shape, method="slq", precision="float64",
+                            validate=False)(
+        stack, generator=torch.Generator(device=cuda).manual_seed(7))
+    for i, (a, r) in enumerate(zip(mats, got)):
+        assert r.logabsdet == want.logabsdet[i].item()
+        assert r.sem == want.sem[i].item()
+        ref_ld = 2.0 * np.log(np.diag(np.linalg.cholesky(a))).sum()
+        assert abs(r.logabsdet - ref_ld) <= 5 * r.sem + 1e-4 * abs(ref_ld)

@@ -371,7 +371,7 @@ EXPLAIN_PLANS = {
 
 
 @pytest.mark.parametrize("name", list(EXPLAIN_PLANS))
-def test_explain_matches_jax(name, monkeypatch):
+def test_explain_matches_jax(name, monkeypatch, tmp_path):
     """spec, config, precision and tiles lines equal the JAX package's;
     the execution line reads eager and the device; no traces line."""
     monkeypatch.setenv("REPRO_AUTOTUNE", "panel_k=16,block_m=64,block_n=128")
@@ -392,9 +392,12 @@ def test_explain_matches_jax(name, monkeypatch):
     assert got[-1] == want[-1]                   # the obs-off line
     with pytest.raises(NotImplementedError, match="item 11"):
         repro_torch.plan(torch.from_numpy(a), device="cpu", **kw).audit()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        repro_torch.plan(torch.from_numpy(a), device="cpu",
-                         **kw).export("x")
+    # export is ported (tests/test_torch_serve.py): the artifact names the
+    # plan's method
+    from repro_torch.serve.aot import read_header
+    path = repro_torch.plan(torch.from_numpy(a), device="cpu",
+                            **kw).export(str(tmp_path / "p.plan"))
+    assert read_header(path)["method"] == kw["method"]
 
 
 def test_explain_reports_convergence_and_obs_state():
@@ -408,11 +411,11 @@ def test_explain_reports_convergence_and_obs_state():
 
 
 def test_top_level_exports_cover_jax():
-    """The port's ``__all__`` holds the JAX package's names, all but
-    ``load_plan`` (AOT serving, ROADMAP Queue 1 item 10), and each is the
-    port's own object."""
+    """The port's ``__all__`` holds the JAX package's names, ``load_plan``
+    included since serving was ported, and each is the port's own
+    object."""
     missing = set(repro.__all__) - set(repro_torch.__all__)
-    assert missing == {"load_plan"}
+    assert missing == set()
     for name in repro_torch.__all__:
         obj = getattr(repro_torch, name)
         home = getattr(obj, "__module__", None) or obj.__name__

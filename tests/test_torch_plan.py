@@ -214,8 +214,12 @@ def test_rejected_inputs_raise():
 
 
 def test_unported_plan_methods_raise():
+    """audit and the legacy route strings still raise, naming their
+    ROADMAP items; export is ported (tests/test_torch_serve.py)."""
     p = repro_torch.plan(_matrix(), method="exact", device="cpu")
-    for call in (p.audit, lambda: p.export("x")):
+    for call in (p.audit,
+                 lambda: repro_torch.plan(_matrix(), method="mc",
+                                          device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
@@ -303,6 +307,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_calibrate.py",
               ROOT / "tools" / "obs_cost.py",
+              ROOT / "tools" / "serve_smoke_torch.py",
               ROOT / "examples" / "quickstart_torch.py",
               ROOT / "examples" / "gmm_fit_torch.py",
               ROOT / "examples" / "gmm_loglik_torch.py"]
