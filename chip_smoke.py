@@ -85,7 +85,13 @@ printed line each, any failure ends the run:
             (one rank: N = 8192, the ``[table3]`` line beside mesh x
             rank1 and x panel; four ranks: N = 2048), sign and log|det|
             against the f64 slogdet, launches and collectives against
-            their formulas, and a NaN entry giving sign NaN;
+            their formulas, and a NaN entry giving sign NaN; then (for
+            phase 12) ``method="pmc"`` and ``"pmc_blocked"`` at
+            BASELINE_SHARED_N bitwise their ``method="exact"`` mesh
+            plans with the same launches and a DeprecationWarning, and a
+            broadcast of 2 N P floats recorded on the rank's card caught
+            by collective-payload-budget; and ``audit_grid(n=32,
+            mesh=...)`` on every rank (nothing spawned), clean;
 7. grad     gradients through ``plan(...).value_and_grad`` and autograd of
             ``plan(...).logdet(x)``: on phase 4's matrix (staged x panel,
             staged x rank1, ge) sign and log|det| equal to phase 4's, the
@@ -174,7 +180,25 @@ printed line each, any failure ends the run:
             (9, 0) and this kernel build; last, K1 in f64 at every shape
             the drains gave it, bitwise the plain version and each
             matrix its single launch, SERVE_K1_TIMED timed for the
-            kernels line.
+            kernels line;
+12. audit   `repro_torch.analysis` on the card: the JAX default grid
+            at n = 32, audited in phase 6's ranks (one under NCCL, four
+            sharing the card under gloo), clean on every rank, with the
+            JAX ``passes_run``; at N = 8192 ``plan.audit()`` of auto's exact
+            route (staged x panel), of staged x rank1 and of slq with
+            ``include_grad``, one ``[audit]`` line per recording (ops,
+            ops per eliminated row, host reads and their sites, kernel
+            records, collectives, seconds; the trace recording of
+            stage-coverage: its scopes): each clean, its kernel records
+            equal to the launch counters over the same call, its result
+            bitwise an unrecorded call's; every pass fails on
+            a fault planted with CUDA tensors (a ``.item()`` in the
+            exact step loop, an f32 -> f64 copy, a Cholesky in a
+            matrix-free context, a bf16 context whose K2 has f32
+            operands, a missing and a phantom stage; the over-budget
+            broadcast in phase 6's ranks); ``core.api.slogdet(a,
+            method="mc_blocked")`` at N = 8192 bitwise serial x panel
+            with the same launches and its two DeprecationWarnings.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -182,6 +206,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -1780,7 +1805,7 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, P, me = mesh.device, mesh.size, mesh.rank
     out = {"device": str(dev), "exact": {}, "estimators": {},
-           "baselines": {}, "grad": {}}
+           "baselines": {}, "grad": {}, "audit": {}}
 
     def same_on_every_rank(a, what):
         """The ranks built ``a`` from one seed: an all_reduce of each
@@ -1891,6 +1916,11 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
     out["baselines"] = baseline_routes(
         mesh, n if P == 1 else BASELINE_SHARED_N, gen, sync)
     torch.cuda.empty_cache()
+    # phase 12 here: the legacy mesh strings, a planted broadcast and the
+    # grid audit on these ranks
+    out["audit"] = legacy_mesh(mesh, BASELINE_SHARED_N, k, gen, run)
+    out["audit"]["grid"] = grid_on_ranks(mesh)
+    torch.cuda.empty_cache()
 
     # the sharded estimators on the dense estimator cell
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -1981,14 +2011,81 @@ def mesh_rank(mesh, n: int, k: int, seed: int) -> dict:
     return out
 
 
+def legacy_mesh(mesh, n: int, k: int, gen, run) -> dict:
+    """Phase 12 in phase 6's ranks: ``pmc`` and ``pmc_blocked`` on an
+    exact-cell matrix of side n (the shared-card size) bitwise their
+    ``method="exact"`` mesh plans, with the same launches, under a
+    DeprecationWarning; then a broadcast of 2 N P floats recorded on this
+    rank's card must break collective-payload-budget."""
+    import warnings
+    import torch
+    import repro_torch
+    from repro_torch.analysis import AuditContext, record, run_passes
+    from repro_torch.core import mesh as M
+
+    dev, P, me = mesh.device, mesh.size, mesh.rank
+    x = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    a = (x @ x.T / n + 2.0 * torch.eye(n, device=dev,
+                                       dtype=torch.float64)).float()
+    del x
+    out = {}
+    for method, update in (("pmc", "rank1"), ("pmc_blocked", "panel")):
+        want, _, want_counts, _ = run(repro_torch.plan(
+            a, method="exact", update=update, k=k, mesh=mesh))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plan = repro_torch.plan(a, method=method, k=k, mesh=mesh)
+        warned = any(issubclass(w.category, DeprecationWarning)
+                     for w in caught)
+        got, wall, counts, _ = run(plan)
+        same = bool(torch.equal(got.sign, want.sign)
+                    and torch.equal(got.logabsdet, want.logabsdet))
+        out[method] = dict(n=n, sign=got.sign.item(),
+                           logabsdet=got.logabsdet.item(), bitwise=same,
+                           warned=warned, wall_s=wall, launches=counts)
+        require(same, f"rank {me} legacy {method}: differs from exact")
+        require(warned, f"rank {me} legacy {method}: no DeprecationWarning")
+        require(counts == want_counts, f"rank {me} legacy {method}: "
+                f"launches {counts} != {want_counts}")
+    ctx = AuditContext(method="exact", schedule="mesh", update="rank1", n=n,
+                       devices=P, itemsize=4, dtype="float32")
+    leak = torch.zeros(2 * n * P, dtype=torch.float32, device=dev)
+    rep = run_passes(record(M.broadcast, mesh, leak, 0), ctx,
+                     ("collective-payload-budget",))
+    out["planted_broadcast"] = dict(errors=len(rep.errors),
+                                    message=rep.errors[0].message
+                                    if rep.errors else None)
+    require(not rep.ok, f"rank {me}: the planted broadcast passed the "
+            "payload budget")
+    return out
+
+
+def grid_on_ranks(mesh) -> dict:
+    """Phase 12(a) in phase 6's ranks: ``audit_grid(n=32, mesh=mesh)``,
+    the JAX default grid with its mesh entries on these ranks, clean and
+    with the JAX ``passes_run``."""
+    from repro_torch.analysis import DEFAULT_PASS_IDS, audit_grid
+    t0 = time.perf_counter()
+    grid = audit_grid(n=32, mesh=mesh)
+    out = dict(ok=grid.ok, findings=len(grid.findings),
+               passes_run=grid.passes_run, contexts=len(grid.contexts),
+               seconds=time.perf_counter() - t0)
+    require(grid.ok and not grid.findings,
+            f"rank {mesh.rank}: audit grid not clean:\n{grid.summary()}")
+    require(grid.passes_run == list(DEFAULT_PASS_IDS),
+            f"rank {mesh.rank}: audit grid passes {grid.passes_run}")
+    return out
+
+
 def mesh_phase(n: int, k: int, seed: int) -> dict:
     """Phase 6: `mesh_rank` on one rank under NCCL, then on MESH_RANKS
     ranks sharing the card under gloo (collectives staged through host
     memory); every rank must return the same results.  Prints each
-    rank's routes; returns rank 0's launch counts by route."""
+    rank's routes; returns rank 0's launch counts by route and, for
+    phase 12, every rank's grid audit by mesh size."""
     from repro_torch.core.mesh import run_ranks
 
-    launches = {}
+    launches, grids = {}, {}
     for size, backend in ((1, "nccl"), (MESH_RANKS, "gloo")):
         t0 = time.perf_counter()
         results = run_ranks(mesh_rank, size, backend=backend, device="cuda",
@@ -2026,10 +2123,11 @@ def mesh_phase(n: int, k: int, seed: int) -> dict:
             for route, fields in first[part].items():
                 if "launches" in fields:
                     launches[f"mesh{size}|{route}"] = fields["launches"]
-    return launches
+        grids[f"{backend}|{size}"] = [r["audit"]["grid"] for r in results]
+    return launches, grids
 
 
-PARTS = ("exact", "estimators", "baselines", "grad")
+PARTS = ("exact", "estimators", "baselines", "grad", "audit")
 
 
 # --------------------------------------------------------------------------
@@ -3490,6 +3588,207 @@ def serve_phase(seed: int, gen) -> tuple:
     return launches, k1_times
 
 
+# --------------------------------------------------------------------------
+# phase 12: static analysis and the deprecated string API
+# --------------------------------------------------------------------------
+
+def audit_counts(stats: dict) -> dict:
+    """KERNEL_META-keyed launch counts of one audit recording."""
+    return {name: stats["launches"].get(name, 0) for name in KERNEL_META}
+
+
+def audit_line(label: str, report, n: int, seconds: float, bits) -> dict:
+    """One ``[audit]`` line per full-width plan; every recording clean,
+    its kernel records equal to the launch counters over the same call,
+    and its result bitwise the unrecorded call's ``bits``."""
+    recs = report.meta["recordings"]
+    for r in recs:
+        if r["obs"] == "trace":
+            # the scope recording of stage-coverage: scopes alone
+            say("audit", plan=label, recording=r["label"], obs="trace",
+                scopes=r["scopes"], launches=r["launches"],
+                record_seconds=r["seconds"])
+        else:
+            say("audit", plan=label, recording=r["label"], obs=r["obs"],
+                ops=r["ops"], ops_per_row=r["ops"] / max(n - 1, 1),
+                host_reads=r["host_reads"],
+                host_read_sites=r["host_read_sites"],
+                kernel_records=r["kernels"], launches=r["launches"],
+                collectives=r["collectives"],
+                findings=len(report.findings), record_seconds=r["seconds"])
+            require(r["kernels"] == r["launches"],
+                    f"audit {label} ({r['label']}): kernel records "
+                    f"{r['kernels']} != launches {r['launches']}")
+        if r["kind"] == "forward":
+            require(r["result"] == bits, f"audit {label} ({r['obs']}): "
+                    f"recorded result {r['result']} != unrecorded {bits}")
+    require(report.ok and not report.findings,
+            f"audit {label}: not clean:\n{report.summary()}")
+    say("audit", plan=label, passes_run=report.passes_run, seconds=seconds)
+    return audit_counts(recs[0])
+
+
+def audit_planted(gen) -> dict:
+    """Phase 12(c): each registered pass fails on a fault built from CUDA
+    tensors (the over-budget broadcast runs in phase 6's ranks)."""
+    import torch
+    import repro_torch
+    from repro_torch.analysis import AuditContext, record, run_passes
+    from repro_torch.analysis.audit import context_for
+    from repro_torch.kernels import ops
+    from repro_torch import obs
+
+    n, k = 256, 32
+    a = dense_spd(n, gen, torch.float32)
+    caught = {}
+
+    def fails(name, mod, ctx, pid):
+        rep = run_passes(mod, ctx, (pid,))
+        caught[name] = [f.message[:80] for f in rep.errors]
+        require(not rep.ok, f"audit planted {name}: {pid} did not fail")
+
+    # a .item() inside the exact engine's step loop, obs off
+    p = repro_torch.plan(a, method="exact", update="rank1")
+    orig = ops.pivot_operands
+
+    def leaky(buf, t):
+        out = orig(buf, t)
+        out[1].item()
+        return out
+
+    ops.pivot_operands = leaky
+    try:
+        rep = p.audit(passes=["no-host-callback"])
+    finally:
+        ops.pivot_operands = orig
+    caught["host_read"] = [f.message[:80] for f in rep.errors]
+    require(not rep.ok and rep.meta["recordings"][0]["host_reads"] == n - 1,
+            f"audit planted host read: {rep.summary()}")
+    require(p.audit(passes=["no-host-callback"]).ok,
+            "audit: the unplanted plan reads the host")
+    f32 = AuditContext(dtype="float32", n=n)
+    fails("f32_to_f64", record(lambda: a.to(torch.float64)), f32,
+          "dtype-discipline")
+    fails("cholesky", record(torch.linalg.cholesky, a),
+          AuditContext(method="slq", matrix_free=True, n=n),
+          "no-dense-factorization")
+    bf16 = context_for(repro_torch.plan(a, method="exact", update="panel",
+                                        k=k, precision="bf16"))
+    fails("bf16_inert", record(ops.panel_update, a, a[:, :k].contiguous(),
+                               a[:k].contiguous()), bf16, "dtype-discipline")
+    ctx = context_for(p)
+    fails("missing_stage", record(p, a), ctx, "stage-coverage")
+    obs.configure("trace")
+    try:
+        traced = record(p, a)
+    finally:
+        obs.configure("off")
+        obs.reset()
+    require(run_passes(traced, ctx, ("stage-coverage",)).ok,
+            "audit: the traced staged x rank1 call misses a stage")
+    fails("phantom_stage", traced, dataclasses.replace(ctx, fused=True),
+          "stage-coverage")
+    say("audit", planted=caught)
+    return caught
+
+
+def legacy_phase(n: int) -> dict:
+    """Phase 12(d): the string shim ``slogdet(a, method="mc_blocked")`` at
+    N = n bitwise ``method="exact", schedule="serial", update="panel"``,
+    the same launches, and a DeprecationWarning."""
+    import warnings
+    import torch
+    import repro_torch
+    from repro_torch.core.api import slogdet
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a, s_ref, ld_ref = exact_cell(n, gen)
+    p = repro_torch.plan(a, method="exact", schedule="serial", update="panel")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    want = p.slogdet(a)
+    torch.cuda.synchronize()
+    want_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = slogdet(a, method="mc_blocked")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    deprecations = [str(w.message) for w in caught
+                    if issubclass(w.category, DeprecationWarning)]
+    same = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    say("audit", legacy="mc_blocked", n=n, sign=got[0].item(),
+        logabsdet=got[1].item(), ref_logabsdet=ld_ref, bitwise=same,
+        launches=counts, exact_launches=want_counts,
+        deprecations=[m[:90] for m in deprecations])
+    require(same, "legacy mc_blocked differs from serial x panel")
+    require(counts == want_counts, f"legacy mc_blocked launches {counts} != "
+            f"{want_counts}")
+    require(len(deprecations) == 2
+            and "slogdet() is deprecated" in deprecations[0]
+            and "'mc_blocked' is deprecated" in deprecations[1],
+            f"legacy mc_blocked warned {deprecations}")
+    require(got[0].item() == s_ref, "legacy mc_blocked: wrong sign")
+    return counts
+
+
+def audit_phase(n: int, gen, grids: dict) -> dict:
+    """Phase 12: the grid audits phase 6's ranks made (``grids``), three
+    full-width audits, planted faults, the legacy string shim.  Returns
+    launches by route."""
+    import torch
+    import repro_torch
+    from repro_torch.analysis import DEFAULT_PASS_IDS
+
+    t0 = time.perf_counter()
+    launches = {}
+    # (a) the grid, audited on each rank of phase 6's meshes
+    for mesh_name, per_rank in grids.items():
+        say("audit", grid=mesh_name, ranks=[
+            {f: g[f] for f in ("ok", "findings", "contexts", "seconds")}
+            for g in per_rank], passes_run=per_rank[0]["passes_run"])
+        require(all(g["ok"] and not g["findings"]
+                    and g["passes_run"] == list(DEFAULT_PASS_IDS)
+                    for g in per_rank), f"audit grid {mesh_name}: not clean")
+
+    # (b) full width: auto's exact route, staged x rank1, slq with grad
+    a, _, _ = exact_cell(n, gen)
+    spd = dense_spd(n, gen, torch.float32)
+    plans = (("auto", repro_torch.plan(a, rtol=1e-6), False),
+             ("staged|rank1", repro_torch.plan(a, method="exact",
+                                               update="rank1"), False),
+             ("slq", repro_torch.plan(spd, method="slq"), True))
+    del a, spd
+    from repro_torch.analysis.audit import audit_input
+    for name, p, grad in plans:
+        t1 = time.perf_counter()
+        x = audit_input(p)
+        res = p(x)
+        bits = [res.sign.tolist(), res.logabsdet.tolist(), res.sem.tolist()]
+        del x, res
+        report = p.audit(include_grad=grad)
+        launches[f"audit|{name}"] = audit_line(
+            name, report, n, time.perf_counter() - t1, bits)
+        if name == "auto":
+            want = expected_launches(p.diagnostics.padded_n, p.config.k,
+                                     "panel", False)
+            require(launches["audit|auto"] == want, f"audit auto launches "
+                    f"{launches['audit|auto']} != {want}")
+        if name == "staged|rank1":
+            require(launches[f"audit|{name}"]["rank1_update"] == n - 1,
+                    "audit staged|rank1: K1 records")
+        del p, report
+        torch.cuda.empty_cache()
+
+    # (c) planted faults, (d) the string API
+    audit_planted(gen)
+    launches["legacy|mc_blocked"] = legacy_phase(n)
+    say("audit", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192,
@@ -3563,7 +3862,8 @@ def main(argv=None) -> int:
     # phase 5: the estimators
     launches.update(estimator_phase(EST_N, SIDE, args.seed))
     # phase 6: the mesh (the ranks are spawned: CUDA is initialized here)
-    launches.update(mesh_phase(args.n, args.k, args.seed))
+    mesh_launches, grids = mesh_phase(args.n, args.k, args.seed)
+    launches.update(mesh_launches)
     # phase 7: gradients (their mesh checks ran in phase 6's ranks)
     t7 = time.perf_counter()
     launches.update(grad_phase(cell, args.k, args.seed, gen))
@@ -3583,6 +3883,9 @@ def main(argv=None) -> int:
     serve_launches, serve_k1 = serve_phase(args.seed, gen)
     launches.update(serve_launches)
     timings["rank1_update"].setdefault("shapes", {}).update(serve_k1)
+    torch.cuda.empty_cache()
+    # phase 12: static analysis and the deprecated string API
+    launches.update(audit_phase(args.n, gen, grids))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

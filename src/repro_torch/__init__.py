@@ -33,7 +33,11 @@ first use):
   / `load_plan` for plans resolved ahead of time.
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
-runs the kernels' plain PyTorch versions.
+runs the kernels' plain PyTorch versions.  ``plan.audit()`` and
+``python -m repro_torch.analysis`` (`analysis`) record a call and check
+the route's invariants over its ops.  The legacy string API
+(``repro_torch.core.slogdet``) and route strings (``method="mc"``, ...)
+survive as deprecated shims, as in the JAX package.
 
     import repro_torch
     sign, logabsdet = repro_torch.plan(a)()                # auto

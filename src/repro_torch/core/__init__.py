@@ -1,6 +1,8 @@
 """Core of the port: engine, baselines, cost model, typed configs, result
-type and plan API."""
-from repro_torch.core.api import pad_to_multiple
+type and plan API, and the JAX package's deprecated string API
+(``slogdet``, ``logdet``, ``logdet_batched``: shims over cached plans)."""
+from repro_torch.core.api import (METHODS, logdet, logdet_batched,
+                                  pad_to_multiple, slogdet)
 from repro_torch.core.calibration import Calibration, load_calibration
 from repro_torch.core.condense import (combine_slogdet, condense_steps,
                                        slogdet_condense,
@@ -17,7 +19,8 @@ from repro_torch.core.plan import (LogdetPlan, ProblemSpec,
 from repro_torch.core.result import Diagnostics, LogdetResult
 from repro_torch.core.scalapack import parallel_slogdet_lu
 
-__all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of", "select_method",
+__all__ = ["slogdet", "logdet", "logdet_batched", "METHODS",
+           "plan", "LogdetPlan", "ProblemSpec", "spec_of", "select_method",
            "select_route", "Calibration", "load_calibration", "ExactConfig",
            "ChebyshevConfig", "SLQConfig", "EngineConfig", "Mesh",
            "make_mesh", "run_ranks", "LogdetResult", "Diagnostics",

@@ -13,16 +13,26 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 from repro_torch.core.engine import (
-    EngineConfig, SCHEDULES as _ENGINE_SCHEDULES, UPDATES as _ENGINE_UPDATES,
+    EngineConfig, LEGACY_ROUTES, SCHEDULES as _ENGINE_SCHEDULES,
+    UPDATES as _ENGINE_UPDATES,
 )
 
 __all__ = ["ExactConfig", "ChebyshevConfig", "SLQConfig", "LogdetConfig",
            "EngineConfig", "config_for", "filter_for_method",
            "config_to_dict", "config_from_dict", "from_jax_config",
-           "BASELINE_METHODS"]
+           "BASELINE_METHODS", "EXACT_METHODS", "ESTIMATOR_METHODS",
+           "PARALLEL_METHODS", "METHODS", "LEGACY_EXACT_ROUTES"]
 
 # the Gaussian-elimination baselines: serial GE, parallel GE, blocked LU
 BASELINE_METHODS = ("ge", "pge", "plu")
+# the JAX package's method tuples: "exact" is the condensation engine, the
+# five legacy route strings deprecated aliases for fixed engine tuples
+# (`engine.LEGACY_ROUTES`), ge/pge/plu the baselines
+LEGACY_EXACT_ROUTES = tuple(LEGACY_ROUTES)
+EXACT_METHODS = ("exact",) + LEGACY_EXACT_ROUTES + BASELINE_METHODS
+PARALLEL_METHODS = ("pmc", "pmc_blocked", "pge", "plu")
+ESTIMATOR_METHODS = ("chebyshev", "slq")
+METHODS = EXACT_METHODS + ESTIMATOR_METHODS
 
 # the JAX package's kernel backends; the port accepts them only in a dict
 # carried across by `from_jax_config`, where each maps to "auto"

@@ -18,6 +18,10 @@ step's or panel's broadcast overlaps the current bulk update) and
 ``precision="bf16"`` (bf16 multiply operands, full-precision buffer and
 accumulators).
 
+The JAX package's legacy route strings (``mc``, ``mc_staged``,
+``mc_blocked``, ``pmc``, ``pmc_blocked``) name fixed engine tuples
+(`LEGACY_ROUTES`); the plan resolves them with a `DeprecationWarning`.
+
 The mesh schedule runs in every rank's process (`torch.distributed` has
 no single controller): each rank calls the same function on the same
 full matrix, keeps its own row block and gets the same result.
@@ -76,7 +80,7 @@ __all__ = [
     "panel_factor", "apply_panel", "panel_rounds_serial",
     "blocked_full", "staged_full", "stage_schedule", "mc_local_phase",
     "mesh_tail", "combine_slogdet", "guarded_pivot", "nan_sign",
-    "cyclic_perm", "perm_parity",
+    "cyclic_perm", "perm_parity", "LEGACY_ROUTES",
 ]
 
 SCHEDULES = ("serial", "staged", "mesh")
@@ -142,6 +146,17 @@ class EngineConfig:
             raise ValueError(
                 f"unknown precision {self.precision!r}; one of "
                 "(None, 'bf16')")
+
+
+# legacy route string -> (schedule, update): the JAX package's deprecated
+# aliases, each a fixed engine tuple with the default staging knobs
+LEGACY_ROUTES = {
+    "mc": ("serial", "rank1"),
+    "mc_staged": ("staged", "rank1"),
+    "mc_blocked": ("serial", "panel"),
+    "pmc": ("mesh", "rank1"),
+    "pmc_blocked": ("mesh", "panel"),
+}
 
 
 # --------------------------------------------------------------------------

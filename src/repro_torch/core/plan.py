@@ -77,14 +77,18 @@ plan resolved to and what it has observed.
 naming the card and the kernel build; no executable, as the port has
 none to serialize).
 
-Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-``audit`` (item 11) and the legacy route strings (item 12).
+``audit`` records one call of the plan and runs the checker passes of
+`repro_torch.analysis` over it.  The JAX package's legacy route strings
+``mc``, ``mc_staged``, ``mc_blocked``, ``pmc`` and ``pmc_blocked`` resolve,
+with a `DeprecationWarning`, to ``method="exact"`` with the schedule and
+update each pins (`engine.LEGACY_ROUTES`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import warnings
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Tuple
@@ -97,10 +101,11 @@ from repro_torch.core.api import pad_to_multiple
 from repro_torch.core.calibration import (Calibration, estimator_cost,
                                           exact_cost, load_calibration)
 from repro_torch.core.configs import (
-    BASELINE_METHODS, ChebyshevConfig, ExactConfig, LogdetConfig, config_for,
-    filter_for_method,
+    BASELINE_METHODS, LEGACY_EXACT_ROUTES, ChebyshevConfig, ExactConfig,
+    LogdetConfig, config_for, filter_for_method,
 )
-from repro_torch.core.engine import EngineConfig, build_mesh, build_serial
+from repro_torch.core.engine import (EngineConfig, LEGACY_ROUTES, build_mesh,
+                                     build_serial)
 from repro_torch.core.gaussian import parallel_slogdet_ge, slogdet_ge
 from repro_torch.core.mesh import Mesh
 from repro_torch.core.result import Diagnostics, LogdetResult
@@ -116,22 +121,12 @@ from repro_torch.estimators.operators.base import device_of, resolve_device
 __all__ = ["plan", "LogdetPlan", "ProblemSpec", "spec_of", "select_method",
            "select_route", "clear_plan_cache"]
 
-# methods of the JAX package that the port does not run yet
-_NOT_PORTED = {
-    **{m: "the legacy route strings (ROADMAP Queue 1 item 12); use "
-          "method='exact' with schedule=/update="
-       for m in ("mc", "mc_staged", "mc_blocked", "pmc", "pmc_blocked")},
-}
 _DTYPES = (torch.float32, torch.float64)
 _EXACT_METHODS = ("exact", *BASELINE_METHODS)
 _METHODS = (*_EXACT_METHODS, *ESTIMATOR_METHODS)
 # single-column matvecs of the power-iteration bounds (two runs of 32
 # iterations plus their Rayleigh quotients), as in the JAX package
 _BOUNDS_COLS = 2 * (32 + 1)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"repro_torch does not run {what} yet")
 
 
 # --------------------------------------------------------------------------
@@ -612,7 +607,20 @@ class LogdetPlan:
                                      self.device, self._mesh, self._fwd)
 
     def audit(self, passes=None, include_grad: bool = False):
-        raise _not_ported("the plan audit (ROADMAP Queue 1 item 11)")
+        """Audit this plan -> `AuditReport` (`repro_torch.analysis`).
+
+        Runs the plan once under the op recorder, on an input made from a
+        fixed seed at the plan's shape, dtype and device (and, with
+        ``include_grad``, ``value_and_grad`` on it), and runs the
+        registered checker passes over the recorded ops: no dense
+        factorizations on matrix-free paths, no host read beyond the
+        route's entitlement with observability off, collective payloads
+        within their analytic bounds, dtype discipline, and stage
+        coverage (a second recording under ``REPRO_OBS=trace``).  A mesh
+        plan audits on every rank at once.
+        """
+        from repro_torch.analysis.audit import audit_plan
+        return audit_plan(self, pass_ids=passes, include_grad=include_grad)
 
     def export(self, path: str) -> str:
         """Write this plan's resolved form to ``path`` for
@@ -793,7 +801,10 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
                    Gaussian-elimination baselines, any square matrix;
                    pge and plu need a mesh), ``"chebyshev"`` or ``"slq"``
                    (estimators, SPD input; the only methods an operator
-                   takes).
+                   takes); the JAX package's legacy route strings
+                   (``"mc"``, ``"mc_staged"``, ``"mc_blocked"``, ``"pmc"``,
+                   ``"pmc_blocked"``) are deprecated aliases of
+                   ``"exact"`` with the schedule and update they pin.
     ``device``     where the plan runs; ``None`` is the card and raises
                    when there is none; ``"cpu"`` runs the plain versions.
                    With a mesh, ``None`` is ``mesh.device``, and another
@@ -872,8 +883,36 @@ def plan(x, *, method: str = "auto", device=None, precision=None,
             kwargs.setdefault("k", route.panel_k)
             if route.schedule == "mesh":
                 kwargs.setdefault("lookahead", route.lookahead)
-    if method in _NOT_PORTED:
-        raise _not_ported(_NOT_PORTED[method])
+    elif method in LEGACY_EXACT_ROUTES:
+        schedule, update = LEGACY_ROUTES[method]
+        warnings.warn(
+            f"exact route string {method!r} is deprecated: it is the "
+            f"engine instantiation method='exact', schedule={schedule!r}, "
+            f"update={update!r} — request that directly (docs/api.md has "
+            f"the route matrix)", DeprecationWarning, stacklevel=2)
+        if config is not None:
+            if not isinstance(config, ExactConfig):
+                raise TypeError(f"method {method!r} needs a ExactConfig, "
+                                f"got {type(config).__name__}")
+            for axis, val in (("schedule", schedule), ("update", update)):
+                got = getattr(config, axis)
+                if got not in (None, val):
+                    raise TypeError(
+                        f"route {method!r} pins {axis}={val!r} but the "
+                        f"config says {got!r}; use method='exact' to "
+                        f"choose engine axes freely")
+            config = dataclasses.replace(config, schedule=schedule,
+                                         update=update)
+        else:
+            for axis, val in (("schedule", schedule), ("update", update)):
+                if kwargs.get(axis, val) != val:
+                    raise TypeError(
+                        f"route {method!r} pins {axis}={val!r}; got "
+                        f"{kwargs[axis]!r} — use method='exact' to choose "
+                        f"engine axes freely")
+            kwargs["schedule"] = schedule
+            kwargs["update"] = update
+        method = "exact"
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; repro_torch runs "
                          f"{_METHODS}")

@@ -24,6 +24,11 @@ kernel launch, ``"torch"`` for the CPU's plain version) and runs inside a
 ``panel_factor_vmem``.  Both are no-ops with obs off.  `launch_counts`
 is separate: it counts launches on the card in every mode.
 
+Static analysis (`repro_torch.analysis`): every entry reports itself to
+the active op recorder as ``kernel.<name>`` (the `launch_counts` names)
+with the operands it hands the kernel or its plain version.  With no
+recorder that is one ``is None`` test.
+
 Deliberate difference from `repro.kernels.ops`: the JAX package sends
 K6/K7 operands above an 8 MiB VMEM budget, and batched ``a.ndim == 3``
 operands, to the jnp reference.  Here a CUDA tensor runs K6/K7 at every n,
@@ -74,6 +79,14 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+# the active `repro_torch.analysis.ir.Recorder`, set while one records
+_recorder = None
+# a dispatch op's name -> its kernel's name in KERNELS
+_KERNEL_OF = {"panel_factor_vmem": "panel_factor",
+              "fused_condense_step": "fused_step",
+              "fused_cheb_step": "cheb_step", "fused_cg_step": "cg_step"}
+
+
 def _on_card(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cuda":
         return True
@@ -83,11 +96,14 @@ def _on_card(t: torch.Tensor, op: str) -> bool:
                      f"{t.device} (cuda or cpu)")
 
 
-def _dispatch(t: torch.Tensor, op: str, stage: str):
+def _dispatch(t: torch.Tensor, op: str, stage: str, operands: tuple):
     """``(card, stage)``: whether ``t`` launches the kernel (`_on_card`),
     and the ``stage`` to run it in; the ``kernel.dispatch`` counter of
-    ``op`` is counted (backend ``cuda`` or ``torch``)."""
+    ``op`` is counted (backend ``cuda`` or ``torch``), and the entry,
+    with its ``operands``, is reported to an active recorder."""
     card = _on_card(t, op)
+    if _recorder is not None:
+        _recorder.kernel(_KERNEL_OF.get(op, op), operands)
     backend = "cuda" if card else "torch"
     _obs.inc("kernel.dispatch", op=op, backend=backend)
     return card, _obs.stage(stage, backend=backend)
@@ -112,7 +128,8 @@ def rank1_update(a: torch.Tensor, pc: torch.Tensor, pr: torch.Tensor, *,
                  precision: Optional[str] = None) -> torch.Tensor:
     """``a - outer(pc, pr)`` (K1 on the card)."""
     pc, pr = _quantize(precision, pc, pr)
-    card, stage = _dispatch(a, "rank1_update", "kernel.rank1_update")
+    card, stage = _dispatch(a, "rank1_update", "kernel.rank1_update",
+                            (a, pc, pr))
     with stage:
         if card:
             return _k1.rank1_update(a, pc, pr)
@@ -123,7 +140,8 @@ def panel_update(a: torch.Tensor, c: torch.Tensor, r: torch.Tensor, *,
                  precision: Optional[str] = None) -> torch.Tensor:
     """``a - c @ r`` (K2 on the card)."""
     c, r = _quantize(precision, c, r)
-    card, stage = _dispatch(a, "panel_update", "kernel.panel_update")
+    card, stage = _dispatch(a, "panel_update", "kernel.panel_update",
+                            (a, c, r))
     with stage:
         if card:
             return _k2.panel_update(a, c, r)
@@ -137,7 +155,7 @@ def panel_factor(panel: torch.Tensor, m0: int, r_pos: int = 0):
     if panel.dim() == 3:
         panel = panel.contiguous()
     card, stage = _dispatch(panel, "panel_factor_vmem",
-                            "kernel.panel_factor_vmem")
+                            "kernel.panel_factor_vmem", (panel,))
     with stage:
         if card:
             return _k4.panel_factor(panel, m0, r_pos)
@@ -203,9 +221,10 @@ def fused_condense_step(buf: torch.Tensor, t: int, *,
     equal to the scatter swap followed by `rank1_update`.  ``buf`` is not
     modified; on a stack ``l`` and ``p`` are (B,).
     """
-    card, stage = _dispatch(buf, "fused_condense_step", "kernel.fused_step")
     l, p, pc, pr, col_l, col_last = pivot_operands(buf, t)
     pc, pr = _quantize(precision, pc, pr)
+    card, stage = _dispatch(buf, "fused_condense_step", "kernel.fused_step",
+                            (buf, l, pc, pr, col_l, col_last))
     last = buf.shape[-1] - t - 1
     with stage:
         if card:
@@ -226,7 +245,7 @@ def _unbatched(op: str, a: torch.Tensor) -> None:
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a (m, n) @ x (n,) or (n, k)``, ``x`` cast to ``a``'s dtype (K5 on
     the card)."""
-    card, stage = _dispatch(a, "matvec", "kernel.matvec")
+    card, stage = _dispatch(a, "matvec", "kernel.matvec", (a, x))
     with stage:
         if card:
             return _k5.matvec(a, x)
@@ -243,7 +262,8 @@ def fused_cheb_step(a: torch.Tensor, w: torch.Tensor, w_prev: torch.Tensor,
     one-element tensors there; on the CPU they may be numbers.
     """
     _unbatched("fused_cheb_step", a)
-    card, stage = _dispatch(a, "fused_cheb_step", "kernel.fused_cheb_step")
+    card, stage = _dispatch(a, "fused_cheb_step",
+                            "kernel.fused_cheb_step", (a, w, w_prev, v))
     with stage:
         if card:
             return _k67.cheb_step(a, w, w_prev, v, center, width)
@@ -256,7 +276,8 @@ def fused_cg_step(a: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
     r_new)`` (K7 on the card): ``ap = a p; alpha = rz / (p . ap)``
     (guarded 0/0 -> 0), ``x + alpha p``, ``r - alpha ap``."""
     _unbatched("fused_cg_step", a)
-    card, stage = _dispatch(a, "fused_cg_step", "kernel.fused_cg_step")
+    card, stage = _dispatch(a, "fused_cg_step", "kernel.fused_cg_step",
+                            (a, p, x, r, rz))
     with stage:
         if card:
             return _k67.cg_step(a, p, x, r, rz)
@@ -268,7 +289,8 @@ def stencil_mv(bands: torch.Tensor, x: torch.Tensor, *,
     """Banded product ``y[i] = sum_d bands[d, i] * x[i + offsets[d]]``,
     zero outside ``[0, n)``, for ``x (n,)`` or ``(n, k)`` (K8 on the
     card)."""
-    card, stage = _dispatch(bands, "stencil_mv", "kernel.stencil_mv")
+    card, stage = _dispatch(bands, "stencil_mv", "kernel.stencil_mv",
+                            (bands, x))
     with stage:
         if card:
             return _k8.stencil_mv(bands, x, offsets)

@@ -48,7 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.configs import BASELINE_METHODS
+# the methods a request may name besides "auto": the JAX package's, the
+# deprecated legacy route strings included
+from repro_torch.core.configs import METHODS
 from repro_torch.core.result import LogdetResult
 from repro_torch.estimators import ESTIMATOR_METHODS
 from repro_torch.estimators.operators.base import resolve_device
@@ -59,10 +61,6 @@ from repro_torch.serve.bucket import (
 )
 
 __all__ = ["ServeConfig", "LogdetService", "ServiceClosed", "plan_filename"]
-
-# the methods a request may name besides "auto": the JAX package's, but the
-# legacy route strings (not ported, ROADMAP Queue 1 item 12)
-METHODS = ("exact", *BASELINE_METHODS, *ESTIMATOR_METHODS)
 
 
 class ServiceClosed(RuntimeError):

@@ -390,8 +390,12 @@ def test_explain_matches_jax(name, monkeypatch, tmp_path):
     assert execution and "eager on cpu" in execution[0]
     assert not any(l.startswith("  traces:") for l in got)
     assert got[-1] == want[-1]                   # the obs-off line
-    with pytest.raises(NotImplementedError, match="item 11"):
-        repro_torch.plan(torch.from_numpy(a), device="cpu", **kw).audit()
+    # audit is ported (tests/test_torch_analysis.py): a report of the
+    # plan's recorded call, labelled as the JAX package labels it
+    report = repro_torch.plan(torch.from_numpy(a), device="cpu",
+                              **kw).audit()
+    assert report.ok, report.summary()
+    assert report.meta["plans"][0].startswith(kw["method"])
     # export is ported (tests/test_torch_serve.py): the artifact names the
     # plan's method
     from repro_torch.serve.aot import read_header

@@ -28,6 +28,8 @@ import repro_torch
 from repro_torch.core import (ExactConfig, LogdetResult, clear_plan_cache,
                               config_from_dict, config_to_dict,
                               from_jax_config, pad_to_multiple)
+from repro_torch.analysis import DEFAULT_PASS_IDS
+from repro_torch.core.engine import LEGACY_ROUTES
 from repro_torch.core.mesh import Mesh
 from repro_torch.kernels import ops
 
@@ -155,8 +157,20 @@ def test_pad_to_multiple_keeps_dtype(dtype):
 @pytest.mark.parametrize("method", ["mc", "mc_staged", "mc_blocked", "pmc",
                                     "pmc_blocked"])
 def test_unported_methods_name_their_roadmap_item(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        repro_torch.plan(_matrix(), method=method, device="cpu")
+    """The legacy route strings (ROADMAP Queue 1 item 12) are ported: each
+    plans ``method="exact"`` with the schedule and update it pins, under
+    a DeprecationWarning naming them (tests/test_torch_api.py holds their
+    results)."""
+    schedule, update = LEGACY_ROUTES[method]
+    kw = {}
+    if schedule == "mesh":
+        kw["mesh"] = Mesh(group=None, size=1, rank=0,
+                          device=torch.device("cpu"))
+    with pytest.warns(DeprecationWarning,
+                      match=f"schedule={schedule!r}, update={update!r}"):
+        p = repro_torch.plan(_matrix(), method=method, device="cpu", **kw)
+    assert p.method == "exact"
+    assert (p.config.schedule, p.config.update) == (schedule, update)
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -214,14 +228,18 @@ def test_rejected_inputs_raise():
 
 
 def test_unported_plan_methods_raise():
-    """audit and the legacy route strings still raise, naming their
-    ROADMAP items; export is ported (tests/test_torch_serve.py)."""
+    """audit (ROADMAP Queue 1 item 11) and the legacy route strings (item
+    12) are ported and raise no more: ``audit`` returns a clean report of
+    the default passes (tests/test_torch_analysis.py holds it against the
+    JAX package), ``method="mc"`` plans serial x rank1; export is ported
+    too (tests/test_torch_serve.py)."""
     p = repro_torch.plan(_matrix(), method="exact", device="cpu")
-    for call in (p.audit,
-                 lambda: repro_torch.plan(_matrix(), method="mc",
-                                          device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    report = p.audit()
+    assert report.ok, report.summary()
+    assert report.passes_run == list(DEFAULT_PASS_IDS)
+    with pytest.warns(DeprecationWarning, match="'mc' is deprecated"):
+        q = repro_torch.plan(_matrix(), method="mc", device="cpu")
+    assert (q.config.schedule, q.config.update) == ("serial", "rank1")
 
 
 def test_explain_describes_the_plan():

@@ -309,6 +309,83 @@ def obs_mesh_names(mesh, a: np.ndarray, k: int) -> dict:
     return out
 
 
+def legacy_mesh_routes(mesh, cases: dict) -> dict:
+    """``{"case|dtype|method": (sign, logabsdet, same_bits)}`` for the
+    legacy mesh route strings ``pmc`` / ``pmc_blocked``, through the plan
+    and through the deprecated `core.api.slogdet` shim (``"|shim"``), each
+    against its ``method="exact"`` mesh plan bit for bit (f64 for every
+    case, f32 for every case but near_singular, each matrix padded to a
+    multiple of the mesh size by the plan)."""
+    import warnings
+    from repro_torch.core.api import slogdet as api_slogdet
+    torch.set_num_threads(1)
+    clear_plan_cache()
+    out = {}
+    for case, a in cases.items():
+        for dname, dt in DTYPES.items():
+            if dname == "float32" and case == "near_singular":
+                continue
+            at = torch.from_numpy(a).to(dt)
+            for method, update in (("pmc", "rank1"),
+                                   ("pmc_blocked", "panel")):
+                want = repro_torch.plan(at, method="exact", update=update,
+                                        k=PANEL_K, mesh=mesh)()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", DeprecationWarning)
+                    got = repro_torch.plan(at, method=method, k=PANEL_K,
+                                           mesh=mesh)()
+                    shim = api_slogdet(at, method=method, mesh=mesh,
+                                       k=PANEL_K)
+                for tag, (s, ld) in (("", (got.sign, got.logabsdet)),
+                                     ("|shim", shim)):
+                    same = bool(torch.equal(s, want.sign)
+                                and torch.equal(ld, want.logabsdet))
+                    out[f"{case}|{dname}|{method}{tag}"] = (
+                        float(s), float(ld), same)
+    return out
+
+
+def planted_collective(mesh, n: int) -> tuple:
+    """collective-payload-budget on this rank's recordings of an exact
+    mesh plan (rank1 and panel, f32; clean) and of a broadcast of 2 N P
+    floats (a planted fault); returns the reports' JSON and the clean
+    recordings' collective opcodes, counts and wire bytes."""
+    from repro_torch.analysis import (AuditContext, collective_bytes,
+                                      record, run_passes)
+    torch.set_num_threads(1)
+    a = torch.eye(n, dtype=torch.float32) * 2.0
+    out, ops_seen = {}, {}
+    for update in ("rank1", "panel"):
+        ctx = AuditContext(label=f"mesh|{update}", method="exact",
+                           schedule="mesh", update=update, panel_k=PANEL_K,
+                           n=n, devices=mesh.size, itemsize=4,
+                           dtype="float32")
+        plan = repro_torch.plan(a, method="exact", update=update, k=PANEL_K,
+                                mesh=mesh)
+        mod = record(plan, a)
+        ops_seen[update] = sorted({i.opcode for i in mod.collectives()})
+        stats = collective_bytes(mod)
+        ops_seen[f"{update}|bytes"] = (stats.counts, stats.wire_bytes)
+        out[update] = run_passes(mod, ctx,
+                                 ("collective-payload-budget",)).to_json()
+    leak = torch.zeros(2 * n * mesh.size, dtype=torch.float32)
+    mod = record(M.broadcast, mesh, leak, 0)
+    ctx = AuditContext(label="mesh|rank1", method="exact", schedule="mesh",
+                       update="rank1", n=n, devices=mesh.size, itemsize=4,
+                       dtype="float32")
+    out["planted"] = run_passes(mod, ctx,
+                                ("collective-payload-budget",)).to_json()
+    return out, ops_seen
+
+
+def grid_on_mesh(mesh, n: int) -> str:
+    """`analysis.audit_grid` on the caller's mesh (nothing spawned):
+    this rank's report as JSON."""
+    from repro_torch.analysis import audit_grid
+    torch.set_num_threads(1)
+    return audit_grid(n=n, mesh=mesh).to_json()
+
+
 def fail_on_rank(mesh, bad: int):
     """Rank ``bad`` raises; the others wait for it in a collective."""
     if mesh.rank == bad:
