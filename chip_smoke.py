@@ -3788,6 +3788,384 @@ def audit_phase(n: int, gen, grids: dict) -> dict:
     say("audit", seconds=time.perf_counter() - t0)
     return launches
 
+# --------------------------------------------------------------------------
+# phase 13: the models, configs and data (repro_torch.models / .configs /
+# .data).  No kernel of their own: plain tensor ops, as the JAX modules'
+# einsums are; (c) is where they meet K1, K2 and K4.
+# --------------------------------------------------------------------------
+
+# (a) every arch at its smoke config in f32: card against CPU forward, and
+# prefill + decode against forward (the JAX twin test's shapes and 2e-4)
+SMOKE_BATCH, SMOKE_PREFILL, SMOKE_DECODE, SMOKE_MAX_LEN = 2, 6, 4, 16
+SMOKE_RTOL = SMOKE_ATOL = 1e-4
+DECODE_TOL = 2e-4
+# (b) gemma3-1b at full width: 6 layers (five local, one global) in f32 on
+# the card against the CPU in f64 at T = 640 > the 512-token window; then
+# full depth with bf16 activations: a prompt of GEMMA_PROMPT tokens into a
+# GEMMA_MAX_LEN cache and GEMMA_DECODE greedy steps
+GEMMA_REF_LAYERS, GEMMA_REF_T, GEMMA_REF_TOL = 6, 640, 1e-4
+GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA_DECODE = (2, 512), 1024, 32
+# the bf16 tolerance is measured in the run: the same forward in f32
+# activations bounds what bf16 rounding alone does (e); decode and
+# forward each round that way, so they may differ by up to 2e, and the
+# gate takes 3e (a margin over that triangle bound), at most BF16_TOL_MAX
+BF16_TOL_FACTOR, BF16_TOL_MAX = 3.0, 5e-2
+# (c) data.random_matrix through the exact path
+RANDOM_MATRIX_N, RANDOM_MATRIX_KINDS = 2048, ("normal", "spd", "corr_scaled",
+                                              "pivot_adversarial")
+RANDOM_MATRIX_RTOL = 1e-9
+# (d) synth_batch: steps compared bit for bit, card against CPU
+SYNTH_STEPS = 3
+
+
+def rel_to_max(got, want) -> float:
+    """max |got - want| / max |want| (both moved to f64 on the CPU)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def close_ratio(got, want, rtol: float, atol: float) -> float:
+    """Largest |got - want| / (atol + rtol |want|): <= 1 is within."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def moe_gates(model, batch) -> list:
+    """The router gates of every MoE layer of one forward (f32, CPU)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.moe import MoE
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(mod.route(
+            args[0].reshape(-1, args[0].shape[-1]))[0].cpu()))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        with torch.no_grad():
+            forward(model, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def routing_margin(cfg, cpu_model, cpu_batch, model, batch) -> float:
+    """Fails unless, at every MoE layer and token, the CPU gates' top-k
+    margin exceeds the card's gate difference (a near-tie could route a
+    token otherwise on the card); returns the smallest margin over
+    difference ratio."""
+    import torch
+    ratios = []
+    for layer, (gc, gk) in enumerate(zip(moe_gates(cpu_model, cpu_batch),
+                                         moe_gates(model, batch))):
+        diff = float((gc - gk).abs().max())
+        top = torch.sort(gc, dim=-1, descending=True).values
+        k = cfg.top_k
+        margin = float((top[:, k - 1] - top[:, k]).min()) \
+            if k < cfg.n_experts else float("inf")
+        require(margin > diff, f"{cfg.name} MoE layer {layer}: routing "
+                f"near-tie on the card (margin {margin} <= gate difference "
+                f"{diff})")
+        ratios.append(margin / max(diff, 1e-30))
+    return min(ratios)
+
+
+def cache_sig(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: cache_sig(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(cache_sig(v) for v in tree)
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def cache_devices(tree) -> set:
+    if tree is None:
+        return set()
+    if isinstance(tree, dict):
+        return set().union(*(cache_devices(v) for v in tree.values()))
+    if isinstance(tree, tuple):
+        return set().union(*(cache_devices(v) for v in tree))
+    return {tree.device.type}
+
+
+def smoke_arch(arch: str, seed: int) -> dict:
+    """(a) one arch: card forward against CPU forward on the same seeded
+    parameters and batch, prefill + decode against forward, the caches
+    against cache_specs, aux finite."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import (cache_specs, decode_step, forward,
+                                    init_model, prefill)
+    from repro_torch.models.model import _encode
+
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
+                                               remat=False)
+    if cfg.n_experts:
+        # dropless, as the JAX twin test: capacity dropping depends on
+        # the call's token set (forward against prefill + decode)
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+    cpu_model = init_model(cfg, device="cpu", generator=torch.Generator()
+                           .manual_seed(seed))
+    model = copy.deepcopy(cpu_model).to("cuda")
+    t_total = SMOKE_PREFILL + SMOKE_DECODE
+    cpu_batch = synth_batch(cfg, DataConfig(seed=seed, batch=SMOKE_BATCH,
+                                            seq=t_total), 0, device="cpu")
+    batch = {k: v.to("cuda") for k, v in cpu_batch.items()}
+    out = {"arch": arch}
+    if cfg.n_experts:
+        out["routing_margin_over_diff"] = routing_margin(
+            cfg, cpu_model, cpu_batch, model, batch)
+    with torch.no_grad():
+        cpu_logits, cpu_aux = forward(cpu_model, cpu_batch)
+        logits, aux = forward(model, batch)
+        require(logits.device.type == "cuda", f"{arch}: logits not on card")
+        out["forward_vs_cpu"] = close_ratio(logits, cpu_logits, SMOKE_RTOL,
+                                            SMOKE_ATOL)
+        require(out["forward_vs_cpu"] <= 1.0, f"{arch}: card forward off "
+                f"the CPU's by {out['forward_vs_cpu']} x the tolerance")
+        out["aux"] = {k: float(v) for k, v in aux.items()}
+        out["aux_cpu"] = {k: float(v) for k, v in cpu_aux.items()}
+        require(all(v == v and abs(v) != float("inf")
+                    for v in out["aux"].values()), f"{arch}: aux not finite")
+        pre = dict(batch, tokens=batch["tokens"][:, :SMOKE_PREFILL])
+        lp, caches = prefill(model, pre, SMOKE_MAX_LEN)
+        specs = cache_specs(cfg, SMOKE_BATCH, SMOKE_MAX_LEN)
+        require(cache_sig(caches) == cache_sig(specs),
+                f"{arch}: caches {cache_sig(caches)} != cache_specs "
+                f"{cache_sig(specs)}")
+        require(cache_devices(caches) == {"cuda"}, f"{arch}: caches off card")
+        ratios = [close_ratio(lp[:, 0], logits[:, SMOKE_PREFILL - 1],
+                              DECODE_TOL, DECODE_TOL)]
+        extras = None
+        if cfg.family == "encdec":
+            extras = {"memory": _encode(model, batch)}
+        elif cfg.family == "vlm":
+            extras = {"img_embeds": batch["img_embeds"]}
+        for pos in range(SMOKE_PREFILL, t_total):
+            ld, caches = decode_step(model, batch["tokens"][:, pos:pos + 1],
+                                     caches, pos, batch_extras=extras)
+            ratios.append(close_ratio(ld[:, 0], logits[:, pos], DECODE_TOL,
+                                      DECODE_TOL))
+        out["decode_vs_forward"] = max(ratios)
+        require(out["decode_vs_forward"] <= 1.0, f"{arch}: prefill + "
+                f"decode off forward by {ratios} x the tolerance")
+        require(cache_sig(caches) == cache_sig(specs), f"{arch}: decode "
+                "changed the caches' layout")
+    return out
+
+
+def gemma_reference(seed: int) -> dict:
+    """(b) gemma3-1b at full width, GEMMA_REF_LAYERS layers, f32 on the
+    card against the same parameters' forward on the CPU in f64."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import Model, forward, init_model, layer_windows
+    from repro_torch.models.common import empty_init
+
+    cfg = get_config("gemma3-1b").replace(n_layers=GEMMA_REF_LAYERS,
+                                          dtype=torch.float32, remat=False)
+    model = init_model(cfg, generator=torch.Generator(device="cuda")
+                       .manual_seed(seed), device="cuda")
+    batch = synth_batch(cfg, DataConfig(seed=seed, batch=1, seq=GEMMA_REF_T),
+                        0, device="cuda")
+    with torch.no_grad():
+        logits, _ = forward(model, batch)
+        cfg64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
+        ref = Model(cfg64, empty_init("cpu"))
+        ref.load_state_dict({k: v.double().cpu()
+                             for k, v in model.state_dict().items()})
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        want, _ = forward(ref, {k: v.cpu() for k, v in batch.items()})
+        cpu_s = time.perf_counter() - t0
+    err = rel_to_max(logits, want)
+    out = {"layers": GEMMA_REF_LAYERS, "t": GEMMA_REF_T,
+           "windows": [int(w) for w in layer_windows(cfg)],
+           "rel_err_to_max_logit": err, "tol": GEMMA_REF_TOL,
+           "cpu_f64_forward_s": cpu_s}
+    require(bool(torch.isfinite(logits).all()), "gemma ref: logits not finite")
+    require(err <= GEMMA_REF_TOL, f"gemma3-1b {GEMMA_REF_LAYERS} layers: "
+            f"card f32 off the CPU f64 forward by {err} of max |logit|")
+    return out
+
+
+def gemma_full(seed: int, smi: str) -> dict:
+    """(b) gemma3-1b at full depth with bf16 activations: prefill, greedy
+    decode, both against forward over the same tokens, and their rates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import (Model, count_params, decode_step,
+                                    forward, init_model, prefill)
+    from repro_torch.models.common import empty_init
+
+    cfg = get_config("gemma3-1b")
+    b, t = GEMMA_PROMPT
+    model = init_model(cfg, generator=torch.Generator(device="cuda")
+                       .manual_seed(seed + 1), device="cuda")
+    prompt = synth_batch(cfg, DataConfig(seed=seed, batch=b, seq=t), 1,
+                         device="cuda")["tokens"]
+    with torch.no_grad():
+        prefill(model, {"tokens": prompt[:, :16]}, GEMMA_MAX_LEN)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (lp, caches), prefill_s = timed(
+            lambda: prefill(model, {"tokens": prompt}, GEMMA_MAX_LEN))
+        tok = lp[:, -1].argmax(-1, keepdim=True).to(prompt.dtype)
+        generated, steps = [tok], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(GEMMA_DECODE):
+            ld, caches = decode_step(model, tok, caches, t + j)
+            steps.append(ld[:, 0])
+            tok = ld[:, -1].argmax(-1, keepdim=True).to(prompt.dtype)
+            generated.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del caches
+        seq = torch.cat([prompt] + generated[:GEMMA_DECODE], dim=1)
+        fwd, _ = forward(model, {"tokens": seq})
+        # the same forward with f32 activations: bf16 rounding's own size
+        f32 = Model(cfg.replace(dtype=torch.float32), empty_init("cuda"))
+        f32.load_state_dict(model.state_dict())
+        del model
+        fwd32, _ = forward(f32, {"tokens": seq})
+        del f32
+    pos = list(range(t - 1, t + GEMMA_DECODE))
+    got = torch.stack([lp[:, 0]] + steps, dim=1)            # (b, 33, V)
+    want, want32 = fwd[:, pos], fwd32[:, pos]
+    del fwd, fwd32
+    bf16_err = rel_to_max(want, want32)
+    tol = BF16_TOL_FACTOR * bf16_err
+    err = rel_to_max(got, want)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    # argmax: equal, or a near-tie of the forward within the tolerance
+    scale = float(want.abs().max())
+    am = got.argmax(-1)
+    differs = am != want.argmax(-1)
+    gap = want.max(-1).values - want.gather(-1, am[..., None])[..., 0]
+    near_ties = int(differs.sum())
+    argmax_ok = bool((gap[differs] <= tol * scale).all())
+    out = {
+        "params": count_params(cfg), "prompt": [b, t],
+        "max_len": GEMMA_MAX_LEN, "decode_steps": GEMMA_DECODE,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": b * t / prefill_s,
+        "decode_ms_per_step": decode_s / GEMMA_DECODE * 1e3,
+        "decode_tokens_per_s": b * GEMMA_DECODE / decode_s,
+        "peak_mem_bytes": peak, "bf16_vs_f32_forward": bf16_err,
+        "tol": tol, "tol_reason": "3 x the bf16-vs-f32 forward error: "
+        "decode and forward each round in bf16 (triangle bound 2x)",
+        "decode_vs_forward": err, "argmax_differs": near_ties,
+        "logits_finite": finite, "card": smi}
+    require(finite, "gemma3-1b full: logits not finite")
+    require(tol <= BF16_TOL_MAX, f"gemma3-1b full: bf16 tolerance {tol} "
+            f"above {BF16_TOL_MAX}")
+    require(err <= tol, f"gemma3-1b full: decode off forward by {err} of "
+            f"max |logit| (tolerance {tol})")
+    require(argmax_ok, "gemma3-1b full: a decode argmax differs from "
+            "forward's by more than the tolerance")
+    return out
+
+
+def random_matrix_routes(k: int) -> dict:
+    """(c) data.random_matrix's kinds at RANDOM_MATRIX_N f64 through the
+    exact plan on the card, rank1 and panel: sign equal to numpy's
+    slogdet, log|det| within RANDOM_MATRIX_RTOL x max(1, |ref|), K1/K2/K4
+    launches of phase 4's formula.  Returns launches by route."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.data import random_matrix
+    from repro_torch.kernels import ops
+
+    n = RANDOM_MATRIX_N
+    launches = {}
+    for kind in RANDOM_MATRIX_KINDS:
+        a_np = random_matrix(n, kind=kind, seed=0)
+        s_ref, ld_ref = np.linalg.slogdet(a_np)
+        a = torch.from_numpy(a_np).to("cuda")
+        for update in ("rank1", "panel"):
+            p = repro_torch.plan(a, method="exact", update=update, k=k)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            res = p()
+            counts = ops.launch_counts()
+            s, ld = res.sign.item(), res.logabsdet.item()
+            rel = abs(ld - ld_ref) / max(1.0, abs(ld_ref))
+            want = expected_launches(n, k, update, False)
+            say("models", part="random_matrix", kind=kind, n=n,
+                route=f"staged|{update}", sign=s, ref_sign=float(s_ref),
+                logabsdet=ld, ref_logabsdet=float(ld_ref), rel_err=rel,
+                rtol=RANDOM_MATRIX_RTOL, launches=counts,
+                expected_launches=want)
+            require(s == s_ref, f"random_matrix {kind} {update}: sign {s} "
+                    f"!= {s_ref}")
+            require(rel <= RANDOM_MATRIX_RTOL, f"random_matrix {kind} "
+                    f"{update}: rel err {rel}")
+            require(counts == want, f"random_matrix {kind} {update}: "
+                    f"launches {counts} != {want}")
+            launches[f"models|{kind}|{update}"] = counts
+    return launches
+
+
+def synth_on_card(seed: int) -> None:
+    """(d) synth_batch on the card equals the CPU batch bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    for arch in ("whisper-tiny", "llama-3.2-vision-11b"):
+        cfg = get_config(arch, smoke=True)
+        for kind in ("lm", "markov"):
+            data = DataConfig(seed=seed, batch=4, seq=64, kind=kind)
+            for step in range(SYNTH_STEPS):
+                card = synth_batch(cfg, data, step)
+                cpu = synth_batch(cfg, data, step, device="cpu")
+                require(list(card) == list(cpu) and all(
+                    card[k].device.type == "cuda"
+                    and torch.equal(card[k].cpu(), cpu[k]) for k in cpu),
+                    f"synth_batch {arch} {kind} step {step}: card != cpu")
+    say("models", part="synth_batch", archs=["whisper-tiny",
+                                              "llama-3.2-vision-11b"],
+        kinds=["lm", "markov"], steps=SYNTH_STEPS, bitwise=True)
+
+
+def models_phase(seed: int, k: int, smi: str) -> dict:
+    """Phase 13: (a) the ten archs at their smoke configs, (b) gemma3-1b
+    at full width, (c) random_matrix through the exact path, (d)
+    synth_batch.  Returns launches by route (only (c) launches)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on: the f32 comparisons would measure TF32")
+    say("models", allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    # (a) and (b) run no kernel of K1-K8: plain tensor ops, as in JAX
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for arch in ARCHS:
+        say("models", part="smoke", **smoke_arch(arch, seed))
+        torch.cuda.empty_cache()
+    say("models", part="gemma3-1b reference", **gemma_reference(seed))
+    torch.cuda.empty_cache()
+    say("models", part="gemma3-1b full", **gemma_full(seed, smi))
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    say("models", part="launches of (a) and (b)", launches=counts)
+    require(not any(counts.values()), f"the models launched {counts}")
+    launches = random_matrix_routes(k)
+    synth_on_card(seed)
+    say("models", seconds=time.perf_counter() - t0)
+    return launches
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3886,6 +4264,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 12: static analysis and the deprecated string API
     launches.update(audit_phase(args.n, gen, grids))
+    torch.cuda.empty_cache()
+    # phase 13: the models, configs and data
+    launches.update(models_phase(args.seed, args.k, smi))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -439,8 +439,9 @@ def _build_value_and_grad(spec: ProblemSpec, method: str, cfg: LogdetConfig,
             sign, ld, sem = fwd(a)
             if a.shape[-1] == 0:
                 return (sign, ld, sem), torch.zeros_like(a), None
-            # one (batched) inverse: each matrix's A^{-T}
-            return (sign, ld, sem), torch.linalg.inv(a).mT, None
+            # one (batched) inverse: each matrix's A^{-T}, inf/NaN where
+            # A is singular (no raise, no host check of the info)
+            return (sign, ld, sem), torch.linalg.inv_ex(a).inverse.mT, None
 
         return vag
 

@@ -13,9 +13,12 @@ the detached input with gradients off:
 
 Exact methods (``exact``, ``ge``, ``pge``, ``plu``)
     `exact_slogdet_vjp` wraps ``a -> (sign, logabsdet)``; its backward is
-    ``g * inv(a).T`` (one `torch.linalg.inv`, cuSOLVER on the card, as the
-    JAX package leaves ``jnp.linalg.inv`` to XLA).  The sign is
-    non-differentiable.
+    ``g * inv(a).T`` (one `torch.linalg.inv_ex`, cuSOLVER on the card, as
+    the JAX package leaves ``jnp.linalg.inv`` to XLA).  A singular matrix
+    gets inf/NaN entries, as from ``jnp.linalg.inv``, and no error: one
+    degenerate matrix of a stack leaves the others their exact gradients,
+    and the card makes no host check of the factorization's ``info``.
+    The sign is non-differentiable.
 
 Estimator methods (``chebyshev``, ``slq``)
     `estimate_logdet` draws the probe slab once (`shared_probes`) and, when
@@ -215,8 +218,8 @@ class _ExactSlogdet(torch.autograd.Function):
         if a.shape[-1] == 0:
             return torch.zeros_like(a), None
         # g_ld is 0-d, or (B,) for a stack: each matrix's cotangent
-        return (g_ld[..., None, None] * torch.linalg.inv(a).mT).to(a.dtype), \
-            None
+        inv = torch.linalg.inv_ex(a).inverse
+        return (g_ld[..., None, None] * inv.mT).to(a.dtype), None
 
 
 def exact_slogdet_vjp(fn: Callable[[torch.Tensor], Any]):

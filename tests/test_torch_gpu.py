@@ -523,6 +523,31 @@ def test_exact_grad_on_the_card(cuda, kw, dt):
     assert torch.equal(g, x.grad) and torch.equal(res.logabsdet, ld.detach())
 
 
+_RANK2 = [[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [1.0, 0.0, 1.0]]
+
+
+@pytest.mark.parametrize("case", ["rank2", "zero", "stack"])
+@pytest.mark.parametrize("update", ["rank1", "panel"])
+@pytest.mark.parametrize("dt", EST_DTYPES)
+def test_exact_grad_on_singular_input_on_the_card(cuda, case, update, dt):
+    """A singular matrix: value_and_grad and backward raise nothing; the
+    singular matrix's gradient is non-finite, and a stack's regular
+    matrix (I) gets its exact gradient I (the singular entries depend on
+    rounding and are not compared)."""
+    r2 = torch.tensor(_RANK2, dtype=dt)
+    a = {"rank2": r2, "zero": torch.zeros(3, 3, dtype=dt),
+         "stack": torch.stack([torch.eye(3, dtype=dt), r2])}[case].to(cuda)
+    kw = dict(method="exact", update=update, k=2, device=cuda)
+    _, g = repro_torch.plan(a, **kw).value_and_grad()
+    x = a.clone().requires_grad_()
+    repro_torch.plan(a, **kw).logdet(x).sum().backward()
+    for grad in (g, x.grad):
+        finite = torch.isfinite(grad).reshape(-1, 9).all(dim=1).tolist()
+        assert finite == ([True, False] if case == "stack" else [False])
+        if case == "stack":
+            assert torch.equal(grad[0].cpu(), torch.eye(3, dtype=dt))
+
+
 @pytest.mark.parametrize("kind", ["dense", "lattice"])
 @pytest.mark.parametrize("method", ["chebyshev", "slq"])
 def test_estimator_grad_on_the_card(cuda, kind, method):

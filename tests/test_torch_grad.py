@@ -233,8 +233,8 @@ def test_exact_value_and_grad_rejects_estimator_inputs():
 
 # -------------------------------------- which linear algebra a backward runs
 
-_FACTORIZATIONS = ("inv", "solve", "lu_factor", "lu_factor_ex", "cholesky",
-                   "solve_triangular")
+_FACTORIZATIONS = ("inv", "inv_ex", "solve", "lu_factor", "lu_factor_ex",
+                   "cholesky", "solve_triangular")
 
 
 def _count_factorizations(monkeypatch):
@@ -268,13 +268,14 @@ def test_estimator_backward_has_no_dense_solve(monkeypatch, method, kw):
 @pytest.mark.parametrize("route", ["staged|panel", "ge"])
 def test_exact_backward_does_use_factorization(monkeypatch, route):
     """The contrast case, and the counter's proof: the exact backward
-    inverts once (and nothing else)."""
+    inverts once (`torch.linalg.inv_ex`, which returns inf/NaN on a
+    singular matrix where `inv` raises) and does nothing else."""
     a = make_spd(16, 0)
     x = torch.from_numpy(a).requires_grad_()
     ld = repro_torch.plan(a, device="cpu", **EXACT_ROUTES[route]).logdet(x)
     calls = _count_factorizations(monkeypatch)
     ld.backward()
-    assert calls == {**dict.fromkeys(_FACTORIZATIONS, 0), "inv": 1}
+    assert calls == {**dict.fromkeys(_FACTORIZATIONS, 0), "inv_ex": 1}
 
 
 # ------------------------------------------ estimators: Hutchinson pullback
