@@ -199,6 +199,41 @@ printed line each, any failure ends the run:
             broadcast in phase 6's ranks); ``core.api.slogdet(a,
             method="mc_blocked")`` at N = 8192 bitwise serial x panel
             with the same launches and its two DeprecationWarnings.
+13. models  `repro_torch.models` / `.configs` / `.data`: the ten archs
+            at their smoke configs in f32, card against CPU forward and
+            prefill + decode against forward (MoE routing margins
+            first); gemma3-1b at full width, 6 layers in f32 against the
+            CPU's f64 forward, and all 26 layers with bf16 activations
+            (prefill, greedy decode, rates, peak memory); no kernel
+            launched by either; `data.random_matrix`'s kinds through the
+            exact plan (rank1, panel) against numpy's slogdet with phase
+            4's launches; `synth_batch` on the card bitwise the CPU's;
+14. train   `repro_torch.optim` / `.train` / `.checkpoint` / `.ft`, with
+            the logdet aux (``logdet_reg``) through K1: (a) one train
+            step of every arch at its smoke config in f32 (adamw, weight
+            decay 0.01, TRAIN_MICRO microbatches; gradient compression
+            on TRAIN_COMPRESSION_ARCH; sgd and adafactor on
+            TRAIN_OPT_ARCHS) on the card against the same step on the
+            CPU from one seeded state: the metrics, the clipped
+            gradients (TRAIN_GRAD_TOL of the largest element, plus a bf16
+            rounding where one is taken), the card's optimizer on the
+            CPU's gradient against the CPU's step (TRAIN_OPT_RTOL), the deltas
+            card against CPU printed, K1 launched microbatches x
+            (d_model - 1) times a step and K2-K8 never; (b) gemma3-1b at
+            full width, 6 layers, f32, one adamw step with the aux at 2 x
+            64 tokens, card against CPU as (a) (the gradient per JAX leaf
+            group printed), and the aux alone on the pooled embeddings
+            within LOGDET_KU sqrt(d) cond(Cov + eps I) 2^-24 of the CPU's;
+            (c)
+            gemma3-1b at full depth, bf16 activations, adamw with the
+            aux, 2 microbatches of 2 x 512 tokens: a warm-up step and 3
+            timed (step ms, tokens/s, peak memory, K1 2 x 1151 a step,
+            finite metrics) and the aux alone timed as a share of the
+            step; (d) `ft.run_training` on the card (async checkpoints
+            every DRIVER_CKPT steps, a node failure, a sleep): one
+            restart, the straggler flagged, the final parameters bitwise
+            an uninterrupted run's, and one synchronous save of (b)'s
+            state restored onto the CPU, bitwise, with its GB/s.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4166,6 +4201,505 @@ def models_phase(seed: int, k: int, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: training (repro_torch.optim / .train / .checkpoint / .ft).  No
+# kernel of their own; the logdet aux (train/loss.py) is the paper's
+# condensation: K1 d_model - 1 times per microbatch, through the exact VJP.
+# --------------------------------------------------------------------------
+
+# (a) every arch at its smoke config, f32: one adamw step (weight decay
+# 0.01, TRAIN_MICRO microbatches of TRAIN_SHAPE / TRAIN_MICRO, logdet_reg
+# TRAIN_LOGDET) on the card against the same step on the CPU from the same
+# seeded state; bf16 gradient compression on TRAIN_COMPRESSION_ARCH; sgd
+# and adafactor (one microbatch) on TRAIN_OPT_ARCHS (zamba2: a depth-2 stack)
+TRAIN_SHAPE, TRAIN_MICRO, TRAIN_LOGDET = (4, 16), 2, 0.05
+TRAIN_COMPRESSION_ARCH = "qwen2.5-3b"
+TRAIN_OPT_ARCHS = ("qwen2.5-3b", "zamba2-7b")
+# card against CPU, f32 (TF32 off): the clipped gradients within
+# TRAIN_GRAD_TOL of the largest gradient element, by family (the SSD
+# scan's chunked exp(cumsum) products: mamba2 and zamba2 measured 1.0e-5
+# and 3.7e-5 on the H100, and the CPU twins' JAX-against-port grad norm
+# of zamba2 differs by 2.8e-5; the models' gradient twins hold every
+# family to 1e-4) (plus, where a gradient
+# is rounded to bf16 -- compression, llama4's bf16 parameters --
+# TRAIN_COMPRESSION_ULP of each microbatch's |g|: a bf16 rounding apart);
+# the card's optimizer applied to the CPU's gradient against the CPU's
+# step within TRAIN_OPT_RTOL of each delta plus two spacings of the
+# parameter; the metrics within TRAIN_METRIC_RTOL (grad_norm: a sum of
+# 1e5-1e9 squares, TRAIN_NORM_RTOL)
+TRAIN_GRAD_TOL = {"ssm": 1e-4, "hybrid": 1e-4, "default": 1e-5}
+TRAIN_COMPRESSION_ULP = 2.0 ** -7
+TRAIN_OPT_RTOL, TRAIN_METRIC_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-5, 1e-4
+# (b) gemma3-1b at full width, GEMMA_TRAIN_LAYERS layers, f32: one adamw
+# step with the aux at GEMMA_TRAIN_SHAPE tokens, card against CPU; the aux
+# alone on the pooled embeddings: its gradient is inv(Cov + eps I)^T, an
+# f32 inverse off the exact one by about sqrt(d) cond u (u = 2^-24)
+# relative to its largest element, so card and CPU within LOGDET_KU x that
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SHAPE, LOGDET_KU = 6, (2, 64), 2.0
+# (c) gemma3-1b at full depth with bf16 activations: adamw + the aux,
+# GEMMA_STEP_MICRO microbatches of GEMMA_STEP_SHAPE / GEMMA_STEP_MICRO,
+# one warm-up step and GEMMA_TIMED_STEPS timed ones
+GEMMA_STEP_SHAPE, GEMMA_STEP_MICRO, GEMMA_TIMED_STEPS = (4, 512), 2, 3
+# (d) run_training at qwen2.5-3b's smoke config: DRIVER_STEPS steps,
+# async checkpoints every DRIVER_CKPT, a node failure at DRIVER_FAULT and
+# a DRIVER_SLEEP s sleep at DRIVER_SLOW
+DRIVER_STEPS, DRIVER_CKPT, DRIVER_FAULT, DRIVER_SLOW, DRIVER_SLEEP = \
+    10, 2, 5, 7, 1.0
+
+
+def state_on(state, device):
+    """A copy of a train state on ``device`` (a new Model, the optimizer
+    tree and the step copied)."""
+    from repro_torch.models import Model
+    from repro_torch.models.common import empty_init
+    m = state["params"]
+    model = Model(m.cfg, empty_init(device))
+    model.load_state_dict({k: v.to(device) for k, v in m.state_dict().items()})
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return t.to(device, copy=True)
+    return {"params": model, "opt": tree(state["opt"]),
+            "step": state["step"].to(device, copy=True)}
+
+
+def captured_step(cfg, tcfg, state, batch):
+    """One `make_train_step` step -> (state, metrics, the clipped gradient
+    the step applied: `train.step.clip_by_global_norm`'s output)."""
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as TS
+    seen, clip = [], TS.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        out = clip(grads, max_norm)
+        seen.append(out[0])
+        return out
+    TS.clip_by_global_norm = capture
+    try:
+        state, metrics = make_train_step(cfg, tcfg)(state, batch)
+    finally:
+        TS.clip_by_global_norm = clip
+    return state, metrics, seen[0]
+
+
+def rounding_bound(cfg, tcfg, state, batch):
+    """Where a gradient is rounded to bf16 (every gradient with
+    compression, a bf16 parameter's always): TRAIN_COMPRESSION_ULP x the
+    mean over the microbatches of |g_k| (f32, before the rounding), per
+    parameter, zero elsewhere; None when nothing is rounded."""
+    import torch
+    from repro_torch.train import make_grad_fn
+    bf16 = {k for k, p in state["params"].named_parameters()
+            if p.dtype == torch.bfloat16}
+    if not tcfg.grad_compression and not bf16:
+        return None
+    mb = tcfg.microbatches
+    one = make_grad_fn(cfg, dataclasses.replace(
+        tcfg, microbatches=1, grad_compression=False))
+    acc = None
+    for i in range(mb):
+        part = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
+                for k, x in batch.items()}
+        g, _ = one(state["params"], part)
+        acc = {k: v.abs().float() if acc is None else acc[k] + v.abs()
+               for k, v in g.items()}
+    return {k: TRAIN_COMPRESSION_ULP * v / mb
+            if tcfg.grad_compression or k in bf16 else torch.zeros_like(v)
+            for k, v in acc.items()}
+
+
+def train_compare(cfg, tcfg, state, batch, label: str) -> dict:
+    """One train step on the card against the same step on the CPU from
+    the CPU ``state`` (moved along).  Gates the metrics, the gradients,
+    the card's optimizer applied to the CPU's gradient against the CPU's
+    step, and K1's launches (microbatches x (d_model - 1) with the aux,
+    none of K2-K8); the comparisons run on the card.  Returns the errors,
+    the launch counts and the card's state."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import get_optimizer, jax_leaves
+    card = state_on(state, "cuda")
+    cross = state_on(state, "cuda")
+    cbatch = {k: v.to("cuda") for k, v in batch.items()}
+    old = {k: p.detach().clone() for k, p in card["params"].named_parameters()}
+    comp = rounding_bound(cfg, tcfg, state, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, mk, gk = captured_step(cfg, tcfg, card, cbatch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cpu, mc, gc = captured_step(cfg, tcfg, state, batch)
+    # the card's optimizer on the CPU's gradient (outside the counted step)
+    gc = {k: v.to("cuda") for k, v in gc.items()}
+    get_optimizer(tcfg.opt)[1](gc, cross["opt"], cross["params"])
+    out = {"case": label, "card_step_s": card_s, "launches": counts}
+    # metrics
+    m_err = {}
+    for k in mc:
+        a, b = float(mk[k]), float(mc[k])
+        m_err[k] = abs(a - b) / max(abs(b), 1e-30)
+        rtol = TRAIN_NORM_RTOL if k == "grad_norm" else TRAIN_METRIC_RTOL
+        require(a == a and b == b and m_err[k] <= rtol,
+                f"train {label}: metric {k} card {a} cpu {b}")
+    require(set(mk) == set(mc), f"train {label}: metric keys differ")
+    out["metrics"] = {k: float(v) for k, v in mc.items()}
+    out["metric_rel_err"] = max(m_err.values())
+    # gradients: global, and per JAX leaf group (relative to its max)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    grad_tol = TRAIN_GRAD_TOL.get(cfg.family, TRAIN_GRAD_TOL["default"])
+    worst = 0.0
+    for k, v in gc.items():
+        err = (gk[k].double() - v.double()).abs()
+        tol = grad_tol * gmax + (0.0 if comp is None
+                                 else comp[k].to("cuda").double())
+        worst = max(worst, float((err / tol).max()))
+    out["grad_err_over_tol"] = worst
+    require(worst <= 1.0, f"train {label}: card gradient off the CPU's by "
+            f"{worst} x the tolerance")
+    groups = {}
+    for leaf in jax_leaves(state["params"]):
+        num = max(float((gk[n].double() - gc[n].double()).abs().max())
+                  for n in leaf.names)
+        den = max(float(gc[n].abs().max()) for n in leaf.names)
+        groups[".".join(leaf.path)] = num / den if den else num
+    out["grad_rel_to_max_by_group_max"] = max(groups.values())
+    # deltas: the card's optimizer against the CPU's on the same gradient,
+    # and card against CPU (reported)
+    new_k = dict(card["params"].named_parameters())
+    new_x = dict(cross["params"].named_parameters())
+    opt_worst, delta_rel = 0.0, 0.0
+    for k, p in cpu["params"].named_parameters():
+        new_c = p.detach().to("cuda")
+        p0 = old[k].double()
+        dk = new_k[k].detach().double() - p0
+        dx = new_x[k].detach().double() - p0
+        dc = new_c.double() - p0
+        # two spacings of the parameter's dtype at its new value
+        ulp = 4 * torch.finfo(p.dtype).eps * new_c.double().abs()
+        tol = TRAIN_OPT_RTOL * dc.abs() + ulp + 1e-300
+        opt_worst = max(opt_worst, float(((dx - dc).abs() / tol).max()))
+        if float(dc.abs().max()) > 0:
+            delta_rel = max(delta_rel, float((dk - dc).abs().max()
+                                             / dc.abs().max()))
+    out["card_opt_err_over_tol"] = opt_worst
+    out["delta_rel_to_max_card_vs_cpu"] = delta_rel
+    require(opt_worst <= 1.0, f"train {label}: the card's optimizer off the "
+            f"CPU's on the same gradient by {opt_worst} x the tolerance")
+    require(int(card["step"]) == int(cpu["step"]) == int(state["step"]),
+            f"train {label}: step counters differ")
+    want = {"rank1_update": (tcfg.microbatches * (cfg.d_model - 1)
+                             if tcfg.logdet_reg else 0)}
+    require(counts.get("rank1_update", 0) == want["rank1_update"]
+            and not any(v for n, v in counts.items() if n != "rank1_update"),
+            f"train {label}: launches {counts}, want K1 "
+            f"{want['rank1_update']} and nothing else")
+    out["state"] = card
+    return out
+
+
+def smoke_train_cases():
+    """(label, arch, optimizer, microbatches, compression) of (a)."""
+    from repro_torch.configs import ARCHS
+    cases = [(f"{a}|adamw", a, "adamw", TRAIN_MICRO, False) for a in ARCHS]
+    cases.append((f"{TRAIN_COMPRESSION_ARCH}|adamw|compressed",
+                  TRAIN_COMPRESSION_ARCH, "adamw", TRAIN_MICRO, True))
+    for name in ("adafactor", "sgd"):
+        cases += [(f"{a}|{name}", a, name, 1, False) for a in TRAIN_OPT_ARCHS]
+    return cases
+
+
+def smoke_train(seed: int) -> dict:
+    """(a): every case of `smoke_train_cases`; returns launches by route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    launches = {}
+    for label, arch, name, mb, compressed in smoke_train_cases():
+        cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
+        tcfg = TrainConfig(opt=OptConfig(name=name, weight_decay=0.01),
+                           microbatches=mb, logdet_reg=TRAIN_LOGDET,
+                           grad_compression=compressed)
+        state = init_train_state(cfg, tcfg, generator=torch.Generator()
+                                 .manual_seed(seed), device="cpu")
+        b, t = TRAIN_SHAPE
+        batch = synth_batch(cfg, DataConfig(seed=seed, batch=b, seq=t), 0,
+                            device="cpu")
+        r = train_compare(cfg, tcfg, state, batch, label)
+        r.pop("state")
+        say("train", part="smoke", **r)
+        launches[f"train|{label}"] = r["launches"]
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gemma_train_reference(seed: int, smi: str) -> tuple:
+    """(b): gemma3-1b at full width, GEMMA_TRAIN_LAYERS layers, f32: one
+    adamw step with the aux, card against CPU; then the aux alone on the
+    card's pooled embeddings against the CPU's.  Returns (the result,
+    the card's state after the step, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models.common import embed_lookup
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.loss import logdet_decorrelation
+    cfg = get_config("gemma3-1b").replace(n_layers=GEMMA_TRAIN_LAYERS,
+                                          dtype=torch.float32)
+    tcfg = TrainConfig(opt=OptConfig(name="adamw"), logdet_reg=TRAIN_LOGDET)
+    card0 = init_train_state(cfg, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    state = state_on(card0, "cpu")
+    del card0
+    b, t = GEMMA_TRAIN_SHAPE
+    batch = synth_batch(cfg, DataConfig(seed=seed, batch=b, seq=t), 0,
+                        device="cpu")
+    t0 = time.perf_counter()
+    r = train_compare(cfg, tcfg, state, batch, "gemma3-1b|6 layers|adamw")
+    r["compare_s"] = time.perf_counter() - t0
+    card = r.pop("state")
+    # the aux alone: the card's pooled f32 embeddings, card against CPU
+    with torch.no_grad():
+        pooled = embed_lookup(card["params"].embed, batch["tokens"].to("cuda"),
+                              cfg.dtype).mean(dim=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        h = pooled.to(dev).clone().requires_grad_()
+        v = logdet_decorrelation(h)
+        v.backward()
+        out[dev] = (float(v.detach()), h.grad.double().cpu())
+    h64 = pooled.double().cpu()
+    xc = h64 - h64.mean(0)
+    cov = xc.T @ xc / h64.shape[0] + 1e-3 * torch.eye(cfg.d_model,
+                                                      dtype=torch.float64)
+    ku = cfg.d_model ** 0.5 * float(torch.linalg.cond(cov)) * 2.0 ** -24
+    g_err = float((out["cuda"][1] - out["cpu"][1]).abs().max()
+                  / out["cpu"][1].abs().max())
+    r.update(aux_value_card=out["cuda"][0], aux_value_cpu=out["cpu"][0],
+             aux_grad_rel_to_max=g_err,
+             aux_cond=ku / 2.0 ** -24 / cfg.d_model ** 0.5,
+             aux_tol=LOGDET_KU * ku, aux_dtype="float32 in both packages",
+             card=smi)
+    require(g_err <= LOGDET_KU * ku, f"gemma train: the aux's gradient on "
+            f"the card off the CPU's by {g_err} (tolerance {LOGDET_KU * ku})")
+    require(abs(out["cuda"][0] - out["cpu"][0]) <= TRAIN_METRIC_RTOL
+            * abs(out["cpu"][0]), "gemma train: the aux's value differs")
+    return r, card
+
+
+def gemma_train_full(seed: int, smi: str) -> dict:
+    """(c): gemma3-1b at full depth, bf16 activations: adamw with the aux,
+    GEMMA_STEP_MICRO microbatches; one warm-up step, GEMMA_TIMED_STEPS
+    timed; the aux alone (forward + backward) on one microbatch's pooled
+    (2, d_model) embeddings, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import count_params
+    from repro_torch.models.common import embed_lookup
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.loss import logdet_decorrelation
+    cfg = get_config("gemma3-1b")
+    tcfg = TrainConfig(opt=OptConfig(name="adamw"), logdet_reg=TRAIN_LOGDET,
+                       microbatches=GEMMA_STEP_MICRO)
+    state = init_train_state(cfg, tcfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 2), device="cuda")
+    b, t = GEMMA_STEP_SHAPE
+    data = DataConfig(seed=seed, batch=b, seq=t)
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m0), warm_s = timed(lambda: step(state, synth_batch(cfg, data, 0)))
+    times, counts, metrics = [], [], []
+    for i in range(1, GEMMA_TIMED_STEPS + 1):
+        batch = synth_batch(cfg, data, i)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        (state, m), s = timed(lambda: step(state, batch))
+        times.append(s)
+        counts.append(ops.launch_counts())
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    # the aux alone on one microbatch's pooled embeddings
+    tokens = synth_batch(cfg, data, 1)["tokens"][:b // GEMMA_STEP_MICRO]
+    with torch.no_grad():
+        pooled = embed_lookup(state["params"].embed, tokens,
+                              cfg.dtype).mean(dim=1)
+
+    def aux():
+        h = pooled.detach().requires_grad_()
+        logdet_decorrelation(h).backward()
+        return h.grad
+    aux()
+    aux_s = min(timed(aux)[1] for _ in range(3))
+    step_s = sorted(times)[len(times) // 2]
+    want_k1 = GEMMA_STEP_MICRO * (cfg.d_model - 1)
+    out = {"params": count_params(cfg), "shape": [b, t],
+           "microbatches": GEMMA_STEP_MICRO, "warmup_step_s": warm_s,
+           "step_s": times, "step_ms_median": step_s * 1e3,
+           "tokens_per_s": b * t / step_s, "peak_mem_bytes": peak,
+           "k1_launches_per_step": [c.get("rank1_update", 0) for c in counts],
+           "expected_k1": want_k1, "metrics": metrics[-1],
+           "aux_fwd_bwd_ms": aux_s * 1e3,
+           "aux_share_of_step": GEMMA_STEP_MICRO * aux_s / step_s,
+           "card": smi}
+    require(all(c.get("rank1_update", 0) == want_k1 and not any(
+        v for n, v in c.items() if n != "rank1_update") for c in counts),
+        f"gemma full train: launches {counts}, want K1 {want_k1} a step")
+    require(all(v == v and abs(v) != float("inf")
+                for m in metrics + [{k: float(v) for k, v in m0.items()}]
+                for v in m.values()), f"gemma full train: metrics {metrics}")
+    return out, {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+
+
+def driver_on_card(seed: int) -> dict:
+    """(d): run_training on the card with async checkpoints, one node
+    failure and one sleep, against an uninterrupted run of the same
+    steps: restarts 1, the straggler flagged, the final states bitwise
+    equal."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.ft.driver import FTConfig, run_training
+    from repro_torch.kernels import ops
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_config("qwen2.5-3b", smoke=True).replace(dtype=torch.float32)
+    tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=1e-2, warmup=2,
+                                     decay_steps=DRIVER_STEPS),
+                       logdet_reg=TRAIN_LOGDET)
+    data = DataConfig(seed=seed, batch=2, seq=16)
+    runs = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp:
+        for run in ("straight", "interrupted"):
+            state = init_train_state(cfg, tcfg, generator=torch.Generator()
+                                     .manual_seed(seed), device="cuda")
+            armed = {"fault": run == "interrupted"}
+
+            def injector(step, armed=armed, run=run):
+                if run != "interrupted":
+                    return
+                if step == DRIVER_FAULT and armed["fault"]:
+                    armed["fault"] = False
+                    raise RuntimeError("injected node failure")
+                if step == DRIVER_SLOW:
+                    time.sleep(DRIVER_SLEEP)
+            t0 = time.perf_counter()
+            final, stats = run_training(
+                state=state, train_step=make_train_step(cfg, tcfg),
+                batch_fn=lambda s: synth_batch(cfg, data, s),
+                n_steps=DRIVER_STEPS,
+                ft=FTConfig(ckpt_dir=f"{tmp}/{run}", ckpt_every=DRIVER_CKPT),
+                fault_injector=injector)
+            runs[run] = (final, stats, time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    (a, sa, ta), (b, sb, tb) = runs["straight"], runs["interrupted"]
+    pa = dict(a["params"].named_parameters())
+    diff = {k: float((p.detach() - pa[k].detach()).abs().max())
+            for k, p in b["params"].named_parameters()}
+    bitwise = all(torch.equal(p, pa[k]) for k, p in
+                  b["params"].named_parameters())
+    out = {"steps": DRIVER_STEPS, "ckpt_every": DRIVER_CKPT,
+           "restarts": sb.restarts, "stragglers": sb.stragglers,
+           "straight_s": ta, "interrupted_s": tb,
+           "final_step": int(b["step"]), "bitwise": bitwise,
+           "max_abs_diff": max(diff.values()), "launches": counts}
+    # K1 on every step taken: the straight run's, the interrupted run's
+    # steps before the fault and its replay from the checkpoint
+    want = (2 * DRIVER_STEPS + DRIVER_FAULT % DRIVER_CKPT) * (cfg.d_model - 1)
+    require(counts.get("rank1_update", 0) == want and not any(
+        v for n, v in counts.items() if n != "rank1_update"),
+        f"driver: launches {counts}, want K1 {want}")
+    require(sb.restarts == 1 and sa.restarts == 0,
+            f"driver: restarts {sb.restarts}")
+    require(DRIVER_SLOW in sb.stragglers, f"driver: stragglers "
+            f"{sb.stragglers} miss step {DRIVER_SLOW}")
+    require(int(a["step"]) == int(b["step"]) == DRIVER_STEPS,
+            "driver: final steps differ")
+    require(bitwise, f"driver: the restarted run's parameters differ from "
+            f"the uninterrupted run's by up to {out['max_abs_diff']}")
+    return out
+
+
+def checkpoint_on_card(card_state) -> dict:
+    """(d): one synchronous save of (b)'s card state and its restore onto
+    the CPU, timed, bitwise."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    nbytes = sum(p.numel() * p.element_size()
+                 for p in card_state["params"].parameters())
+
+    def tree_bytes(t):
+        if isinstance(t, dict):
+            return sum(tree_bytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+    nbytes += tree_bytes(card_state["opt"]) + 4
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(tmp, card_state, 1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, step = ckpt.restore(tmp, card_state, device="cpu")
+        restore_s = time.perf_counter() - t0
+    same = step == 1 and all(
+        torch.equal(p.detach().cpu(), q.detach()) for (_, p), (_, q) in zip(
+            card_state["params"].named_parameters(),
+            got["params"].named_parameters()))
+
+    def tree_same(x, y):
+        if isinstance(x, dict):
+            return all(tree_same(x[k], y[k]) for k in x)
+        return y.device.type == "cpu" and torch.equal(x.cpu(), y)
+    same = same and tree_same(card_state["opt"], got["opt"]) and \
+        tree_same({"s": card_state["step"]}, {"s": got["step"]})
+    out = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+           "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9, "bitwise": same}
+    require(same, "checkpoint: the card state restored onto the CPU differs")
+    return out
+
+
+def train_phase(seed: int, smi: str) -> dict:
+    """Phase 14: (a) the smoke archs' train steps, card against CPU; (b)
+    gemma3-1b at full width, 6 layers, card against CPU, and the aux
+    alone; (c) gemma3-1b at full depth, bf16, timed; (d) the driver on
+    the card and a checkpoint of (b)'s state.  Returns launches by
+    route."""
+    import torch
+    t0 = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on: the f32 comparisons would measure TF32")
+    launches = smoke_train(seed)
+    ref, card_state = gemma_train_reference(seed, smi)
+    launches["train|gemma3-1b 6 layers|adamw"] = ref.pop("launches")
+    say("train", part="gemma3-1b 6 layers", **ref)
+    say("train", part="checkpoint", card=smi, **checkpoint_on_card(card_state))
+    del card_state
+    torch.cuda.empty_cache()
+    full, launches["train|gemma3-1b full|adamw"] = gemma_train_full(seed, smi)
+    say("train", part="gemma3-1b full", **full)
+    torch.cuda.empty_cache()
+    drv = driver_on_card(seed)
+    launches["train|driver"] = drv["launches"]
+    say("train", part="driver", **drv)
+    say("train", seconds=time.perf_counter() - t0)
+    return launches
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4267,6 +4801,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 13: the models, configs and data
     launches.update(models_phase(args.seed, args.k, smi))
+    torch.cuda.empty_cache()
+    # phase 14: training, the logdet aux through K1
+    launches.update(train_phase(args.seed, smi))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

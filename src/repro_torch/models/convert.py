@@ -10,7 +10,10 @@ llama4's dense blocks, vision's self blocks and zamba2's SSM blocks.
 
 A bf16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
 ``torch.from_numpy`` refuses: it is widened to f32, which is exact, and
-cast to the parameter's dtype.  Nothing here imports JAX.
+cast to the parameter's dtype.  `from_jax_train_state` carries a whole
+JAX ``init_train_state`` tree across: the parameters as above, the
+optimizer state as the stacked tensors it is (`repro_torch.optim` keeps
+the JAX layout) and the step.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ from repro_torch.estimators.operators.base import resolve_device
 from repro_torch.models.common import ModelConfig, empty_init
 from repro_torch.models.model import Model
 
-__all__ = ["from_jax_params", "flatten", "unstacked"]
+__all__ = ["from_jax_params", "from_jax_train_state", "flatten", "unstacked",
+           "STACK_DEPTH"]
 
 # stacked leading axes of the JAX tree, by top-level key
-_STACK_DEPTH = {"blocks": 1, "moe_blocks": 1, "enc_blocks": 1,
+STACK_DEPTH = {"blocks": 1, "moe_blocks": 1, "enc_blocks": 1,
                 "dec_blocks": 1, "cross_blocks": 1, "extra_ssm": 1,
                 "dense_blocks": 2, "self_blocks": 2, "ssm_blocks": 2}
 
@@ -60,7 +64,7 @@ def unstacked(tree) -> Dict[str, np.ndarray]:
     parameter names -> numpy arrays (views of the stacked leaves)."""
     out: Dict[str, np.ndarray] = {}
     for name, leaf in flatten(tree).items():
-        depth = _STACK_DEPTH.get(name.partition(".")[0], 0)
+        depth = STACK_DEPTH.get(name.partition(".")[0], 0)
         out.update(_unstack(name, leaf, depth))
     return out
 
@@ -92,3 +96,36 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> Model:
                        f"{sorted(missing)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _opt_from(tree, want, path, dev):
+    """The JAX optimizer state ``tree`` (numpy leaves) as tensors shaped
+    and typed as the port's own state ``want``."""
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else tree
+            raise KeyError(f"opt{path}: JAX keys {got} != the port's "
+                           f"{sorted(want)}")
+        return {k: _opt_from(tree[k], want[k], f"{path}.{k}", dev)
+                for k in want}
+    leaf = np.asarray(tree)
+    if tuple(leaf.shape) != tuple(want.shape):
+        raise ValueError(f"opt{path}: shape {leaf.shape} != "
+                         f"{tuple(want.shape)}")
+    return _tensor(leaf, want.dtype).to(dev)
+
+
+def from_jax_train_state(tree, cfg: ModelConfig, tcfg, *, device=None):
+    """The port's train state (`repro_torch.train.step.init_train_state`'s
+    layout: ``{"params": Model, "opt": ..., "step": 0-d int32}``) with the
+    numbers of a JAX ``init_train_state`` tree (numpy leaves), on the
+    card unless ``device="cpu"``.  ``tcfg`` (a `TrainConfig`) names the
+    optimizer, whose state must match the port's leaf for leaf."""
+    from repro_torch.optim import get_optimizer
+    dev = resolve_device(device)
+    model = from_jax_params(tree["params"], cfg, device=dev)
+    init, _ = get_optimizer(tcfg.opt)
+    opt = _opt_from(tree["opt"], init(model), "", dev)
+    step = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                        device=dev)
+    return {"params": model, "opt": opt, "step": step}

@@ -1071,3 +1071,149 @@ def test_service_estimator_batch_on_the_card(cuda):
         assert r.sem == want.sem[i].item()
         ref_ld = 2.0 * np.log(np.diag(np.linalg.cholesky(a))).sum()
         assert abs(r.logabsdet - ref_ld) <= 5 * r.sem + 1e-4 * abs(ref_ld)
+
+
+# --------------------------------------------------------------------------
+# training (repro_torch.train / .checkpoint): the logdet aux through K1
+# --------------------------------------------------------------------------
+
+def _train_setup(device, name="adamw", mb=2):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    cfg = get_config("qwen2.5-3b", smoke=True).replace(dtype=torch.float32)
+    tcfg = TrainConfig(opt=OptConfig(name=name, weight_decay=0.01),
+                       microbatches=mb, logdet_reg=0.05)
+    state = init_train_state(cfg, tcfg, generator=torch.Generator()
+                             .manual_seed(0), device="cpu")
+    batch = synth_batch(cfg, DataConfig(seed=0, batch=4, seq=16), 0,
+                        device="cpu")
+    return cfg, tcfg, state, batch
+
+
+def _state_to(state, device):
+    import copy
+    out = copy.deepcopy(state)
+    out["params"] = out["params"].to(device)
+
+    def tree(t):
+        return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(device))
+    out["opt"] = tree(out["opt"])
+    out["step"] = out["step"].to(device)
+    return out
+
+
+def test_train_step_on_the_card_launches_k1_and_matches_the_cpu(cuda):
+    """One adamw step (2 microbatches, logdet_reg) of qwen2.5-3b's smoke
+    config: K1 launched 2 x (d_model - 1) times and nothing else; the
+    clipped gradients within 1e-5 of the CPU's largest element; the
+    card's update within 1e-5 (plus two f32 spacings) of the CPU
+    optimizer applied to the card's own gradient; the metrics within
+    1e-5 (grad_norm 1e-4)."""
+    from repro_torch.optim import clip_by_global_norm, get_optimizer
+    from repro_torch.train import make_grad_fn, make_train_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, tcfg, state, batch = _train_setup("cpu")
+    card = _state_to(state, cuda)
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    grad_fn = make_grad_fn(cfg, tcfg)
+    gk, _ = clip_by_global_norm(grad_fn(card["params"], cbatch)[0],
+                                tcfg.opt.clip_norm)
+    gc, _ = clip_by_global_norm(grad_fn(state["params"], batch)[0],
+                                tcfg.opt.clip_norm)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    for k in gc:
+        assert (gk[k].cpu() - gc[k]).abs().max() <= 1e-5 * gmax, k
+    cross = _state_to(state, "cpu")
+    get_optimizer(tcfg.opt)[1]({k: v.cpu() for k, v in gk.items()},
+                               cross["opt"], cross["params"])
+    old = {k: p.detach().clone()
+           for k, p in state["params"].named_parameters()}
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card, mk = step(card, cbatch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts.pop("rank1_update") == 2 * (cfg.d_model - 1)
+    assert not any(counts.values()), counts
+    state, mc = step(state, batch)
+    for k in mc:
+        rtol = 1e-4 if k == "grad_norm" else 1e-5
+        assert float(mk[k]) == pytest.approx(float(mc[k]), rel=rtol), k
+    new_x = dict(cross["params"].named_parameters())
+    for k, p in card["params"].named_parameters():
+        dk = p.detach().cpu().double() - old[k].double()
+        dx = new_x[k].detach().double() - old[k].double()
+        tol = 1e-5 * dx.abs() + 4 * 2.0 ** -23 * new_x[k].detach().abs()
+        assert ((dk - dx).abs() <= tol.double() + 1e-300).all(), k
+    assert int(card["step"]) == int(state["step"]) == 1
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A card train state (adafactor's stacked moments) with a bf16 leaf,
+    saved from the card, restores onto the CPU bit for bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    _, _, state, _ = _train_setup("cpu", name="adafactor", mb=1)
+    card = _state_to(state, cuda)
+    card["extra"] = {"half": torch.randn(5, 7, device=cuda)
+                     .to(torch.bfloat16)}
+    ckpt.save(tmp_path, card, 3)
+    got, step = ckpt.restore(tmp_path, card, device="cpu")
+    assert step == 3
+    want = dict(card["params"].named_parameters())
+    for k, p in got["params"].named_parameters():
+        assert p.device.type == "cpu" and torch.equal(p, want[k].cpu()), k
+    assert got["extra"]["half"].dtype == torch.bfloat16
+    assert torch.equal(got["extra"]["half"].view(torch.int16),
+                       card["extra"]["half"].cpu().view(torch.int16))
+    for k, v in card["opt"]["f"]["blocks"]["mlp"]["w_up"].items():
+        assert torch.equal(got["opt"]["f"]["blocks"]["mlp"]["w_up"][k],
+                           v.cpu()), k
+
+
+def test_logdet_decorrelation_grad_on_the_card(cuda, monkeypatch):
+    """The aux on the card: value and gradient against the CPU's within
+    2 sqrt(d) cond(Cov + eps I) 2^-24 (f32 in both: an f32 inverse's error
+    model on each side); K1 launched d - 1 times by
+    the forward and never by the backward (one inv_ex); no plain kernel
+    version reached with a CUDA tensor."""
+    from repro_torch.train.loss import logdet_decorrelation
+    for name in dir(ref):
+        fn = getattr(ref, name)
+        if name.endswith("_ref") and callable(fn):
+            def guard(*args, _fn=fn, _name=name, **kw):
+                assert not any(isinstance(a, torch.Tensor) and a.is_cuda
+                               for a in args), f"{_name} on a CUDA tensor"
+                return _fn(*args, **kw)
+            monkeypatch.setattr(ref, name, guard)
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((3, 5, 24)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.from_numpy(h).to(dev).requires_grad_()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        v = logdet_decorrelation(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            fwd = ops.launch_counts()
+            ops.reset_launch_counts()
+        v.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            bwd = ops.launch_counts()
+        out[dev.type] = (float(v.detach()), x.grad.double().cpu())
+    assert fwd.pop("rank1_update") == h.shape[-1] - 1
+    assert not any(fwd.values()) and not any(bwd.values()), (fwd, bwd)
+    flat = torch.from_numpy(h.reshape(-1, h.shape[-1])).double()
+    xc = flat - flat.mean(0)
+    cov = xc.T @ xc / flat.shape[0] + 1e-3 * torch.eye(h.shape[-1],
+                                                        dtype=torch.float64)
+    ku = h.shape[-1] ** 0.5 * float(torch.linalg.cond(cov)) * 2.0 ** -24
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    g_card, g_cpu = out["cuda"][1], out["cpu"][1]
+    assert float((g_card - g_cpu).abs().max() / g_cpu.abs().max()) <= 2 * ku
