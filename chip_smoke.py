@@ -233,7 +233,34 @@ printed line each, any failure ends the run:
             every DRIVER_CKPT steps, a node failure, a sleep): one
             restart, the straggler flagged, the final parameters bitwise
             an uninterrupted run's, and one synchronous save of (b)'s
-            state restored onto the CPU, bitwise, with its GB/s.
+            state restored onto the CPU, bitwise, with its GB/s;
+15. launch  `repro_torch.sharding` / `.launch`: (a) `launch.train` on
+            gemma3-1b at full width and depth with the aux, one rank
+            (LAUNCH_STEPS steps of LAUNCH_SHAPE tokens in LAUNCH_MICRO
+            microbatches): finite losses, K1 exactly steps x
+            microbatches x (d_model - 1) and nothing else, no
+            collective; step s, tokens/s, peak memory, the checkpoint's
+            seconds; (b) the JAX launcher test's run (LAUNCH_ARGV) on a
+            2x2 grid of four gloo ranks sharing the card against one
+            rank here: every rank's blocks bitwise the one-rank state's
+            at its coordinates with the shapes of the rules' shards, its
+            losses the same, one more step's broadcasts and agreeing
+            all_sum equal to `layout.step_plan`, the mean loss over the
+            run's batches lower with the last parameters than with the
+            first, and the grid's step-LAUNCH_RESTORE_AT checkpoint
+            restored onto one rank ending bitwise where the one-rank run
+            ended; then the same grid at full width (gemma3-1b cut to
+            LAUNCH_WIDE_LAYERS layers, LAUNCH_WIDE_STEPS steps of
+            LAUNCH_WIDE_SHAPE, its final checkpoint gathered and
+            written) held alike against one rank here, step s,
+            broadcasts and bytes a step, resident bytes a rank; (c)
+            `launch.serve.generate` on LAUNCH_SERVE against the CPU on
+            the same parameters (f32 logits within SMOKE_ATOL, greedy
+            tokens equal until a near tie), tokens/s, and the CLI; (d)
+            the dry run's DRYRUN_CELLS at full size, argument bytes,
+            broadcasts and their bytes equal to the JAX rules' totals
+            recorded beside each cell, the memory tracker's temp bytes
+            where the cell is not fast, the records printed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4700,6 +4727,434 @@ def train_phase(seed: int, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: launch and sharding (repro_torch.sharding / .launch).  No kernel
+# of their own; the train launcher's logdet aux is K1, as in phase 14.
+# --------------------------------------------------------------------------
+
+# (a) launch.train at gemma3-1b's full width and depth: LAUNCH_STEPS steps
+# of LAUNCH_SHAPE tokens in LAUNCH_MICRO microbatches, adamw, the aux at
+# TRAIN_LOGDET, one rank
+LAUNCH_STEPS, LAUNCH_SHAPE, LAUNCH_MICRO = 3, (4, 256), 2
+# (b) the JAX launcher test's arguments (tests/test_launch_integration.py
+# ::test_train_cli_multidevice) on a 2x2 grid of gloo ranks sharing the
+# card, against one rank in this process; the step-LAUNCH_RESTORE_AT
+# checkpoint restored onto one rank
+LAUNCH_ARGV = ["--arch", "gemma3-1b", "--steps", "30", "--batch", "4",
+               "--seq", "32", "--lr", "3e-3", "--ckpt-every", "25"]
+LAUNCH_GRID, LAUNCH_RESTORE_AT, LAUNCH_TIMEOUT = (2, 2), 25, 600
+# (b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
+# LAUNCH_WIDE_STEPS steps of (batch, seq) on the same grid.  Every rank
+# computes the global step, so four ranks on one card hold four steps'
+# peaks: 17.3 GB a rank at 6 layers left 2.1 GB of the card free (PERF.md
+# §6), and a rank out of memory inside a gather stops the grid
+LAUNCH_WIDE_LAYERS, LAUNCH_WIDE_STEPS, LAUNCH_WIDE_SHAPE = 2, 2, (4, 64)
+LAUNCH_WIDE_TIMEOUT = 300
+# (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
+# card against CPU on the same parameters; greedy tokens equal until the
+# CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
+LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
+# (d) the dry run's cells at full size: (arch, shape, multi_pod, fast --
+# fast skips the memory tracker's pass -- and what the JAX rules' shards
+# of the JAX cell's arguments give: (argument bytes a device, broadcasts
+# and their bytes to gather them); tests/test_torch_dryrun.py derives
+# these from the JAX package)
+DRYRUN_CELLS = [
+    ("gemma3-1b", "train_4k", False, True,
+     (101347048, 25040, 12006141440)),
+    ("llama4-maverick-400b-a17b", "decode_32k", True, False,
+     (3341134676, 135232, 1620049078784))]
+
+
+def named_blocks(state) -> dict:
+    """A (sharded) train state's tensors on the host, named as
+    `launch.train.rank_main` names them."""
+    from repro_torch.sharding.layout import flat
+    return {".".join(p): t.detach().cpu() for p, t in flat(state).items()}
+
+
+def rule_shardings(cfg, state, dims) -> tuple:
+    """(a shape-only ("data", "model") grid of ``dims``, the rules'
+    `Sharding` of every leaf of a whole train state, by `named_blocks`
+    name)."""
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.sharding.layout import flat
+    from repro_torch.sharding.rules import (PartitionSpec, Sharding,
+                                            param_shardings)
+    grid = GridMesh(("data", "model"), dims)
+    sh = param_shardings({"params": state["params"], "opt": state["opt"]},
+                         cfg, grid)
+    out = {".".join(p): s for p, s in flat(sh).items()}
+    out["step"] = Sharding(grid, PartitionSpec())
+    return grid, out
+
+
+def hold_grid(ranks, want: dict, cfg, state, what: str) -> dict:
+    """Every rank's blocks against the whole one-rank ``want`` cut by the
+    rules at the rank's coordinates: the shapes of the rules' shards,
+    bitwise; one more step's collectives equal to `layout.step_plan`.
+    -> leaves split / whole and a rank's resident bytes."""
+    import math
+    import torch
+    from repro_torch.sharding.layout import block_slices, shard_shape
+    grid, sh = rule_shardings(cfg, state, LAUNCH_GRID)
+    worst, differ = 0.0, []
+    for r in ranks:
+        require(set(r["blocks"]) == set(want), f"{what}: rank "
+                f"{r['coords']} holds other leaves than the one-rank state")
+        for k, v in want.items():
+            blk = v[block_slices(v.shape, sh[k], r["coords"])]
+            got = r["blocks"][k]
+            # an array, or (shape, sha256 of its bytes)
+            shape = tuple(got[0] if isinstance(got, tuple) else got.shape)
+            require(shape == shard_shape(v.shape, sh[k])
+                    == tuple(blk.shape), f"{what}: rank {r['coords']} "
+                    f"holds {k} {shape}, the rules' shard is "
+                    f"{shard_shape(v.shape, sh[k])}")
+            if isinstance(got, tuple):
+                if got[1] != hashlib.sha256(
+                        blk.contiguous().numpy().data).hexdigest():
+                    differ.append((r["coords"], k))
+            elif not torch.equal(torch.from_numpy(got), blk):
+                worst = max(worst, float((torch.from_numpy(got).double()
+                                          - blk.double()).abs().max()))
+        require(r["counts"]["broadcast"] == r["plan"]["broadcast"] > 0
+                and r["counts"]["all_sum"] == r["plan"]["all_sum"] == 1,
+                f"{what}: rank {r['coords']} collectives {r['counts']}, "
+                f"plan {r['plan']}")
+    require(worst == 0.0 and not differ, f"{what}: the ranks' blocks "
+            f"differ from the one-rank run's by up to {worst}; digests of "
+            f"{differ[:8]}")
+    split = sum(tuple(v.shape) != shard_shape(v.shape, sh[k])
+                for k, v in want.items())
+    return {"leaves_split": split, "leaves_whole": len(want) - split,
+            "resident_bytes_rank0": sum(
+                math.prod(shard_shape(v.shape, sh[k])) * v.element_size()
+                for k, v in want.items()),
+            "whole_bytes": sum(v.numel() * v.element_size()
+                               for v in want.values())}
+
+
+def launch_full(smi: str) -> dict:
+    """(a): `launch.train` on gemma3-1b at full width and depth, one rank
+    on the card, with the aux: every loss finite, K1 exactly steps x
+    microbatches x (d_model - 1) and no other kernel, no collective; the
+    step times, tokens/s, peak memory and the final checkpoint's
+    seconds (its host copy and its write)."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    b, t = LAUNCH_SHAPE
+    spent = {"host_copy_s": 0.0, "write_s": 0.0}
+
+    def timing(fn, key):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapped
+    host, write = ckpt._host_leaves, ckpt._write
+    with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+        argv = ["--arch", "gemma3-1b", "--full", "--steps",
+                str(LAUNCH_STEPS), "--batch", str(b), "--seq", str(t),
+                "--microbatches", str(LAUNCH_MICRO), "--logdet-reg",
+                str(TRAIN_LOGDET), "--log-every", "1", "--ckpt-dir", tmp,
+                "--ckpt-every", str(LAUNCH_STEPS)]
+        args = T.parser().parse_args(argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        M.reset_collective_counts()
+        ckpt._host_leaves = timing(host, "host_copy_s")
+        ckpt._write = timing(write, "write_s")
+        try:
+            t0 = time.perf_counter()
+            state, losses, stats = T._run(args, T._mesh("1x1", "cuda"))
+            run_s = time.perf_counter() - t0
+        finally:
+            ckpt._host_leaves, ckpt._write = host, write
+        counts = ops.launch_counts()
+        collectives = M.collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    d = get_config("gemma3-1b").d_model
+    want_k1 = LAUNCH_STEPS * LAUNCH_MICRO * (d - 1)
+    steps = stats.times
+    step_s = sorted(steps[1:])[len(steps[1:]) // 2]
+    out = {"params": sum(p.numel() for p in state["params"].parameters()),
+           "shape": [b, t], "microbatches": LAUNCH_MICRO,
+           "step_s": steps, "step_s_median_after_first": step_s,
+           "tokens_per_s": b * t / step_s, "peak_mem_bytes": peak,
+           "checkpoint": spent, "run_s": run_s, "losses": losses,
+           "launches": counts, "expected_k1": want_k1,
+           "collectives": collectives, "written": written, "card": smi}
+    require(all(v == v and abs(v) != float("inf") for v in losses)
+            and len(losses) == LAUNCH_STEPS and stats.restarts == 0,
+            f"launch full: losses {losses}, restarts {stats.restarts}")
+    require(counts.get("rank1_update", 0) == want_k1 and not any(
+        v for n, v in counts.items() if n != "rank1_update"),
+        f"launch full: launches {counts}, want K1 {want_k1} and nothing else")
+    require(not any(collectives.values()),
+            f"launch full: one rank issued collectives {collectives}")
+    require(written == [f"step_{LAUNCH_STEPS:08d}"],
+            f"launch full: checkpoints {written}")
+    return out
+
+
+def launch_grid(smi: str) -> dict:
+    """(b): the JAX launcher test's run on a 2x2 grid of gloo ranks
+    sharing the card (`launch.train.rank_main`) against one rank in this
+    process: `hold_grid`, the losses the one-rank run's, the mean loss
+    over the run's batches falling from the first parameters to the
+    last; then the 2x2 run's step-25 checkpoint restored onto one rank,
+    five steps on, bitwise the one-rank run's end."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.mesh import run_ranks
+    from repro_torch.ft.driver import FTConfig, run_training
+    from repro_torch.launch import train as T
+    from repro_torch.train.step import make_loss_fn
+    spec = "x".join(map(str, LAUNCH_GRID))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(T.rank_main, LAUNCH_GRID[0] * LAUNCH_GRID[1],
+                          backend="gloo", device="cuda",
+                          timeout=LAUNCH_TIMEOUT,
+                          args=(LAUNCH_ARGV + ["--mesh", spec, "--device",
+                                               "cuda", "--ckpt-dir",
+                                               f"{tmp}/grid"], None, True))
+        grid_s = time.perf_counter() - t0
+        args = T.parser().parse_args(LAUNCH_ARGV + ["--ckpt-dir",
+                                                    f"{tmp}/one"])
+        t0 = time.perf_counter()
+        one, losses, stats = T._run(args, T._mesh("1x1", "cuda"))
+        one_s = time.perf_counter() - t0
+        want = named_blocks(one)
+        # the loss of the first and the last parameters over the run's
+        # batches (one step's loss moves with its batch more than 30 steps
+        # of warm-up lr lower it)
+        cfg, first, _, batch_fn, _ = T.build(
+            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq)
+        loss_fn = make_loss_fn(cfg, T._tcfg(args))
+        with torch.no_grad():
+            held = [sum(float(loss_fn(s["params"], batch_fn(i))[0])
+                        for i in range(args.steps)) / args.steps
+                    for s in (first, one)]
+        del first
+        # elastic: the 2x2 checkpoint onto one rank, on to the end
+        _, st, step_fn, batch_fn, sh = T.build(
+            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq)
+        st, at = ckpt.restore(f"{tmp}/grid", st, step=LAUNCH_RESTORE_AT,
+                              shardings=sh, device="cuda")
+        st, _ = run_training(state=st, train_step=step_fn, batch_fn=batch_fn,
+                             n_steps=args.steps, shardings=sh,
+                             ft=FTConfig(ckpt_dir=f"{tmp}/restored",
+                                         ckpt_every=args.ckpt_every))
+        restored = named_blocks(st)
+    layout_out = hold_grid(ranks, want, cfg, one, "launch grid")
+    for r in ranks:
+        require(r["losses"] == losses, f"launch grid: rank {r['coords']} "
+                f"losses differ from the one-rank run's")
+    require(held[1] < held[0], f"launch grid: the mean loss over the "
+            f"run's batches {held[0]} -> {held[1]}")
+    same = all(torch.equal(restored[k], v) for k, v in want.items())
+    require(at == LAUNCH_RESTORE_AT and same, "launch grid: the 2x2 "
+            "checkpoint restored onto one rank ends off the one-rank run")
+    return {"grid": spec, "backend": "gloo", "ranks": len(ranks),
+            "devices": sorted({r["device"] for r in ranks}),
+            "grid_run_s": grid_s, "one_rank_run_s": one_s,
+            "rank_step_s_median": [sorted(r["step_s"])[len(r["step_s"]) // 2]
+                                   for r in ranks],
+            "one_rank_step_s_median": sorted(stats.times)[
+                len(stats.times) // 2],
+            "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
+            "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
+            **layout_out,
+            "loss_first_last": [losses[0], losses[-1]],
+            "held_loss_first_last_params": held, "bitwise": True,
+            "restored_from": at, "restored_bitwise": same, "card": smi,
+            "note": "four ranks share one card; collectives pass through "
+                    "host memory: not a scaling figure"}
+
+
+def launch_grid_wide(smi: str) -> dict:
+    """(b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
+    LAUNCH_WIDE_STEPS steps through `launch.train.rank_main` on the 2x2
+    grid of gloo ranks sharing the card (its final checkpoint gathered
+    and written by rank 0) against one rank in this process:
+    `hold_grid`, the losses the one-rank run's; a rank's step s, the
+    broadcasts and bytes a step, a rank's resident bytes."""
+    import tempfile
+    import torch
+    from repro_torch.core.mesh import run_ranks
+    from repro_torch.launch import train as T
+    b, t = LAUNCH_WIDE_SHAPE
+    argv = ["--arch", "gemma3-1b", "--full", "--steps",
+            str(LAUNCH_WIDE_STEPS), "--batch", str(b), "--seq", str(t),
+            "--log-every", "1"]
+    spec = "x".join(map(str, LAUNCH_GRID))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(T.rank_main, LAUNCH_GRID[0] * LAUNCH_GRID[1],
+                          backend="gloo", device="cuda",
+                          timeout=LAUNCH_WIDE_TIMEOUT,
+                          args=(argv + ["--mesh", spec, "--device", "cuda",
+                                        "--ckpt-dir", f"{tmp}/grid"], None,
+                                True, LAUNCH_WIDE_LAYERS, True))
+        grid_s = time.perf_counter() - t0
+        written = sorted(p.name for p in Path(f"{tmp}/grid").iterdir())
+        args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one, losses, stats = T._run(args, T._mesh("1x1", "cuda"),
+                                    LAUNCH_WIDE_LAYERS)
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated()
+    cfg = one["params"].cfg
+    want = named_blocks(one)
+    layout_out = hold_grid(ranks, want, cfg, one, "launch grid wide")
+    del one, want
+    for r in ranks:
+        require(r["losses"] == losses and len(losses) == LAUNCH_WIDE_STEPS
+                and all(v == v and abs(v) != float("inf") for v in losses),
+                f"launch grid wide: rank {r['coords']} losses {r['losses']}"
+                f", one rank's {losses}")
+    require(written == [f"step_{LAUNCH_WIDE_STEPS:08d}"],
+            f"launch grid wide: checkpoints {written}")
+    return {"arch": "gemma3-1b", "d_model": cfg.d_model,
+            "layers": cfg.n_layers, "vocab": cfg.vocab,
+            "shape": [b, t], "steps": LAUNCH_WIDE_STEPS, "grid": spec,
+            "backend": "gloo", "grid_run_s": grid_s, "one_rank_run_s": one_s,
+            "rank_step_s": [r["step_s"] for r in ranks],
+            "one_rank_step_s": stats.times,
+            "one_rank_peak_mem_bytes": one_peak,
+            "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
+            "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
+            **layout_out, "losses": losses, "bitwise": True, "card": smi}
+
+
+def launch_serve(seed: int, smi: str) -> dict:
+    """(c): `launch.serve.generate` on the card against the CPU on the
+    same parameters (f32), its logits within SMOKE_ATOL of max(1,
+    |logits|) and its greedy tokens equal until the CPU's top-2 margin is
+    within twice that; tokens/s of a second call; the CLI's (B, P + G)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    from repro_torch.models.common import empty_init
+    out = {}
+    for arch, b, p, g in LAUNCH_SERVE:
+        cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
+                                                   remat=False)
+        cpu = M.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                           device="cpu")
+        card = M.Model(cfg, empty_init("cuda"))
+        card.load_state_dict({k: v.to("cuda")
+                              for k, v in cpu.state_dict().items()})
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (b, p)).astype(np.int32))
+        runs = {}
+        for dev, model in (("cpu", cpu), ("cuda", card)):
+            seen = []
+            prefill, decode = M.prefill, M.decode_step
+
+            def rec(fn):
+                def wrapped(*a, **k):
+                    lg, c = fn(*a, **k)
+                    seen.append(lg[:, -1].float().cpu())
+                    return lg, c
+                return wrapped
+            M.prefill, M.decode_step = rec(prefill), rec(decode)
+            try:
+                toks = S.generate(model, prompt.to(dev), max_len=p + g,
+                                  gen=g).cpu()
+            finally:
+                M.prefill, M.decode_step = prefill, decode
+            runs[dev] = (toks, seen)
+        (tc, lc), (tk, lk) = runs["cpu"], runs["cuda"]
+        err, compared = 0.0, 0
+        for i, (x, y) in enumerate(zip(lk, lc)):
+            scale = max(1.0, float(y.abs().max()))
+            err = max(err, float((x - y).abs().max()) / scale)
+            top2 = torch.sort(y, dim=-1).values[:, -2:]
+            if float((top2[:, 1] - top2[:, 0]).min()) <=                     2 * SMOKE_ATOL * scale:
+                break
+            require(torch.equal(tk[:, p + i], tc[:, p + i]),
+                    f"launch serve {arch}: greedy token {i} differs")
+            compared += 1
+        require(err <= SMOKE_ATOL, f"launch serve {arch}: card logits off "
+                f"the CPU's by {err} of max(1, |logits|)")
+        _, s = timed(lambda: S.generate(card, prompt.to("cuda"),
+                                        max_len=p + g, gen=g))
+        cli = S.main(["--arch", arch, "--batch", str(b), "--prompt-len",
+                      str(p), "--gen", str(g)])
+        require(tuple(cli.shape) == (b, p + g) and cli.is_cuda,
+                f"launch serve {arch}: CLI tokens {tuple(cli.shape)}")
+        out[arch] = {"logit_err_rel_to_max": err, "tokens_compared":
+                     compared, "of": g, "tokens_per_s": b * g / s,
+                     "generate_s": s}
+    out["card"] = smi
+    return out
+
+
+def launch_dryrun() -> dict:
+    """(d): the dry run's DRYRUN_CELLS at full size; each record's
+    argument bytes, broadcasts and their bytes against the JAX rules'
+    totals for the cell (DRYRUN_CELLS)."""
+    from repro_torch.launch import dryrun as D
+    out = {}
+    for arch, shape, multi_pod, fast, (arg, count, wire) in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = D.run_cell(arch, shape, multi_pod=multi_pod, fast=fast,
+                         verbose=False)
+        seconds = time.perf_counter() - t0
+        got = (rec["memory"]["argument_bytes_per_device"],
+               rec["collective_counts"]["broadcast"],
+               rec["collective_bytes_by_op"]["broadcast"])
+        require(got == (arg, count, wire), f"dryrun {arch} x {shape}: "
+                f"(argument bytes, broadcasts, their bytes) {got}, the "
+                f"JAX rules' {(arg, count, wire)}")
+        require((rec["memory"]["temp_bytes_per_device"] is None) == fast,
+                f"dryrun {arch} x {shape}: temp bytes "
+                f"{rec['memory']['temp_bytes_per_device']} "
+                f"({rec['memory'].get('temp_bytes_error')})")
+        out[f"{arch}|{shape}|{rec['mesh']}"] = dict(rec, seconds=seconds)
+    return out
+
+
+def launch_phase(seed: int, smi: str) -> dict:
+    """Phase 15: (a) `launch.train` at full width through K1; (b) the 2x2
+    grid and elastic restore, at the JAX test's settings and at full
+    width; (c) `launch.serve`; (d) the dry run.
+    Returns launches by route."""
+    import torch
+    t0 = time.perf_counter()
+    full = launch_full(smi)
+    launches = {"launch|train gemma3-1b full": full.pop("launches")}
+    say("launch", part="train gemma3-1b full", **full)
+    torch.cuda.empty_cache()
+    say("launch", part="grid", **launch_grid(smi))
+    say("launch", part="grid gemma3-1b full width", **launch_grid_wide(smi))
+    say("launch", part="serve", **launch_serve(seed, smi))
+    for cell, rec in launch_dryrun().items():
+        say("launch", part="dryrun", cell=cell, **rec)
+    say("launch", seconds=time.perf_counter() - t0)
+    return launches
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4804,6 +5259,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 14: training, the logdet aux through K1
     launches.update(train_phase(args.seed, smi))
+    torch.cuda.empty_cache()
+    # phase 15: launch and sharding, the train launcher's aux through K1
+    launches.update(launch_phase(args.seed, smi))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -30,7 +30,12 @@ first use):
 - serving (`serve`, ``python -m repro_torch.serve``): a bucketed,
   continuously batching `serve.LogdetService` whose exact stacks run
   through K1's batch grid, an HTTP front end, and ``LogdetPlan.export``
-  / `load_plan` for plans resolved ahead of time.
+  / `load_plan` for plans resolved ahead of time;
+- the seed's language models (`models`, `configs`, `data`), their
+  training (`optim`, `train`, `checkpoint`, `ft`; the logdet aux through
+  K1) and their launch (`sharding`: the JAX package's sharding rules and
+  a state's blocks on a grid of ranks; `launch`: ``python -m
+  repro_torch.launch.train`` / ``.serve`` / ``.dryrun``).
 
 Plans run on the card unless the caller passes ``device="cpu"``, which
 runs the kernels' plain PyTorch versions.  ``plan.audit()`` and

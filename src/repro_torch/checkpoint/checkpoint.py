@@ -21,8 +21,17 @@ background writes.
 ``restore(dir, like, device=)`` builds a new state shaped as ``like``
 (whose tensor leaves may be on any device, ``meta`` included) on the
 card unless ``device="cpu"``, so a checkpoint saved from the card
-restores onto the CPU.  Restoring onto another mesh (``shardings=`` in
-the JAX package) waits for the port's sharding rules.
+restores onto the CPU.
+
+On a mesh (``shardings=``, a tree of `repro_torch.sharding.Sharding`
+matching the state, as `sharding.param_shardings` builds it) a state
+holds this rank's blocks (`repro_torch.sharding.layout`): `save` and
+`save_async` gather every leaf (every rank takes part), rank 0 writes
+the same files as a single device would, and `save` returns on every
+rank once they are written; `restore` loads each leaf and keeps this
+rank's block, so a checkpoint written on one mesh restores onto another
+(a 2x2 mesh's onto one rank or a 2x1 mesh: "elastic").  `save` on a
+mesh raises on every rank if rank 0's write fails (`layout.agree`).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.estimators.operators.base import resolve_device
+from repro_torch.sharding import layout
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending"]
 
@@ -103,19 +113,51 @@ def _write(ckpt_dir: Path, named, step: int) -> Path:
     return final
 
 
-def save(ckpt_dir: str | Path, state: Any, step: int) -> Path:
-    """Synchronous atomic save of a state; returns the final directory."""
-    named = [(_leaf_name(p), t.detach().cpu()) for p, t in _leaves(state)]
-    return _write(Path(ckpt_dir), named, step)
+def _host_leaves(state, shardings, copy: bool):
+    """(name, whole host tensor) per leaf, gathered on a mesh; and whether
+    this rank writes (rank 0 of the mesh, or no mesh)."""
+    sh = None if shardings is None else layout.flat(shardings)
+    named = []
+    for p, t in _leaves(state):
+        t = t.detach()
+        if sh is not None:
+            t = layout.gather_leaf(t, sh[p])
+        named.append((_leaf_name(p), t.to("cpu", copy=True) if copy
+                      else t.cpu()))
+    writer = shardings is None or layout.mesh_of(shardings).rank == 0
+    return named, writer
 
 
-def save_async(ckpt_dir: str | Path, state: Any,
-               step: int) -> threading.Thread:
-    """Background save: every leaf is copied to the host on the caller's
-    thread first, so the training loop may update the state in place as
-    soon as this returns."""
-    named = [(_leaf_name(p), t.detach().to("cpu", copy=True))
-             for p, t in _leaves(state)]
+def save(ckpt_dir: str | Path, state: Any, step: int, *,
+         shardings: Any = None) -> Path:
+    """Synchronous atomic save of a state; returns the final directory
+    (on a mesh, on every rank once rank 0 has written it)."""
+    named, writer = _host_leaves(state, shardings, copy=False)
+    final = Path(ckpt_dir) / f"step_{step:08d}"
+    if shardings is None:
+        return _write(Path(ckpt_dir), named, step) if writer else final
+    err = None
+    try:
+        if writer:
+            final = _write(Path(ckpt_dir), named, step)
+    except Exception as e:              # noqa: BLE001 -- agreed below
+        err = e
+    # every rank waits for the write, and raises if it failed
+    if layout.agree(layout.mesh_of(shardings), err is not None):
+        raise err if err is not None else RuntimeError(
+            f"rank 0 failed to write {final}")
+    return final
+
+
+def save_async(ckpt_dir: str | Path, state: Any, step: int, *,
+               shardings: Any = None) -> Optional[threading.Thread]:
+    """Background save: every leaf is copied to the host (gathered on a
+    mesh) on the caller's thread first, so the training loop may update
+    the state in place as soon as this returns.  Returns the writing
+    thread (None on a mesh rank that does not write)."""
+    named, writer = _host_leaves(state, shardings, copy=True)
+    if not writer:
+        return None
     t = threading.Thread(target=_write, args=(Path(ckpt_dir), named, step),
                          daemon=True)
     t.start()
@@ -149,12 +191,15 @@ def _skeleton(module: torch.nn.Module) -> torch.nn.Module:
 
 
 def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            shardings: Any = None, device=None) -> Tuple[Any, int]:
     """Restore a state saved by `save` -> (state, step), on the card unless
     ``device="cpu"``.  ``like`` gives the tree (its leaves' shapes are
     checked: a mismatch raises ``ValueError``); each leaf keeps the dtype
-    it was saved with."""
+    it was saved with.  With ``shardings`` (the mesh the state is
+    restored onto) each leaf is this rank's block, and ``like`` holds
+    blocks of that mesh's shapes."""
     dev = resolve_device(device)
+    sh = None if shardings is None else layout.flat(shardings)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -167,8 +212,13 @@ def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None,
     def load(path, want):
         name = _leaf_name(path)
         arr = np.load(d / f"{name}.npy")
-        if tuple(arr.shape) != tuple(want.shape):
-            raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
+        shape = tuple(arr.shape)
+        if sh is not None and shape != layout.shard_shape(shape, sh[path]):
+            arr = np.ascontiguousarray(
+                arr[layout.block_slices(shape, sh[path])])
+            shape = tuple(arr.shape)
+        if shape != tuple(want.shape):
+            raise ValueError(f"{name}: checkpoint shape {shape} != "
                              f"{tuple(want.shape)}")
         return _from_numpy(arr, dtypes[name]).to(dev)
 

@@ -13,6 +13,17 @@ The driver owns the outer Python loop.  On ANY exception from a step
      pure function of the step),
   4. continues, up to ``max_restarts``.
 
+On a mesh (``shardings=``, the state's `repro_torch.sharding` layout)
+every rank runs the driver: checkpoints gather the blocks and rank 0
+writes them, a restart waits for every rank's writes to land (a barrier)
+and restores this rank's blocks onto the mesh it runs on.  Every rank
+restarts at the same step: a fault raised on one rank alone (in
+``fault_injector``, ``batch_fn``, ``on_metrics`` or a checkpoint write)
+is held while the rank keeps its place in the collectives, and the ranks
+agree on it (`sharding.layout.agree`, one all_sum) before the next step;
+``train_step`` (`layout.mesh_step`) commits on every rank or on none.  A
+fault inside a collective is not recovered.
+
 Straggler detection: per-step wall times (to a sync on the loss's
 device) feed an EWMA seeded from the second measured step; a step slower
 than ``straggler_factor`` x EWMA is recorded with its index.
@@ -30,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.sharding import layout
 
 __all__ = ["FTConfig", "StepStats", "run_training"]
 
@@ -67,6 +79,7 @@ def run_training(
     batch_fn: Callable[[int], Any],
     n_steps: int,
     ft: Optional[FTConfig] = None,
+    shardings: Any = None,
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     fault_injector: Optional[Callable[[int], None]] = None,
 ) -> tuple[Any, StepStats]:
@@ -77,16 +90,51 @@ def run_training(
     or sleep to simulate a straggler.
     """
     ft = FTConfig() if ft is None else ft
+    mesh = None if shardings is None else layout.mesh_of(shardings)
+
+    def settle(err):
+        """Raise on every rank if any rank of the mesh holds a fault (one
+        `layout.agree` a step); without a mesh, raise ``err``."""
+        if mesh is not None and layout.agree(mesh, err is not None) \
+                and err is None:
+            err = RuntimeError("a fault on another rank of the mesh")
+        if err is not None:
+            raise err
+
+    def local(fn, held):
+        """``fn()``; on a mesh its fault is held (-> the fault held)."""
+        try:
+            fn()
+        except Exception as e:          # noqa: BLE001 -- agreed next step
+            if mesh is None:
+                raise
+            return held or e
+        return held
+
+    def wait_pending():
+        ckpt.wait_pending()
+        if mesh is not None:
+            layout.barrier(mesh)
     stats = StepStats()
     step = int(state["step"])
     ewma_t: Optional[float] = None
+    held: Optional[Exception] = None    # this rank's fault, not yet agreed
 
-    while step < n_steps:
+    while True:
         try:
             t0 = time.perf_counter()
-            if fault_injector is not None:    # inside the timed window: an
-                fault_injector(step)          # injected sleep IS a straggler
-            state, metrics = train_step(state, batch_fn(step))
+            err, held = held, None
+            if err is None and step < n_steps:
+                try:
+                    if fault_injector is not None:  # inside the timed window:
+                        fault_injector(step)        # a sleep IS a straggler
+                    batch = batch_fn(step)
+                except Exception as e:  # noqa: BLE001 -- agreed just below
+                    err = e
+            settle(err)
+            if step >= n_steps:
+                break
+            state, metrics = train_step(state, batch)
             if metrics["loss"].device.type == "cuda":
                 torch.cuda.synchronize(metrics["loss"].device)
             dt = time.perf_counter() - t0
@@ -101,12 +149,12 @@ def run_training(
                 ewma_t = ft.ewma * ewma_t + (1 - ft.ewma) * dt
             step += 1
             if on_metrics is not None:
-                on_metrics(step, _to_host(metrics))
+                held = local(lambda: on_metrics(step, _to_host(metrics)),
+                             held)
             if step % ft.ckpt_every == 0 or step == n_steps:
-                if ft.async_ckpt:
-                    ckpt.save_async(ft.ckpt_dir, state, step)
-                else:
-                    ckpt.save(ft.ckpt_dir, state, step)
+                save = ckpt.save_async if ft.async_ckpt else ckpt.save
+                held = local(lambda: save(ft.ckpt_dir, state, step,
+                                          shardings=shardings), held)
         except (KeyboardInterrupt,):
             raise
         except Exception as e:          # noqa: BLE001 -- the FT boundary
@@ -114,14 +162,15 @@ def run_training(
             if stats.restarts > ft.max_restarts:
                 raise RuntimeError(
                     f"exceeded max_restarts={ft.max_restarts}") from e
-            ckpt.wait_pending()
+            wait_pending()
             last = ckpt.latest_step(ft.ckpt_dir)
             if last is None:
                 # nothing saved yet: go on from the state held
                 step = int(state["step"])
                 continue
             state, step = ckpt.restore(ft.ckpt_dir, state, step=last,
+                                       shardings=shardings,
                                        device=state["step"].device)
 
-    ckpt.wait_pending()
+    wait_pending()
     return state, stats

@@ -13,7 +13,11 @@ Modes (``mode`` argument of `Attention.forward`):
 
 KV cache layout: {"k": (B, S, n_kv, hd), "v": (B, S, n_kv, hd)} with S the
 static max length; ``cache_pos`` gives the current fill.  Decode writes
-the step's keys and values into the given cache in place and returns it.
+the step's keys and values into the given cache in place and returns it:
+an indexed write (``index_copy_``), or, under the sharding hint
+``kv_masked_write`` (`repro_torch.sharding.hints`), a one-hot masked
+merge over S, the JAX package's form for a sequence-sharded cache; the
+two write the same bits.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.common import (
     ModelConfig, ParamInit, apply_rope, param, rope_freqs,
 )
+from repro_torch.sharding import hints
 
 __all__ = ["Attention", "NEG_INF", "FULL_WINDOW"]
 
@@ -188,8 +193,16 @@ class Attention(nn.Module):
             if cache is None or cache_pos is None:
                 raise ValueError("decode needs a cache and cache_pos")
             at = _position(cache_pos, dev)
-            ck = cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
-            cv = cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+            if hints.flag("kv_masked_write"):
+                slot = (torch.arange(cache["k"].shape[1], device=dev)
+                        == at)[None, :, None, None]
+                ck = cache["k"].copy_(torch.where(
+                    slot, k.to(cache["k"].dtype), cache["k"]))
+                cv = cache["v"].copy_(torch.where(
+                    slot, v.to(cache["v"].dtype), cache["v"]))
+            else:
+                ck = cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+                cv = cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
             new_cache = cache
             k, v = ck, cv
             k_pos = arange(ck.shape[1])

@@ -9,8 +9,11 @@ parameters of one model start from one explicit `torch.Generator`;
 `repro_torch.models.convert.from_jax_params` loads the JAX package's own
 numbers instead.
 
-The JAX logical-axis recorder (``keygen`` / ``specs_of``) serves the
-sharding rules and is not ported here.
+The JAX logical-axis recorder (``keygen`` / ``specs_of``,
+`repro.models.common`) is not ported: nothing calls it (the sharding
+rules resolve axes from a leaf's name, `repro_torch.sharding.rules`),
+and ``specs_of(init_model, ...)`` raises ``TypeError`` on every arch
+(its recording pass yields ``None`` keys, which ``_stack_init`` splits).
 """
 from __future__ import annotations
 

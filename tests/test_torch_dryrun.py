@@ -1,0 +1,210 @@
+"""CPU twins of `repro_torch.launch.dryrun` against `repro.launch.dryrun`.
+
+The JAX launcher test's two smoke cells (tests/test_launch_integration.py
+::test_dryrun_smoke_cell: gemma3-1b train_4k on 16x16 and decode_32k on
+2x16x16) through the port's `run_cell`: the peak is positive, the
+bottleneck one of the three terms, the mesh named.  Their argument bytes
+per device equal the bytes of the JAX rules' shards of the JAX cell's
+arguments (``jax.eval_shape`` trees, `repro.sharding.rules` specs on a
+`FakeMesh` of the production shape), computed without compiling; their
+collective counts and wire bytes are what gathering those shards costs
+(one broadcast per block of every split leaf, the leaf's bytes on the
+wire).  The skip record and the ``--out`` / ``--skip-existing`` files of
+the port's CLI equal the JAX CLI's (run in a subprocess: the JAX module
+sets its device count on import)."""
+from __future__ import annotations
+
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.registry import batch_specs as jax_batch_specs
+from repro.configs.registry import get_config as jax_config
+from repro.models import model as JM
+from repro.optim.optimizers import OptConfig as JOptConfig
+from repro.sharding import rules as JR
+from repro.train.step import TrainConfig as JTrainConfig
+from repro.train.step import init_train_state as jax_init_train_state
+
+from repro_torch.launch import dryrun as D
+from repro_torch.models.convert import STACK_DEPTH
+
+from _subproc import SRC
+
+CELLS = [("gemma3-1b", "train_4k", False), ("gemma3-1b", "decode_32k", True)]
+
+
+class FakeMesh:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+def _mesh(multi_pod):
+    if multi_pod:
+        return FakeMesh({"pod": 2, "data": 16, "model": 16})
+    return FakeMesh({"data": 16, "model": 16})
+
+
+def _split(spec, fm) -> list:
+    """The split count of each entry of a JAX spec."""
+    return [1 if e is None else math.prod(
+        fm.shape[a] for a in (e if isinstance(e, tuple) else (e,)))
+        for e in spec]
+
+
+def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
+    """(argument bytes per device, broadcasts, wire bytes) of the JAX
+    cell's arguments laid out by the JAX rules."""
+    from repro_torch.configs.shapes import SHAPES
+    shape = SHAPES[shape_name]
+    fm = _mesh(multi_pod)
+    jcfg = jax_config(arch, smoke=smoke)
+    specs = jax_batch_specs(jcfg, shape.global_batch, shape.seq_len,
+                            kind=shape.kind)
+    bspec = JR.batch_spec(jcfg, fm, kind=shape.kind,
+                          batch=shape.global_batch)
+    leaves = [(specs[k], bspec[k]) for k in specs]
+    if shape.kind == "train":
+        tcfg = JTrainConfig(opt=JOptConfig(name="adamw"))
+        state = jax.eval_shape(lambda k: jax_init_train_state(k, jcfg, tcfg),
+                               jax.random.PRNGKey(0))
+        ps = JR.param_specs({"params": state["params"], "opt": state["opt"]},
+                            jcfg, JR.make_rules(jcfg, fm), fm)
+        trees = [({"params": state["params"], "opt": state["opt"]}, ps, 1)]
+        leaves.append((state["step"], JR.P()))
+    else:
+        scfg = jcfg.replace(attn_impl="chunked", remat=False)
+        params = jax.eval_shape(lambda k: JM.init_model(k, scfg),
+                                jax.random.PRNGKey(0))
+        caches = JM.cache_specs(scfg, shape.global_batch, shape.seq_len)
+        trees = [(params, JR.param_specs(params, scfg,
+                                         JR.make_rules(scfg, fm), fm), 0),
+                 (caches, JR.cache_shardings(caches, scfg, fm), None)]
+        leaves.append((jax.ShapeDtypeStruct((), jnp.int32), JR.P()))
+    leaves = [(leaf, spec, 1) for leaf, spec in leaves]
+    # the port holds a parameter's stacked layers as tensors apart (one
+    # gather each; ``top`` is where the parameter tree's top-level key
+    # sits in a path); optimizer and cache leaves stay stacked
+    for tree, spec_tree, top in trees:
+        for (path, leaf), spec in zip(
+                jax.tree_util.tree_flatten_with_path(tree)[0],
+                jax.tree.leaves(spec_tree,
+                                is_leaf=lambda x: isinstance(x, JR.P))):
+            keys = [getattr(k, "key", None) for k in path]
+            params = top is not None and (top == 0 or keys[0] == "params")
+            depth = STACK_DEPTH.get(keys[top], 0) if params else 0
+            leaves.append((leaf, spec, math.prod(leaf.shape[:depth])))
+    arg, count, wire = 0, 0, 0
+    for leaf, spec, tensors in leaves:
+        nbytes = int(np.prod(leaf.shape)) * jnp.dtype(leaf.dtype).itemsize
+        n = math.prod(_split(spec, fm))
+        arg += nbytes // n
+        if n > 1:
+            count += n * tensors
+            wire += nbytes
+    return arg, count, wire
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
+def test_smoke_cell_records(arch, shape, multi_pod):
+    rec = D.run_cell(arch, shape, multi_pod=multi_pod, smoke=True, fast=True)
+    assert rec["memory"]["peak_bytes_per_device"] > 0
+    assert rec["bottleneck"] in ("compute_s", "memory_s", "collective_s")
+    assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
+    assert rec["chips"] == (512 if multi_pod else 256)
+    arg, count, wire = jax_cell_bytes(arch, shape, multi_pod)
+    assert rec["memory"]["argument_bytes_per_device"] == arg
+    # a train step adds the all_sum (one f32 flag) that agrees it commits
+    agreed = {"all_sum": 1} if shape.startswith("train") else {}
+    assert rec["collective_counts"] == {"broadcast": count, **agreed}
+    assert rec["wire_bytes_per_chip"] == wire + 4 * len(agreed)
+    assert rec["memory"]["temp_bytes_per_device"] is None     # fast
+    assert rec["hlo_flops_global"] >= rec["model_flops"] > 0
+    assert rec["hlo_bytes_global"] > 0
+    assert rec["step_s_lower_bound"] == max(
+        rec["compute_s"], rec["memory_s"], rec["collective_s"])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smokes_full_cells_hold_the_jax_rules_bytes():
+    """`chip_smoke.py` phase 15(d) holds the dry run's full-size records
+    against byte totals it cannot derive on the card (no JAX there):
+    these are the JAX rules' shards of the JAX cells' arguments."""
+    cells = _chip_smoke().DRYRUN_CELLS
+    assert len(cells) == 2
+    for arch, shape, multi_pod, _, want in cells:
+        assert want == jax_cell_bytes(arch, shape, multi_pod, smoke=False)
+
+
+def test_the_memory_pass_counts_the_steps_allocations():
+    """Without ``fast`` the second pass adds what the step allocates
+    beyond its arguments, and the peak is that plus the gathered whole
+    arguments."""
+    rec = D.run_cell("gemma3-1b", "train_4k", multi_pod=False, smoke=True)
+    m = rec["memory"]
+    assert m["temp_bytes_per_device"] > m["gathered_bytes_per_device"] > \
+        m["argument_bytes_per_device"] > 0
+    assert m["peak_bytes_per_device"] == (m["gathered_bytes_per_device"]
+                                          + m["temp_bytes_per_device"])
+
+
+def _jax_cli(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = SRC
+    env["JAX_PLATFORMS"] = "cpu"
+    code = ("import sys; from repro.launch.dryrun import main; "
+            f"main({args!r})")
+    subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                   check=True, capture_output=True, timeout=300)
+
+
+def test_cli_skip_records_and_files_match_jax(tmp_path, capsys):
+    args = ["--arch", "qwen2.5-3b", "--shape", "long_500k", "--mesh", "both"]
+    jfile, pfile = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    _jax_cli(args + ["--out", str(jfile)], tmp_path)
+    D.main(args + ["--out", str(pfile)])
+    jlines = jfile.read_text().splitlines()
+    assert len(jlines) == 2
+    assert [json.loads(x) for x in pfile.read_text().splitlines()] == \
+        [json.loads(x) for x in jlines]
+    out = capsys.readouterr().out
+    assert "[16x16] qwen2.5-3b x long_500k: SKIP" in out
+    assert "ALL CELLS PASSED" in out
+    # --skip-existing: both leave their files as they are, and the port's
+    # reads the JAX file's records as done
+    _jax_cli(args + ["--out", str(jfile), "--skip-existing"], tmp_path)
+    D.main(args + ["--out", str(pfile), "--skip-existing"])
+    D.main(args + ["--out", str(jfile), "--skip-existing"])
+    assert jfile.read_text().splitlines() == jlines
+    assert [json.loads(x) for x in pfile.read_text().splitlines()] == \
+        [json.loads(x) for x in jlines]
+
+
+def test_cli_records_a_smoke_cell_and_skips_it_again(tmp_path):
+    out = tmp_path / "cells.jsonl"
+    argv = ["--arch", "mamba2-370m", "--shape", "decode_32k", "--mesh",
+            "single", "--smoke", "--out", str(out)]
+    D.main(argv)
+    D.main(argv + ["--skip-existing"])
+    recs = [json.loads(x) for x in out.read_text().splitlines()]
+    assert len(recs) == 1
+    assert (recs[0]["arch"], recs[0]["shape"], recs[0]["mesh"]) == (
+        "mamba2-370m", "decode_32k", "16x16")

@@ -1217,3 +1217,155 @@ def test_logdet_decorrelation_grad_on_the_card(cuda, monkeypatch):
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
     g_card, g_cpu = out["cuda"][1], out["cpu"][1]
     assert float((g_card - g_cpu).abs().max() / g_cpu.abs().max()) <= 2 * ku
+
+
+# --------------------------------------------------------------------------
+# launch and sharding (repro_torch.launch / .sharding)
+# --------------------------------------------------------------------------
+
+def test_launch_train_on_the_card_launches_k1(cuda, tmp_path):
+    """`launch.train` on one rank of the card with the logdet aux: K1
+    steps x microbatches x (d_model - 1) times and nothing else, no
+    collective, finite losses, the checkpoint written."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import train as T
+    args = T.parser().parse_args([
+        "--arch", "gemma3-1b", "--steps", "2", "--batch", "4", "--seq", "16",
+        "--microbatches", "2", "--logdet-reg", "0.05", "--ckpt-dir",
+        str(tmp_path)])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    M.reset_collective_counts()
+    state, losses, stats = T._run(args, T._mesh("1x1", None))
+    counts = ops.launch_counts()
+    d = get_config("gemma3-1b", smoke=True).d_model
+    assert counts.pop("rank1_update") == 2 * 2 * (d - 1)
+    assert not any(counts.values()), counts
+    assert not any(M.collective_counts().values())
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert next(state["params"].parameters()).is_cuda
+    assert [p.name for p in tmp_path.iterdir()] == ["step_00000002"]
+
+
+def test_launch_grid_sharing_the_card_is_bitwise_one_rank(cuda, tmp_path):
+    """Four gloo ranks sharing the card on a 2x2 grid (the JAX launcher
+    test's arguments, 6 steps, `launch.train.rank_main`): each rank's
+    blocks of the final state, its losses and one more step's collectives
+    (= `layout.step_plan`) against one rank on the card."""
+    from repro_torch.core.mesh import run_ranks
+    from repro_torch.launch import train as T
+    argv = ["--arch", "gemma3-1b", "--steps", "6", "--batch", "4", "--seq",
+            "32", "--lr", "3e-3", "--ckpt-every", "25"]
+    one = run_ranks(T.rank_main, 1, backend="nccl", device="cuda",
+                    timeout=300, args=(argv + ["--mesh", "1x1", "--ckpt-dir",
+                                               str(tmp_path / "one")], None,
+                                       True))[0]
+    grid = run_ranks(T.rank_main, 4, backend="gloo", device="cuda",
+                     timeout=300, args=(argv + ["--mesh", "2x2", "--ckpt-dir",
+                                                str(tmp_path / "grid")], None,
+                                        True))
+    for r in grid:
+        assert r["losses"] == one["losses"]
+        assert r["counts"]["broadcast"] == r["plan"]["broadcast"] > 0
+        assert r["counts"]["all_sum"] == r["plan"]["all_sum"] == 1
+        assert r["blocks"]["step"] == 6
+    # the replicated leaves (the optimizer's count, the norms' moments on
+    # a 2x2 grid of a 64-wide model) are whole on every rank
+    for k, v in one["blocks"].items():
+        if k == "step":
+            continue
+        shapes = {r["blocks"][k].shape for r in grid}
+        if shapes == {v.shape}:
+            assert all(r["blocks"][k].tobytes() == v.tobytes()
+                       for r in grid), k
+    a, b = tmp_path / "one" / "step_00000006", tmp_path / "grid" / \
+        "step_00000006"
+    for f in sorted(a.iterdir()):
+        assert f.read_bytes() == (b / f.name).read_bytes(), f.name
+
+
+def test_launch_grid_faults_on_the_card_restart_every_rank(cuda, tmp_path):
+    """tests/test_torch_launch_faults.py's run on four gloo ranks sharing
+    the card: a fault on every rank, then on one rank inside the step and
+    on one rank before a step; every rank restarts each time and the run
+    ends with the uninterrupted one-rank run's blocks, on the card."""
+    from repro_torch.core.mesh import run_ranks
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.sharding.layout import block_slices, flat
+    from repro_torch.sharding.rules import param_shardings
+    from test_torch_ranks import FAULT_ARGV, FAULTS, launch_faults
+    argv = [a if a != "cpu" else "cuda" for a in FAULT_ARGV]
+    one = run_ranks(launch_faults, 1, backend="nccl", device="cuda",
+                    timeout=300, args=(argv + ["--mesh", "1x1"], {},
+                                       str(tmp_path / "one")))[0]
+    grid = run_ranks(launch_faults, 4, backend="gloo", device="cuda",
+                     timeout=300, args=(argv + ["--mesh", "2x2"], FAULTS,
+                                        str(tmp_path / "grid")))
+    args = T.parser().parse_args(FAULT_ARGV)
+    cfg, state, _, _, _ = T.build(args.arch, smoke=True,
+                                  mesh=T._mesh("1x1", "cpu"),
+                                  tcfg=T._tcfg(args))
+    sh = {".".join(p): s for p, s in flat(param_shardings(
+        {"params": state["params"], "opt": state["opt"]}, cfg,
+        GridMesh(("data", "model"), (2, 2)))).items()}
+    for r in grid:
+        assert r["restarts"] == len(FAULTS)
+        for k, v in one["blocks"].items():
+            want = v if k == "step" else v[block_slices(
+                v.shape, sh[k], r["coords"])]
+            assert r["blocks"][k].tobytes() == want.tobytes(), k
+
+
+def test_launch_serve_on_the_card_matches_the_cpu(cuda):
+    """Greedy `generate` on the card against the CPU on the same
+    parameters (f32): the same tokens (the smoke models' top-2 margins
+    sit far above f32 rounding here), and the CLI's (2, 12)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as Mo
+    from repro_torch.models.common import empty_init
+    cfg = get_config("mamba2-370m", smoke=True).replace(
+        dtype=torch.float32, remat=False)
+    cpu = Mo.init_model(cfg, device="cpu")
+    card = Mo.Model(cfg, empty_init(cuda))
+    card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()})
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    a = S.generate(cpu, prompt, max_len=12, gen=4)
+    b = S.generate(card, prompt.to(cuda), max_len=12, gen=4)
+    assert torch.equal(a, b.cpu())
+    toks = S.main(["--arch", "mamba2-370m", "--batch", "2", "--prompt-len",
+                   "8", "--gen", "4"])
+    assert tuple(toks.shape) == (2, 12) and toks.is_cuda
+
+
+def test_masked_decode_write_on_the_card_is_index_copy(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as Mo
+    from repro_torch.sharding import hints
+    cfg = get_config("gemma3-1b", smoke=True).replace(remat=False)
+    model = Mo.init_model(cfg, device=cuda)
+    tok = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    outs = []
+    for masked in (False, True):
+        with torch.no_grad():
+            _, caches = Mo.prefill(model, {"tokens": tok}, 8)
+            try:
+                hints.configure(cfg, make_production_mesh(),
+                                kv_masked_write=masked)
+                lg, caches = Mo.decode_step(model, tok[:, :1], caches, 4)
+            finally:
+                hints.configure(cfg, None)
+        outs.append((lg, caches))
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [] if t is None else [t]
+    assert torch.equal(outs[0][0], outs[1][0])
+    pairs = list(zip(leaves(outs[0][1]), leaves(outs[1][1])))
+    assert pairs and all(torch.equal(x, y) for x, y in pairs)

@@ -509,3 +509,93 @@ def test_concurrent_builds_of_one_hash(tmp_path):
         assert "Used 10 registers" in (out / f"{name}.ptxas.txt").read_text()
     assert float((out / "build_seconds.txt").read_text()) >= 0
     assert _build.ensure_built(out) is True   # a later load finds it done
+
+
+# --------------------------------------------------------------------------
+# repro_torch.launch.train on a grid of gloo ranks (tests/test_torch_launch_mesh.py)
+# --------------------------------------------------------------------------
+
+def launch_restore(mesh, spec: str, ckpt_dir: str, step: int, argv: list,
+                   out_dir: str) -> dict:
+    """One rank of a ``spec`` grid: `launch.train.build`'s state restored
+    from ``ckpt_dir`` at ``step`` onto this grid (elastic), trained on
+    to ``--steps`` by `ft.run_training`; its final blocks (numpy, by
+    `layout.flat` path, as `launch.train.rank_main` names them)."""
+    torch.set_num_threads(1)
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.ft.driver import FTConfig, run_training
+    from repro_torch.launch import train as T
+    from repro_torch.sharding import layout
+    args = T.parser().parse_args(argv)
+    grid = T._mesh(spec, args.device)
+    _, state, step_fn, batch_fn, sh = T.build(
+        args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
+        batch=args.batch, seq=args.seq)
+    state, at = ckpt.restore(ckpt_dir, state, step=step, shardings=sh,
+                             device=grid.device)
+    state, _ = run_training(state=state, train_step=step_fn,
+                            batch_fn=batch_fn, n_steps=args.steps,
+                            ft=FTConfig(ckpt_dir=out_dir,
+                                        ckpt_every=args.ckpt_every),
+                            shardings=sh)
+    return {"coords": grid.coords, "at": at,
+            "blocks": {".".join(p): t.detach().cpu().numpy().copy()
+                       for p, t in layout.flat(state).items()}}
+
+
+# tests/test_torch_launch_faults.py's run (on the CPU; the card test
+# swaps the device): step -> (where, ranks), before the first checkpoint
+# on every rank, after it inside the step on rank 2, then before the step
+# on rank 1
+FAULT_ARGV = ["--arch", "gemma3-1b", "--steps", "12", "--batch", "4",
+              "--seq", "32", "--lr", "3e-3", "--ckpt-every", "5",
+              "--device", "cpu"]
+FAULTS = {3: ("driver", (0, 1, 2, 3)), 6: ("step", (2,)),
+          8: ("driver", (1,))}
+
+
+def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
+    """One rank of `launch.train.build`'s run through `ft.run_training`
+    with faults: ``faults[step]`` is ``(where, ranks)``, ``where``
+    "driver" (raised by the fault injector before the step) or "step"
+    (raised inside the train step, after the gathers), on the listed
+    ranks of the grid.  -> its coordinates, restarts and final blocks."""
+    torch.set_num_threads(1)
+    from repro_torch.ft.driver import FTConfig, run_training
+    from repro_torch.launch import train as T
+    from repro_torch.sharding import layout
+    args = T.parser().parse_args(argv)
+    grid = T._mesh(args.mesh, args.device)
+    make = T.make_train_step
+    fired = set()
+
+    def fault(where, step):
+        plan = faults.get(step)
+        if plan and plan[0] == where and grid.rank in plan[1] \
+                and step not in fired:
+            fired.add(step)
+            raise RuntimeError(f"injected {where} fault at step {step}")
+
+    def faulty_step(cfg, tcfg):
+        inner = make(cfg, tcfg)
+
+        def step(state, batch):
+            fault("step", int(state["step"]))
+            return inner(state, batch)
+        return step
+    T.make_train_step = faulty_step
+    try:
+        _, state, step_fn, batch_fn, sh = T.build(
+            args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
+            batch=args.batch, seq=args.seq)
+    finally:
+        T.make_train_step = make
+    state, stats = run_training(
+        state=state, train_step=step_fn, batch_fn=batch_fn,
+        n_steps=args.steps, shardings=sh,
+        fault_injector=lambda step: fault("driver", step),
+        ft=FTConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every))
+    return {"coords": grid.coords, "restarts": stats.restarts,
+            "fired": sorted(fired),
+            "blocks": {".".join(p): t.detach().cpu().numpy().copy()
+                       for p, t in layout.flat(state).items()}}

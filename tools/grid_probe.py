@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""The full-width train state on a 2x2 grid of gloo ranks sharing one
+card, timed per rank, with the card's memory.
+
+    python3 tools/grid_probe.py [--layers 6 2] [--optimizer adamw]
+        [--steps 2] [--timeout 240] [--log-dir build/grid_probe]
+
+For each ``--layers`` value, four ranks (`core.mesh.run_ranks`, gloo,
+one card) each build `launch.train`'s gemma3-1b state at full width cut
+to that depth on a ("data", "model") 2x2 grid, time one gather of the
+whole state (`sharding.layout.gather`), then ``--steps`` mesh steps
+(`layout.mesh_step`: gather, the global step, keep the blocks), each to
+a `torch.cuda.synchronize`, with the rank's peak allocation and the
+card's free memory after it; first the raw broadcast of a 64 MB and a
+512 MB tensor on the card and on the host over the four ranks.  Each
+rank appends its progress to ``<log-dir>/rank<r>.log`` as it goes, so a
+run that stops shows where.  Prints one ``[grid_probe]`` JSON line per
+depth and the card's name and power limit.  About two minutes on an
+H100.  Needs a CUDA device and exits 2 without one; it never falls back
+to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def _log(log_dir: str, rank: int, *fields) -> None:
+    with open(Path(log_dir) / f"rank{rank}.log", "a") as f:
+        print(f"{time.time():.3f}", *fields, file=f, flush=True)
+
+
+def _broadcast_s(mesh, mb: int) -> dict:
+    """Seconds of one broadcast of ``mb`` MB from rank 0, on the card and
+    on the host (the second of two calls)."""
+    import torch
+    from repro_torch.core import mesh as M
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = torch.ones(mb * 2**18, device=dev)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.broadcast(mesh, t, 0)
+            torch.cuda.synchronize()
+            out[dev] = time.perf_counter() - t0
+    return out
+
+
+def grid_rank(mesh, layers: int, optimizer: str, steps: int,
+              log_dir: str) -> dict:
+    """One rank (spawned): see the module docstring."""
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.sharding import layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = mesh.rank
+    _log(log_dir, r, "start layers", layers, "free",
+         torch.cuda.mem_get_info()[0])
+    rates = {mb: _broadcast_s(mesh, mb) for mb in (64, 512)}
+    _log(log_dir, r, "broadcast s", rates)
+    args = T.parser().parse_args(["--arch", "gemma3-1b", "--full",
+                                  "--steps", str(steps), "--optimizer",
+                                  optimizer])
+    grid = T._mesh("2x2", "cuda")
+    _, st, step_fn, batch_fn, sh = T.build(
+        args.arch, smoke=False, mesh=grid, tcfg=T._tcfg(args), batch=4,
+        seq=64, layers=layers)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    _log(log_dir, r, "built resident", resident)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = layout.gather({"params": st["params"], "opt": st["opt"]},
+                          {"params": sh["params"], "opt": sh["opt"]})
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in layout.flat(whole).values())
+    _log(log_dir, r, "gather s", gather_s, "bytes", nbytes)
+    layout.shard(whole["params"], sh["params"])     # the model's blocks
+    del whole
+    torch.cuda.empty_cache()
+    out = {"rank": r, "coords": grid.coords, "broadcast_s": rates,
+           "resident_bytes": resident, "gather_s": gather_s,
+           "gathered_bytes": nbytes, "steps": []}
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, m = step_fn(st, batch_fn(i))
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "card_free_bytes": torch.cuda.mem_get_info()[0],
+               "loss": float(m["loss"])}
+        out["steps"].append(rec)
+        _log(log_dir, r, "step", i, rec)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, nargs="+", default=[6, 2])
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--timeout", type=float, default=240.0)
+    ap.add_argument("--log-dir", default=str(ROOT / "build" / "grid_probe"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("grid_probe.py needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core.mesh import run_ranks
+    from repro_torch.kernels import _build
+    _build.build()
+    Path(args.log_dir).mkdir(parents=True, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    failed = False
+    for layers in args.layers:
+        t0 = time.perf_counter()
+        try:
+            ranks = run_ranks(grid_rank, 4, backend="gloo", device="cuda",
+                              timeout=args.timeout,
+                              args=(layers, args.optimizer, args.steps,
+                                    args.log_dir))
+            rec = {"layers": layers, "optimizer": args.optimizer,
+                   "ranks": ranks}
+        except Exception as e:  # noqa: BLE001 -- report, go on
+            failed = True
+            rec = {"layers": layers, "optimizer": args.optimizer,
+                   "error": repr(e)[:2000]}
+        rec["seconds"] = time.perf_counter() - t0
+        print("[grid_probe]", json.dumps(rec), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
