@@ -240,27 +240,39 @@ printed line each, any failure ends the run:
             microbatches): finite losses, K1 exactly steps x
             microbatches x (d_model - 1) and nothing else, no
             collective; step s, tokens/s, peak memory, the checkpoint's
-            seconds; (b) the JAX launcher test's run (LAUNCH_ARGV) on a
-            2x2 grid of four gloo ranks sharing the card against one
-            rank here: every rank's blocks bitwise the one-rank state's
-            at its coordinates with the shapes of the rules' shards, its
-            losses the same, one more step's broadcasts and agreeing
-            all_sum equal to `layout.step_plan`, the mean loss over the
-            run's batches lower with the last parameters than with the
-            first, and the grid's step-LAUNCH_RESTORE_AT checkpoint
-            restored onto one rank ending bitwise where the one-rank run
-            ended; then the same grid at full width (gemma3-1b cut to
-            LAUNCH_WIDE_LAYERS layers, LAUNCH_WIDE_STEPS steps of
-            LAUNCH_WIDE_SHAPE, its final checkpoint gathered and
-            written) held alike against one rank here, step s,
-            broadcasts and bytes a step, resident bytes a rank; (c)
+            seconds; (b) the JAX launcher test's run (LAUNCH_ARGV) with
+            the aux, f32, on a 2x2 grid of four gloo ranks sharing the
+            card, on the split step (each rank its share of the batch,
+            the gradients reduced, its optimizer on its blocks), against
+            one rank here: the first reduced gradient within
+            TRAIN_GRAD_TOL of its largest element, its metrics within
+            TRAIN_METRIC_RTOL, every step's loss within LAUNCH_LOSS_RTOL,
+            the mean loss over the run's batches lower with the grid's
+            last parameters than with the first; bitwise: every rank's
+            reduced gradient, the ranks holding one block alike, the
+            shapes of the rules' shards, one more step's collectives
+            equal to `layout.step_plan` (no optimizer leaf gathered); K1
+            (d_model - 1) a step on every rank; the grid's
+            step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x1 grid
+            bitwise the saved blocks and ending on the 2x2 run's last
+            checkpoint bit for bit, and onto one rank; then the same grid
+            at full width (gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
+            LAUNCH_WIDE_STEPS steps of LAUNCH_WIDE_SHAPE, f32, its final
+            checkpoint gathered and written): the same bitwise checks,
+            the first reduced gradient within TRAIN_GRAD_TOL of one
+            rank's largest element and the losses within
+            LAUNCH_LOSS_RTOL, a rank's step s and peak, the bytes a
+            step, resident bytes a rank, beside the gather-everything
+            step's (LAUNCH_WIDE_GATHERED); (c)
             `launch.serve.generate` on LAUNCH_SERVE against the CPU on
             the same parameters (f32 logits within SMOKE_ATOL, greedy
             tokens equal until a near tie), tokens/s, and the CLI; (d)
             the dry run's DRYRUN_CELLS at full size, argument bytes,
-            broadcasts and their bytes equal to the JAX rules' totals
-            recorded beside each cell, the memory tracker's temp bytes
-            where the cell is not fast, the records printed.
+            broadcasts, all_sums and their bytes equal to the JAX rules'
+            totals recorded beside each cell (a train cell: rank 0's share of
+            the split step), the memory tracker's temp bytes where the
+            cell is not fast, the records printed beside the
+            gather-everything step's.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4737,97 +4749,155 @@ def train_phase(seed: int, smi: str) -> dict:
 # TRAIN_LOGDET, one rank
 LAUNCH_STEPS, LAUNCH_SHAPE, LAUNCH_MICRO = 3, (4, 256), 2
 # (b) the JAX launcher test's arguments (tests/test_launch_integration.py
-# ::test_train_cli_multidevice) on a 2x2 grid of gloo ranks sharing the
-# card, against one rank in this process; the step-LAUNCH_RESTORE_AT
-# checkpoint restored onto one rank
+# ::test_train_cli_multidevice) plus the aux at TRAIN_LOGDET (K1 63 times
+# a step on every rank), f32 activations, on a 2x2 grid of gloo ranks
+# sharing the card, against one rank in this process; the grid's
+# step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x1 grid of two gloo
+# ranks (the same data split: bitwise the 2x2 run's end) and onto one rank
 LAUNCH_ARGV = ["--arch", "gemma3-1b", "--steps", "30", "--batch", "4",
                "--seq", "32", "--lr", "3e-3", "--ckpt-every", "25"]
 LAUNCH_GRID, LAUNCH_RESTORE_AT, LAUNCH_TIMEOUT = (2, 2), 25, 600
+# the earlier gather-everything step on this grid, without the aux (PERF.md
+# §6; NVIDIA H100 80GB HBM3, 700.00 W; its peak was not measured)
+LAUNCH_GRID_GATHERED = {"broadcasts_per_step": 246, "bytes_per_step": 2.71e6,
+                        "rank_step_s_median": [0.19, 0.27],
+                        "one_rank_step_s_median": [0.064, 0.076]}
+# the split step against one rank (f32): the first step's reduced gradient
+# within TRAIN_GRAD_TOL of its largest element, its metrics within
+# TRAIN_METRIC_RTOL (grad_norm TRAIN_NORM_RTOL), each step's loss within
+# LAUNCH_LOSS_RTOL: a step's loss sums 128 tokens' terms in another order
+# (two ranks' partial sums), at most 128 x 2^-24 = 7.6e-6 of it, and 30
+# steps' parameter drift adds to that
+LAUNCH_LOSS_RTOL = 1e-5
 # (b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
-# LAUNCH_WIDE_STEPS steps of (batch, seq) on the same grid.  Every rank
-# computes the global step, so four ranks on one card hold four steps'
-# peaks: 17.3 GB a rank at 6 layers left 2.1 GB of the card free (PERF.md
-# §6), and a rank out of memory inside a gather stops the grid
+# LAUNCH_WIDE_STEPS steps of (batch, seq) on the same grid, no aux, f32
+# activations (bf16 rounds each rank's partial weight gradient far above
+# the gradient gate), held to one rank as the smoke grid is: the first
+# reduced gradient within TRAIN_GRAD_TOL of its largest element, each
+# step's loss within LAUNCH_LOSS_RTOL.  The gather-everything step on
+# this grid at bf16 activations (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W) is printed beside the measurement: LAUNCH_WIDE_GATHERED
 LAUNCH_WIDE_LAYERS, LAUNCH_WIDE_STEPS, LAUNCH_WIDE_SHAPE = 2, 2, (4, 64)
 LAUNCH_WIDE_TIMEOUT = 300
+LAUNCH_WIDE_GATHERED = {"bytes_per_step": 4.27e9,
+                        "rank_peak_bytes": 15.29e9,
+                        "rank_step_s_after_first": [3.445, 4.08],
+                        "one_rank_step_s_after_first": [0.060, 0.069]}
 # (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
 # card against CPU on the same parameters; greedy tokens equal until the
 # CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
 LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
 # (d) the dry run's cells at full size: (arch, shape, multi_pod, fast --
-# fast skips the memory tracker's pass -- and what the JAX rules' shards
-# of the JAX cell's arguments give: (argument bytes a device, broadcasts
-# and their bytes to gather them); tests/test_torch_dryrun.py derives
-# these from the JAX package)
+# fast skips the memory tracker's pass -- and what the JAX rules give for
+# the cell: (argument bytes a device, broadcasts and their bytes, all_sums
+# and their bytes: a train cell's split step gathers the parameters and
+# all_sums each gradient, the nll and the agreement over the 16 data
+# ranks, a serving cell gathers its arguments);
+# tests/test_torch_dryrun.py derives these from the JAX package).
+# DRYRUN_GATHERED: the gather-everything step's figures for the train cell
+# (its allocation from the CLI's memory pass; PERF.md §6)
 DRYRUN_CELLS = [
-    ("gemma3-1b", "train_4k", False, True,
-     (101347048, 25040, 12006141440)),
+    ("gemma3-1b", "train_4k", False, False,
+     (101347048, 22736, 3999250944, 238, 3999251012)),
     ("llama4-maverick-400b-a17b", "decode_32k", True, False,
-     (3341134676, 135232, 1620049078784))]
-
-
-def named_blocks(state) -> dict:
-    """A (sharded) train state's tensors on the host, named as
-    `launch.train.rank_main` names them."""
-    from repro_torch.sharding.layout import flat
-    return {".".join(p): t.detach().cpu() for p, t in flat(state).items()}
+     (3341134676, 135232, 1620049078784, 0, 0))]
+DRYRUN_GATHERED = {"gemma3-1b|train_4k": {"bytes_per_step": 12.0e9,
+                                          "allocated_bytes": 904e9}}
 
 
 def rule_shardings(cfg, state, dims) -> tuple:
-    """(a shape-only ("data", "model") grid of ``dims``, the rules'
-    `Sharding` of every leaf of a whole train state, by `named_blocks`
-    name)."""
+    """(a shape-only ("data", "model") grid of ``dims``, the split step's
+    `Sharding` of every leaf of a whole adamw train state by the rules
+    (`layout.state_shardings`), by `layout.flat` path joined with
+    dots)."""
     from repro_torch.launch.mesh import GridMesh
-    from repro_torch.sharding.layout import flat
-    from repro_torch.sharding.rules import (PartitionSpec, Sharding,
-                                            param_shardings)
+    from repro_torch.sharding.layout import flat, state_shardings
     grid = GridMesh(("data", "model"), dims)
-    sh = param_shardings({"params": state["params"], "opt": state["opt"]},
-                         cfg, grid)
-    out = {".".join(p): s for p, s in flat(sh).items()}
-    out["step"] = Sharding(grid, PartitionSpec())
-    return grid, out
+    sh = state_shardings(state, cfg, grid, "adamw")
+    return grid, {".".join(p): s for p, s in flat(sh).items()}
 
 
-def hold_grid(ranks, want: dict, cfg, state, what: str) -> dict:
-    """Every rank's blocks against the whole one-rank ``want`` cut by the
-    rules at the rank's coordinates: the shapes of the rules' shards,
-    bitwise; one more step's collectives equal to `layout.step_plan`.
-    -> leaves split / whole and a rank's resident bytes."""
+def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
+              ref=None) -> dict:
+    """One spawned rank of (b)'s grids: `launch.train.rank_main` and the
+    kernel launches the rank made.  With ``ref`` (an .npz of one rank's
+    first reduced gradients by name) the rank holds its own against it
+    here -- ``grad_err`` (the largest difference) and ``grad_max`` (the
+    reference's largest element) -- and returns (shape, sha256) digests
+    in place of its arrays."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    ops.reset_launch_counts()
+    out = T.rank_main(mesh, argv, threads, detail, layers,
+                      digest and ref is None, dtype)
+    out["launches"] = ops.launch_counts()
+    if ref is not None:
+        import numpy as np
+        want = np.load(ref)
+        out["grad_err"] = max(float(np.abs(g - want[k]).max())
+                              for k, g in out["grads"].items())
+        out["grad_max"] = max(float(np.abs(want[k]).max())
+                              for k in want.files)
+
+        def digest_of(a):
+            return a.shape, hashlib.sha256(np.ascontiguousarray(a).data) \
+                .hexdigest()
+        for key in ("grads", "blocks"):
+            out[key] = {k: digest_of(a) for k, a in out[key].items()}
+    return out
+
+
+def _host(x) -> bytes:
+    """An array's bytes, or a (shape, sha256) digest's hash, for equality
+    across ranks."""
+    return x[1].encode() if isinstance(x, tuple) else x.tobytes()
+
+
+def hold_grid(ranks, cfg, state, what: str) -> dict:
+    """(b)'s bitwise checks of a grid run against itself: every rank's
+    first reduced gradient the same bits; each leaf's blocks of the rules'
+    shard shapes, and the ranks that hold one block the same bits (each
+    updated it from the same gradient); one more step's collectives equal
+    to `layout.step_plan`, which gathers no optimizer leaf.  ``state`` is
+    a whole one-rank state of the same config (its shapes).  -> leaves
+    split / whole and a rank's resident bytes."""
     import math
-    import torch
-    from repro_torch.sharding.layout import block_slices, shard_shape
+    from repro_torch.sharding.layout import block_slices, flat, shard_shape
+    want = {".".join(p): t for p, t in flat(state).items()}
     grid, sh = rule_shardings(cfg, state, LAUNCH_GRID)
-    worst, differ = 0.0, []
+    lead = ranks[0]
     for r in ranks:
+        require(set(r["grads"]) == set(lead["grads"]) and all(
+            _host(g) == _host(lead["grads"][k])
+            for k, g in r["grads"].items()), f"{what}: rank "
+            f"{r['coords']}'s reduced gradient differs from rank 0's")
         require(set(r["blocks"]) == set(want), f"{what}: rank "
                 f"{r['coords']} holds other leaves than the one-rank state")
-        for k, v in want.items():
-            blk = v[block_slices(v.shape, sh[k], r["coords"])]
-            got = r["blocks"][k]
-            # an array, or (shape, sha256 of its bytes)
-            shape = tuple(got[0] if isinstance(got, tuple) else got.shape)
-            require(shape == shard_shape(v.shape, sh[k])
-                    == tuple(blk.shape), f"{what}: rank {r['coords']} "
-                    f"holds {k} {shape}, the rules' shard is "
-                    f"{shard_shape(v.shape, sh[k])}")
-            if isinstance(got, tuple):
-                if got[1] != hashlib.sha256(
-                        blk.contiguous().numpy().data).hexdigest():
-                    differ.append((r["coords"], k))
-            elif not torch.equal(torch.from_numpy(got), blk):
-                worst = max(worst, float((torch.from_numpy(got).double()
-                                          - blk.double()).abs().max()))
-        require(r["counts"]["broadcast"] == r["plan"]["broadcast"] > 0
-                and r["counts"]["all_sum"] == r["plan"]["all_sum"] == 1,
+        plan = r["plan"]
+        require(r["counts"] == {"broadcast": plan["broadcast"],
+                                "all_sum": plan["all_sum"]}
+                and plan["broadcast"] > 0 and plan["gathered"] and all(
+                    k.startswith("params.") for k in plan["gathered"]),
                 f"{what}: rank {r['coords']} collectives {r['counts']}, "
-                f"plan {r['plan']}")
-    require(worst == 0.0 and not differ, f"{what}: the ranks' blocks "
-            f"differ from the one-rank run's by up to {worst}; digests of "
-            f"{differ[:8]}")
+                f"plan {dict(plan, gathered=len(plan['gathered']))}")
+    shared = 0
+    for k, v in want.items():
+        held = {}
+        for r in ranks:
+            got = r["blocks"][k]
+            shape = tuple(got[0] if isinstance(got, tuple) else got.shape)
+            require(shape == shard_shape(v.shape, sh[k]), f"{what}: rank "
+                    f"{r['coords']} holds {k} {shape}, the rules' shard is "
+                    f"{shard_shape(v.shape, sh[k])}")
+            held.setdefault(str(block_slices(v.shape, sh[k], r["coords"])),
+                            set()).add(_host(got))
+        require(all(len(b) == 1 for b in held.values()), f"{what}: the "
+                f"ranks holding one block of {k} differ")
+        shared += len(held) < len(ranks)
     split = sum(tuple(v.shape) != shard_shape(v.shape, sh[k])
                 for k, v in want.items())
     return {"leaves_split": split, "leaves_whole": len(want) - split,
+            "leaves_shared_bitwise": shared,
             "resident_bytes_rank0": sum(
                 math.prod(shard_shape(v.shape, sh[k])) * v.element_size()
                 for k, v in want.items()),
@@ -4907,141 +4977,250 @@ def launch_full(smi: str) -> dict:
     return out
 
 
+def _one_rank(args, dtype, layers=None) -> tuple:
+    """One rank on the card through `launch.train`'s build and loop ->
+    (final state, losses, step stats, the first step's reduced gradients
+    and metrics, the peak allocation, the kernel launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    first = {}
+
+    def keep(grads, metrics):
+        if not first:
+            first["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
+            first["metrics"] = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, stats = T._run(args, T._mesh("1x1", "cuda"), layers,
+                                  dtype, on_grads=keep)
+    return (state, losses, stats, first, torch.cuda.max_memory_allocated(),
+            ops.launch_counts())
+
+
+def _spread(xs) -> list:
+    return [min(xs), max(xs)] if xs else []
+
+
 def launch_grid(smi: str) -> dict:
-    """(b): the JAX launcher test's run on a 2x2 grid of gloo ranks
-    sharing the card (`launch.train.rank_main`) against one rank in this
-    process: `hold_grid`, the losses the one-rank run's, the mean loss
-    over the run's batches falling from the first parameters to the
-    last; then the 2x2 run's step-25 checkpoint restored onto one rank,
-    five steps on, bitwise the one-rank run's end."""
+    """(b): the JAX launcher test's run with the aux, f32, on a 2x2 grid
+    of gloo ranks sharing the card (`launch.train.rank_main`) against one
+    rank in this process: the split step's gates (the first reduced
+    gradient, its metrics, every step's loss, the mean loss over the
+    run's batches falling from the first parameters to the grid's last),
+    `hold_grid`, K1 on every rank; then the grid's step-25 checkpoint
+    restored onto a 2x1 grid, bitwise the saved blocks and ending on the
+    2x2 run's step-30 checkpoint files bit for bit, and onto one rank
+    here, bitwise the saved state and on within the loss gate."""
     import tempfile
     import torch
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.mesh import run_ranks
-    from repro_torch.ft.driver import FTConfig, run_training
     from repro_torch.launch import train as T
+    from repro_torch.optim import global_norm
     from repro_torch.train.step import make_loss_fn
     spec = "x".join(map(str, LAUNCH_GRID))
+    argv = LAUNCH_ARGV + ["--logdet-reg", str(TRAIN_LOGDET)]
+    f32 = torch.float32
     with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
         t0 = time.perf_counter()
-        ranks = run_ranks(T.rank_main, LAUNCH_GRID[0] * LAUNCH_GRID[1],
+        ranks = run_ranks(grid_rank, LAUNCH_GRID[0] * LAUNCH_GRID[1],
                           backend="gloo", device="cuda",
                           timeout=LAUNCH_TIMEOUT,
-                          args=(LAUNCH_ARGV + ["--mesh", spec, "--device",
-                                               "cuda", "--ckpt-dir",
-                                               f"{tmp}/grid"], None, True))
+                          args=(argv + ["--mesh", spec, "--device", "cuda",
+                                        "--ckpt-dir", f"{tmp}/grid"], None,
+                                True, None, False, f32))
         grid_s = time.perf_counter() - t0
-        args = T.parser().parse_args(LAUNCH_ARGV + ["--ckpt-dir",
-                                                    f"{tmp}/one"])
+        args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
         t0 = time.perf_counter()
-        one, losses, stats = T._run(args, T._mesh("1x1", "cuda"))
+        one, losses, stats, first, _, one_launches = _one_rank(args, f32)
+        one_k1 = one_launches["rank1_update"]
         one_s = time.perf_counter() - t0
-        want = named_blocks(one)
-        # the loss of the first and the last parameters over the run's
-        # batches (one step's loss moves with its batch more than 30 steps
-        # of warm-up lr lower it)
-        cfg, first, _, batch_fn, _ = T.build(
+        cfg = one["params"].cfg
+        layout_out = hold_grid(ranks, cfg, one, "launch grid")
+        # the grid's last parameters, from its step-30 checkpoint
+        last, _ = ckpt.restore(f"{tmp}/grid", T.build(
             args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
-            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq)
+            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq,
+            dtype=f32)[1], device="cuda")
+        _, first_state, _, batch_fn, _ = T.build(
+            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq, dtype=f32)
         loss_fn = make_loss_fn(cfg, T._tcfg(args))
         with torch.no_grad():
             held = [sum(float(loss_fn(s["params"], batch_fn(i))[0])
                         for i in range(args.steps)) / args.steps
-                    for s in (first, one)]
-        del first
-        # elastic: the 2x2 checkpoint onto one rank, on to the end
-        _, st, step_fn, batch_fn, sh = T.build(
-            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
-            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq)
-        st, at = ckpt.restore(f"{tmp}/grid", st, step=LAUNCH_RESTORE_AT,
-                              shardings=sh, device="cuda")
-        st, _ = run_training(state=st, train_step=step_fn, batch_fn=batch_fn,
-                             n_steps=args.steps, shardings=sh,
-                             ft=FTConfig(ckpt_dir=f"{tmp}/restored",
-                                         ckpt_every=args.ckpt_every))
-        restored = named_blocks(st)
-    layout_out = hold_grid(ranks, want, cfg, one, "launch grid")
+                    for s in (first_state, last)]
+        del first_state, last
+        # elastic: onto a 2x1 grid (the same data split), and one rank
+        restored2 = run_ranks(
+            T.rank_restore, 2, backend="gloo", device="cuda",
+            timeout=LAUNCH_TIMEOUT,
+            args=(argv + ["--device", "cuda", "--ckpt-dir",
+                          f"{tmp}/restored2"], "2x1", f"{tmp}/grid",
+                  LAUNCH_RESTORE_AT, None, f32))
+        end = f"step_{args.steps:08d}"
+        files = sorted(p.name for p in Path(f"{tmp}/grid/{end}").iterdir())
+        end_same = files == sorted(
+            p.name for p in Path(f"{tmp}/restored2/{end}").iterdir()) and all(
+            Path(f"{tmp}/grid/{end}/{f}").read_bytes()
+            == Path(f"{tmp}/restored2/{end}/{f}").read_bytes()
+            for f in files)
+        one_restored = T.rank_restore(
+            None, argv + ["--device", "cuda", "--ckpt-dir",
+                          f"{tmp}/restored1"], "1x1", f"{tmp}/grid",
+            LAUNCH_RESTORE_AT, dtype=f32)
+        at1, restored1 = one_restored["at"], one_restored["restored_bitwise"]
+        cont = one_restored["losses"]
+    # the gates against one rank
+    want = first["grads"]
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst = 0.0
     for r in ranks:
-        require(r["losses"] == losses, f"launch grid: rank {r['coords']} "
-                f"losses differ from the one-rank run's")
+        worst = max(worst, max(float((torch.from_numpy(g) - want[k]).abs()
+                                     .max()) for k, g in r["grads"].items()))
+    tol = TRAIN_GRAD_TOL["default"]
+    require(worst <= tol * gmax, f"launch grid: the first reduced gradient "
+            f"off one rank's by {worst}, {worst / gmax:.3g} of its largest "
+            f"element (gate {tol})")
+    norm = float(global_norm(want))
+    metrics = dict(first["metrics"], grad_norm=norm)
+    for r in ranks:
+        got = dict(r["grad_metrics"], grad_norm=float(global_norm(
+            {k: torch.from_numpy(g) for k, g in r["grads"].items()})))
+        for k, v in metrics.items():
+            rtol = TRAIN_NORM_RTOL if k == "grad_norm" else TRAIN_METRIC_RTOL
+            require(abs(got[k] - v) <= rtol * abs(v), f"launch grid: rank "
+                    f"{r['coords']} {k} {got[k]}, one rank's {v}")
+    loss_err = max(max(abs(a - b) / abs(b) for a, b in
+                       zip(r["losses"], losses)) for r in ranks)
+    require(all(len(r["losses"]) == len(losses) == args.steps
+                for r in ranks) and loss_err <= LAUNCH_LOSS_RTOL,
+            f"launch grid: the losses off one rank's by {loss_err} relative "
+            f"(gate {LAUNCH_LOSS_RTOL})")
     require(held[1] < held[0], f"launch grid: the mean loss over the "
             f"run's batches {held[0]} -> {held[1]}")
-    same = all(torch.equal(restored[k], v) for k, v in want.items())
-    require(at == LAUNCH_RESTORE_AT and same, "launch grid: the 2x2 "
-            "checkpoint restored onto one rank ends off the one-rank run")
-    return {"grid": spec, "backend": "gloo", "ranks": len(ranks),
+    k1 = [r["launches"].get("rank1_update", 0) for r in ranks]
+    want_k1 = (args.steps + 1) * (cfg.d_model - 1)
+    require(k1 == [want_k1] * len(ranks) and one_k1 == args.steps * (
+        cfg.d_model - 1), f"launch grid: K1 {k1} on the ranks (want "
+        f"{want_k1} each), {one_k1} on one rank")
+    require(all(r["at"] == LAUNCH_RESTORE_AT and r["restored_bitwise"]
+                for r in restored2) and end_same, "launch grid: the 2x2 "
+            "checkpoint restored onto 2x1 is not bitwise the saved blocks, "
+            "or ends off the 2x2 run's last checkpoint")
+    cont_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(cont, losses[LAUNCH_RESTORE_AT:]))
+    require(at1 == LAUNCH_RESTORE_AT and restored1 and len(cont) == 5
+            and cont_err <= LAUNCH_LOSS_RTOL, f"launch grid: the 2x2 "
+            f"checkpoint onto one rank: restored bitwise {restored1}, its "
+            f"losses off one rank's by {cont_err}")
+    return {"launches": {"launch|grid one rank": one_launches,
+                         "launch|grid rank 0": ranks[0]["launches"]},
+            "grid": spec, "backend": "gloo", "ranks": len(ranks),
             "devices": sorted({r["device"] for r in ranks}),
             "grid_run_s": grid_s, "one_rank_run_s": one_s,
             "rank_step_s_median": [sorted(r["step_s"])[len(r["step_s"]) // 2]
                                    for r in ranks],
             "one_rank_step_s_median": sorted(stats.times)[
                 len(stats.times) // 2],
+            "rank_step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
             "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
-            "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
-            **layout_out,
-            "loss_first_last": [losses[0], losses[-1]],
-            "held_loss_first_last_params": held, "bitwise": True,
-            "restored_from": at, "restored_bitwise": same, "card": smi,
+            "all_sums_per_step": ranks[0]["counts"]["all_sum"],
+            "bytes_per_step": ranks[0]["plan"]["bytes"]
+            + ranks[0]["plan"]["all_sum_bytes"],
+            **layout_out, "k1_per_rank": k1, "k1_one_rank": one_k1,
+            "first_grad_err_of_max": worst / gmax,
+            "loss_err_rel": loss_err, "loss_first_last": [losses[0],
+                                                         losses[-1]],
+            "held_loss_first_last_params": held,
+            "restored_2x1_bitwise_and_end": end_same,
+            "restored_1x1_loss_err_rel": cont_err,
+            "gather_everything": LAUNCH_GRID_GATHERED, "card": smi,
             "note": "four ranks share one card; collectives pass through "
                     "host memory: not a scaling figure"}
 
 
 def launch_grid_wide(smi: str) -> dict:
     """(b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
-    LAUNCH_WIDE_STEPS steps through `launch.train.rank_main` on the 2x2
-    grid of gloo ranks sharing the card (its final checkpoint gathered
-    and written by rank 0) against one rank in this process:
-    `hold_grid`, the losses the one-rank run's; a rank's step s, the
-    broadcasts and bytes a step, a rank's resident bytes."""
+    LAUNCH_WIDE_STEPS steps, f32, one rank in this process, then the
+    same run through `launch.train.rank_main` on the 2x2 grid of gloo
+    ranks sharing the card (its final checkpoint gathered and written by
+    rank 0): each rank's first reduced gradient within TRAIN_GRAD_TOL of
+    one rank's largest element (held on the rank, against one rank's
+    saved to a file), every step's loss within LAUNCH_LOSS_RTOL of one
+    rank's, `hold_grid` (sha256 digests); a rank's step s, its peak
+    allocation in one more step, the bytes a step, a rank's resident
+    bytes, beside the gather-everything step's figures for the same
+    grid."""
     import tempfile
+    import numpy as np
     import torch
     from repro_torch.core.mesh import run_ranks
     from repro_torch.launch import train as T
     b, t = LAUNCH_WIDE_SHAPE
+    f32 = torch.float32
     argv = ["--arch", "gemma3-1b", "--full", "--steps",
             str(LAUNCH_WIDE_STEPS), "--batch", str(b), "--seq", str(t),
             "--log-every", "1"]
     spec = "x".join(map(str, LAUNCH_GRID))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+        args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
         t0 = time.perf_counter()
-        ranks = run_ranks(T.rank_main, LAUNCH_GRID[0] * LAUNCH_GRID[1],
+        one, losses, stats, first, one_peak, _ = _one_rank(
+            args, f32, LAUNCH_WIDE_LAYERS)
+        one_s = time.perf_counter() - t0
+        ref = f"{tmp}/one_grads.npz"
+        np.savez(ref, **{k: g.numpy() for k, g in first["grads"].items()})
+        del first
+        t0 = time.perf_counter()
+        ranks = run_ranks(grid_rank, LAUNCH_GRID[0] * LAUNCH_GRID[1],
                           backend="gloo", device="cuda",
                           timeout=LAUNCH_WIDE_TIMEOUT,
                           args=(argv + ["--mesh", spec, "--device", "cuda",
                                         "--ckpt-dir", f"{tmp}/grid"], None,
-                                True, LAUNCH_WIDE_LAYERS, True))
+                                True, LAUNCH_WIDE_LAYERS, True, f32, ref))
         grid_s = time.perf_counter() - t0
         written = sorted(p.name for p in Path(f"{tmp}/grid").iterdir())
-        args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        one, losses, stats = T._run(args, T._mesh("1x1", "cuda"),
-                                    LAUNCH_WIDE_LAYERS)
-        one_s = time.perf_counter() - t0
-        one_peak = torch.cuda.max_memory_allocated()
     cfg = one["params"].cfg
-    want = named_blocks(one)
-    layout_out = hold_grid(ranks, want, cfg, one, "launch grid wide")
-    del one, want
-    for r in ranks:
-        require(r["losses"] == losses and len(losses) == LAUNCH_WIDE_STEPS
-                and all(v == v and abs(v) != float("inf") for v in losses),
-                f"launch grid wide: rank {r['coords']} losses {r['losses']}"
-                f", one rank's {losses}")
+    layout_out = hold_grid(ranks, cfg, one, "launch grid wide")
+    del one
+    gmax = ranks[0]["grad_max"]
+    worst = max(r["grad_err"] for r in ranks)
+    tol = TRAIN_GRAD_TOL["default"]
+    require(worst <= tol * gmax, f"launch grid wide: the first reduced "
+            f"gradient off one rank's by {worst}, {worst / gmax:.3g} of its "
+            f"largest element (gate {tol})")
+    loss_err = max(max(abs(a - b) / abs(b) for a, b in
+                       zip(r["losses"], losses)) for r in ranks)
+    require(all(len(r["losses"]) == len(losses) == LAUNCH_WIDE_STEPS
+                and all(v == v and abs(v) != float("inf")
+                        for v in r["losses"]) for r in ranks)
+            and loss_err <= LAUNCH_LOSS_RTOL,
+            f"launch grid wide: losses {[r['losses'] for r in ranks]}, one "
+            f"rank's {losses} (gate {LAUNCH_LOSS_RTOL} relative)")
     require(written == [f"step_{LAUNCH_WIDE_STEPS:08d}"],
             f"launch grid wide: checkpoints {written}")
     return {"arch": "gemma3-1b", "d_model": cfg.d_model,
-            "layers": cfg.n_layers, "vocab": cfg.vocab,
+            "layers": cfg.n_layers, "vocab": cfg.vocab, "dtype": "float32",
             "shape": [b, t], "steps": LAUNCH_WIDE_STEPS, "grid": spec,
             "backend": "gloo", "grid_run_s": grid_s, "one_rank_run_s": one_s,
             "rank_step_s": [r["step_s"] for r in ranks],
+            "rank_step_s_after_first": _spread(
+                [s for r in ranks for s in r["step_s"][1:]]),
             "one_rank_step_s": stats.times,
             "one_rank_peak_mem_bytes": one_peak,
+            "rank_step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
             "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
+            "all_sums_per_step": ranks[0]["counts"]["all_sum"],
+            "bytes_per_step": ranks[0]["plan"]["bytes"]
+            + ranks[0]["plan"]["all_sum_bytes"],
             "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
-            **layout_out, "losses": losses, "bitwise": True, "card": smi}
+            **layout_out, "first_grad_err_of_max": worst / gmax,
+            "losses": losses, "loss_err_rel": loss_err,
+            "gather_everything": LAUNCH_WIDE_GATHERED, "card": smi}
 
 
 def launch_serve(seed: int, smi: str) -> dict:
@@ -5112,26 +5291,31 @@ def launch_serve(seed: int, smi: str) -> dict:
 
 def launch_dryrun() -> dict:
     """(d): the dry run's DRYRUN_CELLS at full size; each record's
-    argument bytes, broadcasts and their bytes against the JAX rules'
-    totals for the cell (DRYRUN_CELLS)."""
+    argument bytes, broadcasts, all_sums and their bytes against the JAX
+    rules' totals for the cell (DRYRUN_CELLS), the gather-everything
+    step's figures beside the train cell's."""
     from repro_torch.launch import dryrun as D
     out = {}
-    for arch, shape, multi_pod, fast, (arg, count, wire) in DRYRUN_CELLS:
+    for arch, shape, multi_pod, fast, want in DRYRUN_CELLS:
         t0 = time.perf_counter()
         rec = D.run_cell(arch, shape, multi_pod=multi_pod, fast=fast,
                          verbose=False)
         seconds = time.perf_counter() - t0
         got = (rec["memory"]["argument_bytes_per_device"],
                rec["collective_counts"]["broadcast"],
-               rec["collective_bytes_by_op"]["broadcast"])
-        require(got == (arg, count, wire), f"dryrun {arch} x {shape}: "
-                f"(argument bytes, broadcasts, their bytes) {got}, the "
-                f"JAX rules' {(arg, count, wire)}")
+               rec["collective_bytes_by_op"]["broadcast"],
+               rec["collective_counts"].get("all_sum", 0),
+               rec["collective_bytes_by_op"].get("all_sum", 0))
+        require(got == want, f"dryrun {arch} x {shape}: (argument bytes, "
+                f"broadcasts, their bytes, all_sums, their bytes) {got}, "
+                f"the JAX rules' {want}")
         require((rec["memory"]["temp_bytes_per_device"] is None) == fast,
                 f"dryrun {arch} x {shape}: temp bytes "
                 f"{rec['memory']['temp_bytes_per_device']} "
                 f"({rec['memory'].get('temp_bytes_error')})")
-        out[f"{arch}|{shape}|{rec['mesh']}"] = dict(rec, seconds=seconds)
+        out[f"{arch}|{shape}|{rec['mesh']}"] = dict(
+            rec, seconds=seconds,
+            gather_everything=DRYRUN_GATHERED.get(f"{arch}|{shape}"))
     return out
 
 
@@ -5146,7 +5330,9 @@ def launch_phase(seed: int, smi: str) -> dict:
     launches = {"launch|train gemma3-1b full": full.pop("launches")}
     say("launch", part="train gemma3-1b full", **full)
     torch.cuda.empty_cache()
-    say("launch", part="grid", **launch_grid(smi))
+    grid = launch_grid(smi)
+    launches.update(grid.pop("launches"))
+    say("launch", part="grid", **grid)
     say("launch", part="grid gemma3-1b full width", **launch_grid_wide(smi))
     say("launch", part="serve", **launch_serve(seed, smi))
     for cell, rec in launch_dryrun().items():

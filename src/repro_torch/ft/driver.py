@@ -21,8 +21,11 @@ restarts at the same step: a fault raised on one rank alone (in
 ``fault_injector``, ``batch_fn``, ``on_metrics`` or a checkpoint write)
 is held while the rank keeps its place in the collectives, and the ranks
 agree on it (`sharding.layout.agree`, one all_sum) before the next step;
-``train_step`` (`layout.mesh_step`) commits on every rank or on none.  A
-fault inside a collective is not recovered.
+``train_step`` (`layout.mesh_step`: each rank steps its share of the
+global batch, the gradients reduced over the data axes) commits on every
+rank or on none.  A fault inside a collective is not recovered, nor one
+raised on one rank between two of the step's collectives: the other
+ranks of its line wait in the next one.
 
 Straggler detection: per-step wall times (to a sync on the loss's
 device) feed an EWMA seeded from the second measured step; a step slower

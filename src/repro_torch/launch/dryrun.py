@@ -11,22 +11,38 @@ record key takes a torch meaning here, on tensors that hold no storage:
   batch) by the rules on the production mesh (`sharding.layout`);
   ``output_bytes_per_device`` likewise for the outputs (the logits and
   metrics whole);
+- a train cell runs rank 0's share of the split mesh step: the step
+  itself (`sharding.layout.mesh_step`) on a shape-only mesh with rank
+  0's coordinates, so the parameters' gathers copy rank 0's blocks into
+  whole tensors, its rows of every microbatch run inside a shape-only
+  data split (`sharding.split`: the statistics of the whole batch and
+  the gradients' reduction keep their shapes, nothing is exchanged), and
+  the optimizer updates its blocks.  A serving cell runs the cell's
+  whole program;
 - ``hlo_flops_global``: the FLOPs `torch.utils.flop_counter` counts over
-  the cell's step on the meta device;
+  that run on the meta device; a train cell's is ``flops_per_device``
+  (rank 0's share) times ``chips``, what the mesh executes (the ranks of
+  one "model" line repeat each other's share: ``useful_flops_frac``
+  shows it);
 - ``hlo_bytes_global``: the operand and result bytes of every ATen op of
-  that step, recorded on meta (`analysis.ir.record`): the eager port runs
-  unfused, so this is what its step moves;
-- ``wire_bytes_per_chip`` / ``collective_counts``: what gathering the
-  arguments costs a rank (`sharding.layout.collective_plan`: the port's
-  step on a mesh gathers its state and batch, then computes the global
-  program on every rank); a train cell adds the mesh step's all_sum on
-  which the ranks agree that it commits (`layout.step_plan`);
+  that run, recorded on meta (`analysis.ir.record`): the eager port runs
+  unfused, so this is what its step moves; a train cell's is
+  ``hlo_bytes_per_device`` times ``chips``;
+- ``wire_bytes_per_chip`` / ``collective_counts``: the step's
+  collectives a rank (`sharding.layout.step_plan`: the parameters'
+  gathers by broadcasts; the batch statistics' exchanges, the gradients'
+  reduction and the agreement by all_sums, each counted by the bytes of
+  the tensor summed); a serving cell gathers its arguments
+  (`layout.collective_plan`);
 - ``memory.temp_bytes_per_device``: what the step allocates at its peak
-  beyond its arguments, by `torch.distributed._tools.mem_tracker`
-  under `FakeTensorMode`, a second pass (null with ``fast``, and null
-  with the error in ``temp_bytes_error`` where that tool fails);
-  ``gathered_bytes``: the whole arguments, which every rank holds
-  during the step; the peak is the two together;
+  beyond what it holds at its start, by
+  `torch.distributed._tools.mem_tracker` under `FakeTensorMode`, a
+  second pass (null with ``fast``, and null with the error in
+  ``temp_bytes_error`` where that tool fails);
+  ``held_bytes_per_device``: what a rank holds at the step's start (a
+  train cell: its blocks of the state and its rows of the batch, the
+  whole parameters being gathered inside the step; a serving cell: the
+  whole arguments); the peak is the two together;
 - ``model_flops``, ``useful_flops_frac`` and the roofline terms from
   `analysis.ir.roofline` with the H100's ``HW``.
 
@@ -58,7 +74,7 @@ from repro_torch.configs.registry import ARCHS, batch_specs, get_config, \
     skip_shapes
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.launch.hlo_analysis import roofline
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import GridMesh, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models.common import empty_init
 from repro_torch.optim.optimizers import OptConfig, get_optimizer
@@ -66,7 +82,7 @@ from repro_torch.sharding import hints, layout
 from repro_torch.sharding.rules import (PartitionSpec, Sharding, batch_spec,
                                         cache_shardings, param_shardings,
                                         tree_map)
-from repro_torch.train.step import TrainConfig, make_train_step
+from repro_torch.train.step import TrainConfig, make_grad_fn
 
 __all__ = ["lower_cell", "analyze", "run_cell", "main"]
 
@@ -91,9 +107,13 @@ def _serving_cfg(cfg):
 def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
                device="meta"):
     """Build one cell on ``device`` (``meta``, or the CPU inside a
-    `FakeTensorMode`) -> (run, args, shardings, cfg): ``run()`` takes the
-    cell's step once and returns its outputs, ``args`` the tree of its
-    arguments (whole tensors), ``shardings`` the matching tree."""
+    `FakeTensorMode`) -> (run, args, shardings, cfg, held): ``run()``
+    takes the cell's step once (a train cell: rank 0's share, through
+    `layout.mesh_step` on a shape-only mesh with rank 0's coordinates)
+    and returns its outputs, ``args`` the tree of its arguments (a train
+    cell's state holds rank 0's blocks; `layout.whole_like` gives their
+    whole shapes), ``shardings`` the matching tree, ``held`` the bytes a
+    rank holds at the step's start."""
     cfg = get_config(arch, smoke=smoke)
     shape = SHAPES[shape_name]
     dev = torch.device(device)
@@ -119,23 +139,26 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
 
     if shape.kind == "train":
         tcfg = _tcfg_for(cfg)
+        zero = GridMesh(mesh.axis_names, tuple(mesh.shape.values()), rank=0)
+        bsh = tree_map(lambda _, s: Sharding(zero, s.spec), bshard)
         model = M.Model(cfg, empty_init(dev))
         state = {"params": model, "opt": get_optimizer(tcfg.opt)[0](model),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
-        sh = {"params": param_shardings(model, cfg, mesh),
-              "opt": param_shardings(state["opt"], cfg, mesh),
-              "step": replicated}
-        step = make_train_step(cfg, tcfg)
-        return (lambda: step(state, specs), {"state": state, "batch": specs},
-                {"state": sh, "batch": bshard}, cfg)
+        sh = layout.state_shardings(state, cfg, zero, tcfg.opt.name)
+        state = layout.shard(state, sh)
+        rows = layout.batch_rows(specs, bsh, tcfg.microbatches)
+        step = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt, sh, bsh)
+        return (lambda: step(state, rows), {"state": state, "batch": specs},
+                {"state": sh, "batch": bsh}, cfg,
+                _bytes(state) + _bytes(rows))
 
     scfg = _serving_cfg(cfg)
     model = M.Model(scfg, empty_init(dev))
     pshard = param_shardings(model, scfg, mesh)
     if shape.kind == "prefill":
-        return (lambda: M.prefill(model, specs, shape.seq_len),
-                {"params": model, "batch": specs},
-                {"params": pshard, "batch": bshard}, scfg)
+        args = {"params": model, "batch": specs}
+        return (lambda: M.prefill(model, specs, shape.seq_len), args,
+                {"params": pshard, "batch": bshard}, scfg, _bytes(args))
     if shape.kind != "decode":
         raise ValueError(shape.kind)
     caches = alloc(M.cache_specs(scfg, shape.global_batch, shape.seq_len))
@@ -143,13 +166,14 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     tokens = specs.pop("tokens")
     extras = specs or None
     pos = torch.zeros((), dtype=torch.int32, device=dev)
+    args = {"params": model, "tokens": tokens, "caches": caches, "pos": pos,
+            "extras": extras}
     return (lambda: M.decode_step(model, tokens, caches, pos,
-                                  batch_extras=extras),
-            {"params": model, "tokens": tokens, "caches": caches, "pos": pos,
-             "extras": extras},
+                                  batch_extras=extras), args,
             {"params": pshard, "tokens": bshard["tokens"], "caches": cshard,
              "pos": replicated,
-             "extras": {k: bshard[k] for k in extras or {}} or None}, scfg)
+             "extras": {k: bshard[k] for k in extras or {}} or None}, scfg,
+            _bytes(args))
 
 
 def _bytes(tree) -> int:
@@ -177,8 +201,8 @@ def _temp_bytes(arch, shape_name, mesh, smoke):
         from torch.distributed._tools.mem_tracker import (MemTracker,
                                                           _MemRefType)
         with FakeTensorMode():
-            run, args, _, _ = lower_cell(arch, shape_name, mesh, smoke=smoke,
-                                         device="cpu")
+            run, args, _, _, _ = lower_cell(arch, shape_name, mesh,
+                                            smoke=smoke, device="cpu")
             model = args["state"]["params"] if "state" in args \
                 else args["params"]
             mt = MemTracker()
@@ -198,44 +222,51 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     the memory tracker's pass."""
     shape = SHAPES[shape_name]
     chips = mesh.size
-    run, args, shardings, cfg = lower_cell(arch, shape_name, mesh,
-                                           smoke=smoke)
+    run, args, shardings, cfg, held = lower_cell(arch, shape_name, mesh,
+                                                 smoke=smoke)
     counter = FlopCounterMode(display=False)
     with counter, ir.Recorder() as mod:
         out = run()
+    if shape.kind == "train":
+        args = dict(args, state=layout.whole_like(args["state"],
+                                                  shardings["state"]))
     flops = float(counter.get_total_flops())
     hbm = float(sum(i.operand_bytes + i.result_bytes
                     for i in mod.instructions))
-    plan = (layout.step_plan if shape.kind == "train"
-            else layout.collective_plan)(shardings, args)
-    agreed = plan.get("all_sum", 0)
+    if shape.kind == "train":
+        plan = layout.step_plan(cfg, _tcfg_for(cfg), shardings["state"],
+                                shardings["batch"], args["state"]["params"])
+        scale = chips           # every rank runs a share like rank 0's
+    else:
+        plan = layout.collective_plan(shardings, args)
+        scale = 1               # every rank runs the whole program
     counts = {"broadcast": plan["broadcast"]}
     by_op = {"broadcast": float(plan["bytes"])}
-    if agreed:
-        # one float32 flag a step
-        counts["all_sum"], by_op["all_sum"] = agreed, 4.0 * agreed
+    if plan.get("all_sum"):
+        counts["all_sum"] = plan["all_sum"]
+        by_op["all_sum"] = float(plan["all_sum_bytes"])
     wire = sum(by_op.values())
     n_active = M.count_params(cfg, active_only=True)
     n_tok = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                   else 1)
     model_fl = 2 * n_active * n_tok * (3 if shape.kind == "train" else 1)
     # the analytic FLOPs bound the compute term from below, as in JAX
-    terms = roofline(flops=max(flops, float(model_fl)), hbm_bytes=hbm,
-                     wire_bytes_per_chip=wire, chips=chips)
+    terms = roofline(flops=max(flops * scale, float(model_fl)),
+                     hbm_bytes=hbm * scale, wire_bytes_per_chip=wire,
+                     chips=chips)
     arg_bytes = layout.resident_bytes(shardings, args)
-    gathered = _bytes(args)
     temp, err = (None, None) if fast else _temp_bytes(arch, shape_name,
                                                       mesh, smoke)
     rec = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "chips": chips,
-        "hlo_flops_global": flops,
-        "hlo_bytes_global": hbm,
+        "hlo_flops_global": flops * scale,
+        "hlo_bytes_global": hbm * scale,
         "wire_bytes_per_chip": wire,
         "collective_counts": counts,
         "collective_bytes_by_op": by_op,
         "model_flops": model_fl,
-        "useful_flops_frac": model_fl / max(flops, 1.0),
+        "useful_flops_frac": model_fl / max(flops * scale, 1.0),
         **{k: terms[k] for k in ("compute_s", "memory_s", "collective_s",
                                  "bottleneck", "step_s_lower_bound")},
         "memory": {
@@ -243,10 +274,12 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
             "output_bytes_per_device": _outputs(shape.kind, args, shardings,
                                                 out, cfg, mesh),
             "temp_bytes_per_device": temp,
-            "gathered_bytes_per_device": gathered,
-            "peak_bytes_per_device": gathered + (temp or 0),
+            "held_bytes_per_device": held,
+            "peak_bytes_per_device": held + (temp or 0),
         },
     }
+    if shape.kind == "train":
+        rec["flops_per_device"], rec["hlo_bytes_per_device"] = flops, hbm
     if err is not None:
         rec["memory"]["temp_bytes_error"] = err
     hints.configure(cfg, None)

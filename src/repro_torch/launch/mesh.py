@@ -5,14 +5,20 @@ port runs one process per rank (`repro_torch.core.mesh`), so a
 multi-axis mesh here is a `GridMesh`: the axis names and sizes, this
 rank's coordinates, and one process subgroup per *line* of the grid (the
 ranks that differ only along a set of axes), over which
-`repro_torch.sharding.layout` gathers a tensor sharded along those axes.
-Ranks lie on the grid in row-major order of the axes.
+`repro_torch.sharding.layout` gathers a tensor sharded along those axes
+and the split step reduces over its data axes.  Ranks lie on the grid in
+row-major order of the axes.  The line groups carry the grid's
+collective ``timeout``: a rank that waits longer in one raises instead
+of waiting on, and `sharding.layout.agree`, over the whole process
+group, which no line uses, then has every rank remake its lines
+(`GridMesh.remake_lines`).
 
 `make_production_mesh` is shape only: the port starts no 256 or 512
 ranks, and the dry run (`launch.dryrun`) reads nothing but the shape.
 """
 from __future__ import annotations
 
+import datetime
 import itertools
 import math
 from typing import Dict, Optional, Tuple
@@ -28,16 +34,22 @@ __all__ = ["GridMesh", "make_production_mesh", "make_rows_mesh",
 class GridMesh:
     """A named grid of ranks.  ``shape`` maps axis -> size (JAX's
     ``Mesh.shape``), ``coords`` this rank's coordinate per axis, ``device``
-    where its blocks live.  A shape-only mesh (``coords`` None) has no
-    process behind it."""
+    where its blocks live, ``world`` the `core.mesh.Mesh` of the whole
+    process group (None: one rank, or a mesh with no process behind it --
+    shape only, even where ``rank`` gives it coordinates), ``timeout``
+    the seconds a collective over a line may wait (None: the process
+    group's)."""
 
     def __init__(self, axis_names: Tuple[str, ...], sizes: Tuple[int, ...],
-                 *, rank: Optional[int] = None, device=None):
+                 *, rank: Optional[int] = None, device=None,
+                 timeout: Optional[float] = None):
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
         self.size = math.prod(sizes)
         self.rank = rank
         self.device = device
+        self.timeout = timeout
+        self.world: Optional[core_mesh.Mesh] = None
         self.coords = None if rank is None else self.coords_of(rank)
         # frozenset of axes -> (core_mesh.Mesh of this rank's line, the
         # line's global ranks in group order)
@@ -78,25 +90,35 @@ class GridMesh:
 
     def _make_lines(self) -> None:
         """Every rank creates every subgroup, in the same order: for each
-        set of axes of more than one rank, one group per line."""
+        set of axes of more than one rank, one group per line (the whole
+        grid's too: the process group itself is `agree`'s alone)."""
         names = self.axis_names
+        timeout = None if self.timeout is None else datetime.timedelta(
+            seconds=self.timeout)
         for n in range(1, len(names) + 1):
             for axes in itertools.combinations(names, n):
                 if math.prod(self.shape[a] for a in axes) == 1:
                     continue
                 key = frozenset(axes)
-                if len(key) == len(names):       # the whole grid
-                    ranks = list(range(self.size))
-                    self._lines[key] = (self._sub(None, ranks), ranks)
-                    continue
                 rest = [a for a in names if a not in key]
                 for combo in itertools.product(
                         *(range(self.shape[a]) for a in rest)):
                     base = dict(zip(rest, combo), **{a: 0 for a in axes})
                     ranks = self.line_ranks(axes, base)
-                    group = dist.new_group(ranks)
+                    group = dist.new_group(ranks, timeout=timeout)
                     if self.rank in ranks:
                         self._lines[key] = (self._sub(group, ranks), ranks)
+
+    def remake_lines(self) -> None:
+        """Every rank drops its line groups and creates them anew, in the
+        same order.  After a rank failed between two collectives of a
+        line, and the others' wait in the next one timed out, the line's
+        ranks have issued different numbers of collectives over it, and
+        the old group would pair the wrong ones."""
+        for line, _ in self._lines.values():
+            dist.destroy_process_group(line.group)
+        self._lines = {}
+        self._make_lines()
 
     def _sub(self, group, ranks) -> core_mesh.Mesh:
         return core_mesh.Mesh(group=group, size=len(ranks),
@@ -123,9 +145,9 @@ def make_rows_mesh(n: int | None = None, axis_name: str = "rows",
                           device=mesh.device, axis_name=axis_name)
 
 
-def make_grid(axes, dims, device=None) -> GridMesh:
+def make_grid(axes, dims, device=None, timeout=None) -> GridMesh:
     """A `GridMesh` of ``axes`` x ``dims`` over the process group (a
-    one-rank grid needs none)."""
+    one-rank grid needs none); ``timeout`` as in `GridMesh`."""
     n = math.prod(dims)
     if not dist.is_initialized():
         if n != 1:
@@ -139,7 +161,9 @@ def make_grid(axes, dims, device=None) -> GridMesh:
     if world.size != n:
         raise ValueError(f"a {'x'.join(map(str, dims))} mesh over a group "
                          f"of {world.size} ranks")
-    grid = GridMesh(axes, dims, rank=world.rank, device=world.device)
+    grid = GridMesh(axes, dims, rank=world.rank, device=world.device,
+                    timeout=timeout)
+    grid.world = world
     grid._make_lines()
     return grid
 
@@ -155,14 +179,15 @@ def parse_mesh(spec: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     return axes, dims
 
 
-def make_mesh_like(spec: str, device=None, *, grid: bool = False):
+def make_mesh_like(spec: str, device=None, *, grid: bool = False,
+                   timeout=None):
     """'2x2' / '2x16x16' / '8' -> a mesh over the process group (for CLI
     flags): a 1-D spec is the rows mesh (with ``grid``, a ("rows",)
     `GridMesh`, on which the sharding rules split nothing), two or three
     dims a `GridMesh` on ("data", "model") / ("pod", "data", "model").  A
     one-rank grid needs no process group.  ``device`` as in
-    `core.mesh.rank_device`."""
+    `core.mesh.rank_device`, ``timeout`` as in `GridMesh`."""
     axes, dims = parse_mesh(spec)
     if axes == ("rows",) and not grid:
         return make_rows_mesh(dims[0], device=device)
-    return make_grid(axes, dims, device)
+    return make_grid(axes, dims, device, timeout)

@@ -11,9 +11,15 @@ with no process group, `main` starts the ranks itself
 (`core.mesh.run_ranks`): NCCL when there is a card per rank, gloo
 otherwise (on the CPU, or several ranks sharing a card).  Each rank
 runs the same `build` and loop, and rank 0 prints the log.  With no
-``--mesh`` the run is one rank.  The step on a mesh computes the global
-program on every rank over the sharded resident state
-(`sharding.layout.mesh_step`).
+``--mesh`` the run is one rank.  The step on a mesh
+(`sharding.layout.mesh_step`) splits the arithmetic over the data axes:
+each rank steps its rows of every global microbatch, the gradients are
+reduced over the data line, and each rank's optimizer updates its own
+blocks.  A rank that waits in a collective over a line of the grid for
+longer than ``--collective-timeout`` seconds raises (another rank of the
+line failed in the step), and the ranks restart the step together
+(`ft.run_training`).  `rank_restore` restores a run's checkpoint onto a
+grid of another shape (elastic) and trains on.
 """
 from __future__ import annotations
 
@@ -24,11 +30,13 @@ import os
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.registry import get_config
 from repro_torch.core import mesh as core_mesh
 from repro_torch.core.mesh import run_ranks
@@ -37,42 +45,43 @@ from repro_torch.ft.driver import FTConfig, run_training
 from repro_torch.launch.mesh import make_mesh_like, parse_mesh
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.sharding import hints, layout
-from repro_torch.sharding.rules import (PartitionSpec, Sharding, batch_spec,
-                                        param_shardings)
+from repro_torch.sharding.rules import Sharding, batch_spec
 from repro_torch.train.step import (TrainConfig, init_train_state,
-                                    make_train_step)
+                                    make_grad_fn)
 
-__all__ = ["build", "main", "parser"]
+__all__ = ["build", "main", "parser", "rank_main", "rank_restore"]
 
 
 def build(arch: str, *, smoke: bool, mesh, tcfg: TrainConfig, seed: int = 0,
-          batch: int = 8, seq: int = 128, layers: int | None = None):
+          batch: int = 8, seq: int = 128, layers: int | None = None,
+          dtype=None, on_grads=None):
     """-> (cfg, this rank's state, step_fn, batch_fn, state shardings) on
     ``mesh`` (a `launch.mesh.GridMesh`; its device is the rank's).
     ``layers`` cuts the config's depth (a full-width run at reduced
-    depth)."""
+    depth), ``dtype`` sets the activations' (the config's by default);
+    ``on_grads`` as in `sharding.layout.mesh_step`.  ``batch_fn(step)``
+    gives this rank's rows of the global batch (`layout.batch_rows`)."""
     cfg = get_config(arch, smoke=smoke)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     hints.configure(cfg, mesh)
     data = DataConfig(seed=seed, batch=batch, seq=seq, kind="markov")
     dev = mesh.device
     state = init_train_state(cfg, tcfg, generator=torch.Generator(
         device=dev).manual_seed(seed), device=dev)
-    state_shardings = {
-        "params": param_shardings(state["params"], cfg, mesh),
-        "opt": param_shardings(state["opt"], cfg, mesh),
-        "step": Sharding(mesh, PartitionSpec()),
-    }
+    state_shardings = layout.state_shardings(state, cfg, mesh,
+                                             tcfg.opt.name)
     bshard = {k: Sharding(mesh, s) for k, s in
               batch_spec(cfg, mesh, kind="train", batch=batch).items()}
     state = layout.shard(state, state_shardings)
-    step_fn = layout.mesh_step(make_train_step(cfg, tcfg), state_shardings,
-                               bshard)
+    step_fn = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt,
+                               state_shardings, bshard, on_grads=on_grads)
 
     def batch_fn(step: int):
         b = synth_batch(cfg, data, step, device=dev)
-        return layout.shard(b, {k: bshard[k] for k in b})
+        return layout.batch_rows(b, bshard, tcfg.microbatches)
 
     return cfg, state, step_fn, batch_fn, state_shardings
 
@@ -98,6 +107,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cpu, or the card (default)")
+    ap.add_argument("--collective-timeout", type=float, default=600.0,
+                    help="seconds a rank waits in a collective over a "
+                         "line of the --mesh grid before it raises")
     return ap
 
 
@@ -111,11 +123,12 @@ def _tcfg(args) -> TrainConfig:
     )
 
 
-def _run(args, mesh, layers=None):
+def _run(args, mesh, layers=None, dtype=None, on_grads=None):
     """One rank's run -> (state, losses, stats)."""
     return _drive(args, mesh, build(
         args.arch, smoke=args.smoke, mesh=mesh, tcfg=_tcfg(args),
-        batch=args.batch, seq=args.seq, layers=layers))
+        batch=args.batch, seq=args.seq, layers=layers, dtype=dtype,
+        on_grads=on_grads))
 
 
 def _drive(args, mesh, built):
@@ -148,54 +161,119 @@ def _drive(args, mesh, built):
     return state, losses, stats
 
 
-def _mesh(spec: str, device):
-    """The grid of a ``--mesh`` spec (a 1-D spec is a ("rows",) grid)."""
-    return make_mesh_like(spec, device=device, grid=True)
+def _mesh(spec: str, device, timeout=None):
+    """The grid of a ``--mesh`` spec (a 1-D spec is a ("rows",) grid);
+    ``timeout`` as in `launch.mesh.GridMesh`."""
+    return make_mesh_like(spec, device=device, grid=True, timeout=timeout)
+
+
+def _threads(mesh, threads) -> None:
+    """A CPU rank of run_ranks' ``mesh`` takes ``threads`` threads
+    (default: the host's cores shared among the ranks)."""
+    if mesh is not None and mesh.device.type == "cpu":
+        torch.set_num_threads(threads or max(
+            1, (os.cpu_count() or 1) // mesh.size))
+
+
+def _host(t, digest: bool):
+    a = t.detach().cpu().numpy()
+    if digest:
+        return a.shape, hashlib.sha256(np.ascontiguousarray(a).data) \
+            .hexdigest()
+    return a.copy()
 
 
 def rank_main(mesh, argv, threads=None, detail=False, layers=None,
-              digest=False):
+              digest=False, dtype=None):
     """One spawned rank of `main` (``mesh``, run_ranks' 1-D mesh, is
     replaced by the ``--mesh`` grid over the same group) -> its losses,
     restarts and stragglers.  A CPU rank takes ``threads`` threads
     (default: the host's cores shared among the ranks).  With ``detail``
     also its coordinates, step seconds and final blocks (numpy
     arrays by `layout.flat` path joined with dots:
-    ``params.blocks.0.attn.wq``, ``opt.m.embed``, ``step``; with
-    ``digest``, (shape, sha256 of the bytes) in their place), then the
-    collectives of one more step (``counts``) beside `layout.step_plan`
-    (``plan``).  ``layers`` as in `build`."""
+    ``params.blocks.0.attn.wq``, ``opt.m.embed``, ``step``), the first
+    step's reduced gradients by parameter name (``grads``) and metrics
+    (``grad_metrics``), then the collectives of one more step
+    (``counts``) beside `layout.step_plan` (``plan``) and, on a card,
+    that step's peak allocation (``step_peak_bytes``); with ``digest``,
+    (shape, sha256 of the bytes) in place of every array.  ``layers`` and
+    ``dtype`` as in `build`."""
     args = parser().parse_args(argv)
-    if mesh.device.type == "cpu":
-        torch.set_num_threads(threads or max(
-            1, (os.cpu_count() or 1) // mesh.size))
-    grid = _mesh(args.mesh, args.device)
-    built = build(args.arch, smoke=args.smoke, mesh=grid, tcfg=_tcfg(args),
-                  batch=args.batch, seq=args.seq, layers=layers)
+    _threads(mesh, threads)
+    grid = _mesh(args.mesh, args.device, args.collective_timeout)
+    first = {}
+
+    def keep_first(grads, metrics):
+        if not first and detail:
+            first["grads"] = {k: _host(g, digest) for k, g in grads.items()}
+            first["grad_metrics"] = {k: float(v) for k, v in metrics.items()}
+    tcfg = _tcfg(args)
+    built = build(args.arch, smoke=args.smoke, mesh=grid, tcfg=tcfg,
+                  batch=args.batch, seq=args.seq, layers=layers, dtype=dtype,
+                  on_grads=keep_first)
     state, losses, stats = _drive(args, grid, built)
     out = {"losses": losses, "restarts": stats.restarts,
            "stragglers": stats.stragglers}
     if not detail:
         return out
-    blocks = {}
-    for p, t in layout.flat(state).items():
-        a = t.detach().cpu().numpy()
-        blocks[".".join(p)] = (a.shape, hashlib.sha256(
-            np.ascontiguousarray(a).data).hexdigest()) if digest else a.copy()
+    blocks = {".".join(p): _host(t, digest)
+              for p, t in layout.flat(state).items()}
     cfg, _, step_fn, batch_fn, sh = built
     bsh = {k: Sharding(grid, s) for k, s in batch_spec(
         cfg, grid, kind="train", batch=args.batch).items()}
     batch = batch_fn(0)
+    on_card = grid.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(grid.device)
+        torch.cuda.reset_peak_memory_stats(grid.device)
     core_mesh.reset_collective_counts()
     state, _ = step_fn(state, batch)
-    out.update(coords=grid.coords, device=str(grid.device), blocks=blocks,
-               counts=core_mesh.collective_counts(),
-               plan=layout.step_plan({"state": sh, "batch": bsh},
-                                     layout.whole_like(
-                                         {"state": state, "batch": batch},
-                                         {"state": sh, "batch": bsh})),
+    counts = core_mesh.collective_counts()
+    out.update(first, coords=grid.coords, device=str(grid.device),
+               blocks=blocks, counts=counts,
+               plan=layout.step_plan(
+                   cfg, tcfg, sh, bsh,
+                   layout.whole_like(state["params"], sh["params"])),
+               step_peak_bytes=torch.cuda.max_memory_allocated(grid.device)
+               if on_card else None,
                step_s=stats.times)
     return out
+
+
+def rank_restore(mesh, argv, spec, ckpt_dir, step, threads=None,
+                 dtype=None):
+    """One rank of a ``spec`` grid (spawned by run_ranks, whose ``mesh``
+    sets the threads as in `rank_main`; None in a process of its own):
+    `build`'s state restored from ``ckpt_dir`` at ``step`` onto this
+    grid (elastic: each rank reads its blocks), then trained on to
+    ``--steps``, its checkpoints in ``--ckpt-dir`` -> its coordinates,
+    the step restored (``at``), whether its blocks are bitwise the saved
+    files' blocks at its coordinates (``restored_bitwise``), its blocks
+    as restored and at the end (``restored``, ``blocks``: numpy by
+    `layout.flat` path, as `rank_main` names them) and the losses of the
+    steps after the restore."""
+    args = parser().parse_args(argv)
+    _threads(mesh, threads)
+    grid = _mesh(spec, args.device, args.collective_timeout)
+    cfg, state, step_fn, batch_fn, sh = build(
+        args.arch, smoke=args.smoke, mesh=grid, tcfg=_tcfg(args),
+        batch=args.batch, seq=args.seq, dtype=dtype)
+    state, at = ckpt.restore(ckpt_dir, state, step=step, shardings=sh,
+                             device=grid.device)
+    saved, fsh = Path(ckpt_dir) / f"step_{step:08d}", layout.flat(sh)
+    restored = {".".join(p): _host(t, False)
+                for p, t in layout.flat(state).items()}
+    same = True
+    for p in layout.flat(state):
+        whole = np.load(saved / f"{'__'.join(p)}.npy")
+        block = whole[layout.block_slices(whole.shape, fsh[p], grid.coords)]
+        same = same and restored[".".join(p)].tobytes() == block.tobytes()
+    state, losses, _ = _drive(args, grid, (cfg, state, step_fn, batch_fn,
+                                           sh))
+    return {"coords": grid.coords, "at": at, "restored_bitwise": same,
+            "restored": restored, "losses": losses,
+            "blocks": {".".join(p): _host(t, False)
+                       for p, t in layout.flat(state).items()}}
 
 
 def _backend(n: int, device) -> str:
@@ -217,7 +295,8 @@ def main(argv=None):
         return run_ranks(rank_main, n, backend=_backend(n, args.device),
                          device=args.device, timeout=7 * 86400.0,
                          args=(argv,))[0]
-    state, _, _ = _run(args, _mesh(spec, args.device))
+    state, _, _ = _run(args, _mesh(spec, args.device,
+                                   args.collective_timeout))
     return state
 
 

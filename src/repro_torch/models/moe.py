@@ -11,6 +11,15 @@ weight 0).  JAX scatter-adds with ``mode="drop"``; here every kept
 buffer: the dropped assignments are sent to a spare slot C that is cut
 off before the experts run (no accumulate, so no atomics on the card, and
 no host sync to compact the kept ones).
+
+Inside a data split (`repro_torch.sharding.split`) each rank routes its
+share of the tokens as the global program would: the capacity comes from
+the global token count, a slot is the assignment's rank among ALL tokens
+of its expert in the global token-major order (this rank's own ranks
+plus the counts of the ranks before it: one small ranks x experts
+exchange), and the balance aux's means are over the global tokens.  A
+rank's buffer holds its own slots only: ``min(C, n)`` for each expert,
+which takes one of its n tokens at most once.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from torch import nn
 
 from repro_torch.models.common import ModelConfig, ParamInit, param
 from repro_torch.models.mlp import MLP
+from repro_torch.sharding import split
 
 __all__ = ["MoE", "capacity"]
 
@@ -57,16 +67,25 @@ class MoE(nn.Module):
         b, t, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         n = b * t
+        n_all = split.rows(n)
         xt = x.reshape(n, d)
         # decode (t == 1): dropless, as serving never drops a live token
-        c = capacity(cfg, n) if t > 1 else n
+        c = capacity(cfg, n_all) if t > 1 else n_all
 
         gates, topw, topi = self.route(xt)
         onehot = F.one_hot(topi, e).to(torch.int32)          # (n, k, e)
         flat = onehot.reshape(n * k, e)
         ranks = torch.cumsum(flat, dim=0) - flat             # exclusive
         slot = (ranks * flat).sum(-1).reshape(n, k)          # (n, k)
-        keep = slot < c
+        if split.current() is None:
+            keep = slot < c
+        else:
+            # every rank's per-expert counts; the ranks before this one
+            # hold the earlier global tokens
+            counts = split.each(flat.sum(0))                 # (ranks, e)
+            before = counts[:split.current().rank].sum(0)
+            keep = slot + before[topi] < c
+            c = min(c, n)                   # this rank's slots an expert
         w = topw * keep.to(topw.dtype)
 
         si = torch.where(keep, slot, c)                      # c: dropped
@@ -88,7 +107,11 @@ class MoE(nn.Module):
             out = out + self.shared(x).reshape(n, d)
 
         # load-balancing aux (Switch-style): mean gate x mean assignment
-        me = gates.mean(0)
-        ce = onehot.sum(1).float().mean(0)
+        if split.current() is None:
+            me = gates.mean(0)
+            ce = onehot.sum(1).float().mean(0)
+        else:
+            me = split.total(gates.sum(0)) / n_all
+            ce = counts.sum(0).float() / n_all
         aux = {"moe_balance": (me * ce).sum() * e}
         return out.reshape(b, t, d), aux

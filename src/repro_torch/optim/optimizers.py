@@ -31,6 +31,17 @@ the port's parameter names (``"blocks.3.attn.wq"``) to tensors;
 counts as zeros (JAX's gradient of an unused leaf).  ``update(grads,
 state, params) -> (params, state)`` writes both in place and returns
 them.
+
+**On blocks** (``update(..., blocks=...)``, the step on a mesh,
+`repro_torch.sharding.layout.mesh_step`): ``params`` and ``state`` hold
+this rank's blocks, ``grads`` the whole reduced gradients, which every
+rank holds alike, and ``blocks`` maps a parameter name to its block's
+slices of the whole parameter (every layer of a JAX leaf splits alike,
+and no rule splits a stack axis).  AdamW and SGD are elementwise: they
+take the gradient's block.  Adafactor's factored moments and its RMS-1
+clip are over the whole leaf, so its state is whole on every rank and it
+takes the whole update's block.  Either way a block's update is bitwise
+that block of the whole update.
 """
 from __future__ import annotations
 
@@ -182,13 +193,25 @@ def _device(named) -> torch.device:
     return next(iter(named.values())).device if named else torch.device("cpu")
 
 
-def _leaf_tensors(leaf: JaxLeaf, named, grads):
+def _cut(leaf: JaxLeaf, blocks):
+    """The slices of a stacked leaf's block."""
+    return (slice(None),) * len(leaf.lead) + tuple(blocks[leaf.names[0]])
+
+
+def _leaf_tensors(leaf: JaxLeaf, named, grads, blocks=None, whole=False):
     """(the layers' parameters, the stacked parameter, the stacked f32
-    gradient) of one JAX leaf."""
+    gradient) of one JAX leaf; with ``blocks`` (every gradient given,
+    whole) the gradient's block, or with ``whole`` the whole gradient."""
     ps = [named[n] for n in leaf.names]
-    gs = [grads.get(n) if grads.get(n) is not None else torch.zeros_like(p)
-          for n, p in zip(leaf.names, ps)]
-    return ps, _stack(ps, leaf.lead), _stack(gs, leaf.lead).to(torch.float32)
+    if blocks is None:
+        gs = [grads.get(n) if grads.get(n) is not None
+              else torch.zeros_like(p) for n, p in zip(leaf.names, ps)]
+        return ps, _stack(ps, leaf.lead), _stack(gs, leaf.lead).to(
+            torch.float32)
+    gs = [grads[n] if whole else grads[n][tuple(blocks[n])]
+          for n in leaf.names]
+    return ps, _stack(ps, leaf.lead), _stack(gs, leaf.lead).to(
+        torch.float32)
 
 
 def _count(named) -> torch.Tensor:
@@ -213,14 +236,14 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state, params):
+def adamw_update(cfg: OptConfig, grads, state, params, blocks=None):
     named = _named(params)
     c = state["count"] + 1
     cf = c.to(torch.float32)
     lr = lr_at(cfg, state["count"])
     b1, b2 = cfg.b1, cfg.b2
     for leaf in jax_leaves(named):
-        ps, p, g = _leaf_tensors(leaf, named, grads)
+        ps, p, g = _leaf_tensors(leaf, named, grads, blocks)
         m_ref, v_ref = _get(state["m"], leaf.path), _get(state["v"], leaf.path)
         m = b1 * m_ref + (1 - b1) * g
         v = b2 * v_ref + (1 - b2) * g * g
@@ -259,13 +282,15 @@ def adafactor_init(params):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, grads, state, params):
+def adafactor_update(cfg: OptConfig, grads, state, params, blocks=None):
     named = _named(params)
     c = state["count"] + 1
     lr = lr_at(cfg, state["count"])
     decay = 1.0 - c.to(torch.float32) ** -0.8
     for leaf in jax_leaves(named):
-        ps, p, g = _leaf_tensors(leaf, named, grads)
+        # on blocks: the whole leaf's step from the whole gradient and the
+        # whole moments, then this rank's block of it
+        ps, p, g = _leaf_tensors(leaf, named, grads, blocks, whole=True)
         f = _get(state["f"], leaf.path)
         g2 = g * g + 1e-30
         if p.dim() >= 2:
@@ -283,6 +308,8 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
         # update clipping (Adafactor's RMS-1 rule), over the whole JAX leaf
         rms = torch.sqrt(torch.mean(step * step) + 1e-30)
         step = step / torch.clamp(rms, min=1.0)
+        if blocks is not None:
+            step = step[_cut(leaf, blocks)]
         if p.dim() >= 2:
             step = step + cfg.weight_decay * p.to(torch.float32)
         new = (p.to(torch.float32) - lr * step).to(p.dtype)
@@ -302,11 +329,11 @@ def sgd_init(params):
 
 
 @torch.no_grad()
-def sgd_update(cfg: OptConfig, grads, state, params):
+def sgd_update(cfg: OptConfig, grads, state, params, blocks=None):
     named = _named(params)
     lr = lr_at(cfg, state["count"])
     for leaf in jax_leaves(named):
-        ps, p, g = _leaf_tensors(leaf, named, grads)
+        ps, p, g = _leaf_tensors(leaf, named, grads, blocks)
         new = (p.to(torch.float32) - lr * g).to(p.dtype)
         _write(ps, new, leaf.lead)
     state["count"].add_(1)
@@ -321,7 +348,7 @@ OPTIMIZERS = {
 
 
 def get_optimizer(cfg: OptConfig):
-    """(init(params) -> state, update(grads, state, params) -> (params,
-    state))."""
+    """(init(params) -> state, update(grads, state, params, blocks=None)
+    -> (params, state))."""
     init, update = OPTIMIZERS[cfg.name]
     return init, functools.partial(update, cfg)

@@ -6,9 +6,10 @@ the MoE dispatch buffer, ...) that model code consults through
 ``constrain(x, kind)``, and flags such as ``kv_masked_write``.
 
 `configure` builds the same table and `flag` reads the same flags.  On a
-mesh the port's step computes on whole tensors (`sharding.layout`), so
-there is no activation to lay out: `constrain` returns its input, and
-the model code carries no call to it.  The one flag the port's model
+mesh the port's step computes on whole parameters and this rank's rows
+of the batch (`sharding.layout`, `sharding.split`), so there is no
+activation to lay out: `constrain` returns its input, and the model code
+carries no call to it.  The one flag the port's model
 reads is ``kv_masked_write`` (`models.attention`: the decode write as a
 one-hot merge, which keeps a sequence-sharded cache's write local).
 """
@@ -70,5 +71,5 @@ def flag(name: str) -> bool:
 
 
 def constrain(x, kind: str):
-    """Returns ``x``: the port's mesh step computes on whole tensors."""
+    """Returns ``x``: the port's mesh step lays out no activation."""
     return x

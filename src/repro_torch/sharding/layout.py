@@ -1,6 +1,6 @@
 """A state laid out on a mesh by the sharding rules -- the port's
 counterpart of what ``jax.jit(in_shardings=..., out_shardings=...)`` does
-to the train state.
+to the train state -- and the training step on it.
 
 `shard` keeps this rank's block of every leaf (a `rules.Sharding` says
 how each dim splits over the mesh axes; a spec entry of several axes
@@ -10,23 +10,45 @@ its owner over the line of ranks that hold the tensor's other blocks
 (`launch.mesh.GridMesh.line`): the bytes of an all_gather along those
 axes, through the one collective that NCCL, gloo on the CPU and gloo
 ranks sharing a card all take.  `collective_plan` counts what a gather
-moves; the mesh step and the dry run read it.
+moves.
 
-**The step on a mesh** (`mesh_step`): gather the state and the global
-batch, run the unchanged single-device step on them, keep this rank's
-blocks.  Every rank computes the global program, so the result is one
-device's (the logdet aux's covariance and MoE routing see the whole
-batch, as under GSPMD); between steps each rank holds its blocks alone.
-The arithmetic is not split across ranks.  A step commits on every rank
-or on none: the ranks `agree` (one all_sum) on whether any of them
-raised, and if one did, every rank raises with its blocks as they were.
-A fault inside a gather itself (a lost rank, a broken transport) is not
-recovered: the other ranks wait in their collective.
+**The step on a mesh** (`mesh_step`) splits the arithmetic over the data
+axes, in the order the JAX rules apply them:
+
+- each rank holds its rows of every global microbatch (`batch_rows`; a
+  batch that does not divide the data axes is whole on every rank, and
+  the ranks of one "model" line hold the same rows and compute alike);
+- the parameters' blocks are gathered whole for the forward and the
+  backward, once a step, and dropped after;
+- the loss runs inside a data split (`sharding.split`) over the rank's
+  data line: the statistics of the whole batch (the CE's token count,
+  the logdet aux's covariance, MoE's capacity, slots and balance) are
+  reduced over the line, and each microbatch's gradient is summed over
+  it by one all_sum a tensor, the same bits on every rank;
+- the clip takes the reduced gradient, the same on every rank, and the
+  optimizer updates this rank's blocks only (`optim` ``blocks=``): the
+  optimizer state is never gathered.
+
+A step commits on every rank or on none: after the compute the ranks
+`agree` (one all_sum over the whole process group, which no step
+collective uses) on whether any of them raised, and if one did, every
+rank raises with its blocks as they were; only then does the optimizer
+write.  A rank that raises inside the compute leaves the other ranks of
+its data line waiting in the step's next collective over it; that wait
+ends at the grid's collective timeout (`launch.mesh.GridMesh`) with a
+raise, so they too reach `agree`, and every rank remakes its line
+groups before raising.  A rank that is lost, or a transport that
+breaks, is not recovered: the others wait in `agree`.  `step_plan`
+counts one step's collectives.
 
 A sharded state is the state's own tree holding blocks: the model's
 parameters are swapped to their blocks in place (``p.data``), the
 optimizer tree and the step are new trees.  A one-rank mesh (or a spec
-whose axes have size 1) shards nothing and issues no collective.
+whose axes have size 1) shards nothing and issues no collective, and its
+step is bitwise the single-device step.  On a shape-only mesh (no
+process group behind it: the dry run on meta tensors) `gather` fills
+every block with this rank's, the split is shape only, and nothing is
+exchanged.
 """
 from __future__ import annotations
 
@@ -37,11 +59,16 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.core import mesh as core_mesh
-from repro_torch.sharding.rules import PartitionSpec, Sharding, tree_map
+from repro_torch.optim.optimizers import clip_by_global_norm, get_optimizer
+from repro_torch.sharding import split
+from repro_torch.sharding.rules import (PartitionSpec, Sharding,
+                                        param_shardings, tree_map)
 
-__all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices", "local_block", "gather_leaf",
-           "shard", "gather", "mesh_step", "collective_plan", "step_plan",
-           "flat", "mesh_of", "agree", "barrier", "resident_bytes"]
+__all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices",
+           "local_block", "gather_leaf", "shard", "gather",
+           "state_shardings", "data_axes", "batch_rows", "mesh_grad_fn",
+           "mesh_step", "collective_plan", "step_plan", "flat", "mesh_of",
+           "agree", "barrier", "resident_bytes"]
 
 
 def _entries(spec, mesh) -> List[Tuple[int, Tuple[str, ...]]]:
@@ -124,12 +151,15 @@ def gather_leaf(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     """The whole tensor of this rank's block ``t``: one broadcast per
     block from its owner over the line of ranks along the sharded axes
     (``t`` itself when nothing splits).  Every rank of the line calls
-    it, in the same order of leaves."""
+    it, in the same order of leaves.  On a shape-only mesh every block
+    is ``t`` (one tiling, no collective)."""
     mesh = sharding.mesh
     entries = _entries(sharding.spec, mesh)
     if not entries:
         return t
     shape = whole_shape(t.shape, sharding)
+    if mesh.world is None:
+        return t.repeat(tuple(w // b for w, b in zip(shape, t.shape)))
     axes_all = [a for _, axes in entries for a in axes]
     line, ranks = mesh.line(axes_all)
     out = torch.empty(shape, dtype=t.dtype, device=t.device)
@@ -177,42 +207,119 @@ def gather(state, shardings):
     return _leafwise(gather_leaf, state, shardings)
 
 
-def _splits(sharding: Sharding) -> bool:
-    return bool(_entries(sharding.spec, sharding.mesh))
+def state_shardings(state, cfg, mesh, optimizer: str):
+    """The shardings of a train state (``{"params", "opt", "step"}``) on
+    ``mesh`` for `mesh_step`: the parameters and AdamW's moments by the
+    JAX rules; Adafactor's moments whole on every rank, as its update
+    reads the whole leaf (rows plus columns of each; `optim`); the step
+    whole."""
+    whole = Sharding(mesh, PartitionSpec())
+    opt = param_shardings(state["opt"], cfg, mesh)
+    if optimizer == "adafactor":
+        opt = tree_map(lambda _, s: whole, opt)
+    return {"params": param_shardings(state["params"], cfg, mesh),
+            "opt": opt, "step": whole}
 
 
-def mesh_step(train_step, shardings, batch_shardings):
-    """``step(state, batch)`` on a mesh: ``state`` sharded by
-    ``shardings``, ``batch`` this rank's block by ``batch_shardings``.
-    Gathers both, runs ``train_step`` on the whole state and batch, and
-    returns (the new state's blocks, the metrics).  If ``train_step``
-    raises on any rank, every rank raises and keeps its blocks as they
-    were (``train_step`` may update the whole state in place: a leaf that
-    no rank splits is copied before it, on a mesh of more than one
-    rank)."""
+def data_axes(batch_shardings) -> Tuple[str, ...]:
+    """The mesh axes (of more than one rank) that split the batch's rows:
+    the data axes, or none when the batch is whole on every rank."""
+    s = batch_shardings["tokens"]
+    ent = _entries(s.spec, s.mesh)
+    return ent[0][1] if ent and ent[0][0] == 0 else ()
+
+
+def batch_rows(batch, batch_shardings, microbatches: int = 1):
+    """This rank's rows of a global batch: its share of every global
+    microbatch (microbatch i is global rows [i b/mb, (i+1) b/mb), split
+    over the data axes in rank order), the microbatches in order.  With
+    one microbatch that is the rules' block (`local_block`); a leaf that
+    the rules do not split is whole."""
+    out = {}
+    for k, x in batch.items():
+        s = batch_shardings[k]
+        ent = _entries(s.spec, s.mesh)
+        if not ent:
+            out[k] = x
+            continue
+        (dim, axes), = ent
+        n, b = _count(axes, s.mesh), x.shape[0]
+        if dim != 0 or b % (microbatches * n):
+            raise ValueError(f"{k}: a batch of {b} rows does not split into "
+                             f"{microbatches} microbatches over {n} ranks")
+        i = _block_of(axes, s.mesh.coords, s.mesh)
+        out[k] = x.reshape(microbatches, n, b // (microbatches * n),
+                           *x.shape[1:])[:, i].reshape(
+            b // n, *x.shape[1:]).contiguous()
+    return out
+
+
+def mesh_grad_fn(grad_fn, shardings, batch_shardings):
+    """``grads(state, batch) -> (grads, metrics)`` on a mesh: ``state``
+    sharded by ``shardings``, ``batch`` this rank's rows (`batch_rows`).
+    Gathers every parameter whole (the model holds its blocks again on
+    return, and on a raise) and runs ``grad_fn`` (`train.step
+    .make_grad_fn`) inside the data split of the batch's data line: the
+    whole reduced gradients, the same bits on every rank, and the global
+    batch's metrics (on a shape-only mesh, a shape-only split)."""
+    axes = data_axes(batch_shardings)
     mesh = mesh_of(shardings)
+    psh = shardings["params"]
+
+    def data_split():
+        if not axes:
+            return split.data_split()
+        if mesh.world is None:
+            return split.data_split(size=_count(axes, mesh))
+        return split.data_split(mesh.line(axes)[0])     # as remade
+
+    def grads(state, batch):
+        named = list(state["params"].named_parameters())
+        held = [p.data for _, p in named]
+        try:
+            for n, p in named:
+                p.data = gather_leaf(p.data, psh[n])
+            with data_split():
+                return grad_fn(state["params"], batch)
+        finally:
+            for (_, p), block in zip(named, held):
+                p.data = block
+    return grads
+
+
+def mesh_step(grad_fn, opt, shardings, batch_shardings, on_grads=None):
+    """``step(state, batch) -> (state, metrics)`` on a mesh (see the
+    module docstring): `mesh_grad_fn`, the clip, then ``opt``'s (an
+    `OptConfig`) update of this rank's blocks in place; ``metrics`` as
+    `train.step.make_train_step`'s.  ``on_grads(grads, metrics)``, when
+    given, sees the reduced gradients before the clip.  If the compute
+    raises on any rank, every rank raises and keeps its blocks as they
+    were."""
+    mesh = mesh_of(shardings)
+    grads_of = mesh_grad_fn(grad_fn, shardings, batch_shardings)
+    _, update = get_optimizer(opt)
+    psh = shardings["params"]
 
     def step(state, batch):
-        # a model's parameters are swapped in place: hold their blocks
-        params = [p for p in flat(state).values()
-                  if isinstance(p, torch.nn.Parameter)]
-        held = [p.data for p in params]
-        whole = gather(state, shardings)
-        if mesh.size > 1:
-            whole = _leafwise(lambda t, s: t if _splits(s) else t.clone(),
-                              whole, shardings)
         err = None
         try:
-            whole, metrics = train_step(whole, gather(batch, batch_shardings))
-            new = shard(whole, shardings)
+            grads, metrics = grads_of(state, batch)
+            if on_grads is not None:
+                on_grads(grads, metrics)
+            grads, gnorm = clip_by_global_norm(grads, opt.clip_norm)
         except Exception as e:          # noqa: BLE001 -- agreed below
             err = e
         if agree(mesh, err is not None):
-            for p, block in zip(params, held):
-                p.data = block
             raise err if err is not None else RuntimeError(
                 "the step failed on another rank of the mesh")
-        return new, metrics
+        # ---- the commit point: nothing above wrote the state ----
+        update(grads, state["opt"], state["params"],
+               blocks={n: block_slices(g.shape, psh[n])
+                       for n, g in grads.items()})
+        state["step"].add_(1)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        return state, metrics
     return step
 
 
@@ -244,14 +351,19 @@ def mesh_of(shardings):
 
 def agree(mesh, failed: bool) -> bool:
     """Whether ``failed`` holds on any rank of ``mesh`` (a `GridMesh`):
-    one all_sum of one element over the whole grid, which every rank
-    calls; on one rank, ``failed`` itself."""
-    if mesh.size == 1:
+    one all_sum of one element over the whole process group, which every
+    rank calls; on one rank or a shape-only mesh, ``failed`` itself.  If
+    it holds, every rank remakes its line groups
+    (`launch.mesh.GridMesh.remake_lines`): a rank that failed may have
+    left a line's collectives out of step."""
+    if mesh.size == 1 or mesh.world is None:
         return failed
-    line, _ = mesh.line(mesh.axis_names)
     flag = torch.full((1,), float(failed), dtype=torch.float32,
                       device=mesh.device)
-    return bool(core_mesh.all_sum(line, flag).item() > 0)
+    if core_mesh.all_sum(mesh.world, flag).item() == 0:
+        return False
+    mesh.remake_lines()
+    return True
 
 
 def barrier(mesh) -> None:
@@ -277,12 +389,53 @@ def collective_plan(shardings, shapes) -> Dict[str, float]:
     return {"broadcast": count, "bytes": nbytes}
 
 
-def step_plan(shardings, shapes) -> Dict[str, float]:
-    """What one `mesh_step` costs each rank: `collective_plan` of its
-    state and batch (``shardings`` and ``shapes`` trees holding both), and
-    the all_sum that agrees on a fault (none on one rank)."""
-    plan = collective_plan(shardings, shapes)
-    plan["all_sum"] = int(mesh_of(shardings).size > 1)
+def step_plan(cfg, tcfg, shardings, batch_shardings,
+              params) -> Dict[str, object]:
+    """What one `mesh_step` costs each rank.  ``params`` holds the whole
+    parameters (a model or a dict, any device, ``meta`` included);
+    ``tcfg`` is the `TrainConfig`.
+
+    - broadcasts: the parameters' gathers (`collective_plan` of
+      ``shardings["params"]``) once a step;
+    - all_sums, each microbatch: the nll metric's, the logdet aux's mean
+      and covariance (with ``logdet_reg``), each MoE layer's counts and
+      gate sums (twice under remat: the backward recomputes the layer),
+      and the gradient's reduction, one of every parameter's gradient;
+      then the one that agrees the step commits.
+
+    -> ``{"broadcast", "bytes" (theirs), "all_sum", "all_sum_bytes" (the
+    tensors summed: the exchanged stacks, the gradients and the
+    agreement's flag), "gathered" (the paths of the leaves gathered:
+    parameters only)}``.  One rank issues nothing."""
+    mesh = mesh_of(shardings)
+    plan = collective_plan(shardings["params"], params)
+    plan["gathered"] = sorted(
+        ".".join(("params",) + p) for p, t in flat(params).items()
+        if math.prod(shard_shape(t.shape, flat(shardings["params"])[p]))
+        < t.numel())
+    plan["all_sum"], plan["all_sum_bytes"] = 0, 0
+    axes = data_axes(batch_shardings)
+    d = _count(axes, mesh) if axes else 1
+    if d > 1:
+        mb = tcfg.microbatches
+        grads = flat(params).values()
+        # the exchanges of one microbatch: the nll; each MoE layer's
+        # counts (int64) and gate sums, per forward; the aux's two; the
+        # gradients
+        fwd = 2 if cfg.remat else 1
+        moe = sum(p[-1] == "router" for p in flat(params))
+        count = 1 + 2 * moe * fwd + len(grads)
+        nbytes = (d * 4 + moe * fwd * d * cfg.n_experts * (8 + 4)
+                  + sum(t.numel() * t.element_size() for t in grads))
+        if tcfg.logdet_reg:
+            w = cfg.d_model
+            count += 2
+            nbytes += d * w * 4 + d * w * w * 4
+        plan["all_sum"] += mb * count
+        plan["all_sum_bytes"] += mb * nbytes
+    if mesh.size > 1:
+        plan["all_sum"] += 1
+        plan["all_sum_bytes"] += 4
     return plan
 
 

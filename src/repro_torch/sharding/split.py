@@ -1,0 +1,153 @@
+"""The data-parallel split of a training step: what GSPMD does to the JAX
+step's batch axis on the data axes of a mesh, for a port whose ranks are
+processes.
+
+Inside `data_split(line)` each rank of ``line`` (the ranks that differ
+only along the data axes, `launch.mesh.GridMesh.line`) holds its share of
+every global microbatch and computes on it alone.  Four things of the
+global program read statistics of the whole batch, and each reduces them
+over the line so that the result is the global one:
+
+- the token cross-entropy divides its sum by the global token count
+  (`rows`), so the ranks' losses add up to the global mean;
+- the logdet aux takes the mean and the covariance of all rows (`total`);
+- MoE takes its capacity from the global token count, its slots in the
+  global token-major order (`each`: every rank's per-expert counts), and
+  the balance aux's means over the global tokens (`total`);
+- the gradients of the ranks' shares are summed (`reduce_grads`).
+
+**Every reduction gives every rank the same bits.**  `each` gathers
+every rank's tensor by one all_sum of a stack that holds it at the
+rank's row and zeros elsewhere (adding zeros is exact), and `total` adds
+the rows in rank order.  `reduce_grads` sums each partial gradient by one
+all_sum: the backends' all-reduce algorithms (gloo's ring and
+halving-doubling, on the host also for CUDA tensors; NCCL's ring and
+tree) reduce each element once and hand that one result to every rank,
+which `tools/allreduce_bits.py` checks on each backend.  Only
+``broadcast`` and ``all_reduce`` are used: gloo takes CUDA tensors for
+these alone.
+
+**The backward of `total` is the identity.**  Whatever reads a reduced
+statistic is computed alike on every rank, so the gradient that reaches
+it is already the same on every rank; each rank passes it to its own
+share, and the sum of the ranks' parameter gradients is the global one.
+A sum in the backward would count it once per rank.  So a metric counts
+a replicated term once (`whole`).
+
+A line of one rank, or no `data_split`, splits nothing: no function here
+issues a collective, and each returns its input, so one rank's step is
+bitwise the single-device step.  ``data_split(size=P)`` without a line
+is a shape-only split (the dry run on meta tensors): every rank is taken
+to hold this rank's values, and nothing is exchanged.
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from repro_torch.core import mesh as core_mesh
+
+__all__ = ["Split", "data_split", "current", "rows", "each", "total",
+           "whole", "reduce_grads"]
+
+_STATE = threading.local()
+
+
+@dataclass(frozen=True)
+class Split:
+    """``size`` ranks share every global microbatch, this one being
+    ``rank``; ``line`` is their `core.mesh.Mesh` (None: shape only)."""
+    size: int
+    rank: int
+    line: Optional[core_mesh.Mesh] = None
+
+
+@contextmanager
+def data_split(line: Optional[core_mesh.Mesh] = None, *,
+               size: Optional[int] = None):
+    """The step's loss code inside runs on this rank's share of the batch
+    of ``line`` (or of a shape-only ``size``-rank line)."""
+    prev = getattr(_STATE, "split", None)
+    if line is not None and line.size > 1:
+        _STATE.split = Split(line.size, line.rank, line)
+    elif line is None and size is not None and size > 1:
+        _STATE.split = Split(size, 0)
+    else:
+        _STATE.split = None
+    try:
+        yield
+    finally:
+        _STATE.split = prev
+
+
+def current() -> Optional[Split]:
+    """The split in force, or None (one rank: nothing splits)."""
+    return getattr(_STATE, "split", None)
+
+
+def rows(n: int) -> int:
+    """The global count of ``n`` rows a rank (``n`` alone)."""
+    s = current()
+    return n if s is None else n * s.size
+
+
+def each(t: torch.Tensor) -> torch.Tensor:
+    """(ranks, *t.shape): every rank's ``t`` in rank order, the same bits
+    on every rank; one all_sum of the stack (no gradient)."""
+    s = current()
+    t = t.detach()
+    if s is None:
+        return t[None]
+    if s.line is None:
+        return t[None].expand(s.size, *t.shape).clone()
+    stack = torch.zeros((s.size,) + tuple(t.shape), dtype=t.dtype,
+                        device=t.device)
+    stack[s.rank] = t
+    return core_mesh.all_sum(s.line, stack)
+
+
+def _ordered(stack: torch.Tensor) -> torch.Tensor:
+    out = stack[0]
+    for i in range(1, stack.shape[0]):
+        out = out + stack[i]
+    return out
+
+
+class _Total(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return _ordered(each(t))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def total(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks of ``t`` in rank order (``t`` alone); its
+    backward is the identity (see the module docstring)."""
+    if current() is None:
+        return t
+    return _Total.apply(t)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric's value over the whole batch from this rank's share of it
+    (``t`` alone): `total` of the detached share."""
+    if current() is None:
+        return t
+    return _ordered(each(t))
+
+
+def reduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum over the ranks of each partial gradient, in the gradient's
+    dtype: one all_sum per tensor, in place (``grads`` alone; on a
+    shape-only split, ``grads``)."""
+    s = current()
+    if s is None or s.line is None:
+        return grads
+    return [core_mesh.all_sum(s.line, g.contiguous()) for g in grads]

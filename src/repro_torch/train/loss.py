@@ -13,6 +13,11 @@ in-place steps carry no autograd graph, and the backward is one
 ``inv_ex``.  The JAX package differentiates through the condensation's
 ops instead; the pivot argmax has a zero gradient there, so both compute
 ``g * inv(A)^T`` and differ in rounding only.
+
+Inside a data split (`repro_torch.sharding.split`) each rank holds a
+share of the batch: the cross-entropy divides by the global token count,
+and the aux's mean and covariance are over all ranks' rows, so every
+rank runs the same condensation on the same covariance.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.condense import slogdet_condense
 from repro_torch.estimators.grad import exact_slogdet_vjp
+from repro_torch.sharding import split
 
 __all__ = ["cross_entropy", "chunked_cross_entropy", "logdet_decorrelation"]
 
@@ -57,7 +63,9 @@ def chunked_cross_entropy(hidden, embed_or_head, targets, *,
     (the JAX ``jax.checkpoint``), so its (B, chunk, V) logits are
     recomputed in the backward and never held for all chunks.  The
     chunks are a Python loop (JAX: ``lax.scan``; its ``unroll`` has no
-    counterpart here), then the remainder chunk."""
+    counterpart here), then the remainder chunk.  In a data split the sum
+    is divided by the global token count: this rank's share of the global
+    mean."""
     b, t, _ = hidden.shape
     chunk = min(chunk, t)
     n_chunks = t // chunk
@@ -76,19 +84,27 @@ def chunked_cross_entropy(hidden, embed_or_head, targets, *,
         total = total + one(hidden[:, cut], targets[:, cut])
     if rem:
         total = total + one(hidden[:, -rem:], targets[:, -rem:])
-    return total / (b * t)
+    return total / (split.rows(b) * t)
 
 
 def logdet_decorrelation(h, *, eps: float = 1e-3):
     """``tr(Cov)/d - logdet(Cov + eps I)/d`` on features ``h`` (..., d),
     the covariance over all leading axes, in f32.  The logdet goes
     through ``exact_slogdet_vjp(slogdet_condense)``: K1 d - 1 times on
-    the card, one ``inv_ex`` in the backward."""
+    the card, one ``inv_ex`` in the backward.  In a data split the mean
+    and the covariance are the global batch's (`split.total`); the mean
+    is taken as a constant there, as its exact gradient through the
+    centred covariance is zero (the centred rows sum to zero)."""
     d = h.shape[-1]
     flat = h.reshape(-1, d).to(torch.float32)
-    mu = flat.mean(dim=0)
-    xc = flat - mu
-    cov = xc.T @ xc / flat.shape[0] + eps * torch.eye(
-        d, dtype=torch.float32, device=h.device)
+    eye = eps * torch.eye(d, dtype=torch.float32, device=h.device)
+    if split.current() is None:
+        mu = flat.mean(dim=0)
+        xc = flat - mu
+        cov = xc.T @ xc / flat.shape[0] + eye
+    else:
+        n = split.rows(flat.shape[0])
+        xc = flat - split.whole(flat.detach().sum(dim=0)) / n
+        cov = split.total(xc.T @ xc) / n + eye
     _, ld = _slogdet(cov)
     return torch.trace(cov) / d - ld / d

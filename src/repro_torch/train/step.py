@@ -16,6 +16,15 @@ mean and the clip first, writing nothing; only then (the commit point,
 marked in the code) does the optimizer write the parameters and the
 moments, and the step count move.  A fault raised before the commit
 point leaves the state bitwise as it was.
+
+**On a mesh** (`repro_torch.sharding.layout.mesh_step`) the loss and the
+gradient function run inside a data split (`repro_torch.sharding.split`):
+each rank computes on its share of every global microbatch, the loss's
+batch statistics are reduced over the ranks, and each microbatch's
+gradient is summed over them (one all_sum a tensor, in the gradient's
+dtype) right after its backward -- then, as in the JAX step, compressed and
+accumulated in ``accum_dtype`` in microbatch order.  The metrics are the
+global batch's.  Outside a split nothing of that runs.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from repro_torch.models.model import forward_hidden, init_model
 from repro_torch.optim.optimizers import (
     OptConfig, clip_by_global_norm, get_optimizer, jax_ndim,
 )
+from repro_torch.sharding import split
 from repro_torch.train.loss import chunked_cross_entropy, logdet_decorrelation
 
 __all__ = ["TrainConfig", "make_loss_fn", "make_grad_fn", "init_train_state",
@@ -64,16 +74,20 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``loss_fn(model, batch) -> (loss, metrics)``: chunked CE on
     `forward_hidden`, plus ``moe_aux_weight`` x each aux, plus
     ``logdet_reg`` x `logdet_decorrelation` of the mean-pooled token
-    embeddings."""
+    embeddings.  In a data split ``loss`` is this rank's share (its CE
+    terms over the global count, the whole-batch aux terms, which every
+    rank holds alike); the metrics count each term once."""
     def body(model, batch):
         hidden, aux = forward_hidden(model, batch)
         loss = chunked_cross_entropy(hidden, model.unembedding(),
                                      batch["targets"],
                                      softcap=cfg.logits_softcap,
                                      chunk=tcfg.ce_chunk)
-        metrics = {"nll": loss}
+        metrics = {"nll": split.whole(loss)}
+        value = metrics["nll"]
         for k in sorted(aux):
             loss = loss + tcfg.moe_aux_weight * aux[k]
+            value = value + tcfg.moe_aux_weight * aux[k]
             metrics[k] = aux[k]
         if tcfg.logdet_reg:
             # decorrelation on the mean-pooled token embeddings: the
@@ -81,8 +95,9 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
             emb = embed_lookup(model.embed, batch["tokens"], cfg.dtype)
             reg = logdet_decorrelation(emb.mean(dim=1))
             loss = loss + tcfg.logdet_reg * reg
+            value = value + tcfg.logdet_reg * reg
             metrics["logdet_reg"] = reg
-        metrics["loss"] = loss
+        metrics["loss"] = value
         return loss, metrics
 
     def loss_fn(model, batch):
@@ -112,7 +127,8 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``grad_fn(model, batch) -> (grads, metrics)``: the first half of the
     step, before the clip.  ``grads`` maps every parameter name to its
     gradient (mean over the microbatches, in ``accum_dtype`` when there
-    are several); nothing is written."""
+    are several); nothing is written.  In a data split ``grads`` are the
+    sums over the ranks, the same bits on every rank."""
     loss_fn = make_loss_fn(cfg, tcfg)
 
     def compress(g):
@@ -123,8 +139,9 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
     def one_micro(model, names, params, mb):
         loss, metrics = loss_fn(model, mb)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [compress(torch.zeros_like(p) if g is None else g)
-                 for g, p in zip(grads, params)]
+        grads = split.reduce_grads([torch.zeros_like(p) if g is None else g
+                                    for g, p in zip(grads, params)])
+        grads = [compress(g) for g in grads]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(model, batch):

@@ -6,10 +6,13 @@ The JAX launcher test's two smoke cells (tests/test_launch_integration.py
 bottleneck one of the three terms, the mesh named.  Their argument bytes
 per device equal the bytes of the JAX rules' shards of the JAX cell's
 arguments (``jax.eval_shape`` trees, `repro.sharding.rules` specs on a
-`FakeMesh` of the production shape), computed without compiling; their
-collective counts and wire bytes are what gathering those shards costs
-(one broadcast per block of every split leaf, the leaf's bytes on the
-wire).  The skip record and the ``--out`` / ``--skip-existing`` files of
+`FakeMesh` of the production shape), computed without compiling.  Their
+broadcasts and wire bytes: a serving cell gathers those shards (one
+broadcast per block of every split leaf, the leaf's bytes on the wire);
+a train cell's split step gathers the parameters only (the optimizer
+state never); its all_sums are the nll's exchange over the D ranks of
+the data axes (D f32s), one of every parameter's gradient (its bytes)
+and the agreement (one f32).  The skip record and the ``--out`` / ``--skip-existing`` files of
 the port's CLI equal the JAX CLI's (run in a subprocess: the JAX module
 sets its device count on import)."""
 from __future__ import annotations
@@ -24,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +40,10 @@ from repro.sharding import rules as JR
 from repro.train.step import TrainConfig as JTrainConfig
 from repro.train.step import init_train_state as jax_init_train_state
 
+from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
+from repro_torch.models import Model
+from repro_torch.models.common import empty_init
 from repro_torch.models.convert import STACK_DEPTH
 
 from _subproc import SRC
@@ -64,8 +71,12 @@ def _split(spec, fm) -> list:
 
 
 def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
-    """(argument bytes per device, broadcasts, wire bytes) of the JAX
-    cell's arguments laid out by the JAX rules."""
+    """(argument bytes per device, broadcasts, their wire bytes, all_sums,
+    their bytes) of the JAX cell's arguments laid out by the JAX rules: a
+    serving cell's gathers; a train cell's split step (one microbatch, no
+    aux and no MoE layer, as the port's dry run trains these archs): the
+    parameters' gathers, then the nll's exchange over the data axes, the
+    gradients' reduction and the agreement."""
     from repro_torch.configs.shapes import SHAPES
     shape = SHAPES[shape_name]
     fm = _mesh(multi_pod)
@@ -92,7 +103,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
                                          JR.make_rules(scfg, fm), fm), 0),
                  (caches, JR.cache_shardings(caches, scfg, fm), None)]
         leaves.append((jax.ShapeDtypeStruct((), jnp.int32), JR.P()))
-    leaves = [(leaf, spec, 1) for leaf, spec in leaves]
+    leaves = [(leaf, spec, 1, False) for leaf, spec in leaves]
     # the port holds a parameter's stacked layers as tensors apart (one
     # gather each; ``top`` is where the parameter tree's top-level key
     # sits in a path); optimizer and cache leaves stay stacked
@@ -104,16 +115,25 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
             keys = [getattr(k, "key", None) for k in path]
             params = top is not None and (top == 0 or keys[0] == "params")
             depth = STACK_DEPTH.get(keys[top], 0) if params else 0
-            leaves.append((leaf, spec, math.prod(leaf.shape[:depth])))
+            leaves.append((leaf, spec, math.prod(leaf.shape[:depth]),
+                           params))
+    train = shape.kind == "train"
+    data = math.prod(fm.shape[a] for a in ("pod", "data")
+                     if a in fm.shape)
+    split = train and shape.global_batch % data == 0
     arg, count, wire = 0, 0, 0
-    for leaf, spec, tensors in leaves:
+    sums, summed = (2, data * 4 + 4) if split else (0, 0)
+    for leaf, spec, tensors, param in leaves:
         nbytes = int(np.prod(leaf.shape)) * jnp.dtype(leaf.dtype).itemsize
         n = math.prod(_split(spec, fm))
         arg += nbytes // n
-        if n > 1:
+        if n > 1 and (param or not train):
             count += n * tensors
             wire += nbytes
-    return arg, count, wire
+        if split and param:
+            sums += tensors
+            summed += nbytes
+    return arg, count, wire, sums, summed
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
@@ -123,12 +143,14 @@ def test_smoke_cell_records(arch, shape, multi_pod):
     assert rec["bottleneck"] in ("compute_s", "memory_s", "collective_s")
     assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
     assert rec["chips"] == (512 if multi_pod else 256)
-    arg, count, wire = jax_cell_bytes(arch, shape, multi_pod)
+    arg, count, wire, sums, summed = jax_cell_bytes(arch, shape, multi_pod)
     assert rec["memory"]["argument_bytes_per_device"] == arg
-    # a train step adds the all_sum (one f32 flag) that agrees it commits
-    agreed = {"all_sum": 1} if shape.startswith("train") else {}
-    assert rec["collective_counts"] == {"broadcast": count, **agreed}
-    assert rec["wire_bytes_per_chip"] == wire + 4 * len(agreed)
+    # a train step adds the nll's exchange over the 16 data ranks, the
+    # gradients' reduction and the agreement that it commits
+    assert (sums > 0) == shape.startswith("train")
+    assert rec["collective_counts"] == dict(
+        {"broadcast": count}, **({"all_sum": sums} if sums else {}))
+    assert rec["wire_bytes_per_chip"] == wire + summed
     assert rec["memory"]["temp_bytes_per_device"] is None     # fast
     assert rec["hlo_flops_global"] >= rec["model_flops"] > 0
     assert rec["hlo_bytes_global"] > 0
@@ -156,13 +178,17 @@ def test_chip_smokes_full_cells_hold_the_jax_rules_bytes():
 
 def test_the_memory_pass_counts_the_steps_allocations():
     """Without ``fast`` the second pass adds what the step allocates
-    beyond its arguments, and the peak is that plus the gathered whole
-    arguments."""
+    beyond its arguments -- the parameters gathered whole among it -- and
+    the peak is that plus what a rank holds at the step's start: its
+    blocks of the state and its rows of the batch, its arguments."""
     rec = D.run_cell("gemma3-1b", "train_4k", multi_pod=False, smoke=True)
     m = rec["memory"]
-    assert m["temp_bytes_per_device"] > m["gathered_bytes_per_device"] > \
-        m["argument_bytes_per_device"] > 0
-    assert m["peak_bytes_per_device"] == (m["gathered_bytes_per_device"]
+    params = sum(t.numel() * t.element_size() for t in Model(
+        get_config("gemma3-1b", smoke=True),
+        empty_init(torch.device("meta"))).parameters())
+    assert m["temp_bytes_per_device"] > params
+    assert m["held_bytes_per_device"] == m["argument_bytes_per_device"] > 0
+    assert m["peak_bytes_per_device"] == (m["held_bytes_per_device"]
                                           + m["temp_bytes_per_device"])
 
 

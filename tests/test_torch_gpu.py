@@ -1248,74 +1248,87 @@ def test_launch_train_on_the_card_launches_k1(cuda, tmp_path):
     assert [p.name for p in tmp_path.iterdir()] == ["step_00000002"]
 
 
-def test_launch_grid_sharing_the_card_is_bitwise_one_rank(cuda, tmp_path):
+def test_launch_grid_sharing_the_card_holds_the_split_steps_gates(cuda,
+                                                                 tmp_path):
     """Four gloo ranks sharing the card on a 2x2 grid (the JAX launcher
-    test's arguments, 6 steps, `launch.train.rank_main`): each rank's
-    blocks of the final state, its losses and one more step's collectives
-    (= `layout.step_plan`) against one rank on the card."""
+    test's arguments, 6 steps, f32 activations, `launch.train.rank_main`)
+    on the split step against one rank on the card: the first reduced
+    gradient within 1e-5 of the largest element, its metrics within 1e-5,
+    each step's loss within 1e-5; every rank's reduced gradient the same
+    bits, the ranks that hold one block of a leaf the same bits, one more
+    step's collectives equal to `layout.step_plan`, and the checkpoint in
+    the one-rank run's format."""
+    import json
     from repro_torch.core.mesh import run_ranks
     from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.sharding.layout import block_slices, flat
+    from repro_torch.sharding.layout import state_shardings
     argv = ["--arch", "gemma3-1b", "--steps", "6", "--batch", "4", "--seq",
             "32", "--lr", "3e-3", "--ckpt-every", "25"]
+    f32 = torch.float32
     one = run_ranks(T.rank_main, 1, backend="nccl", device="cuda",
                     timeout=300, args=(argv + ["--mesh", "1x1", "--ckpt-dir",
                                                str(tmp_path / "one")], None,
-                                       True))[0]
+                                       True, None, False, f32))[0]
     grid = run_ranks(T.rank_main, 4, backend="gloo", device="cuda",
                      timeout=300, args=(argv + ["--mesh", "2x2", "--ckpt-dir",
                                                 str(tmp_path / "grid")], None,
-                                        True))
+                                        True, None, False, f32))
+    gmax = max(float(np.abs(v).max()) for v in one["grads"].values())
     for r in grid:
-        assert r["losses"] == one["losses"]
-        assert r["counts"]["broadcast"] == r["plan"]["broadcast"] > 0
-        assert r["counts"]["all_sum"] == r["plan"]["all_sum"] == 1
+        assert all(r["grads"][k].tobytes() == v.tobytes()
+                   for k, v in grid[0]["grads"].items())
+        for k, g in r["grads"].items():
+            assert float(np.abs(g - one["grads"][k]).max()) <= 1e-5 * gmax
+        for k, v in one["grad_metrics"].items():
+            assert abs(r["grad_metrics"][k] - v) <= 1e-5 * abs(v), k
+        assert np.allclose(r["losses"], one["losses"], rtol=1e-5, atol=0)
+        plan = r["plan"]
+        assert r["counts"] == {"broadcast": plan["broadcast"],
+                               "all_sum": plan["all_sum"]}
+        assert all(k.startswith("params.") for k in plan["gathered"])
         assert r["blocks"]["step"] == 6
-    # the replicated leaves (the optimizer's count, the norms' moments on
-    # a 2x2 grid of a 64-wide model) are whole on every rank
+    args = T.parser().parse_args(argv + ["--device", "cpu"])
+    cfg, state, _, _, _ = T.build(args.arch, smoke=True,
+                                  mesh=T._mesh("1x1", "cpu"),
+                                  tcfg=T._tcfg(args))
+    sh = {".".join(p): s for p, s in flat(state_shardings(
+        state, cfg, GridMesh(("data", "model"), (2, 2)), "adamw")).items()}
     for k, v in one["blocks"].items():
-        if k == "step":
-            continue
-        shapes = {r["blocks"][k].shape for r in grid}
-        if shapes == {v.shape}:
-            assert all(r["blocks"][k].tobytes() == v.tobytes()
-                       for r in grid), k
+        held = {}
+        for r in grid:
+            where = str(block_slices(v.shape, sh[k], r["coords"]))
+            held.setdefault(where, set()).add(r["blocks"][k].tobytes())
+        assert all(len(x) == 1 for x in held.values()), k
     a, b = tmp_path / "one" / "step_00000006", tmp_path / "grid" / \
         "step_00000006"
-    for f in sorted(a.iterdir()):
-        assert f.read_bytes() == (b / f.name).read_bytes(), f.name
+    assert sorted(p.name for p in a.iterdir()) == sorted(
+        p.name for p in b.iterdir())
+    assert json.loads((a / "manifest.json").read_text()) == json.loads(
+        (b / "manifest.json").read_text())
 
 
 def test_launch_grid_faults_on_the_card_restart_every_rank(cuda, tmp_path):
     """tests/test_torch_launch_faults.py's run on four gloo ranks sharing
     the card: a fault on every rank, then on one rank inside the step and
     on one rank before a step; every rank restarts each time and the run
-    ends with the uninterrupted one-rank run's blocks, on the card."""
+    ends with an uninterrupted run's blocks of the same grid, on the
+    card."""
     from repro_torch.core.mesh import run_ranks
-    from repro_torch.launch import train as T
-    from repro_torch.launch.mesh import GridMesh
-    from repro_torch.sharding.layout import block_slices, flat
-    from repro_torch.sharding.rules import param_shardings
     from test_torch_ranks import FAULT_ARGV, FAULTS, launch_faults
     argv = [a if a != "cpu" else "cuda" for a in FAULT_ARGV]
-    one = run_ranks(launch_faults, 1, backend="nccl", device="cuda",
-                    timeout=300, args=(argv + ["--mesh", "1x1"], {},
-                                       str(tmp_path / "one")))[0]
+    clean = run_ranks(launch_faults, 4, backend="gloo", device="cuda",
+                      timeout=300, args=(argv + ["--mesh", "2x2"], {},
+                                         str(tmp_path / "clean")))
     grid = run_ranks(launch_faults, 4, backend="gloo", device="cuda",
                      timeout=300, args=(argv + ["--mesh", "2x2"], FAULTS,
                                         str(tmp_path / "grid")))
-    args = T.parser().parse_args(FAULT_ARGV)
-    cfg, state, _, _, _ = T.build(args.arch, smoke=True,
-                                  mesh=T._mesh("1x1", "cpu"),
-                                  tcfg=T._tcfg(args))
-    sh = {".".join(p): s for p, s in flat(param_shardings(
-        {"params": state["params"], "opt": state["opt"]}, cfg,
-        GridMesh(("data", "model"), (2, 2)))).items()}
-    for r in grid:
-        assert r["restarts"] == len(FAULTS)
-        for k, v in one["blocks"].items():
-            want = v if k == "step" else v[block_slices(
-                v.shape, sh[k], r["coords"])]
-            assert r["blocks"][k].tobytes() == want.tobytes(), k
+    for want, r in zip(clean, grid):
+        assert r["restarts"] == len(FAULTS) and want["restarts"] == 0
+        assert r["coords"] == want["coords"]
+        for k, v in want["blocks"].items():
+            assert r["blocks"][k].tobytes() == v.tobytes(), k
 
 
 def test_launch_serve_on_the_card_matches_the_cpu(cuda):

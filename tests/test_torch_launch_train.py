@@ -7,7 +7,7 @@ numpy batches; before each, the port's state is carried back into the
 JAX layout and JAX's own ``build`` step (jitted, on a 1x1 mesh) takes
 the same step from it.  Held per step, within the train twins' gates:
 the metrics (METRIC_RTOL), and the clipped gradient the port's step applied
-(captured from its clip) against the JAX clip of ``jax.grad`` of the JAX
+(captured from the mesh step's clip) against the JAX clip of ``jax.grad`` of the JAX
 loss at that state, within GRAD_TOL of the largest element (1e-4 for
 the SSM and hybrid families, whose chunked scans sum in another order).
 Both packages' configs are patched to f32 activations.  Also `main` on
@@ -38,7 +38,6 @@ from repro_torch.models.convert import from_jax_train_state, unstacked
 from repro_torch.optim import OptConfig, jax_leaves
 from repro_torch.sharding import layout
 from repro_torch.train import TrainConfig
-from repro_torch.train import step as TS
 
 METRIC_RTOL = {"grad_norm": 1e-4, "default": 1e-5}
 GRAD_TOL = {"ssm": 1e-4, "hybrid": 1e-4, "default": 1e-5}
@@ -94,7 +93,7 @@ def test_build_steps_match_the_jax_launcher(arch, monkeypatch):
                                               tt, device="cpu"), sh)
     del jstate
     jloss = jax.jit(jax.grad(lambda p, b: jax_loss_fn(jcfg, jt)(p, b)[0]))
-    seen, real_clip = [], TS.clip_by_global_norm
+    seen, real_clip = [], layout.clip_by_global_norm
 
     def clip(grads, max_norm):
         out = real_clip(grads, max_norm)
@@ -108,7 +107,7 @@ def test_build_steps_match_the_jax_launcher(arch, monkeypatch):
         jg, _ = jax_clip(jloss(js["params"], jb), jt.opt.clip_norm)
         _, jm = jstep(js, jb)
         with monkeypatch.context() as mp:
-            mp.setattr(TS, "clip_by_global_norm", clip)
+            mp.setattr(layout, "clip_by_global_norm", clip)
             state, m = step_fn(state, {n: torch.from_numpy(np.array(v))
                                        for n, v in batch.items()})
         got = seen.pop()

@@ -515,41 +515,15 @@ def test_concurrent_builds_of_one_hash(tmp_path):
 # repro_torch.launch.train on a grid of gloo ranks (tests/test_torch_launch_mesh.py)
 # --------------------------------------------------------------------------
 
-def launch_restore(mesh, spec: str, ckpt_dir: str, step: int, argv: list,
-                   out_dir: str) -> dict:
-    """One rank of a ``spec`` grid: `launch.train.build`'s state restored
-    from ``ckpt_dir`` at ``step`` onto this grid (elastic), trained on
-    to ``--steps`` by `ft.run_training`; its final blocks (numpy, by
-    `layout.flat` path, as `launch.train.rank_main` names them)."""
-    torch.set_num_threads(1)
-    from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.ft.driver import FTConfig, run_training
-    from repro_torch.launch import train as T
-    from repro_torch.sharding import layout
-    args = T.parser().parse_args(argv)
-    grid = T._mesh(spec, args.device)
-    _, state, step_fn, batch_fn, sh = T.build(
-        args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
-        batch=args.batch, seq=args.seq)
-    state, at = ckpt.restore(ckpt_dir, state, step=step, shardings=sh,
-                             device=grid.device)
-    state, _ = run_training(state=state, train_step=step_fn,
-                            batch_fn=batch_fn, n_steps=args.steps,
-                            ft=FTConfig(ckpt_dir=out_dir,
-                                        ckpt_every=args.ckpt_every),
-                            shardings=sh)
-    return {"coords": grid.coords, "at": at,
-            "blocks": {".".join(p): t.detach().cpu().numpy().copy()
-                       for p, t in layout.flat(state).items()}}
-
-
 # tests/test_torch_launch_faults.py's run (on the CPU; the card test
 # swaps the device): step -> (where, ranks), before the first checkpoint
-# on every rank, after it inside the step on rank 2, then before the step
-# on rank 1
+# on every rank, after it inside the step's compute on rank 2 (between
+# the nll's exchange and the gradients' reduction: rank 0, on its data
+# line, waits in the reduction until the collective timeout), then
+# before the step on rank 1
 FAULT_ARGV = ["--arch", "gemma3-1b", "--steps", "12", "--batch", "4",
               "--seq", "32", "--lr", "3e-3", "--ckpt-every", "5",
-              "--device", "cpu"]
+              "--device", "cpu", "--collective-timeout", "20"]
 FAULTS = {3: ("driver", (0, 1, 2, 3)), 6: ("step", (2,)),
           8: ("driver", (1,))}
 
@@ -558,16 +532,18 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
     """One rank of `launch.train.build`'s run through `ft.run_training`
     with faults: ``faults[step]`` is ``(where, ranks)``, ``where``
     "driver" (raised by the fault injector before the step) or "step"
-    (raised inside the train step, after the gathers), on the listed
-    ranks of the grid.  -> its coordinates, restarts and final blocks."""
+    (raised inside the step's compute, after the forward, the backward
+    and the nll's exchange, before the gradients' reduction: the other
+    ranks of its data line wait in the reduction), on the listed ranks of
+    the grid.  -> its coordinates, restarts and final blocks."""
     torch.set_num_threads(1)
     from repro_torch.ft.driver import FTConfig, run_training
     from repro_torch.launch import train as T
-    from repro_torch.sharding import layout
+    from repro_torch.sharding import layout, split
     args = T.parser().parse_args(argv)
-    grid = T._mesh(args.mesh, args.device)
-    make = T.make_train_step
-    fired = set()
+    grid = T._mesh(args.mesh, args.device, args.collective_timeout)
+    reduce = split.reduce_grads
+    fired, at = set(), {}
 
     def fault(where, step):
         plan = faults.get(step)
@@ -576,26 +552,83 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
             fired.add(step)
             raise RuntimeError(f"injected {where} fault at step {step}")
 
-    def faulty_step(cfg, tcfg):
-        inner = make(cfg, tcfg)
+    def driver(step):
+        at["step"] = step
+        fault("driver", step)
 
-        def step(state, batch):
-            fault("step", int(state["step"]))
-            return inner(state, batch)
-        return step
-    T.make_train_step = faulty_step
-    try:
-        _, state, step_fn, batch_fn, sh = T.build(
-            args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
-            batch=args.batch, seq=args.seq)
-    finally:
-        T.make_train_step = make
+    def faulty_reduce(grads):
+        fault("step", at["step"])
+        return reduce(grads)
+    _, state, step_fn, batch_fn, sh = T.build(
+        args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
+        batch=args.batch, seq=args.seq)
+    split.reduce_grads = faulty_reduce
     state, stats = run_training(
         state=state, train_step=step_fn, batch_fn=batch_fn,
-        n_steps=args.steps, shardings=sh,
-        fault_injector=lambda step: fault("driver", step),
+        n_steps=args.steps, shardings=sh, fault_injector=driver,
         ft=FTConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every))
+    split.reduce_grads = reduce
     return {"coords": grid.coords, "restarts": stats.restarts,
             "fired": sorted(fired),
             "blocks": {".".join(p): t.detach().cpu().numpy().copy()
                        for p, t in layout.flat(state).items()}}
+
+
+def split_step(mesh, spec: str, cases: dict) -> dict:
+    """One rank of a ``spec`` grid ("2x2", "2x1", ...) taking one split
+    mesh step (`sharding.layout.mesh_step`) per case.  ``cases`` maps a
+    name to (arch, a JAX train state's numpy tree, a numpy global batch,
+    `TrainConfig` keywords with ``optimizer``): the smoke config at f32
+    activations, the state carried across (`from_jax_train_state`) and
+    laid out by `layout.state_shardings`, the step on this rank's rows
+    (`layout.batch_rows`).  -> {name: its coordinates, the reduced
+    gradients before the clip (numpy on data rank 0 of model column 0,
+    else None), their sha256 digests, the step's metrics, its collectives
+    and `layout.step_plan`, and the sha256 of every block after it}."""
+    import hashlib
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_like
+    from repro_torch.models.convert import from_jax_train_state
+    from repro_torch.optim import OptConfig
+    from repro_torch.sharding import layout
+    from repro_torch.sharding.rules import Sharding, batch_spec
+    from repro_torch.train import TrainConfig, make_grad_fn
+    grid = make_mesh_like(spec, device="cpu", grid=True)
+
+    def digest(t):
+        return hashlib.sha256(np.ascontiguousarray(
+            t.detach().numpy()).data).hexdigest()
+    out = {}
+    for name, (arch, np_state, batch, kw) in cases.items():
+        kw = dict(kw)
+        tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
+        cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
+        state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
+        sh = layout.state_shardings(state, cfg, grid, tcfg.opt.name)
+        state = layout.shard(state, sh)
+        b = next(iter(batch.values())).shape[0]
+        bsh = {k: Sharding(grid, s) for k, s in batch_spec(
+            cfg, grid, kind="train", batch=b).items()}
+        seen = {}
+        step = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt, sh, bsh,
+                                on_grads=lambda g, m: seen.update(g=g))
+        rows = layout.batch_rows({k: torch.from_numpy(v)
+                                  for k, v in batch.items()}, bsh,
+                                 tcfg.microbatches)
+        M.reset_collective_counts()
+        state, metrics = step(state, rows)
+        lead = all(v == 0 for v in grid.coords.values())
+        out[name] = {
+            "coords": grid.coords,
+            "grads": {k: g.numpy().copy() for k, g in seen["g"].items()}
+            if lead else None,
+            "digests": {k: digest(g) for k, g in seen["g"].items()},
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "counts": M.collective_counts(),
+            "plan": layout.step_plan(
+                cfg, tcfg, sh, bsh,
+                layout.whole_like(state["params"], sh["params"])),
+            "blocks": {".".join(p): digest(t)
+                       for p, t in layout.flat(state).items()}}
+    return out

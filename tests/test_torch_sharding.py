@@ -382,20 +382,29 @@ def test_parse_mesh_is_the_one_reading_of_a_spec():
 
 
 def test_step_plan_adds_the_agreeing_all_sum_on_a_grid():
+    """The split step's plan on a 2x2 grid: the parameter's gather (four
+    blocks), the nll's exchange (two f32s), its gradient's reduction (one
+    all_sum) and the all_sum that agrees the step commits; nothing on one
+    rank."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import GridMesh, make_mesh_like
     from repro_torch.sharding import layout
     from repro_torch.sharding.rules import Sharding
-    tree = {"state": torch.empty(8, 4, device="meta"),
-            "batch": torch.empty(4, device="meta")}
+    from repro_torch.train import TrainConfig
+    cfg = get_config("gemma3-1b", smoke=True)
+    params = {"w": torch.empty(8, 4, device="meta")}
     grid = GridMesh(("data", "model"), (2, 2))
-    sh = {"state": Sharding(grid, P("data", "model")),
-          "batch": Sharding(grid, P("data"))}
-    assert layout.step_plan(sh, tree) == {
-        "broadcast": 4 + 2, "bytes": 8 * 4 * 4 + 4 * 4, "all_sum": 1}
+    sh = {"params": {"w": Sharding(grid, P("data", "model"))}}
+    bsh = {"tokens": Sharding(grid, P("data"))}
+    assert layout.step_plan(cfg, TrainConfig(), sh, bsh, params) == {
+        "broadcast": 4, "bytes": 8 * 4 * 4, "all_sum": 1 + 1 + 1,
+        "all_sum_bytes": 2 * 4 + 8 * 4 * 4 + 4, "gathered": ["params.w"]}
     one = make_mesh_like("1x1", device="cpu")
-    sh1 = {k: Sharding(one, v.spec) for k, v in sh.items()}
-    assert layout.step_plan(sh1, tree) == {"broadcast": 0, "bytes": 0,
-                                           "all_sum": 0}
+    sh1 = {"params": {"w": Sharding(one, P("data", "model"))}}
+    bsh1 = {"tokens": Sharding(one, P("data"))}
+    assert layout.step_plan(cfg, TrainConfig(), sh1, bsh1, params) == {
+        "broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0,
+        "gathered": []}
     assert layout.agree(one, True) is True
     assert layout.agree(one, False) is False
 
@@ -417,6 +426,7 @@ def test_mesh_step_on_one_rank_raises_and_keeps_the_state():
     (no collective: `agree` is the fault itself there)."""
     from repro_torch.core import mesh as M
     from repro_torch.launch.mesh import make_mesh_like
+    from repro_torch.optim import OptConfig
     from repro_torch.sharding import layout
     from repro_torch.sharding.rules import PartitionSpec, Sharding
     grid = make_mesh_like("1x1", device="cpu")
@@ -429,12 +439,13 @@ def test_mesh_step_on_one_rank_raises_and_keeps_the_state():
           "step": Sharding(grid, PartitionSpec())}
     before = {k: v.clone() for k, v in layout.flat(state).items()}
 
-    def bad(whole, batch):
+    def bad(model, batch):
         raise ValueError("fault")
     M.reset_collective_counts()
     with pytest.raises(ValueError, match="fault"):
-        layout.mesh_step(bad, sh, {"x": Sharding(grid, P())})(
-            state, {"x": torch.ones(2)})
+        layout.mesh_step(bad, OptConfig(), sh,
+                         {"tokens": Sharding(grid, P())})(
+            state, {"tokens": torch.ones(2)})
     assert not any(M.collective_counts().values())
     assert all(torch.equal(layout.flat(state)[k], v)
                for k, v in before.items())

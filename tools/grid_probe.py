@@ -8,11 +8,13 @@ card, timed per rank, with the card's memory.
 For each ``--layers`` value, four ranks (`core.mesh.run_ranks`, gloo,
 one card) each build `launch.train`'s gemma3-1b state at full width cut
 to that depth on a ("data", "model") 2x2 grid, time one gather of the
-whole state (`sharding.layout.gather`), then ``--steps`` mesh steps
-(`layout.mesh_step`: gather, the global step, keep the blocks), each to
-a `torch.cuda.synchronize`, with the rank's peak allocation and the
-card's free memory after it; first the raw broadcast of a 64 MB and a
-512 MB tensor on the card and on the host over the four ranks.  Each
+parameters (`sharding.layout.gather`: what a step gathers), then
+``--steps`` split mesh steps (`layout.mesh_step`: the parameters
+gathered, the rank's rows of the batch, the gradients reduced over the
+data axis, its optimizer on its blocks), each to a
+`torch.cuda.synchronize`, with the rank's peak allocation and the card's
+free memory after it; first the raw broadcast of a 64 MB and a 512 MB
+tensor on the card and on the host over the four ranks.  Each
 rank appends its progress to ``<log-dir>/rank<r>.log`` as it goes, so a
 run that stops shows where.  Prints one ``[grid_probe]`` JSON line per
 depth and the card's name and power limit.  About two minutes on an
@@ -78,14 +80,13 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
     _log(log_dir, r, "built resident", resident)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    whole = layout.gather({"params": st["params"], "opt": st["opt"]},
-                          {"params": sh["params"], "opt": sh["opt"]})
+    whole = layout.gather(st["params"], sh["params"])
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size()
                  for t in layout.flat(whole).values())
     _log(log_dir, r, "gather s", gather_s, "bytes", nbytes)
-    layout.shard(whole["params"], sh["params"])     # the model's blocks
+    layout.shard(whole, sh["params"])               # the model's blocks
     del whole
     torch.cuda.empty_cache()
     out = {"rank": r, "coords": grid.coords, "broadcast_s": rates,
