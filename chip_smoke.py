@@ -83,7 +83,7 @@ printed line each, any failure ends the run:
             rank, and every rank's result equal to rank 0's; then the
             paper's baselines ge, pge, plu (nb = 1, 32) on the exact cell
             (one rank: N = 8192, the ``[table3]`` line beside mesh x
-            rank1 and x panel; four ranks: N = 2048), sign and log|det|
+            rank1 and x panel; four ranks: N = 1024), sign and log|det|
             against the f64 slogdet, launches and collectives against
             their formulas, and a NaN entry giving sign NaN; then (for
             phase 12) ``method="pmc"`` and ``"pmc_blocked"`` at
@@ -243,27 +243,31 @@ printed line each, any failure ends the run:
             seconds; (b) the JAX launcher test's run (LAUNCH_ARGV) with
             the aux, f32, on a 2x2 grid of four gloo ranks sharing the
             card, on the split step (each rank its share of the batch,
-            the gradients reduced, its optimizer on its blocks), against
+            the parameters gathered one unit at a time, each unit's
+            gradient reduced in its backward, its optimizer on its
+            blocks), against
             one rank here: the first reduced gradient within
             TRAIN_GRAD_TOL of its largest element, its metrics within
             TRAIN_METRIC_RTOL, every step's loss within LAUNCH_LOSS_RTOL,
             the mean loss over the run's batches lower with the grid's
             last parameters than with the first; bitwise: every rank's
             reduced gradient, the ranks holding one block alike, the
-            shapes of the rules' shards, one more step's collectives
+            shapes of the rules' shards, the last step's collectives
             equal to `layout.step_plan` (no optimizer leaf gathered); K1
             (d_model - 1) a step on every rank; the grid's
             step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x1 grid
             bitwise the saved blocks and ending on the 2x2 run's last
             checkpoint bit for bit, and onto one rank; then the same grid
-            at full width (gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
-            LAUNCH_WIDE_STEPS steps of LAUNCH_WIDE_SHAPE, f32, its final
-            checkpoint gathered and written): the same bitwise checks,
-            the first reduced gradient within TRAIN_GRAD_TOL of one
-            rank's largest element and the losses within
-            LAUNCH_LOSS_RTOL, a rank's step s and peak, the bytes a
-            step, resident bytes a rank, beside the gather-everything
-            step's (LAUNCH_WIDE_GATHERED); (c)
+            at full width and depth (gemma3-1b at LAUNCH_WIDE_LAYERS
+            layers, LAUNCH_WIDE_STEPS steps of LAUNCH_WIDE_SHAPE, the
+            aux, f32, its final checkpoint gathered and written): the
+            same bitwise checks, the first reduced gradient within
+            TRAIN_GRAD_TOL of one rank's largest element and the losses
+            within LAUNCH_LOSS_RTOL, K1 exactly steps x (d_model - 1) on
+            every rank, a rank's step s and peak, the high-water of whole
+            parameter bytes alive at once, the bytes a step, resident
+            bytes a rank, beside the step that gathered every parameter
+            whole once a step (LAUNCH_WIDE_GATHER_ALL); (c)
             `launch.serve.generate` on LAUNCH_SERVE against the CPU on
             the same parameters (f32 logits within SMOKE_ATOL, greedy
             tokens equal until a near tie), tokens/s, and the CLI; (d)
@@ -272,7 +276,7 @@ printed line each, any failure ends the run:
             totals recorded beside each cell (a train cell: rank 0's share of
             the split step), the memory tracker's temp bytes where the
             cell is not fast, the records printed beside the
-            gather-everything step's.
+            gather-all step's (DRYRUN_GATHER_ALL).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -341,9 +345,12 @@ CG_TOL, CG_RESIDUAL, CG_X_RTOL = 1e-6, 1e-5, 1e-5
 # phase 6: ranks of the shared-card mesh, and each run's time limit (s)
 MESH_RANKS, MESH_TIMEOUT = 4, 600
 # the paper's baselines in phase 6: (method, nb); their side on the
-# shared-card mesh (correctness only), and of the NaN-entry matrix
+# shared-card mesh (correctness only; 2048 before phase 15's 26-layer
+# grid, cut to keep the script inside its time limit: pge and plu there
+# are latency-bound, three collectives a column), and of the NaN-entry
+# matrix
 BASELINES = [("ge", 1), ("pge", 1), ("plu", 1), ("plu", 32)]
-BASELINE_SHARED_N, BASELINE_NAN_N = 2048, 256
+BASELINE_SHARED_N, BASELINE_NAN_N = 1024, 256
 # phase 7: the exact gradient G = inv(A)^T in f32 at N = 8192, its residual
 # ||A G^T - I||_F / sqrt(N) (f64 product; the cell's condition number is
 # about 3); the directional derivative <G, E> (E = randn / sqrt(N))
@@ -4757,11 +4764,11 @@ LAUNCH_STEPS, LAUNCH_SHAPE, LAUNCH_MICRO = 3, (4, 256), 2
 LAUNCH_ARGV = ["--arch", "gemma3-1b", "--steps", "30", "--batch", "4",
                "--seq", "32", "--lr", "3e-3", "--ckpt-every", "25"]
 LAUNCH_GRID, LAUNCH_RESTORE_AT, LAUNCH_TIMEOUT = (2, 2), 25, 600
-# the earlier gather-everything step on this grid, without the aux (PERF.md
-# §6; NVIDIA H100 80GB HBM3, 700.00 W; its peak was not measured)
-LAUNCH_GRID_GATHERED = {"broadcasts_per_step": 246, "bytes_per_step": 2.71e6,
-                        "rank_step_s_median": [0.19, 0.27],
-                        "one_rank_step_s_median": [0.064, 0.076]}
+# the earlier step on this grid with the aux, every parameter gathered
+# whole once a step (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
+LAUNCH_GRID_GATHER_ALL = {"broadcasts_per_step": 174, "all_sums_per_step": 60,
+                    "bytes_per_step": 1.84e6,
+                    "rank_step_s_median": [0.44, 0.53]}
 # the split step against one rank (f32): the first step's reduced gradient
 # within TRAIN_GRAD_TOL of its largest element, its metrics within
 # TRAIN_METRIC_RTOL (grad_norm TRAIN_NORM_RTOL), each step's loss within
@@ -4769,20 +4776,23 @@ LAUNCH_GRID_GATHERED = {"broadcasts_per_step": 246, "bytes_per_step": 2.71e6,
 # (two ranks' partial sums), at most 128 x 2^-24 = 7.6e-6 of it, and 30
 # steps' parameter drift adds to that
 LAUNCH_LOSS_RTOL = 1e-5
-# (b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
-# LAUNCH_WIDE_STEPS steps of (batch, seq) on the same grid, no aux, f32
-# activations (bf16 rounds each rank's partial weight gradient far above
-# the gradient gate), held to one rank as the smoke grid is: the first
-# reduced gradient within TRAIN_GRAD_TOL of its largest element, each
-# step's loss within LAUNCH_LOSS_RTOL.  The gather-everything step on
-# this grid at bf16 activations (PERF.md §6; NVIDIA H100 80GB HBM3,
-# 700.00 W) is printed beside the measurement: LAUNCH_WIDE_GATHERED
-LAUNCH_WIDE_LAYERS, LAUNCH_WIDE_STEPS, LAUNCH_WIDE_SHAPE = 2, 2, (4, 64)
-LAUNCH_WIDE_TIMEOUT = 300
-LAUNCH_WIDE_GATHERED = {"bytes_per_step": 4.27e9,
-                        "rank_peak_bytes": 15.29e9,
-                        "rank_step_s_after_first": [3.445, 4.08],
-                        "one_rank_step_s_after_first": [0.060, 0.069]}
+# (b) at full width and depth: gemma3-1b at LAUNCH_WIDE_LAYERS layers (all
+# 26), LAUNCH_WIDE_STEPS steps of (batch, seq) on the same grid, the aux
+# at TRAIN_LOGDET (K1 1151 a step on every rank), f32 activations (bf16
+# rounds each rank's partial weight gradient far above the gradient
+# gate), the parameters gathered one unit at a time, held to one rank as
+# the smoke grid is: the first reduced gradient (each rank's blocks,
+# gathered whole after the run) within TRAIN_GRAD_TOL of its largest
+# element, each step's loss within LAUNCH_LOSS_RTOL.  The earlier step
+# that gathered every parameter whole once a step (at 2 layers: all it
+# could run beside the one-rank reference) is printed beside the
+# measurement: LAUNCH_WIDE_GATHER_ALL (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W; its 26-layer peak an estimate from the code)
+LAUNCH_WIDE_LAYERS, LAUNCH_WIDE_STEPS, LAUNCH_WIDE_SHAPE = 26, 2, (4, 64)
+LAUNCH_WIDE_TIMEOUT = 600
+LAUNCH_WIDE_GATHER_ALL = {"layers": 2, "bytes_per_step": 2.85e9,
+                    "rank_peak_bytes": 6.40e9, "rank_step_s": [3.60, 4.21],
+                    "rank_peak_bytes_26_layers_estimated": 16.5e9}
 # (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
 # card against CPU on the same parameters; greedy tokens equal until the
 # CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
@@ -4790,19 +4800,21 @@ LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
 # (d) the dry run's cells at full size: (arch, shape, multi_pod, fast --
 # fast skips the memory tracker's pass -- and what the JAX rules give for
 # the cell: (argument bytes a device, broadcasts and their bytes, all_sums
-# and their bytes: a train cell's split step gathers the parameters and
-# all_sums each gradient, the nll and the agreement over the 16 data
-# ranks, a serving cell gathers its arguments);
+# and their bytes: a train cell's split step gathers the parameters one
+# unit at a time, a layer's twice (its forward and its backward), and
+# all_sums each gradient, the nll, the global norm and the agreement over
+# the 16 data ranks; a serving cell gathers its arguments);
 # tests/test_torch_dryrun.py derives these from the JAX package).
-# DRYRUN_GATHERED: the gather-everything step's figures for the train cell
-# (its allocation from the CLI's memory pass; PERF.md §6)
+# DRYRUN_GATHER_ALL: the earlier step's figures for the train cell, every
+# parameter gathered whole once a step (its temp bytes from the CLI's
+# memory pass; PERF.md §6)
 DRYRUN_CELLS = [
     ("gemma3-1b", "train_4k", False, False,
-     (101347048, 22736, 3999250944, 238, 3999251012)),
+     (101347048, 45200, 6790537728, 239, 3999251020)),
     ("llama4-maverick-400b-a17b", "decode_32k", True, False,
      (3341134676, 135232, 1620049078784, 0, 0))]
-DRYRUN_GATHERED = {"gemma3-1b|train_4k": {"bytes_per_step": 12.0e9,
-                                          "allocated_bytes": 904e9}}
+DRYRUN_GATHER_ALL = {"gemma3-1b|train_4k": {"bytes_per_step": 7998501956,
+                                      "temp_bytes": 58.8e9}}
 
 
 def rule_shardings(cfg, state, dims) -> tuple:
@@ -4857,7 +4869,7 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
     """(b)'s bitwise checks of a grid run against itself: every rank's
     first reduced gradient the same bits; each leaf's blocks of the rules'
     shard shapes, and the ranks that hold one block the same bits (each
-    updated it from the same gradient); one more step's collectives equal
+    updated it from the same gradient); the last step's collectives equal
     to `layout.step_plan`, which gathers no optimizer leaf.  ``state`` is
     a whole one-rank state of the same config (its shapes).  -> leaves
     split / whole and a rank's resident bytes."""
@@ -5102,7 +5114,7 @@ def launch_grid(smi: str) -> dict:
     require(held[1] < held[0], f"launch grid: the mean loss over the "
             f"run's batches {held[0]} -> {held[1]}")
     k1 = [r["launches"].get("rank1_update", 0) for r in ranks]
-    want_k1 = (args.steps + 1) * (cfg.d_model - 1)
+    want_k1 = args.steps * (cfg.d_model - 1)
     require(k1 == [want_k1] * len(ranks) and one_k1 == args.steps * (
         cfg.d_model - 1), f"launch grid: K1 {k1} on the ranks (want "
         f"{want_k1} each), {one_k1} on one rank")
@@ -5137,44 +5149,55 @@ def launch_grid(smi: str) -> dict:
             "held_loss_first_last_params": held,
             "restored_2x1_bitwise_and_end": end_same,
             "restored_1x1_loss_err_rel": cont_err,
-            "gather_everything": LAUNCH_GRID_GATHERED, "card": smi,
+            "gather_all_step": LAUNCH_GRID_GATHER_ALL, "card": smi,
             "note": "four ranks share one card; collectives pass through "
                     "host memory: not a scaling figure"}
 
 
 def launch_grid_wide(smi: str) -> dict:
-    """(b) at full width: gemma3-1b cut to LAUNCH_WIDE_LAYERS layers,
-    LAUNCH_WIDE_STEPS steps, f32, one rank in this process, then the
-    same run through `launch.train.rank_main` on the 2x2 grid of gloo
-    ranks sharing the card (its final checkpoint gathered and written by
-    rank 0): each rank's first reduced gradient within TRAIN_GRAD_TOL of
-    one rank's largest element (held on the rank, against one rank's
-    saved to a file), every step's loss within LAUNCH_LOSS_RTOL of one
-    rank's, `hold_grid` (sha256 digests); a rank's step s, its peak
-    allocation in one more step, the bytes a step, a rank's resident
-    bytes, beside the gather-everything step's figures for the same
-    grid."""
+    """(b) at full width and depth: gemma3-1b at LAUNCH_WIDE_LAYERS
+    layers, LAUNCH_WIDE_STEPS steps with the aux, f32, one rank in this
+    process, then the same run through `launch.train.rank_main` on the
+    2x2 grid of gloo ranks sharing the card (its final checkpoint
+    gathered and written by rank 0), the one rank's state dropped first
+    (its shapes kept on meta): each rank's first reduced gradient within
+    TRAIN_GRAD_TOL of one rank's largest element (held on the rank,
+    against one rank's saved to a file), every step's loss within
+    LAUNCH_LOSS_RTOL of one rank's, `hold_grid` (sha256 digests), K1
+    steps x (d_model - 1) on every rank and on one rank; a rank's step
+    s, its peak allocation and the high-water of whole parameter bytes
+    alive at once in its last step, the bytes a step, a rank's resident
+    bytes, beside the gather-all step's figures."""
     import tempfile
     import numpy as np
     import torch
     from repro_torch.core.mesh import run_ranks
     from repro_torch.launch import train as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.common import empty_init
+    from repro_torch.optim import OptConfig, get_optimizer
     b, t = LAUNCH_WIDE_SHAPE
     f32 = torch.float32
     argv = ["--arch", "gemma3-1b", "--full", "--steps",
             str(LAUNCH_WIDE_STEPS), "--batch", str(b), "--seq", str(t),
-            "--log-every", "1"]
+            "--log-every", "1", "--logdet-reg", str(TRAIN_LOGDET)]
     spec = "x".join(map(str, LAUNCH_GRID))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
         args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
         t0 = time.perf_counter()
-        one, losses, stats, first, one_peak, _ = _one_rank(
+        one, losses, stats, first, one_peak, one_launches = _one_rank(
             args, f32, LAUNCH_WIDE_LAYERS)
         one_s = time.perf_counter() - t0
         ref = f"{tmp}/one_grads.npz"
         np.savez(ref, **{k: g.numpy() for k, g in first["grads"].items()})
-        del first
+        cfg = one["params"].cfg
+        del first, one
+        torch.cuda.empty_cache()
+        meta = Model(cfg, empty_init(torch.device("meta")))
+        shapes = {"params": meta,
+                  "opt": get_optimizer(OptConfig())[0](meta),
+                  "step": torch.zeros((), dtype=torch.int32, device="meta")}
         t0 = time.perf_counter()
         ranks = run_ranks(grid_rank, LAUNCH_GRID[0] * LAUNCH_GRID[1],
                           backend="gloo", device="cuda",
@@ -5184,9 +5207,7 @@ def launch_grid_wide(smi: str) -> dict:
                                 True, LAUNCH_WIDE_LAYERS, True, f32, ref))
         grid_s = time.perf_counter() - t0
         written = sorted(p.name for p in Path(f"{tmp}/grid").iterdir())
-    cfg = one["params"].cfg
-    layout_out = hold_grid(ranks, cfg, one, "launch grid wide")
-    del one
+    layout_out = hold_grid(ranks, cfg, shapes, "launch grid wide")
     gmax = ranks[0]["grad_max"]
     worst = max(r["grad_err"] for r in ranks)
     tol = TRAIN_GRAD_TOL["default"]
@@ -5203,8 +5224,17 @@ def launch_grid_wide(smi: str) -> dict:
             f"rank's {losses} (gate {LAUNCH_LOSS_RTOL} relative)")
     require(written == [f"step_{LAUNCH_WIDE_STEPS:08d}"],
             f"launch grid wide: checkpoints {written}")
-    return {"arch": "gemma3-1b", "d_model": cfg.d_model,
+    k1 = [r["launches"].get("rank1_update", 0) for r in ranks]
+    want_k1 = LAUNCH_WIDE_STEPS * (cfg.d_model - 1)
+    one_k1 = one_launches.get("rank1_update", 0)
+    require(k1 == [want_k1] * len(ranks) and one_k1 == want_k1,
+            f"launch grid wide: K1 {k1} on the ranks (want {want_k1} "
+            f"each), {one_k1} on one rank")
+    return {"launches": {"launch|grid wide one rank": one_launches,
+                         "launch|grid wide rank 0": ranks[0]["launches"]},
+            "arch": "gemma3-1b", "d_model": cfg.d_model,
             "layers": cfg.n_layers, "vocab": cfg.vocab, "dtype": "float32",
+            "logdet_reg": TRAIN_LOGDET,
             "shape": [b, t], "steps": LAUNCH_WIDE_STEPS, "grid": spec,
             "backend": "gloo", "grid_run_s": grid_s, "one_rank_run_s": one_s,
             "rank_step_s": [r["step_s"] for r in ranks],
@@ -5213,14 +5243,17 @@ def launch_grid_wide(smi: str) -> dict:
             "one_rank_step_s": stats.times,
             "one_rank_peak_mem_bytes": one_peak,
             "rank_step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+            "rank_whole_peak_bytes": [r["whole_peak_bytes"] for r in ranks],
+            "rank_whole_peak_units": [r["whole_peak_units"] for r in ranks],
             "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
             "all_sums_per_step": ranks[0]["counts"]["all_sum"],
             "bytes_per_step": ranks[0]["plan"]["bytes"]
             + ranks[0]["plan"]["all_sum_bytes"],
             "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
-            **layout_out, "first_grad_err_of_max": worst / gmax,
+            **layout_out, "k1_per_rank": k1, "k1_one_rank": one_k1,
+            "first_grad_err_of_max": worst / gmax,
             "losses": losses, "loss_err_rel": loss_err,
-            "gather_everything": LAUNCH_WIDE_GATHERED, "card": smi}
+            "gather_all_step": LAUNCH_WIDE_GATHER_ALL, "card": smi}
 
 
 def launch_serve(seed: int, smi: str) -> dict:
@@ -5292,8 +5325,8 @@ def launch_serve(seed: int, smi: str) -> dict:
 def launch_dryrun() -> dict:
     """(d): the dry run's DRYRUN_CELLS at full size; each record's
     argument bytes, broadcasts, all_sums and their bytes against the JAX
-    rules' totals for the cell (DRYRUN_CELLS), the gather-everything
-    step's figures beside the train cell's."""
+    rules' totals for the cell (DRYRUN_CELLS), the gather-all step's
+    figures beside the train cell's."""
     from repro_torch.launch import dryrun as D
     out = {}
     for arch, shape, multi_pod, fast, want in DRYRUN_CELLS:
@@ -5315,7 +5348,7 @@ def launch_dryrun() -> dict:
                 f"({rec['memory'].get('temp_bytes_error')})")
         out[f"{arch}|{shape}|{rec['mesh']}"] = dict(
             rec, seconds=seconds,
-            gather_everything=DRYRUN_GATHERED.get(f"{arch}|{shape}"))
+            gather_all_step=DRYRUN_GATHER_ALL.get(f"{arch}|{shape}"))
     return out
 
 
@@ -5333,7 +5366,9 @@ def launch_phase(seed: int, smi: str) -> dict:
     grid = launch_grid(smi)
     launches.update(grid.pop("launches"))
     say("launch", part="grid", **grid)
-    say("launch", part="grid gemma3-1b full width", **launch_grid_wide(smi))
+    wide = launch_grid_wide(smi)
+    launches.update(wide.pop("launches"))
+    say("launch", part="grid gemma3-1b full width and depth", **wide)
     say("launch", part="serve", **launch_serve(seed, smi))
     for cell, rec in launch_dryrun().items():
         say("launch", part="dryrun", cell=cell, **rec)

@@ -137,11 +137,14 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int, async_op: bool = False):
                           async_op=async_op)
 
 
-def all_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """In place: ``t`` becomes the sum of every rank's ``t``; returns it."""
+def all_sum(mesh: Mesh, t: torch.Tensor, async_op: bool = False):
+    """In place: ``t`` becomes the sum of every rank's ``t``; returns it,
+    or with ``async_op`` the work handle to ``wait()`` on before ``t`` is
+    read."""
     _collectives["all_sum"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
-    return t
+    work = dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group,
+                           async_op=async_op)
+    return work if async_op else t
 
 
 def gather_rows(mesh: Mesh, chunk: torch.Tensor,

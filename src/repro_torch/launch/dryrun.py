@@ -13,8 +13,9 @@ record key takes a torch meaning here, on tensors that hold no storage:
   metrics whole);
 - a train cell runs rank 0's share of the split mesh step: the step
   itself (`sharding.layout.mesh_step`) on a shape-only mesh with rank
-  0's coordinates, so the parameters' gathers copy rank 0's blocks into
-  whole tensors, its rows of every microbatch run inside a shape-only
+  0's coordinates, so the parameters' gathers (one unit at a time,
+  `sharding.fsdp`) copy rank 0's blocks into whole tensors, its rows of
+  every microbatch run inside a shape-only
   data split (`sharding.split`: the statistics of the whole batch and
   the gradients' reduction keep their shapes, nothing is exchanged), and
   the optimizer updates its blocks.  A serving cell runs the cell's
@@ -30,9 +31,10 @@ record key takes a torch meaning here, on tensors that hold no storage:
   ``hlo_bytes_per_device`` times ``chips``;
 - ``wire_bytes_per_chip`` / ``collective_counts``: the step's
   collectives a rank (`sharding.layout.step_plan`: the parameters'
-  gathers by broadcasts; the batch statistics' exchanges, the gradients'
-  reduction and the agreement by all_sums, each counted by the bytes of
-  the tensor summed); a serving cell gathers its arguments
+  gathers by broadcasts, a layer's for its forward and again for its
+  backward; the batch statistics' exchanges, the gradients' reduction,
+  the global norm and the agreement by all_sums, each counted by the
+  bytes of the tensor summed); a serving cell gathers its arguments
   (`layout.collective_plan`);
 - ``memory.temp_bytes_per_device``: what the step allocates at its peak
   beyond what it holds at its start, by
@@ -41,8 +43,8 @@ record key takes a torch meaning here, on tensors that hold no storage:
   ``temp_bytes_error`` where that tool fails);
   ``held_bytes_per_device``: what a rank holds at the step's start (a
   train cell: its blocks of the state and its rows of the batch, the
-  whole parameters being gathered inside the step; a serving cell: the
-  whole arguments); the peak is the two together;
+  units' wholes being gathered inside the step, and counted there; a
+  serving cell: the whole arguments); the peak is the two together;
 - ``model_flops``, ``useful_flops_frac`` and the roofline terms from
   `analysis.ir.roofline` with the H100's ``HW``.
 

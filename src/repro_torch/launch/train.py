@@ -44,7 +44,7 @@ from repro_torch.data.synthetic import DataConfig, synth_batch
 from repro_torch.ft.driver import FTConfig, run_training
 from repro_torch.launch.mesh import make_mesh_like, parse_mesh
 from repro_torch.optim.optimizers import OptConfig
-from repro_torch.sharding import hints, layout
+from repro_torch.sharding import fsdp, hints, layout
 from repro_torch.sharding.rules import Sharding, batch_spec
 from repro_torch.train.step import (TrainConfig, init_train_state,
                                     make_grad_fn)
@@ -192,50 +192,62 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     also its coordinates, step seconds and final blocks (numpy
     arrays by `layout.flat` path joined with dots:
     ``params.blocks.0.attn.wq``, ``opt.m.embed``, ``step``), the first
-    step's reduced gradients by parameter name (``grads``) and metrics
-    (``grad_metrics``), then the collectives of one more step
-    (``counts``) beside `layout.step_plan` (``plan``) and, on a card,
-    that step's peak allocation (``step_peak_bytes``); with ``digest``,
-    (shape, sha256 of the bytes) in place of every array.  ``layers`` and
+    step's reduced gradients by parameter name (``grads``: its blocks,
+    kept on the host and gathered whole after the run) and metrics
+    (``grad_metrics``), the collectives of the run's last step
+    (``counts``) beside `layout.step_plan` (``plan``), the high-water of
+    whole parameter bytes alive at once in it (``whole_peak_bytes``,
+    ``whole_peak_units``: `sharding.fsdp.watching`) and, on a card, its
+    peak allocation (``step_peak_bytes``); with ``digest``, (shape,
+    sha256 of the bytes) in place of every array.  ``layers`` and
     ``dtype`` as in `build`."""
     args = parser().parse_args(argv)
     _threads(mesh, threads)
     grid = _mesh(args.mesh, args.device, args.collective_timeout)
-    first = {}
+    on_card = grid.device.type == "cuda"
+    first, last = {}, {}
 
     def keep_first(grads, metrics):
         if not first and detail:
-            first["grads"] = {k: _host(g, digest) for k, g in grads.items()}
+            first["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
             first["grad_metrics"] = {k: float(v) for k, v in metrics.items()}
     tcfg = _tcfg(args)
-    built = build(args.arch, smoke=args.smoke, mesh=grid, tcfg=tcfg,
-                  batch=args.batch, seq=args.seq, layers=layers, dtype=dtype,
-                  on_grads=keep_first)
-    state, losses, stats = _drive(args, grid, built)
+    cfg, state, step_fn, batch_fn, sh = build(
+        args.arch, smoke=args.smoke, mesh=grid, tcfg=tcfg, batch=args.batch,
+        seq=args.seq, layers=layers, dtype=dtype, on_grads=keep_first)
+
+    def measured(state, batch):
+        if on_card:
+            torch.cuda.synchronize(grid.device)
+            torch.cuda.reset_peak_memory_stats(grid.device)
+        core_mesh.reset_collective_counts()
+        with fsdp.watching() as high:
+            out = step_fn(state, batch)
+        last.update(counts=core_mesh.collective_counts(),
+                    step_peak_bytes=torch.cuda.max_memory_allocated(
+                        grid.device) if on_card else None,
+                    whole_peak_bytes=high.bytes, whole_peak_units=high.units)
+        return out
+    state, losses, stats = _drive(args, grid, (
+        cfg, state, measured if detail else step_fn, batch_fn, sh))
     out = {"losses": losses, "restarts": stats.restarts,
            "stragglers": stats.stragglers}
     if not detail:
         return out
-    blocks = {".".join(p): _host(t, digest)
-              for p, t in layout.flat(state).items()}
-    cfg, _, step_fn, batch_fn, sh = built
+    # the first step's gradient blocks gathered whole (every rank of the
+    # grid calls this, in one order)
+    first["grads"] = {k: _host(layout.gather_leaf(
+        g.to(grid.device), sh["params"][k]), digest)
+        for k, g in first["grads"].items()}
     bsh = {k: Sharding(grid, s) for k, s in batch_spec(
         cfg, grid, kind="train", batch=args.batch).items()}
-    batch = batch_fn(0)
-    on_card = grid.device.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(grid.device)
-        torch.cuda.reset_peak_memory_stats(grid.device)
-    core_mesh.reset_collective_counts()
-    state, _ = step_fn(state, batch)
-    counts = core_mesh.collective_counts()
-    out.update(first, coords=grid.coords, device=str(grid.device),
-               blocks=blocks, counts=counts,
+    out.update(first)
+    out.update(last, coords=grid.coords, device=str(grid.device),
+               blocks={".".join(p): _host(t, digest)
+                       for p, t in layout.flat(state).items()},
                plan=layout.step_plan(
                    cfg, tcfg, sh, bsh,
                    layout.whole_like(state["params"], sh["params"])),
-               step_peak_bytes=torch.cuda.max_memory_allocated(grid.device)
-               if on_card else None,
                step_s=stats.times)
     return out
 

@@ -32,16 +32,16 @@ counts as zeros (JAX's gradient of an unused leaf).  ``update(grads,
 state, params) -> (params, state)`` writes both in place and returns
 them.
 
-**On blocks** (``update(..., blocks=...)``, the step on a mesh,
-`repro_torch.sharding.layout.mesh_step`): ``params`` and ``state`` hold
-this rank's blocks, ``grads`` the whole reduced gradients, which every
-rank holds alike, and ``blocks`` maps a parameter name to its block's
-slices of the whole parameter (every layer of a JAX leaf splits alike,
-and no rule splits a stack axis).  AdamW and SGD are elementwise: they
-take the gradient's block.  Adafactor's factored moments and its RMS-1
-clip are over the whole leaf, so its state is whole on every rank and it
-takes the whole update's block.  Either way a block's update is bitwise
-that block of the whole update.
+**On blocks** (the step on a mesh, `repro_torch.sharding.layout
+.mesh_step`): ``params`` and ``state`` hold this rank's blocks.  AdamW
+and SGD are elementwise: ``grads`` are the gradients' blocks, and the
+update of a block is bitwise that block of the whole update.
+Adafactor's factored moments and its RMS-1 clip are over the whole
+leaf, so its state is whole on every rank, ``grads`` are whole (every
+rank holds them alike) and ``update(..., blocks=...)`` maps a parameter
+name to its block's slices of the whole parameter (every layer of a JAX
+leaf splits alike, and no rule splits a stack axis): it takes the whole
+update's block.
 """
 from __future__ import annotations
 
@@ -99,10 +99,12 @@ def global_norm(grads) -> torch.Tensor:
                           for x in _values(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale every gradient by min(1, max_norm / norm) in f32 and cast it
-    back to its dtype -> (grads, norm); a dict stays a dict."""
-    g = global_norm(grads)
+    back to its dtype -> (grads, norm); a dict stays a dict.  ``norm``
+    defaults to `global_norm` of ``grads`` (a mesh step gives the norm of
+    the whole gradients it holds blocks of)."""
+    g = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
 
     def clip(x):
@@ -198,18 +200,13 @@ def _cut(leaf: JaxLeaf, blocks):
     return (slice(None),) * len(leaf.lead) + tuple(blocks[leaf.names[0]])
 
 
-def _leaf_tensors(leaf: JaxLeaf, named, grads, blocks=None, whole=False):
+def _leaf_tensors(leaf: JaxLeaf, named, grads):
     """(the layers' parameters, the stacked parameter, the stacked f32
-    gradient) of one JAX leaf; with ``blocks`` (every gradient given,
-    whole) the gradient's block, or with ``whole`` the whole gradient."""
+    gradient) of one JAX leaf; a missing gradient is zeros of its
+    parameter's shape."""
     ps = [named[n] for n in leaf.names]
-    if blocks is None:
-        gs = [grads.get(n) if grads.get(n) is not None
-              else torch.zeros_like(p) for n, p in zip(leaf.names, ps)]
-        return ps, _stack(ps, leaf.lead), _stack(gs, leaf.lead).to(
-            torch.float32)
-    gs = [grads[n] if whole else grads[n][tuple(blocks[n])]
-          for n in leaf.names]
+    gs = [grads.get(n) if grads.get(n) is not None
+          else torch.zeros_like(p) for n, p in zip(leaf.names, ps)]
     return ps, _stack(ps, leaf.lead), _stack(gs, leaf.lead).to(
         torch.float32)
 
@@ -236,14 +233,14 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state, params, blocks=None):
+def adamw_update(cfg: OptConfig, grads, state, params):
     named = _named(params)
     c = state["count"] + 1
     cf = c.to(torch.float32)
     lr = lr_at(cfg, state["count"])
     b1, b2 = cfg.b1, cfg.b2
     for leaf in jax_leaves(named):
-        ps, p, g = _leaf_tensors(leaf, named, grads, blocks)
+        ps, p, g = _leaf_tensors(leaf, named, grads)
         m_ref, v_ref = _get(state["m"], leaf.path), _get(state["v"], leaf.path)
         m = b1 * m_ref + (1 - b1) * g
         v = b2 * v_ref + (1 - b2) * g * g
@@ -290,7 +287,7 @@ def adafactor_update(cfg: OptConfig, grads, state, params, blocks=None):
     for leaf in jax_leaves(named):
         # on blocks: the whole leaf's step from the whole gradient and the
         # whole moments, then this rank's block of it
-        ps, p, g = _leaf_tensors(leaf, named, grads, blocks, whole=True)
+        ps, p, g = _leaf_tensors(leaf, named, grads)
         f = _get(state["f"], leaf.path)
         g2 = g * g + 1e-30
         if p.dim() >= 2:
@@ -329,11 +326,11 @@ def sgd_init(params):
 
 
 @torch.no_grad()
-def sgd_update(cfg: OptConfig, grads, state, params, blocks=None):
+def sgd_update(cfg: OptConfig, grads, state, params):
     named = _named(params)
     lr = lr_at(cfg, state["count"])
     for leaf in jax_leaves(named):
-        ps, p, g = _leaf_tensors(leaf, named, grads, blocks)
+        ps, p, g = _leaf_tensors(leaf, named, grads)
         new = (p.to(torch.float32) - lr * g).to(p.dtype)
         _write(ps, new, leaf.lead)
     state["count"].add_(1)
@@ -348,7 +345,8 @@ OPTIMIZERS = {
 
 
 def get_optimizer(cfg: OptConfig):
-    """(init(params) -> state, update(grads, state, params, blocks=None)
-    -> (params, state))."""
+    """(init(params) -> state, update(grads, state, params) -> (params,
+    state)); Adafactor's update also takes ``blocks=`` (see the module
+    docstring)."""
     init, update = OPTIMIZERS[cfg.name]
     return init, functools.partial(update, cfg)

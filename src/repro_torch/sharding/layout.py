@@ -18,16 +18,22 @@ axes, in the order the JAX rules apply them:
 - each rank holds its rows of every global microbatch (`batch_rows`; a
   batch that does not divide the data axes is whole on every rank, and
   the ranks of one "model" line hold the same rows and compute alike);
-- the parameters' blocks are gathered whole for the forward and the
-  backward, once a step, and dropped after;
+- the parameters are gathered one unit at a time (`sharding.fsdp`: a
+  block module of the stack just before it runs, again for its backward,
+  and dropped after; the embedding, the final norm and the head once a
+  microbatch), so no rank holds the whole model at once;
 - the loss runs inside a data split (`sharding.split`) over the rank's
   data line: the statistics of the whole batch (the CE's token count,
   the logdet aux's covariance, MoE's capacity, slots and balance) are
-  reduced over the line, and each microbatch's gradient is summed over
-  it by one all_sum a tensor, the same bits on every rank;
-- the clip takes the reduced gradient, the same on every rank, and the
-  optimizer updates this rank's blocks only (`optim` ``blocks=``): the
-  optimizer state is never gathered.
+  reduced over the line, and each unit's gradient is summed over it in
+  the unit's backward, by one all_sum a tensor (the same bits on every
+  rank), of which the rank keeps its block;
+- the clip takes the global norm from the blocks (one all_sum over the
+  whole grid of each rank's f64 sum of squares, each element counted by
+  one rank), the same on every rank, and the optimizer updates this rank's
+  blocks only: the optimizer state is never gathered (Adafactor, whose
+  update reads the whole leaf, gets its clipped gradients gathered
+  whole).
 
 A step commits on every rank or on none: after the compute the ranks
 `agree` (one all_sum over the whole process group, which no step
@@ -59,15 +65,17 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.core import mesh as core_mesh
-from repro_torch.optim.optimizers import clip_by_global_norm, get_optimizer
-from repro_torch.sharding import split
+from repro_torch.optim.optimizers import (clip_by_global_norm, get_optimizer,
+                                          jax_ndim)
+from repro_torch.sharding import fsdp, split
 from repro_torch.sharding.rules import (PartitionSpec, Sharding,
                                         param_shardings, tree_map)
 
 __all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices",
-           "local_block", "gather_leaf", "shard", "gather",
+           "local_block", "gather_leaf", "gather_leaves", "shard", "gather",
            "state_shardings", "data_axes", "batch_rows", "mesh_grad_fn",
-           "mesh_step", "collective_plan", "step_plan", "flat", "mesh_of",
+           "global_norm", "WHOLE_LEAF", "mesh_step", "collective_plan",
+           "step_plan", "flat", "mesh_of",
            "agree", "barrier", "resident_bytes"]
 
 
@@ -153,31 +161,45 @@ def gather_leaf(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     (``t`` itself when nothing splits).  Every rank of the line calls
     it, in the same order of leaves.  On a shape-only mesh every block
     is ``t`` (one tiling, no collective)."""
-    mesh = sharding.mesh
-    entries = _entries(sharding.spec, mesh)
-    if not entries:
-        return t
-    shape = whole_shape(t.shape, sharding)
-    if mesh.world is None:
-        return t.repeat(tuple(w // b for w, b in zip(shape, t.shape)))
-    axes_all = [a for _, axes in entries for a in axes]
-    line, ranks = mesh.line(axes_all)
-    out = torch.empty(shape, dtype=t.dtype, device=t.device)
-    mine = t.contiguous()
-    bufs, works = [], []
-    for combo in itertools.product(*(range(mesh.shape[a])
-                                     for a in axes_all)):
-        coords = dict(mesh.coords)
-        coords.update(zip(axes_all, combo))
-        owner = ranks.index(mesh.rank_of(coords))
-        buf = mine if owner == line.rank else torch.empty_like(mine)
-        works.append(core_mesh.broadcast(line, buf, owner, async_op=True))
-        bufs.append((coords, buf))
+    return gather_leaves([t], [sharding])[0]
+
+
+def gather_leaves(ts, shardings) -> List[torch.Tensor]:
+    """`gather_leaf` of each block of ``ts`` (laid out by the matching
+    ``shardings``), every broadcast issued before the first is waited on:
+    the same broadcasts, in the same order, with the line's latency
+    overlapped."""
+    outs, fills, works = [], [], []
+    for t, sharding in zip(ts, shardings):
+        mesh = sharding.mesh
+        entries = _entries(sharding.spec, mesh)
+        if not entries:
+            outs.append(t)
+            continue
+        shape = whole_shape(t.shape, sharding)
+        if mesh.world is None:
+            outs.append(t.repeat(tuple(w // b for w, b in zip(shape,
+                                                              t.shape))))
+            continue
+        axes_all = [a for _, axes in entries for a in axes]
+        line, ranks = mesh.line(axes_all)
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        mine = t.contiguous()
+        for combo in itertools.product(*(range(mesh.shape[a])
+                                         for a in axes_all)):
+            coords = dict(mesh.coords)
+            coords.update(zip(axes_all, combo))
+            owner = ranks.index(mesh.rank_of(coords))
+            buf = mine if owner == line.rank else torch.empty_like(mine)
+            works.append(core_mesh.broadcast(line, buf, owner,
+                                             async_op=True))
+            fills.append((out, block_slices(shape, sharding, coords), buf))
+        outs.append(out)
     for w in works:
         w.wait()
-    for coords, buf in bufs:
-        out[block_slices(shape, sharding, coords)] = buf
-    return out
+    for out, where, buf in fills:
+        out[where] = buf
+    return outs
 
 
 def _leafwise(fn, state, shardings):
@@ -257,44 +279,75 @@ def batch_rows(batch, batch_shardings, microbatches: int = 1):
 def mesh_grad_fn(grad_fn, shardings, batch_shardings):
     """``grads(state, batch) -> (grads, metrics)`` on a mesh: ``state``
     sharded by ``shardings``, ``batch`` this rank's rows (`batch_rows`).
-    Gathers every parameter whole (the model holds its blocks again on
-    return, and on a raise) and runs ``grad_fn`` (`train.step
-    .make_grad_fn`) inside the data split of the batch's data line: the
-    whole reduced gradients, the same bits on every rank, and the global
-    batch's metrics (on a shape-only mesh, a shape-only split)."""
+    Runs ``grad_fn`` (`train.step.make_grad_fn`) with the parameters
+    gathered one unit at a time (`fsdp.sharded`) inside the data split of
+    the batch's data line: this rank's blocks of the reduced gradients,
+    the same bits on every rank that holds one, and the global batch's
+    metrics (on a shape-only mesh, a shape-only split and no sum).  On
+    one rank, ``grad_fn`` itself."""
     axes = data_axes(batch_shardings)
     mesh = mesh_of(shardings)
     psh = shardings["params"]
 
-    def data_split():
-        if not axes:
-            return split.data_split()
-        if mesh.world is None:
-            return split.data_split(size=_count(axes, mesh))
-        return split.data_split(mesh.line(axes)[0])     # as remade
-
     def grads(state, batch):
-        named = list(state["params"].named_parameters())
-        held = [p.data for _, p in named]
-        try:
-            for n, p in named:
-                p.data = gather_leaf(p.data, psh[n])
-            with data_split():
-                return grad_fn(state["params"], batch)
-        finally:
-            for (_, p), block in zip(named, held):
-                p.data = block
+        if mesh.size == 1:
+            return grad_fn(state["params"], batch)
+        line = None
+        if axes and mesh.world is not None:
+            line = mesh.line(axes)[0]                   # as remade
+        if not axes:
+            data = split.data_split()
+        elif line is None:
+            data = split.data_split(size=_count(axes, mesh))
+        else:
+            data = split.data_split(line)
+        with data, fsdp.sharded(state["params"], psh, line):
+            return grad_fn(state["params"], batch)
     return grads
+
+
+def _owned(sharding: Sharding) -> bool:
+    """Whether this rank is the one that counts its block of a leaf laid
+    out by ``sharding`` once: its coordinate is 0 on every axis that does
+    not split the leaf."""
+    mesh = sharding.mesh
+    split_axes = {a for _, axes in _entries(sharding.spec, mesh)
+                  for a in axes}
+    return all(c == 0 for a, c in mesh.coords.items() if a not in split_axes)
+
+
+def global_norm(grads, shardings, mesh) -> torch.Tensor:
+    """The global norm (f32) of gradients laid out as the parameters
+    (``shardings`` by name): each rank's sum of squares over the blocks
+    it counts (`_owned`), summed by one all_sum over the whole grid
+    (every rank gets the same bits; on a shape-only mesh, this rank's).
+    The sums are f64, where an f32 square is exact and the order of the
+    additions is lost in the cast back to f32: so the norm's bits do not
+    depend on how the grid cuts the leaves (a 2x1 grid steps bitwise as
+    a 2x2 one)."""
+    dev = next(iter(grads.values())).device
+    sq = torch.zeros((), dtype=torch.float64, device=dev)
+    for n, g in grads.items():
+        if _owned(shardings[n]):
+            sq = sq + torch.sum(torch.square(g.to(torch.float64)))
+    if mesh.world is not None:
+        sq = core_mesh.all_sum(mesh.line(mesh.axis_names)[0],
+                               sq.reshape(1)).reshape(())
+    return torch.sqrt(sq.to(torch.float32))
+
+
+# the optimizers whose update reads the whole leaf (`optim` ``blocks=``)
+WHOLE_LEAF = ("adafactor",)
 
 
 def mesh_step(grad_fn, opt, shardings, batch_shardings, on_grads=None):
     """``step(state, batch) -> (state, metrics)`` on a mesh (see the
-    module docstring): `mesh_grad_fn`, the clip, then ``opt``'s (an
-    `OptConfig`) update of this rank's blocks in place; ``metrics`` as
-    `train.step.make_train_step`'s.  ``on_grads(grads, metrics)``, when
-    given, sees the reduced gradients before the clip.  If the compute
-    raises on any rank, every rank raises and keeps its blocks as they
-    were."""
+    module docstring): `mesh_grad_fn`, the clip by the blocks' global
+    norm, then ``opt``'s (an `OptConfig`) update of this rank's blocks in
+    place; ``metrics`` as `train.step.make_train_step`'s.
+    ``on_grads(grads, metrics)``, when given, sees this rank's blocks of
+    the reduced gradients before the clip.  If the compute raises on any
+    rank, every rank raises and keeps its blocks as they were."""
     mesh = mesh_of(shardings)
     grads_of = mesh_grad_fn(grad_fn, shardings, batch_shardings)
     _, update = get_optimizer(opt)
@@ -306,16 +359,24 @@ def mesh_step(grad_fn, opt, shardings, batch_shardings, on_grads=None):
             grads, metrics = grads_of(state, batch)
             if on_grads is not None:
                 on_grads(grads, metrics)
-            grads, gnorm = clip_by_global_norm(grads, opt.clip_norm)
+            norm = None if mesh.size == 1 else global_norm(grads, psh, mesh)
+            grads, gnorm = clip_by_global_norm(grads, opt.clip_norm,
+                                               norm=norm)
+            blocks = None
+            if opt.name in WHOLE_LEAF and mesh.size > 1:
+                blocks = {n: block_slices(whole_shape(g.shape, psh[n]),
+                                          psh[n]) for n, g in grads.items()}
+                grads = {n: gather_leaf(g, psh[n]) for n, g in grads.items()}
         except Exception as e:          # noqa: BLE001 -- agreed below
             err = e
         if agree(mesh, err is not None):
             raise err if err is not None else RuntimeError(
                 "the step failed on another rank of the mesh")
         # ---- the commit point: nothing above wrote the state ----
-        update(grads, state["opt"], state["params"],
-               blocks={n: block_slices(g.shape, psh[n])
-                       for n, g in grads.items()})
+        if blocks is None:
+            update(grads, state["opt"], state["params"])
+        else:
+            update(grads, state["opt"], state["params"], blocks=blocks)
         state["step"].add_(1)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
@@ -395,47 +456,71 @@ def step_plan(cfg, tcfg, shardings, batch_shardings,
     parameters (a model or a dict, any device, ``meta`` included);
     ``tcfg`` is the `TrainConfig`.
 
-    - broadcasts: the parameters' gathers (`collective_plan` of
-      ``shardings["params"]``) once a step;
+    - broadcasts, each microbatch: every unit's gathers
+      (`fsdp.gather_counts`: the root once, a layer unit once a call in
+      the forward and again in the backward), a leaf split n ways costing
+      n broadcasts and its whole bytes in the dtype gathered (bf16 where
+      ``cast_params_bf16`` casts it); with Adafactor, once a step, the
+      clipped gradients gathered whole;
     - all_sums, each microbatch: the nll metric's, the logdet aux's mean
       and covariance (with ``logdet_reg``), each MoE layer's counts and
       gate sums (twice under remat: the backward recomputes the layer),
-      and the gradient's reduction, one of every parameter's gradient;
-      then the one that agrees the step commits.
+      and one of every gradient a call of its unit, in the parameter's
+      dtype; then, once a step, the global norm's and the one that
+      agrees the step commits.
 
     -> ``{"broadcast", "bytes" (theirs), "all_sum", "all_sum_bytes" (the
-    tensors summed: the exchanged stacks, the gradients and the
-    agreement's flag), "gathered" (the paths of the leaves gathered:
+    tensors summed), "gathered" (the paths of the leaves gathered:
     parameters only)}``.  One rank issues nothing."""
     mesh = mesh_of(shardings)
-    plan = collective_plan(shardings["params"], params)
-    plan["gathered"] = sorted(
-        ".".join(("params",) + p) for p, t in flat(params).items()
-        if math.prod(shard_shape(t.shape, flat(shardings["params"])[p]))
-        < t.numel())
-    plan["all_sum"], plan["all_sum_bytes"] = 0, 0
+    named = {".".join(p): t for p, t in flat(params).items()}
+    psh = {".".join(p): s for p, s in flat(shardings["params"]).items()}
+    ways = {n: math.prod(_count(axes, psh[n].mesh)
+                         for _, axes in _entries(psh[n].spec, psh[n].mesh))
+            for n in named}
+    plan = {"broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0,
+            "gathered": sorted("params." + n for n in named
+                               if ways[n] > 1)}
+    if mesh.size == 1:
+        return plan
+    mb = tcfg.microbatches
     axes = data_axes(batch_shardings)
     d = _count(axes, mesh) if axes else 1
+    calls = fsdp.gather_counts(cfg, list(named))
+    for n, t in named.items():
+        fwd, bwd = calls[fsdp.unit_of(n)]
+        if ways[n] > 1:
+            cast = (tcfg.cast_params_bf16 and t.dtype == torch.float32
+                    and jax_ndim(n, t) >= 2)
+            size = 2 if cast else t.element_size()
+            plan["broadcast"] += mb * (fwd + bwd) * ways[n]
+            plan["bytes"] += mb * (fwd + bwd) * t.numel() * size
+        if d > 1:
+            plan["all_sum"] += mb * fwd
+            plan["all_sum_bytes"] += mb * fwd * t.numel() * t.element_size()
     if d > 1:
-        mb = tcfg.microbatches
-        grads = flat(params).values()
         # the exchanges of one microbatch: the nll; each MoE layer's
-        # counts (int64) and gate sums, per forward; the aux's two; the
-        # gradients
+        # counts (int64) and gate sums, per forward; the aux's two
         fwd = 2 if cfg.remat else 1
-        moe = sum(p[-1] == "router" for p in flat(params))
-        count = 1 + 2 * moe * fwd + len(grads)
-        nbytes = (d * 4 + moe * fwd * d * cfg.n_experts * (8 + 4)
-                  + sum(t.numel() * t.element_size() for t in grads))
+        moe = sum(n.rpartition(".")[2] == "router" for n in named)
+        count = 1 + 2 * moe * fwd
+        nbytes = d * 4 + moe * fwd * d * cfg.n_experts * (8 + 4)
         if tcfg.logdet_reg:
             w = cfg.d_model
             count += 2
             nbytes += d * w * 4 + d * w * w * 4
         plan["all_sum"] += mb * count
         plan["all_sum_bytes"] += mb * nbytes
-    if mesh.size > 1:
-        plan["all_sum"] += 1
-        plan["all_sum_bytes"] += 4
+    if tcfg.opt.name in WHOLE_LEAF:
+        gsize = (torch.empty((), dtype=tcfg.accum_dtype).element_size()
+                 if mb > 1 else None)
+        for n, t in named.items():
+            if ways[n] > 1:
+                plan["broadcast"] += ways[n]
+                plan["bytes"] += t.numel() * (gsize or t.element_size())
+    # the global norm's (f64) and the agreement's
+    plan["all_sum"] += 2
+    plan["all_sum_bytes"] += 8 + 4
     return plan
 
 

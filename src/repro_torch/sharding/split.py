@@ -14,18 +14,22 @@ over the line so that the result is the global one:
 - MoE takes its capacity from the global token count, its slots in the
   global token-major order (`each`: every rank's per-expert counts), and
   the balance aux's means over the global tokens (`total`);
-- the gradients of the ranks' shares are summed (`reduce_grads`).
+- the gradients of the ranks' shares are summed, unit by unit in the
+  backward (`sharding.fsdp`).
 
 **Every reduction gives every rank the same bits.**  `each` gathers
 every rank's tensor by one all_sum of a stack that holds it at the
 rank's row and zeros elsewhere (adding zeros is exact), and `total` adds
-the rows in rank order.  `reduce_grads` sums each partial gradient by one
-all_sum: the backends' all-reduce algorithms (gloo's ring and
-halving-doubling, on the host also for CUDA tensors; NCCL's ring and
-tree) reduce each element once and hand that one result to every rank,
-which `tools/allreduce_bits.py` checks on each backend.  Only
-``broadcast`` and ``all_reduce`` are used: gloo takes CUDA tensors for
-these alone.
+the rows in rank order.  A gradient is summed by one all_sum: the
+backends' all-reduce algorithms (gloo's ring and halving-doubling, on
+the host also for CUDA tensors; NCCL's ring and tree) reduce each
+element once and hand that one result to every rank, which
+`tools/allreduce_bits.py` checks on each backend.  Only ``broadcast``
+and ``all_reduce`` are used: gloo takes CUDA tensors for these alone.
+
+The split in force is the process's, not a thread's: on the card the
+autograd engine runs the backward, and so a checkpoint's recomputation
+of a MoE layer's exchanges, on a thread of its own.
 
 **The backward of `total` is the identity.**  Whatever reads a reduced
 statistic is computed alike on every rank, so the gradient that reaches
@@ -42,19 +46,19 @@ to hold this rank's values, and nothing is exchanged.
 """
 from __future__ import annotations
 
-import threading
+import types
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.core import mesh as core_mesh
 
 __all__ = ["Split", "data_split", "current", "rows", "each", "total",
-           "whole", "reduce_grads"]
+           "whole"]
 
-_STATE = threading.local()
+_STATE = types.SimpleNamespace(split=None)
 
 
 @dataclass(frozen=True)
@@ -71,7 +75,7 @@ def data_split(line: Optional[core_mesh.Mesh] = None, *,
                size: Optional[int] = None):
     """The step's loss code inside runs on this rank's share of the batch
     of ``line`` (or of a shape-only ``size``-rank line)."""
-    prev = getattr(_STATE, "split", None)
+    prev = _STATE.split
     if line is not None and line.size > 1:
         _STATE.split = Split(line.size, line.rank, line)
     elif line is None and size is not None and size > 1:
@@ -86,7 +90,7 @@ def data_split(line: Optional[core_mesh.Mesh] = None, *,
 
 def current() -> Optional[Split]:
     """The split in force, or None (one rank: nothing splits)."""
-    return getattr(_STATE, "split", None)
+    return _STATE.split
 
 
 def rows(n: int) -> int:
@@ -141,13 +145,3 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     if current() is None:
         return t
     return _ordered(each(t))
-
-
-def reduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over the ranks of each partial gradient, in the gradient's
-    dtype: one all_sum per tensor, in place (``grads`` alone; on a
-    shape-only split, ``grads``)."""
-    s = current()
-    if s is None or s.line is None:
-        return grads
-    return [core_mesh.all_sum(s.line, g.contiguous()) for g in grads]

@@ -18,13 +18,17 @@ moments, and the step count move.  A fault raised before the commit
 point leaves the state bitwise as it was.
 
 **On a mesh** (`repro_torch.sharding.layout.mesh_step`) the loss and the
-gradient function run inside a data split (`repro_torch.sharding.split`):
-each rank computes on its share of every global microbatch, the loss's
-batch statistics are reduced over the ranks, and each microbatch's
-gradient is summed over them (one all_sum a tensor, in the gradient's
-dtype) right after its backward -- then, as in the JAX step, compressed and
-accumulated in ``accum_dtype`` in microbatch order.  The metrics are the
-global batch's.  Outside a split nothing of that runs.
+gradient function run inside a data split (`repro_torch.sharding.split`)
+with the parameters gathered one unit at a time
+(`repro_torch.sharding.fsdp`): each rank computes on its share of every
+global microbatch, the loss's batch statistics are reduced over the
+ranks, and each unit's gradient is summed over them in the unit's
+backward (one all_sum a tensor), of which the rank keeps its block --
+then, as in the JAX step, compressed and accumulated in ``accum_dtype``
+in microbatch order, on the blocks (elementwise: the same bits as the
+whole gradients' blocks).  ``cast_params_bf16`` casts each block before
+its gather.  The metrics are the global batch's.  Outside a split and a
+`fsdp.sharded` scope nothing of that runs.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.models.model import forward_hidden, init_model
 from repro_torch.optim.optimizers import (
     OptConfig, clip_by_global_norm, get_optimizer, jax_ndim,
 )
-from repro_torch.sharding import split
+from repro_torch.sharding import fsdp, split
 from repro_torch.train.loss import chunked_cross_entropy, logdet_decorrelation
 
 __all__ = ["TrainConfig", "make_loss_fn", "make_grad_fn", "init_train_state",
@@ -100,15 +104,26 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
         metrics["loss"] = value
         return loss, metrics
 
+    rule = _bf16 if tcfg.cast_params_bf16 else None
+
     def loss_fn(model, batch):
-        if not tcfg.cast_params_bf16:
-            return body(model, batch)
-        cast = {f"model.{n}": p.to(torch.bfloat16)
-                if jax_ndim(n, p) >= 2 and p.dtype == torch.float32 else p
-                for n, p in model.named_parameters()}
-        return torch.func.functional_call(_Bound(model, body), cast,
-                                          (batch,))
+        with fsdp.gathered(model, rule) as on_mesh:
+            if rule is None or on_mesh:
+                return body(model, batch)
+            cast = {f"model.{n}": p.to(torch.bfloat16)
+                    if rule(n, p) is not None else p
+                    for n, p in model.named_parameters()}
+            return torch.func.functional_call(_Bound(model, body), cast,
+                                              (batch,))
     return loss_fn
+
+
+def _bf16(name: str, p: torch.Tensor):
+    """``cast_params_bf16``'s rule: bf16 for an f32 parameter whose JAX
+    leaf has rank >= 2, else None."""
+    if jax_ndim(name, p) >= 2 and p.dtype == torch.float32:
+        return torch.bfloat16
+    return None
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
@@ -127,8 +142,8 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``grad_fn(model, batch) -> (grads, metrics)``: the first half of the
     step, before the clip.  ``grads`` maps every parameter name to its
     gradient (mean over the microbatches, in ``accum_dtype`` when there
-    are several); nothing is written.  In a data split ``grads`` are the
-    sums over the ranks, the same bits on every rank."""
+    are several); nothing is written.  Under `fsdp.sharded` in a data
+    split ``grads`` are this rank's blocks of the sums over the ranks."""
     loss_fn = make_loss_fn(cfg, tcfg)
 
     def compress(g):
@@ -139,9 +154,8 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
     def one_micro(model, names, params, mb):
         loss, metrics = loss_fn(model, mb)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = split.reduce_grads([torch.zeros_like(p) if g is None else g
-                                    for g, p in zip(grads, params)])
-        grads = [compress(g) for g in grads]
+        grads = [compress(torch.zeros_like(p) if g is None else g)
+                 for g, p in zip(grads, params)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(model, batch):

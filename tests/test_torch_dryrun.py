@@ -10,9 +10,11 @@ arguments (``jax.eval_shape`` trees, `repro.sharding.rules` specs on a
 broadcasts and wire bytes: a serving cell gathers those shards (one
 broadcast per block of every split leaf, the leaf's bytes on the wire);
 a train cell's split step gathers the parameters only (the optimizer
-state never); its all_sums are the nll's exchange over the D ranks of
-the data axes (D f32s), one of every parameter's gradient (its bytes)
-and the agreement (one f32).  The skip record and the ``--out`` / ``--skip-existing`` files of
+state never), one unit at a time: a layer's for its forward and again
+for its backward, the embedding's and the final norm's once; its
+all_sums are the nll's exchange over the D ranks of the data axes (D
+f32s), one of every parameter's gradient (its bytes), the global norm's
+(one f64) and the agreement (one f32).  The skip record and the ``--out`` / ``--skip-existing`` files of
 the port's CLI equal the JAX CLI's (run in a subprocess: the JAX module
 sets its device count on import)."""
 from __future__ import annotations
@@ -75,8 +77,9 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
     their bytes) of the JAX cell's arguments laid out by the JAX rules: a
     serving cell's gathers; a train cell's split step (one microbatch, no
     aux and no MoE layer, as the port's dry run trains these archs): the
-    parameters' gathers, then the nll's exchange over the data axes, the
-    gradients' reduction and the agreement."""
+    parameters' gathers (a stacked layer leaf twice: its forward and its
+    backward), then the nll's exchange over the data axes, the gradients'
+    reduction, the global norm's and the agreement."""
     from repro_torch.configs.shapes import SHAPES
     shape = SHAPES[shape_name]
     fm = _mesh(multi_pod)
@@ -103,7 +106,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
                                          JR.make_rules(scfg, fm), fm), 0),
                  (caches, JR.cache_shardings(caches, scfg, fm), None)]
         leaves.append((jax.ShapeDtypeStruct((), jnp.int32), JR.P()))
-    leaves = [(leaf, spec, 1, False) for leaf, spec in leaves]
+    leaves = [(leaf, spec, 1, False, False) for leaf, spec in leaves]
     # the port holds a parameter's stacked layers as tensors apart (one
     # gather each; ``top`` is where the parameter tree's top-level key
     # sits in a path); optimizer and cache leaves stay stacked
@@ -116,20 +119,22 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
             params = top is not None and (top == 0 or keys[0] == "params")
             depth = STACK_DEPTH.get(keys[top], 0) if params else 0
             leaves.append((leaf, spec, math.prod(leaf.shape[:depth]),
-                           params))
+                           params, depth > 0))
     train = shape.kind == "train"
     data = math.prod(fm.shape[a] for a in ("pod", "data")
                      if a in fm.shape)
     split = train and shape.global_batch % data == 0
     arg, count, wire = 0, 0, 0
-    sums, summed = (2, data * 4 + 4) if split else (0, 0)
-    for leaf, spec, tensors, param in leaves:
+    sums, summed = (3, data * 4 + 8 + 4) if split else (0, 0)
+    for leaf, spec, tensors, param, layer in leaves:
         nbytes = int(np.prod(leaf.shape)) * jnp.dtype(leaf.dtype).itemsize
         n = math.prod(_split(spec, fm))
         arg += nbytes // n
+        # a train step gathers a layer's leaf (a stacked one) twice
+        times = 2 if train and layer else 1
         if n > 1 and (param or not train):
-            count += n * tensors
-            wire += nbytes
+            count += n * tensors * times
+            wire += nbytes * times
         if split and param:
             sums += tensors
             summed += nbytes
@@ -146,7 +151,8 @@ def test_smoke_cell_records(arch, shape, multi_pod):
     arg, count, wire, sums, summed = jax_cell_bytes(arch, shape, multi_pod)
     assert rec["memory"]["argument_bytes_per_device"] == arg
     # a train step adds the nll's exchange over the 16 data ranks, the
-    # gradients' reduction and the agreement that it commits
+    # gradients' reduction, the global norm's and the agreement that it
+    # commits
     assert (sums > 0) == shape.startswith("train")
     assert rec["collective_counts"] == dict(
         {"broadcast": count}, **({"all_sum": sums} if sums else {}))

@@ -14,16 +14,18 @@ gates, and bitwise where the arithmetic is one rank's alike.
   LOSS_RTOL of one rank's; the mean loss over the run's 30 batches falls
   from the first parameters to the grid's last (a single step's loss
   moves with its batch by more than 30 steps of warm-up lr lower it).
-- Bitwise: every rank holds the same reduced gradient, and the ranks
-  that hold one block of a leaf hold the same bits; the grid's step-30
+- Bitwise: every rank's blocks of the reduced gradient, gathered whole,
+  are the same, and the ranks that hold one block of a leaf hold the
+  same bits; the grid's step-30
   checkpoint files (written by rank 0 in the one-rank run's format) hold
   every rank's blocks.
 - Between steps each rank holds its blocks alone: their shapes are the
   JAX specs' shard shapes.
 - One step's collectives equal `sharding.layout.step_plan`: the
-  parameters' gathers, the gradient's reduction, the nll's all_sum and
-  the one on which the ranks agree that the step commits; the plan
-  gathers no optimizer leaf.
+  parameters' gathers unit by unit (a layer's again in its backward),
+  the gradient's reduction, the nll's all_sum, the global norm's and the
+  one on which the ranks agree that the step commits; the plan gathers
+  no optimizer leaf.
 - The 2x2 run's step-25 checkpoint restores bitwise onto one rank and
   onto a 2x1 grid; the 2x1 grid splits the batch as the 2x2 one does,
   so its five steps on end bitwise where the 2x2 run ended, and one
@@ -247,10 +249,10 @@ def test_2x2_collectives_per_step_equal_the_plan(runs):
     for r in runs["grid"]:
         plan = r["plan"]
         assert r["counts"]["broadcast"] == plan["broadcast"] > 0
-        # the nll's exchange, every gradient's reduction and the
-        # agreement
+        # the nll's exchange, every gradient's reduction, the global
+        # norm's and the agreement
         n_grads = sum(k.startswith("params.") for k in r["blocks"])
-        assert r["counts"]["all_sum"] == plan["all_sum"] == 2 + n_grads
+        assert r["counts"]["all_sum"] == plan["all_sum"] == 3 + n_grads
         assert plan["gathered"] and all(
             k.startswith("params.") for k in plan["gathered"])
     one = runs["one"]

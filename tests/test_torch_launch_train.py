@@ -95,8 +95,8 @@ def test_build_steps_match_the_jax_launcher(arch, monkeypatch):
     jloss = jax.jit(jax.grad(lambda p, b: jax_loss_fn(jcfg, jt)(p, b)[0]))
     seen, real_clip = [], layout.clip_by_global_norm
 
-    def clip(grads, max_norm):
-        out = real_clip(grads, max_norm)
+    def clip(grads, max_norm, norm=None):
+        out = real_clip(grads, max_norm, norm=norm)
         seen.append(out[0])
         return out
     tol = GRAD_TOL.get(cfg.family, GRAD_TOL["default"])

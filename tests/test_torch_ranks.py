@@ -517,10 +517,10 @@ def test_concurrent_builds_of_one_hash(tmp_path):
 
 # tests/test_torch_launch_faults.py's run (on the CPU; the card test
 # swaps the device): step -> (where, ranks), before the first checkpoint
-# on every rank, after it inside the step's compute on rank 2 (between
-# the nll's exchange and the gradients' reduction: rank 0, on its data
-# line, waits in the reduction until the collective timeout), then
-# before the step on rank 1
+# on every rank, after it inside the step's compute on rank 2 (in the
+# backward, at a unit's gradient reduction: rank 0, on its data line,
+# waits in that reduction until the collective timeout), then before the
+# step on rank 1
 FAULT_ARGV = ["--arch", "gemma3-1b", "--steps", "12", "--batch", "4",
               "--seq", "32", "--lr", "3e-3", "--ckpt-every", "5",
               "--device", "cpu", "--collective-timeout", "20"]
@@ -532,17 +532,17 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
     """One rank of `launch.train.build`'s run through `ft.run_training`
     with faults: ``faults[step]`` is ``(where, ranks)``, ``where``
     "driver" (raised by the fault injector before the step) or "step"
-    (raised inside the step's compute, after the forward, the backward
-    and the nll's exchange, before the gradients' reduction: the other
-    ranks of its data line wait in the reduction), on the listed ranks of
-    the grid.  -> its coordinates, restarts and final blocks."""
+    (raised inside the step's compute, in the backward, at the first
+    unit's gradient reduction, `sharding.fsdp.reduce`: the other ranks
+    of its data line wait in that reduction), on the listed ranks of the
+    grid.  -> its coordinates, restarts and final blocks."""
     torch.set_num_threads(1)
     from repro_torch.ft.driver import FTConfig, run_training
     from repro_torch.launch import train as T
-    from repro_torch.sharding import layout, split
+    from repro_torch.sharding import fsdp, layout
     args = T.parser().parse_args(argv)
     grid = T._mesh(args.mesh, args.device, args.collective_timeout)
-    reduce = split.reduce_grads
+    reduce = fsdp.reduce
     fired, at = set(), {}
 
     def fault(where, step):
@@ -556,18 +556,18 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
         at["step"] = step
         fault("driver", step)
 
-    def faulty_reduce(grads):
+    def faulty_reduce(unit, grads, blocks):
         fault("step", at["step"])
-        return reduce(grads)
+        return reduce(unit, grads, blocks)
     _, state, step_fn, batch_fn, sh = T.build(
         args.arch, smoke=args.smoke, mesh=grid, tcfg=T._tcfg(args),
         batch=args.batch, seq=args.seq)
-    split.reduce_grads = faulty_reduce
+    fsdp.reduce = faulty_reduce
     state, stats = run_training(
         state=state, train_step=step_fn, batch_fn=batch_fn,
         n_steps=args.steps, shardings=sh, fault_injector=driver,
         ft=FTConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every))
-    split.reduce_grads = reduce
+    fsdp.reduce = reduce
     return {"coords": grid.coords, "restarts": stats.restarts,
             "fired": sorted(fired),
             "blocks": {".".join(p): t.detach().cpu().numpy().copy()
@@ -578,13 +578,16 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
     """One rank of a ``spec`` grid ("2x2", "2x1", ...) taking one split
     mesh step (`sharding.layout.mesh_step`) per case.  ``cases`` maps a
     name to (arch, a JAX train state's numpy tree, a numpy global batch,
-    `TrainConfig` keywords with ``optimizer``): the smoke config at f32
+    `TrainConfig` keywords with ``optimizer`` and, optionally, the
+    config's ``remat``): the smoke config at f32
     activations, the state carried across (`from_jax_train_state`) and
     laid out by `layout.state_shardings`, the step on this rank's rows
     (`layout.batch_rows`).  -> {name: its coordinates, the reduced
-    gradients before the clip (numpy on data rank 0 of model column 0,
-    else None), their sha256 digests, the step's metrics, its collectives
-    and `layout.step_plan`, and the sha256 of every block after it}."""
+    gradients before the clip, gathered whole after the step (numpy on
+    data rank 0 of model column 0, else None), their sha256 digests, the
+    digests of this rank's blocks of them (``grad_blocks``), the step's
+    metrics, its collectives and `layout.step_plan`, and the sha256 of
+    every block after it}."""
     import hashlib
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
@@ -602,8 +605,10 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
     out = {}
     for name, (arch, np_state, batch, kw) in cases.items():
         kw = dict(kw)
+        over = {k: kw.pop(k) for k in ("remat",) if k in kw}
         tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
-        cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
+        cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
+                                                   **over)
         state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
         sh = layout.state_shardings(state, cfg, grid, tcfg.opt.name)
         state = layout.shard(state, sh)
@@ -618,17 +623,111 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
                                  tcfg.microbatches)
         M.reset_collective_counts()
         state, metrics = step(state, rows)
+        counts = M.collective_counts()
+        whole = {k: layout.gather_leaf(g, sh["params"][k])
+                 for k, g in seen["g"].items()}
         lead = all(v == 0 for v in grid.coords.values())
         out[name] = {
             "coords": grid.coords,
-            "grads": {k: g.numpy().copy() for k, g in seen["g"].items()}
+            "grads": {k: g.numpy().copy() for k, g in whole.items()}
             if lead else None,
-            "digests": {k: digest(g) for k, g in seen["g"].items()},
+            "digests": {k: digest(g) for k, g in whole.items()},
+            "grad_blocks": {k: digest(g) for k, g in seen["g"].items()},
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "counts": M.collective_counts(),
+            "counts": counts,
             "plan": layout.step_plan(
                 cfg, tcfg, sh, bsh,
                 layout.whole_like(state["params"], sh["params"])),
             "blocks": {".".join(p): digest(t)
                        for p, t in layout.flat(state).items()}}
+    return out
+
+
+# --------------------------------------------------------------------------
+# the unit-by-unit gather's memory (tests/test_torch_layer_gather_memory.py)
+# --------------------------------------------------------------------------
+
+def layer_gather_memory(mesh, spec: str, runs: list) -> list:
+    """One rank of a ``spec`` grid taking one mesh step (`layout
+    .mesh_step`, AdamW, the logdet aux) per run of ``runs`` ((arch,
+    n_layers, remat, the activations' dtype name), the smoke config from
+    seed 0),
+    watched by weak references of this function's own: it wraps
+    `sharding.fsdp.gather` to hold a weak reference to every whole it
+    makes, and `sharding.fsdp.reduce` to hold one to every whole
+    gradient of a split leaf it is handed; at every gather and every
+    reduction it looks at what is alive.  -> per run: the most layer
+    units with a whole alive at once (``units``), whether a root whole
+    was alive there (``root``), the most whole bytes alive at once
+    (``bytes``), the whole gradients found alive after their unit's
+    reduction returned (``grads_after``) and after the step
+    (``grads_at_end``), the gathers made, and the step's loss."""
+    import weakref
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_like
+    from repro_torch.optim import OptConfig
+    from repro_torch.sharding import fsdp, layout
+    from repro_torch.sharding.rules import Sharding, batch_spec
+    from repro_torch.train import TrainConfig, init_train_state, make_grad_fn
+    grid = make_mesh_like(spec, device="cpu", grid=True)
+    real_gather, real_reduce = fsdp.gather, fsdp.reduce
+    out = []
+    for arch, layers, remat, dtype in runs:
+        wholes, grads, seen = [], [], {"units": 0, "root": False,
+                                       "bytes": 0, "grads_after": 0,
+                                       "gathers": 0}
+
+        def look():
+            live = [(u, n) for u, r, n in wholes if r() is not None]
+            seen["units"] = max(seen["units"], len({u for u, _ in live
+                                                    if u != ""}))
+            seen["root"] = seen["root"] or any(u == "" for u, _ in live)
+            seen["bytes"] = max(seen["bytes"], sum(n for _, n in live))
+            seen["grads_after"] += sum(r() is not None and done
+                                       for r, done in grads)
+
+        def gather(unit, blocks):
+            got = real_gather(unit, blocks)
+            seen["gathers"] += 1
+            for w, b in zip(got, blocks):
+                if w is not b:
+                    wholes.append((unit.name, weakref.ref(w),
+                                   w.numel() * w.element_size()))
+            look()
+            return got
+
+        def reduce(unit, gs, blocks):
+            look()
+            mine = [[weakref.ref(g), False] for g, b in zip(gs, blocks)
+                    if g is not None and g.numel() > b.numel()]
+            got = real_reduce(unit, gs, blocks)
+            grads.extend(mine)
+            for m in mine:
+                m[1] = True
+            return got
+
+        tcfg = TrainConfig(opt=OptConfig(name="adamw"), logdet_reg=0.05)
+        cfg = get_config(arch, smoke=True).replace(
+            dtype=getattr(torch, dtype), n_layers=layers, remat=remat)
+        state = init_train_state(cfg, tcfg, generator=torch.Generator()
+                                 .manual_seed(0), device="cpu")
+        sh = layout.state_shardings(state, cfg, grid, "adamw")
+        state = layout.shard(state, sh)
+        bsh = {k: Sharding(grid, s) for k, s in batch_spec(
+            cfg, grid, kind="train", batch=4).items()}
+        rng = np.random.default_rng(0)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)))
+        rows = layout.batch_rows({"tokens": tok,
+                                  "targets": torch.roll(tok, -1, 1)}, bsh)
+        step = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt, sh, bsh)
+        fsdp.gather, fsdp.reduce = gather, reduce
+        try:
+            state, metrics = step(state, rows)
+        finally:
+            fsdp.gather, fsdp.reduce = real_gather, real_reduce
+        out.append(dict(seen, grads_at_end=sum(r() is not None
+                                               for r, _ in grads),
+                        grads_seen=len(grads),
+                        loss=float(metrics["loss"])))
     return out

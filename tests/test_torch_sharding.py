@@ -382,10 +382,12 @@ def test_parse_mesh_is_the_one_reading_of_a_spec():
 
 
 def test_step_plan_adds_the_agreeing_all_sum_on_a_grid():
-    """The split step's plan on a 2x2 grid: the parameter's gather (four
-    blocks), the nll's exchange (two f32s), its gradient's reduction (one
-    all_sum) and the all_sum that agrees the step commits; nothing on one
-    rank."""
+    """The split step's plan on a 2x2 grid: a root parameter's gather
+    (four blocks, once a microbatch), a layer unit's parameter gathered
+    for its forward and again for its backward (remat), the nll's
+    exchange (two f32s), one reduction of each gradient, the global
+    norm's all_sum (one f64) and the one that agrees the step commits
+    (one f32); nothing on one rank."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import GridMesh, make_mesh_like
     from repro_torch.sharding import layout
@@ -397,8 +399,16 @@ def test_step_plan_adds_the_agreeing_all_sum_on_a_grid():
     sh = {"params": {"w": Sharding(grid, P("data", "model"))}}
     bsh = {"tokens": Sharding(grid, P("data"))}
     assert layout.step_plan(cfg, TrainConfig(), sh, bsh, params) == {
-        "broadcast": 4, "bytes": 8 * 4 * 4, "all_sum": 1 + 1 + 1,
-        "all_sum_bytes": 2 * 4 + 8 * 4 * 4 + 4, "gathered": ["params.w"]}
+        "broadcast": 4, "bytes": 8 * 4 * 4, "all_sum": 1 + 1 + 1 + 1,
+        "all_sum_bytes": 2 * 4 + 8 * 4 * 4 + 8 + 4, "gathered": ["params.w"]}
+    params["blocks.0.w"] = torch.empty(8, 4, device="meta")
+    sh["params"]["blocks.0.w"] = Sharding(grid, P("data"))
+    assert layout.step_plan(cfg, TrainConfig(), sh, bsh, params) == {
+        "broadcast": 4 + 2 * 2, "bytes": 8 * 4 * 4 * 3,
+        "all_sum": 1 + 2 + 1 + 1,
+        "all_sum_bytes": 2 * 4 + 2 * 8 * 4 * 4 + 8 + 4,
+        "gathered": ["params.blocks.0.w", "params.w"]}
+    del params["blocks.0.w"], sh["params"]["blocks.0.w"]
     one = make_mesh_like("1x1", device="cpu")
     sh1 = {"params": {"w": Sharding(one, P("data", "model"))}}
     bsh1 = {"tokens": Sharding(one, P("data"))}

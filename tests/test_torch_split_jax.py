@@ -16,14 +16,19 @@ state carried across (`from_jax_train_state`), batch 4 x 16:
   (checked here): the capacity, the slots and the balance aux are the
   global batch's.
 
-Held: the reduced gradient before the clip within GRAD_TOL of the
-largest element of ``jax.grad`` of the JAX loss (the phase-14 gate),
-the step's metrics within METRIC_RTOL of the jitted step's, every rank's
-reduced gradient bitwise the same, the ranks that hold one block after
-the step bitwise alike, and the step's collectives equal to
-`layout.step_plan`, which gathers no optimizer leaf.  A per-rank
-capacity, a per-rank covariance or a sum in the backward of the ranks'
-reductions each fails these gates (shown by mutation)."""
+Held: the reduced gradient before the clip (each rank's blocks, gathered
+whole after the step) within GRAD_TOL of the largest element of
+``jax.grad`` of the JAX loss (the phase-14 gate), the step's metrics
+within METRIC_RTOL of the jitted step's, the gathered gradient bitwise
+the same on every rank and every rank's gradient blocks bitwise its
+blocks of it (so the ranks that hold one block hold the same bits), the
+ranks that hold one block of a leaf after the step bitwise alike, and
+the step's collectives equal to `layout.step_plan`, which gathers no
+optimizer leaf.  A per-rank capacity, a per-rank covariance or a sum in
+the backward of the ranks' reductions each fails these gates (shown by
+mutation).  The parameters are gathered one unit at a time
+(`sharding.fsdp`; tests/test_torch_layer_gather*.py hold its other
+cases)."""
 from __future__ import annotations
 
 import pickle
@@ -177,12 +182,11 @@ def test_every_rank_reduces_the_same_bits(runs, arch):
     from repro_torch.optim import OptConfig
     from repro_torch.sharding import layout
     from repro_torch.train import TrainConfig
+    import hashlib
     ranks = [r[arch] for r in runs["ranks"]]
     for r in ranks[1:]:
         assert r["digests"] == ranks[0]["digests"], r["coords"]
         assert r["metrics"] == ranks[0]["metrics"], r["coords"]
-    # the ranks that hold one block of a leaf after the step hold the same
-    # bits: each updated it from the same reduced gradient
     cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
     kw = dict(CASES[arch])
     tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
@@ -190,6 +194,21 @@ def test_every_rank_reduces_the_same_bits(runs, arch):
                                  device="cpu")
     sh = layout.flat(layout.state_shardings(
         state, cfg, GridMesh(("data", "model"), (2, 2)), tcfg.opt.name))
+    # each rank keeps its blocks of the reduced gradient: bitwise its
+    # blocks of the gathered gradient, so the ranks that hold one block
+    # hold the same bits
+    split = 0
+    for k, g in ranks[0]["grads"].items():
+        s = sh[("params",) + tuple(k.split("."))]
+        for r in ranks:
+            blk = np.ascontiguousarray(
+                g[layout.block_slices(g.shape, s, r["coords"])])
+            assert r["grad_blocks"][k] == hashlib.sha256(
+                blk.data).hexdigest(), (k, r["coords"])
+            split += blk.shape != g.shape
+    assert split > 0
+    # the ranks that hold one block of a leaf after the step hold the same
+    # bits: each updated it from the same reduced gradient
     shared = 0
     for path, t in layout.flat(state).items():
         held = {}
@@ -210,10 +229,10 @@ def test_split_step_collectives_equal_the_plan(runs, arch):
         assert plan["gathered"] and all(
             k.startswith("params.") for k in plan["gathered"])
     # the nll; the MoE layers exchange twice a forward, and remat runs
-    # each again; the aux's two; one all_sum of every gradient; the
-    # agreement
+    # each again; the aux's two; one all_sum of every gradient; the global
+    # norm's; the agreement
     plan = runs["ranks"][0][arch]["plan"]
     moe = 2 if arch == "qwen2-moe-a2.7b" else 0
     aux = 2 if CASES[arch].get("logdet_reg") else 0
     grads = len(runs["ranks"][0][arch]["digests"])
-    assert plan["all_sum"] == 1 + aux + moe * 2 * 2 + grads + 1
+    assert plan["all_sum"] == 1 + aux + moe * 2 * 2 + grads + 1 + 1

@@ -4,9 +4,9 @@ one-rank step (`sharding.layout`, `optim` ``blocks=``).
 - The optimizer on blocks, in one process with no ranks: on the
   qwen2.5-3b and zamba2-7b smoke trees laid out on a 2x2 ("data",
   "model") grid by `layout.state_shardings`, each rank's update of its
-  blocks (from the whole gradient, which every rank holds) is bitwise
-  that block of the whole update, for AdamW, Adafactor and SGD, over two
-  steps; Adafactor's moments are whole on every rank and bitwise the
+  blocks (AdamW and SGD from its blocks of the gradient, Adafactor from
+  the whole gradient) is bitwise that block of the whole update, over
+  two steps; Adafactor's moments are whole on every rank and bitwise the
   whole update's.
 - A rank's rows (`layout.batch_rows`): its share of every global
   microbatch, in microbatch order.
@@ -14,9 +14,10 @@ one-rank step (`sharding.layout`, `optim` ``blocks=``).
   process (`test_torch_ranks.split_step`; gemma3-1b and qwen2-moe-a2.7b
   smoke, f32 activations, batch 8 x 16, gemma3 with the logdet aux):
   the reduced gradient within GRAD_TOL of the largest element, the
-  metrics within METRIC_RTOL, every rank's gradient bitwise the same,
-  and two reductions of the gradient a step (one a microbatch) in the
-  collectives, which equal `layout.step_plan`."""
+  metrics within METRIC_RTOL, every rank's gradient (its blocks gathered
+  whole) bitwise the same, and two reductions of the gradient a step
+  (one a microbatch) in the collectives, which equal
+  `layout.step_plan`."""
 from __future__ import annotations
 
 import copy
@@ -69,9 +70,13 @@ def test_a_blocks_update_is_the_whole_updates_block(arch, opt):
         mine = layout.shard(copy.deepcopy(state), sh)
         psh = sh["params"]
         for g in grads:
-            update(g, mine["opt"], mine["params"],
-                   blocks={n: layout.block_slices(x.shape, psh[n])
-                           for n, x in g.items()})
+            cut = {n: layout.block_slices(x.shape, psh[n])
+                   for n, x in g.items()}
+            if opt in layout.WHOLE_LEAF:
+                update(g, mine["opt"], mine["params"], blocks=cut)
+            else:
+                update({n: x[cut[n]] for n, x in g.items()}, mine["opt"],
+                       mine["params"])
         fsh = layout.flat(sh)
         for p, t in layout.flat(mine).items():
             if p[0] == "step":
@@ -130,9 +135,10 @@ def test_two_microbatches_on_a_2x1_grid_are_one_ranks(micro, arch):
     assert one["counts"] == {"broadcast": 0, "all_sum": 0}
     # each microbatch exchanges its statistics -- the nll, the aux's mean
     # and covariance, two a MoE layer and forward (remat runs the forward
-    # again) -- and reduces every gradient by one all_sum; then the
-    # agreement.  The broadcasts are the parameters' gathers alone.
+    # again) -- and reduces every gradient by one all_sum; then the global
+    # norm's and the agreement.  The broadcasts are the parameters'
+    # gathers alone.
     n = len(one["grads"])
     assert grid[0]["counts"]["broadcast"] == grid[0]["plan"]["broadcast"]
     per_micro = {"gemma3-1b": 1 + 2, "qwen2-moe-a2.7b": 1 + 2 * 2 * 2}[arch]
-    assert grid[0]["counts"]["all_sum"] == 2 * (per_micro + n) + 1
+    assert grid[0]["counts"]["all_sum"] == 2 * (per_micro + n) + 2

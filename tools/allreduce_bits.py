@@ -1,8 +1,8 @@
 """Does one all_sum give every rank the same bits?
 
-`repro_torch.sharding.split.reduce_grads` sums each rank's partial
-gradient by one `core.mesh.all_sum` and every rank then updates its
-blocks from its own copy of the sum, so the split step needs every rank
+`repro_torch.sharding.fsdp.reduce` sums each rank's partial gradient
+by one `core.mesh.all_sum` and every rank then keeps and updates its
+blocks of its own copy of the sum, so the split step needs every rank
 to hold bitwise the same result.  This script checks it for a backend:
 each of ``--ranks`` ranks fills tensors of several sizes and dtypes with
 its own random values (magnitudes spread over six decades, so that the

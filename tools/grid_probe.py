@@ -2,29 +2,33 @@
 """The full-width train state on a 2x2 grid of gloo ranks sharing one
 card, timed per rank, with the card's memory.
 
-    python3 tools/grid_probe.py [--layers 6 2] [--optimizer adamw]
-        [--steps 2] [--timeout 240] [--log-dir build/grid_probe]
+    python3 tools/grid_probe.py [--layers 26 6 2] [--optimizer adamw]
+        [--steps 2] [--timeout 600] [--log-dir build/grid_probe]
 
 For each ``--layers`` value, four ranks (`core.mesh.run_ranks`, gloo,
 one card) each build `launch.train`'s gemma3-1b state at full width cut
-to that depth on a ("data", "model") 2x2 grid, time one gather of the
-parameters (`sharding.layout.gather`: what a step gathers), then
-``--steps`` split mesh steps (`layout.mesh_step`: the parameters
-gathered, the rank's rows of the batch, the gradients reduced over the
-data axis, its optimizer on its blocks), each to a
-`torch.cuda.synchronize`, with the rank's peak allocation and the card's
-free memory after it; first the raw broadcast of a 64 MB and a 512 MB
-tensor on the card and on the host over the four ranks.  Each
-rank appends its progress to ``<log-dir>/rank<r>.log`` as it goes, so a
-run that stops shows where.  Prints one ``[grid_probe]`` JSON line per
-depth and the card's name and power limit.  About two minutes on an
-H100.  Needs a CUDA device and exits 2 without one; it never falls back
-to the CPU.
+to that depth on a ("data", "model") 2x2 grid, then take ``--steps``
+mesh steps (`layout.mesh_step`: the parameters gathered one unit at a
+time, `sharding.fsdp`; the rank's rows of the batch; each unit's
+gradient reduced over the data axis in its backward; its optimizer on
+its blocks), each to a `torch.cuda.synchronize`, with the rank's peak
+allocation, the high-water of whole parameter bytes alive at once
+(`fsdp.watching`) and the card's free memory after it; first the raw
+broadcast of a 64 MB and a 512 MB tensor on the card and on the host
+over the four ranks.  Each rank appends its progress to
+``<log-dir>/rank<r>.log`` as it goes, so a run that stops shows where.
+Prints one ``[grid_probe]`` JSON line per depth, then one
+``[grid_probe] growth`` line: the growth of rank 0's peak (its last
+step's) per added layer between the deepest and the shallowest depth,
+beside one layer's f32 bytes; and the card's name and power limit.
+About five minutes on an H100 at the default depths.  Needs a CUDA
+device and exits 2 without one; it never falls back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -61,7 +65,7 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
     """One rank (spawned): see the module docstring."""
     import torch
     from repro_torch.launch import train as T
-    from repro_torch.sharding import layout
+    from repro_torch.sharding import fsdp, layout
     torch.backends.cuda.matmul.allow_tf32 = False
     r = mesh.rank
     _log(log_dir, r, "start layers", layers, "free",
@@ -78,27 +82,23 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     _log(log_dir, r, "built resident", resident)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    whole = layout.gather(st["params"], sh["params"])
-    torch.cuda.synchronize()
-    gather_s = time.perf_counter() - t0
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in layout.flat(whole).values())
-    _log(log_dir, r, "gather s", gather_s, "bytes", nbytes)
-    layout.shard(whole, sh["params"])               # the model's blocks
-    del whole
-    torch.cuda.empty_cache()
+    # one layer's whole parameters in f32 (a unit of the stack)
+    layer = sum(4 * math.prod(layout.whole_shape(p.shape, sh["params"][n]))
+                for n, p in st["params"].named_parameters()
+                if fsdp.unit_of(n) == "blocks.0")
     out = {"rank": r, "coords": grid.coords, "broadcast_s": rates,
-           "resident_bytes": resident, "gather_s": gather_s,
-           "gathered_bytes": nbytes, "steps": []}
+           "resident_bytes": resident, "layer_f32_bytes": layer,
+           "steps": []}
     for i in range(steps):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        st, m = step_fn(st, batch_fn(i))
+        with fsdp.watching() as high:
+            st, m = step_fn(st, batch_fn(i))
         torch.cuda.synchronize()
         rec = {"s": time.perf_counter() - t0,
                "peak_bytes": torch.cuda.max_memory_allocated(),
+               "whole_peak_bytes": high.bytes,
+               "whole_peak_units": high.units,
                "card_free_bytes": torch.cuda.mem_get_info()[0],
                "loss": float(m["loss"])}
         out["steps"].append(rec)
@@ -108,10 +108,10 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, nargs="+", default=[6, 2])
+    ap.add_argument("--layers", type=int, nargs="+", default=[26, 6, 2])
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--timeout", type=float, default=240.0)
+    ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--log-dir", default=str(ROOT / "build" / "grid_probe"))
     args = ap.parse_args(argv)
     import torch
@@ -126,6 +126,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     failed = False
+    peaks = {}
     for layers in args.layers:
         t0 = time.perf_counter()
         try:
@@ -135,12 +136,21 @@ def main(argv=None) -> int:
                                     args.log_dir))
             rec = {"layers": layers, "optimizer": args.optimizer,
                    "ranks": ranks}
+            peaks[layers] = (ranks[0]["steps"][-1]["peak_bytes"],
+                             ranks[0]["layer_f32_bytes"])
         except Exception as e:  # noqa: BLE001 -- report, go on
             failed = True
             rec = {"layers": layers, "optimizer": args.optimizer,
                    "error": repr(e)[:2000]}
         rec["seconds"] = time.perf_counter() - t0
         print("[grid_probe]", json.dumps(rec), flush=True)
+    if len(peaks) > 1:
+        hi, lo = max(peaks), min(peaks)
+        growth = (peaks[hi][0] - peaks[lo][0]) / (hi - lo)
+        print("[grid_probe] growth", json.dumps({
+            "layers": [lo, hi], "peak_bytes": [peaks[lo][0], peaks[hi][0]],
+            "per_layer_bytes": growth, "layer_f32_bytes": peaks[hi][1],
+            "per_layer_over_layer_f32": growth / peaks[hi][1]}), flush=True)
     return 1 if failed else 0
 
 
