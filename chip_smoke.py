@@ -255,9 +255,11 @@ printed line each, any failure ends the run:
             shapes of the rules' shards, the last step's collectives
             equal to `layout.step_plan` (no optimizer leaf gathered); K1
             (d_model - 1) a step on every rank; the grid's
-            step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x1 grid
+            step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x2 grid
             bitwise the saved blocks and ending on the 2x2 run's last
-            checkpoint bit for bit, and onto one rank; then the same grid
+            checkpoint bit for bit, onto a 2x1 grid bitwise the saved
+            blocks and on within LAUNCH_LOSS_RTOL of the 2x2 run, and
+            onto one rank; then the same grid
             at full width and depth (gemma3-1b at LAUNCH_WIDE_LAYERS
             layers, LAUNCH_WIDE_STEPS steps of LAUNCH_WIDE_SHAPE, the
             aux, f32, its final checkpoint gathered and written): the
@@ -4759,8 +4761,10 @@ LAUNCH_STEPS, LAUNCH_SHAPE, LAUNCH_MICRO = 3, (4, 256), 2
 # ::test_train_cli_multidevice) plus the aux at TRAIN_LOGDET (K1 63 times
 # a step on every rank), f32 activations, on a 2x2 grid of gloo ranks
 # sharing the card, against one rank in this process; the grid's
-# step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x1 grid of two gloo
-# ranks (the same data split: bitwise the 2x2 run's end) and onto one rank
+# step-LAUNCH_RESTORE_AT checkpoint restored onto a 2x2 grid (bitwise the
+# 2x2 run's end), onto a 2x1 grid of two gloo ranks (the same data split,
+# the model line's split products summed in one rank: on within
+# LAUNCH_LOSS_RTOL of the 2x2 run) and onto one rank
 LAUNCH_ARGV = ["--arch", "gemma3-1b", "--steps", "30", "--batch", "4",
                "--seq", "32", "--lr", "3e-3", "--ckpt-every", "25"]
 LAUNCH_GRID, LAUNCH_RESTORE_AT, LAUNCH_TIMEOUT = (2, 2), 25, 600
@@ -4769,6 +4773,12 @@ LAUNCH_GRID, LAUNCH_RESTORE_AT, LAUNCH_TIMEOUT = (2, 2), 25, 600
 LAUNCH_GRID_GATHER_ALL = {"broadcasts_per_step": 174, "all_sums_per_step": 60,
                     "bytes_per_step": 1.84e6,
                     "rank_step_s_median": [0.44, 0.53]}
+# the same grid's step before the model split, the parameters gathered one
+# unit at a time over the whole grid (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+LAUNCH_GRID_DATA_ONLY = {"broadcasts_per_step": 342, "all_sums_per_step": 61,
+                         "bytes_per_step": 2.68e6,
+                         "rank_step_s_median": [0.54, 0.94]}
 # the split step against one rank (f32): the first step's reduced gradient
 # within TRAIN_GRAD_TOL of its largest element, its metrics within
 # TRAIN_METRIC_RTOL (grad_norm TRAIN_NORM_RTOL), each step's loss within
@@ -4793,6 +4803,17 @@ LAUNCH_WIDE_TIMEOUT = 600
 LAUNCH_WIDE_GATHER_ALL = {"layers": 2, "bytes_per_step": 2.85e9,
                     "rank_peak_bytes": 6.40e9, "rank_step_s": [3.60, 4.21],
                     "rank_peak_bytes_26_layers_estimated": 16.5e9}
+# the 26-layer grid before the model split (every rank of a model line
+# computing its data line's whole step; PERF.md §6; NVIDIA H100 80GB
+# HBM3, 700.00 W): the bytes a step gathered and reduced, its collectives,
+# a rank's peak, the whole parameter bytes alive at once, its step s
+LAUNCH_WIDE_DATA_ONLY = {"gathered_bytes_per_step": 6790537728,
+                         "reduced_bytes_per_step": 4009877012,
+                         "broadcasts_per_step": 1462,
+                         "all_sums_per_step": 241,
+                         "rank_peak_bytes": 6904838144,
+                         "rank_whole_peak_bytes": 1.315e9,
+                         "rank_step_s": [13.40, 24.40]}
 # (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
 # card against CPU on the same parameters; greedy tokens equal until the
 # CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
@@ -4801,20 +4822,28 @@ LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
 # fast skips the memory tracker's pass -- and what the JAX rules give for
 # the cell: (argument bytes a device, broadcasts and their bytes, all_sums
 # and their bytes: a train cell's split step gathers the parameters one
-# unit at a time, a layer's twice (its forward and its backward), and
-# all_sums each gradient, the nll, the global norm and the agreement over
-# the 16 data ranks; a serving cell gathers its arguments);
+# unit at a time, a layer's twice (its forward and its backward), a leaf
+# the model line splits over the 16 data ranks only (its model block),
+# and all_sums each gradient (a split leaf's block), the nll, the global
+# norm and the agreement over the 16 data ranks, and the model line's
+# activations (a split MLP's output twice and its input's gradient a
+# layer, the vocab-parallel lookup, each CE chunk's exchange twice and
+# its gradient); a serving cell gathers its arguments;
 # tests/test_torch_dryrun.py derives these from the JAX package).
 # DRYRUN_GATHER_ALL: the earlier step's figures for the train cell, every
 # parameter gathered whole once a step (its temp bytes from the CLI's
-# memory pass; PERF.md §6)
+# memory pass; PERF.md §6); DRYRUN_DATA_ONLY: the step before the model
+# split, every leaf gathered over the whole grid
 DRYRUN_CELLS = [
     ("gemma3-1b", "train_4k", False, False,
-     (101347048, 45200, 6790537728, 239, 3999251020)),
+     (101347048, 7520, 999940608, 342, 12793477708)),
     ("llama4-maverick-400b-a17b", "decode_32k", True, False,
      (3341134676, 135232, 1620049078784, 0, 0))]
 DRYRUN_GATHER_ALL = {"gemma3-1b|train_4k": {"bytes_per_step": 7998501956,
                                       "temp_bytes": 58.8e9}}
+DRYRUN_DATA_ONLY = {"gemma3-1b|train_4k": {
+    "broadcasts": 45200, "broadcast_bytes": 6790537728, "all_sums": 239,
+    "all_sum_bytes": 3999251020, "temp_bytes": 58.83e9}}
 
 
 def rule_shardings(cfg, state, dims) -> tuple:
@@ -4870,9 +4899,13 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
     first reduced gradient the same bits; each leaf's blocks of the rules'
     shard shapes, and the ranks that hold one block the same bits (each
     updated it from the same gradient); the last step's collectives equal
-    to `layout.step_plan`, which gathers no optimizer leaf.  ``state`` is
-    a whole one-rank state of the same config (its shapes).  -> leaves
-    split / whole and a rank's resident bytes."""
+    to `layout.step_plan`, which gathers no optimizer leaf; every rank of
+    a model line computing its own share of the heads, mlp columns and
+    vocab rows (`sharding.tensor.recording`: a dim that divides the model
+    axis split, its block at the rank's model coordinate, else whole).
+    ``state`` is a whole one-rank state of the same config (its shapes).
+    -> leaves split / whole, a rank's resident bytes, the shares the
+    ranks of model line 0 reported."""
     import math
     from repro_torch.sharding.layout import block_slices, flat, shard_shape
     want = {".".join(p): t for p, t in flat(state).items()}
@@ -4885,6 +4918,13 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
             f"{r['coords']}'s reduced gradient differs from rank 0's")
         require(set(r["blocks"]) == set(want), f"{what}: rank "
                 f"{r['coords']} holds other leaves than the one-rank state")
+        m, msize = r["coords"]["model"], LAUNCH_GRID[1]
+        require({"heads", "mlp", "vocab"} <= set(r["shares"]) and all(
+            (n, first) == ((whole // msize, m * whole // msize)
+                           if whole % msize == 0 else (whole, None))
+            for seen in r["shares"].values() for n, whole, first in seen),
+            f"{what}: rank {r['coords']} computed the shares "
+            f"{r['shares']} (a model line of {msize})")
         plan = r["plan"]
         require(r["counts"] == {"broadcast": plan["broadcast"],
                                 "all_sum": plan["all_sum"]}
@@ -4910,6 +4950,9 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
                 for k, v in want.items())
     return {"leaves_split": split, "leaves_whole": len(want) - split,
             "leaves_shared_bitwise": shared,
+            "shares_model_line_0": {str(r["coords"]): r["shares"]
+                                    for r in ranks
+                                    if r["coords"]["data"] == 0},
             "resident_bytes_rank0": sum(
                 math.prod(shard_shape(v.shape, sh[k])) * v.element_size()
                 for k, v in want.items()),
@@ -5022,10 +5065,14 @@ def launch_grid(smi: str) -> dict:
     gradient, its metrics, every step's loss, the mean loss over the
     run's batches falling from the first parameters to the grid's last),
     `hold_grid`, K1 on every rank; then the grid's step-25 checkpoint
-    restored onto a 2x1 grid, bitwise the saved blocks and ending on the
-    2x2 run's step-30 checkpoint files bit for bit, and onto one rank
-    here, bitwise the saved state and on within the loss gate."""
+    restored onto a 2x2 grid, bitwise the saved blocks and ending on the
+    2x2 run's step-30 checkpoint files bit for bit; onto a 2x1 grid,
+    bitwise the saved blocks and on within the loss gate of the 2x2 run
+    (its model line's split products are one rank's whole ones there);
+    and onto one rank here, bitwise the saved state and on within the
+    loss gate."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.mesh import run_ranks
@@ -5050,41 +5097,53 @@ def launch_grid(smi: str) -> dict:
         one_k1 = one_launches["rank1_update"]
         one_s = time.perf_counter() - t0
         cfg = one["params"].cfg
-        layout_out = hold_grid(ranks, cfg, one, "launch grid")
-        # the grid's last parameters, from its step-30 checkpoint
-        last, _ = ckpt.restore(f"{tmp}/grid", T.build(
-            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
-            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq,
-            dtype=f32)[1], device="cuda")
-        _, first_state, _, batch_fn, _ = T.build(
-            args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
-            tcfg=T._tcfg(args), batch=args.batch, seq=args.seq, dtype=f32)
-        loss_fn = make_loss_fn(cfg, T._tcfg(args))
-        with torch.no_grad():
-            held = [sum(float(loss_fn(s["params"], batch_fn(i))[0])
-                        for i in range(args.steps)) / args.steps
-                    for s in (first_state, last)]
-        del first_state, last
-        # elastic: onto a 2x1 grid (the same data split), and one rank
-        restored2 = run_ranks(
-            T.rank_restore, 2, backend="gloo", device="cuda",
-            timeout=LAUNCH_TIMEOUT,
-            args=(argv + ["--device", "cuda", "--ckpt-dir",
-                          f"{tmp}/restored2"], "2x1", f"{tmp}/grid",
-                  LAUNCH_RESTORE_AT, None, f32))
+
+        def restore(onto, n):
+            return run_ranks(
+                T.rank_restore, n, backend="gloo", device="cuda",
+                timeout=LAUNCH_TIMEOUT,
+                args=(argv + ["--device", "cuda", "--ckpt-dir",
+                              f"{tmp}/restored{n}"], onto, f"{tmp}/grid",
+                      LAUNCH_RESTORE_AT, None, f32))
+        # the restores onto the layout it was saved from (bitwise the 2x2
+        # run's end) and, elastic, onto a 2x1 grid (the same data split),
+        # both at once and beside the work below (their seconds are not
+        # measured)
+        with ThreadPoolExecutor(2) as pool:
+            restoring = [pool.submit(restore, spec,
+                                     LAUNCH_GRID[0] * LAUNCH_GRID[1]),
+                         pool.submit(restore, "2x1", 2)]
+            layout_out = hold_grid(ranks, cfg, one, "launch grid")
+            # the grid's last parameters, from its step-30 checkpoint
+            last, _ = ckpt.restore(f"{tmp}/grid", T.build(
+                args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+                tcfg=T._tcfg(args), batch=args.batch, seq=args.seq,
+                dtype=f32)[1], device="cuda")
+            _, first_state, _, batch_fn, _ = T.build(
+                args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+                tcfg=T._tcfg(args), batch=args.batch, seq=args.seq,
+                dtype=f32)
+            loss_fn = make_loss_fn(cfg, T._tcfg(args))
+            with torch.no_grad():
+                held = [sum(float(loss_fn(s["params"], batch_fn(i))[0])
+                            for i in range(args.steps)) / args.steps
+                        for s in (first_state, last)]
+            del first_state, last
+            # elastic, onto one rank
+            one_restored = T.rank_restore(
+                None, argv + ["--device", "cuda", "--ckpt-dir",
+                              f"{tmp}/restored1"], "1x1", f"{tmp}/grid",
+                LAUNCH_RESTORE_AT, dtype=f32)
+            at1, cont = one_restored["at"], one_restored["losses"]
+            restored1 = one_restored["restored_bitwise"]
+            restored4, restored2 = (f.result() for f in restoring)
         end = f"step_{args.steps:08d}"
         files = sorted(p.name for p in Path(f"{tmp}/grid/{end}").iterdir())
         end_same = files == sorted(
-            p.name for p in Path(f"{tmp}/restored2/{end}").iterdir()) and all(
+            p.name for p in Path(f"{tmp}/restored4/{end}").iterdir()) and all(
             Path(f"{tmp}/grid/{end}/{f}").read_bytes()
-            == Path(f"{tmp}/restored2/{end}/{f}").read_bytes()
+            == Path(f"{tmp}/restored4/{end}/{f}").read_bytes()
             for f in files)
-        one_restored = T.rank_restore(
-            None, argv + ["--device", "cuda", "--ckpt-dir",
-                          f"{tmp}/restored1"], "1x1", f"{tmp}/grid",
-            LAUNCH_RESTORE_AT, dtype=f32)
-        at1, restored1 = one_restored["at"], one_restored["restored_bitwise"]
-        cont = one_restored["losses"]
     # the gates against one rank
     want = first["grads"]
     gmax = max(float(g.abs().max()) for g in want.values())
@@ -5119,9 +5178,22 @@ def launch_grid(smi: str) -> dict:
         cfg.d_model - 1), f"launch grid: K1 {k1} on the ranks (want "
         f"{want_k1} each), {one_k1} on one rank")
     require(all(r["at"] == LAUNCH_RESTORE_AT and r["restored_bitwise"]
-                for r in restored2) and end_same, "launch grid: the 2x2 "
-            "checkpoint restored onto 2x1 is not bitwise the saved blocks, "
+                and r["losses"] == ranks[0]["losses"][LAUNCH_RESTORE_AT:]
+                for r in restored4) and end_same, "launch grid: the 2x2 "
+            "checkpoint restored onto 2x2 is not bitwise the saved blocks, "
             "or ends off the 2x2 run's last checkpoint")
+    # the 2x1 grid splits the batch as the 2x2 one, but sums the products
+    # that the 2x2 grid's model line splits in one rank: on within the
+    # loss gate of the 2x2 run it continues, the same on both ranks
+    end_err = max(abs(a - b) / abs(b) for a, b in
+                  zip(restored2[0]["losses"], ranks[0]["losses"][
+                      LAUNCH_RESTORE_AT:]))
+    require(all(r["at"] == LAUNCH_RESTORE_AT and r["restored_bitwise"]
+                and r["losses"] == restored2[0]["losses"]
+                for r in restored2) and len(restored2[0]["losses"]) == 5
+            and end_err <= LAUNCH_LOSS_RTOL, "launch grid: the 2x2 "
+            "checkpoint restored onto 2x1 is not bitwise the saved blocks, "
+            f"or goes on off the 2x2 run's losses by {end_err}")
     cont_err = max(abs(a - b) / abs(b) for a, b in
                    zip(cont, losses[LAUNCH_RESTORE_AT:]))
     require(at1 == LAUNCH_RESTORE_AT and restored1 and len(cont) == 5
@@ -5147,9 +5219,14 @@ def launch_grid(smi: str) -> dict:
             "loss_err_rel": loss_err, "loss_first_last": [losses[0],
                                                          losses[-1]],
             "held_loss_first_last_params": held,
-            "restored_2x1_bitwise_and_end": end_same,
+            "restored_2x2_bitwise_and_end": end_same,
+            "restored_2x1_loss_err_rel": end_err,
             "restored_1x1_loss_err_rel": cont_err,
-            "gather_all_step": LAUNCH_GRID_GATHER_ALL, "card": smi,
+            "model_all_sums_per_step": ranks[0]["plan"]["model_all_sum"],
+            "model_all_sum_bytes_per_step": ranks[0]["plan"][
+                "model_all_sum_bytes"],
+            "gather_all_step": LAUNCH_GRID_GATHER_ALL,
+            "data_only_step": LAUNCH_GRID_DATA_ONLY, "card": smi,
             "note": "four ranks share one card; collectives pass through "
                     "host memory: not a scaling figure"}
 
@@ -5250,10 +5327,16 @@ def launch_grid_wide(smi: str) -> dict:
             "bytes_per_step": ranks[0]["plan"]["bytes"]
             + ranks[0]["plan"]["all_sum_bytes"],
             "gathered_bytes_per_step": ranks[0]["plan"]["bytes"],
+            "reduced_bytes_per_step": ranks[0]["plan"]["all_sum_bytes"]
+            - ranks[0]["plan"]["model_all_sum_bytes"],
+            "model_all_sums_per_step": ranks[0]["plan"]["model_all_sum"],
+            "model_all_sum_bytes_per_step": ranks[0]["plan"][
+                "model_all_sum_bytes"],
             **layout_out, "k1_per_rank": k1, "k1_one_rank": one_k1,
             "first_grad_err_of_max": worst / gmax,
             "losses": losses, "loss_err_rel": loss_err,
-            "gather_all_step": LAUNCH_WIDE_GATHER_ALL, "card": smi}
+            "gather_all_step": LAUNCH_WIDE_GATHER_ALL,
+            "data_only_step": LAUNCH_WIDE_DATA_ONLY, "card": smi}
 
 
 def launch_serve(seed: int, smi: str) -> dict:
@@ -5348,29 +5431,37 @@ def launch_dryrun() -> dict:
                 f"({rec['memory'].get('temp_bytes_error')})")
         out[f"{arch}|{shape}|{rec['mesh']}"] = dict(
             rec, seconds=seconds,
-            gather_all_step=DRYRUN_GATHER_ALL.get(f"{arch}|{shape}"))
+            gather_all_step=DRYRUN_GATHER_ALL.get(f"{arch}|{shape}"),
+            data_only_step=DRYRUN_DATA_ONLY.get(f"{arch}|{shape}"))
     return out
 
 
 def launch_phase(seed: int, smi: str) -> dict:
     """Phase 15: (a) `launch.train` at full width through K1; (b) the 2x2
     grid and elastic restore, at the JAX test's settings and at full
-    width; (c) `launch.serve`; (d) the dry run.
+    width; (c) `launch.serve`; (d) the dry run, which needs no card (meta
+    tensors), in a process of its own beside (a)-(c).
     Returns launches by route."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     import torch
     t0 = time.perf_counter()
-    full = launch_full(smi)
-    launches = {"launch|train gemma3-1b full": full.pop("launches")}
-    say("launch", part="train gemma3-1b full", **full)
-    torch.cuda.empty_cache()
-    grid = launch_grid(smi)
-    launches.update(grid.pop("launches"))
-    say("launch", part="grid", **grid)
-    wide = launch_grid_wide(smi)
-    launches.update(wide.pop("launches"))
-    say("launch", part="grid gemma3-1b full width and depth", **wide)
-    say("launch", part="serve", **launch_serve(seed, smi))
-    for cell, rec in launch_dryrun().items():
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        dryrun = pool.submit(launch_dryrun)
+        full = launch_full(smi)
+        launches = {"launch|train gemma3-1b full": full.pop("launches")}
+        say("launch", part="train gemma3-1b full", **full)
+        torch.cuda.empty_cache()
+        grid = launch_grid(smi)
+        launches.update(grid.pop("launches"))
+        say("launch", part="grid", **grid)
+        wide = launch_grid_wide(smi)
+        launches.update(wide.pop("launches"))
+        say("launch", part="grid gemma3-1b full width and depth", **wide)
+        say("launch", part="serve", **launch_serve(seed, smi))
+        cells = dryrun.result()
+    for cell, rec in cells.items():
         say("launch", part="dryrun", cell=cell, **rec)
     say("launch", seconds=time.perf_counter() - t0)
     return launches

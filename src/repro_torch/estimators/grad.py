@@ -205,8 +205,12 @@ class _ExactSlogdet(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, fn):
-        with torch.no_grad():
-            sign, ld = fn(a.detach())
+        if a.is_meta:       # shape only (the dry run, `layout.step_plan`)
+            sign, ld = (torch.empty(a.shape[:-2], dtype=a.dtype,
+                                    device=a.device) for _ in range(2))
+        else:
+            with torch.no_grad():
+                sign, ld = fn(a.detach())
         ctx.save_for_backward(a)
         ctx.mark_non_differentiable(sign)
         return sign, ld

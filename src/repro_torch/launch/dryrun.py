@@ -14,28 +14,32 @@ record key takes a torch meaning here, on tensors that hold no storage:
 - a train cell runs rank 0's share of the split mesh step: the step
   itself (`sharding.layout.mesh_step`) on a shape-only mesh with rank
   0's coordinates, so the parameters' gathers (one unit at a time,
-  `sharding.fsdp`) copy rank 0's blocks into whole tensors, its rows of
-  every microbatch run inside a shape-only
-  data split (`sharding.split`: the statistics of the whole batch and
-  the gradients' reduction keep their shapes, nothing is exchanged), and
-  the optimizer updates its blocks.  A serving cell runs the cell's
-  whole program;
+  `sharding.fsdp`) copy rank 0's blocks into the tensors it computes on
+  (a leaf the model line splits: its model block), its rows of every
+  microbatch run inside a shape-only data split (`sharding.split`: the
+  statistics of the whole batch and the gradients' reduction keep their
+  shapes, nothing is exchanged) and a shape-only model split
+  (`sharding.tensor`: rank 0's heads, mlp columns, experts and vocab
+  rows), and the optimizer updates its blocks.  A serving cell runs the
+  cell's whole program;
 - ``hlo_flops_global``: the FLOPs `torch.utils.flop_counter` counts over
   that run on the meta device; a train cell's is ``flops_per_device``
-  (rank 0's share) times ``chips``, what the mesh executes (the ranks of
-  one "model" line repeat each other's share: ``useful_flops_frac``
-  shows it);
+  (rank 0's share, a 1/``chips`` share of the work the rules split)
+  times ``chips``, what the mesh executes: a module the rules leave
+  whole on the model axis (gemma3-1b's 4 heads on 16, the router, the
+  SSM blocks) is computed alike by every rank of a model line, which
+  ``useful_flops_frac`` shows;
 - ``hlo_bytes_global``: the operand and result bytes of every ATen op of
   that run, recorded on meta (`analysis.ir.record`): the eager port runs
   unfused, so this is what its step moves; a train cell's is
   ``hlo_bytes_per_device`` times ``chips``;
-- ``wire_bytes_per_chip`` / ``collective_counts``: the step's
-  collectives a rank (`sharding.layout.step_plan`: the parameters'
-  gathers by broadcasts, a layer's for its forward and again for its
-  backward; the batch statistics' exchanges, the gradients' reduction,
-  the global norm and the agreement by all_sums, each counted by the
-  bytes of the tensor summed); a serving cell gathers its arguments
-  (`layout.collective_plan`);
+- ``wire_bytes_per_chip`` / ``collective_counts``: the step's collectives
+  a rank (`sharding.layout.step_plan`: the parameters' gathers by
+  broadcasts, a layer's for its forward and again for its backward; the
+  batch statistics' exchanges, the gradients' reduction, the model
+  line's partial sums, the global norm and the agreement by all_sums,
+  each counted by the bytes of the tensor summed); a serving cell
+  gathers its arguments (`layout.collective_plan`);
 - ``memory.temp_bytes_per_device``: what the step allocates at its peak
   beyond what it holds at its start, by
   `torch.distributed._tools.mem_tracker` under `FakeTensorMode`, a
@@ -236,9 +240,15 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     hbm = float(sum(i.operand_bytes + i.result_bytes
                     for i in mod.instructions))
     if shape.kind == "train":
-        plan = layout.step_plan(cfg, _tcfg_for(cfg), shardings["state"],
-                                shardings["batch"], args["state"]["params"])
-        scale = chips           # every rank runs a share like rank 0's
+        tcfg = _tcfg_for(cfg)
+        plan = layout.step_plan(cfg, tcfg, shardings["state"],
+                                shardings["batch"], args["state"]["params"],
+                                rows=layout.batch_rows(
+                                    args["batch"], shardings["batch"],
+                                    tcfg.microbatches))
+        scale = chips           # every rank runs a share like rank 0's,
+                                # its model line repeating what the rules
+                                # leave whole on "model"
     else:
         plan = layout.collective_plan(shardings, args)
         scale = 1               # every rank runs the whole program

@@ -12,10 +12,11 @@ with no process group, `main` starts the ranks itself
 otherwise (on the CPU, or several ranks sharing a card).  Each rank
 runs the same `build` and loop, and rank 0 prints the log.  With no
 ``--mesh`` the run is one rank.  The step on a mesh
-(`sharding.layout.mesh_step`) splits the arithmetic over the data axes:
-each rank steps its rows of every global microbatch, the gradients are
-reduced over the data line, and each rank's optimizer updates its own
-blocks.  A rank that waits in a collective over a line of the grid for
+(`sharding.layout.mesh_step`) splits the arithmetic over the data axes
+and over "model": each rank steps its rows of every global microbatch
+on its share of the heads, mlp columns, experts and vocab rows, the
+gradients are reduced over the data line, and each rank's optimizer
+updates its own blocks.  A rank that waits in a collective over a line of the grid for
 longer than ``--collective-timeout`` seconds raises (another rank of the
 line failed in the step), and the ranks restart the step together
 (`ft.run_training`).  `rank_restore` restores a run's checkpoint onto a
@@ -44,7 +45,7 @@ from repro_torch.data.synthetic import DataConfig, synth_batch
 from repro_torch.ft.driver import FTConfig, run_training
 from repro_torch.launch.mesh import make_mesh_like, parse_mesh
 from repro_torch.optim.optimizers import OptConfig
-from repro_torch.sharding import fsdp, hints, layout
+from repro_torch.sharding import fsdp, hints, layout, tensor
 from repro_torch.sharding.rules import Sharding, batch_spec
 from repro_torch.train.step import (TrainConfig, init_train_state,
                                     make_grad_fn)
@@ -197,7 +198,9 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     (``grad_metrics``), the collectives of the run's last step
     (``counts``) beside `layout.step_plan` (``plan``), the high-water of
     whole parameter bytes alive at once in it (``whole_peak_bytes``,
-    ``whole_peak_units``: `sharding.fsdp.watching`) and, on a card, its
+    ``whole_peak_units``: `sharding.fsdp.watching`), the shares of the
+    heads, mlp columns, experts and vocab rows it computed (``shares``:
+    `sharding.tensor.recording`) and, on a card, its
     peak allocation (``step_peak_bytes``); with ``digest``, (shape,
     sha256 of the bytes) in place of every array.  ``layers`` and
     ``dtype`` as in `build`."""
@@ -221,12 +224,14 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
             torch.cuda.synchronize(grid.device)
             torch.cuda.reset_peak_memory_stats(grid.device)
         core_mesh.reset_collective_counts()
-        with fsdp.watching() as high:
+        with fsdp.watching() as high, tensor.recording() as shares:
             out = step_fn(state, batch)
         last.update(counts=core_mesh.collective_counts(),
                     step_peak_bytes=torch.cuda.max_memory_allocated(
                         grid.device) if on_card else None,
-                    whole_peak_bytes=high.bytes, whole_peak_units=high.units)
+                    whole_peak_bytes=high.bytes, whole_peak_units=high.units,
+                    shares={k: sorted(v, key=str) for k, v in shares.items()},
+                    rows=batch)
         return out
     state, losses, stats = _drive(args, grid, (
         cfg, state, measured if detail else step_fn, batch_fn, sh))
@@ -241,14 +246,13 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
         for k, g in first["grads"].items()}
     bsh = {k: Sharding(grid, s) for k, s in batch_spec(
         cfg, grid, kind="train", batch=args.batch).items()}
+    plan = layout.step_plan(cfg, tcfg, sh, bsh, layout.whole_like(
+        state["params"], sh["params"]), rows=last.pop("rows"))
     out.update(first)
     out.update(last, coords=grid.coords, device=str(grid.device),
                blocks={".".join(p): _host(t, digest)
                        for p, t in layout.flat(state).items()},
-               plan=layout.step_plan(
-                   cfg, tcfg, sh, bsh,
-                   layout.whole_like(state["params"], sh["params"])),
-               step_s=stats.times)
+               plan=plan, step_s=stats.times)
     return out
 
 

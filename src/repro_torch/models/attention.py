@@ -11,6 +11,13 @@ Modes (``mode`` argument of `Attention.forward`):
   "decode"   single-step: q has T=1; reads keys/values from the cache
   "cross"    queries over a fixed memory (encoder output / image tokens)
 
+Inside a model split (`repro_torch.sharding.tensor`) a rank whose ``wq``
+holds its block of the q heads projects those (and its block of the kv
+heads when they divide; else the kv heads its q heads read, from the
+whole ``wk`` / ``wv``), attends over them, and its ``wo`` block gives a
+partial output summed over the model line (`tensor.from_model`); the
+inputs come through `tensor.to_model`.
+
 KV cache layout: {"k": (B, S, n_kv, hd), "v": (B, S, n_kv, hd)} with S the
 static max length; ``cache_pos`` gives the current fill.  Decode writes
 the step's keys and values into the given cache in place and returns it:
@@ -30,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.common import (
     ModelConfig, ParamInit, apply_rope, param, rope_freqs,
 )
-from repro_torch.sharding import hints
+from repro_torch.sharding import hints, tensor
 
 __all__ = ["Attention", "NEG_INF", "FULL_WINDOW"]
 
@@ -38,8 +45,11 @@ NEG_INF = -2.0 ** 30  # large-but-finite: keeps padded rows NaN-free
 FULL_WINDOW = 2 ** 30  # "no sliding window" sentinel
 
 
-def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, kvh, hd) -> (B, S, H, hd) by repeating each group."""
+def _repeat_kv(k: torch.Tensor, n_heads: int, heads=None) -> torch.Tensor:
+    """(B, S, kvh, hd) -> (B, S, H, hd) by repeating each group; with
+    ``heads`` (an index per q head into k's heads), by those."""
+    if heads is not None:
+        return k.index_select(2, heads)
     kvh = k.shape[2]
     if kvh == n_heads:
         return k
@@ -150,13 +160,34 @@ class Attention(nn.Module):
             q = q + self.bq.to(x.dtype)
         return q
 
-    def _project_kv(self, x):
-        k = torch.einsum("btd,dhk->bthk", x, self.wk.to(x.dtype))
-        v = torch.einsum("btd,dhk->bthk", x, self.wv.to(x.dtype))
+    def _project_kv(self, x, kv=None):
+        """k and v of the kv heads ``kv`` (a slice; None: the block's)."""
+        wk, wv = self.wk, self.wv
+        if kv is not None:
+            wk, wv = wk[:, kv], wv[:, kv]
+        k = torch.einsum("btd,dhk->bthk", x, wk.to(x.dtype))
+        v = torch.einsum("btd,dhk->bthk", x, wv.to(x.dtype))
         if self.cfg.qkv_bias:
-            k = k + self.bk.to(x.dtype)
-            v = v + self.bv.to(x.dtype)
+            bk, bv = (self.bk, self.bv) if kv is None else (self.bk[kv],
+                                                              self.bv[kv])
+            k = k + bk.to(x.dtype)
+            v = v + bv.to(x.dtype)
         return k, v
+
+    def _heads(self, dev):
+        """(first q head of this rank's block or None when whole, the kv
+        heads it projects, each local q head's index into them or None)
+        under a model split (`tensor.share`)."""
+        cfg = self.cfg
+        h = self.wq.shape[1]
+        first = tensor.share(h, cfg.n_heads, "heads")
+        if first is None or tensor.share(self.wk.shape[1], cfg.n_kv_heads,
+                                         "kv_heads") is not None:
+            return first, None, None
+        group = cfg.n_heads // cfg.n_kv_heads
+        lo, hi = first // group, (first + h - 1) // group + 1
+        idx = torch.arange(first, first + h, device=dev) // group - lo
+        return first, slice(lo, hi), idx
 
     def forward(self, x, *, mode: str = "train", window: int = 0,
                 positions=None, cache=None, cache_pos=None, memory=None):
@@ -167,18 +198,23 @@ class Attention(nn.Module):
         """
         cfg = self.cfg
         b, t, _ = x.shape
-        q = self._project_q(x)
         dev = x.device
+        first, kv, heads = self._heads(dev)
+        if first is not None:
+            x = tensor.to_model(x)
+            if memory is not None:
+                memory = tensor.to_model(memory)
+        q = self._project_q(x)
 
         def arange(n):
             return torch.arange(n, device=dev)
 
         if mode == "cross":
-            k, v = self._project_kv(memory)
+            k, v = self._project_kv(memory, kv)
             k_pos = arange(memory.shape[1])
             q_pos = arange(t) if positions is None else positions
         else:
-            k, v = self._project_kv(x)
+            k, v = self._project_kv(x, kv)
             q_pos = arange(t) if positions is None else positions
             if mode != "encoder":
                 sin, cos = rope_freqs(cfg.hd, cfg.rope_theta, q_pos)
@@ -209,8 +245,8 @@ class Attention(nn.Module):
             if positions is None:
                 q_pos = at.expand(t)
 
-        kf = _repeat_kv(k, cfg.n_heads)
-        vf = _repeat_kv(v, cfg.n_heads)
+        kf = _repeat_kv(k, q.shape[2], heads)
+        vf = _repeat_kv(v, q.shape[2], heads)
 
         if mode == "decode":
             # single-token query: a (B, H, 1, S) product, linear in S;
@@ -226,4 +262,6 @@ class Attention(nn.Module):
                                                    window))
 
         o = torch.einsum("bthk,hkd->btd", out, self.wo.to(x.dtype))
+        if first is not None:
+            o = tensor.from_model(o)
         return o, new_cache

@@ -24,6 +24,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.sharding import tensor
+
 __all__ = ["ModelConfig", "param", "ParamInit", "normal_init", "empty_init",
            "rmsnorm", "embed_lookup", "unembed", "rope_freqs", "apply_rope"]
 
@@ -155,13 +157,32 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return (x * (1.0 + scale.float())).to(dt)
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype):
-    return table[ids].to(dtype)
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype,
+                 vocab: Optional[int] = None):
+    """The rows of ``ids`` in ``dtype``.  Inside a model split
+    (`repro_torch.sharding.tensor`) a ``table`` of fewer rows than
+    ``vocab`` is this rank's block: it looks up the ids it holds, the
+    others as zeros, and the ranks' rows are summed by
+    `tensor.from_model` (one of them non-zero: exact)."""
+    first = (None if vocab is None
+             else tensor.share(table.shape[0], vocab, "vocab"))
+    if first is None:
+        return table[ids].to(dtype)
+    at = ids - first
+    mine = (at >= 0) & (at < table.shape[0])
+    rows = table[torch.where(mine, at, 0)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return tensor.from_model(rows.to(dtype))
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
-            softcap: float = 0.0):
-    """f32 logits (B, T, vocab), with the optional tanh softcap."""
+            softcap: float = 0.0, vocab: Optional[int] = None):
+    """f32 logits (B, T, vocab), with the optional tanh softcap; inside a
+    model split, from this rank's block of a vocab-parallel table, this
+    rank's columns of them (``x`` through `tensor.to_model`)."""
+    if vocab is not None and tensor.share(table_or_head.shape[0], vocab,
+                                          "vocab") is not None:
+        x = tensor.to_model(x)
     logits = torch.einsum("btd,vd->btv", x.float(), table_or_head.float())
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap

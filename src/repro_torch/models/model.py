@@ -364,7 +364,7 @@ def forward_hidden(model: Model, batch):
     """Backbone only: final-norm hidden states (B, T, d) + aux.  The caller
     owns the unembedding."""
     cfg = model.cfg
-    x = embed_lookup(model.embed, batch["tokens"], cfg.dtype)
+    x = embed_lookup(model.embed, batch["tokens"], cfg.dtype, cfg.vocab)
     memory = _memory_for(model, batch)
     x, _, aux = _run_stack(model, x, mode="train", memory=memory)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
@@ -374,7 +374,8 @@ def forward_hidden(model: Model, batch):
 def forward(model: Model, batch):
     """Training/teacher-forcing forward: logits (B, T, vocab) f32 + aux."""
     x, aux = forward_hidden(model, batch)
-    logits = unembed(model.unembedding(), x, softcap=model.cfg.logits_softcap)
+    logits = unembed(model.unembedding(), x, softcap=model.cfg.logits_softcap,
+                     vocab=model.cfg.vocab)
     return logits, aux
 
 

@@ -20,6 +20,17 @@ plus the counts of the ranks before it: one small ranks x experts
 exchange), and the balance aux's means are over the global tokens.  A
 rank's buffer holds its own slots only: ``min(C, n)`` for each expert,
 which takes one of its n tokens at most once.
+
+Inside a model split (`repro_torch.sharding.tensor`) a rank whose expert
+leaves hold its block of the experts fills its buffer and runs the
+batched GLU for those experts only.  Where the experts do not divide the
+model line the rules split the experts' mlp dim instead, and the rank
+runs every expert on its mlp columns (column-parallel in, row-parallel
+out, as `MLP`).  Either way every rank of the model line routes every
+token alike (the router is whole), its combine weights and its input
+come through `tensor.to_model`, the shared experts' MLP, where it splits
+too, is column- and row-parallel on the same input, and the routed and
+shared partial outputs go through one `tensor.from_model`.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from torch import nn
 
 from repro_torch.models.common import ModelConfig, ParamInit, param
 from repro_torch.models.mlp import MLP
-from repro_torch.sharding import split
+from repro_torch.sharding import split, tensor
 
 __all__ = ["MoE", "capacity"]
 
@@ -73,6 +84,19 @@ class MoE(nn.Module):
         c = capacity(cfg, n_all) if t > 1 else n_all
 
         gates, topw, topi = self.route(xt)
+        first = tensor.share(self.we_gate.shape[0], e, "experts")
+        # every expert on this rank's mlp columns where the experts stay
+        # whole
+        part = first is not None or tensor.share(
+            self.we_gate.shape[2], cfg.d_ff_expert or cfg.d_ff,
+            "mlp") is not None
+        shared = cfg.n_shared_experts and (not part or self.shared.split())
+        xm = x
+        if part:
+            # this rank's share, on the line's input and combine weights
+            xm = tensor.to_model(x)
+            xt = xm.reshape(n, d)
+            topw = tensor.to_model(topw)
         onehot = F.one_hot(topi, e).to(torch.int32)          # (n, k, e)
         flat = onehot.reshape(n * k, e)
         ranks = torch.cumsum(flat, dim=0) - flat             # exclusive
@@ -86,12 +110,20 @@ class MoE(nn.Module):
             before = counts[:split.current().rank].sum(0)
             keep = slot + before[topi] < c
             c = min(c, n)                   # this rank's slots an expert
+        ei = topi
+        if first is not None:
+            # another rank's expert: dropped here (its spare slot c)
+            ei = topi - first
+            mine = (ei >= 0) & (ei < self.we_gate.shape[0])
+            keep = keep & mine
+            ei = torch.where(mine, ei, 0)
         w = topw * keep.to(topw.dtype)
 
         si = torch.where(keep, slot, c)                      # c: dropped
-        buf = torch.zeros((e, c + 1, d), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((self.we_gate.shape[0], c + 1, d), dtype=x.dtype,
+                          device=x.device)
         tok = torch.arange(n, device=x.device).repeat_interleave(k)
-        buf = buf.index_put((topi.reshape(-1), si.reshape(-1)), xt[tok])
+        buf = buf.index_put((ei.reshape(-1), si.reshape(-1)), xt[tok])
         ex_in = buf[:, :c]                                   # (e, c, d)
 
         dt = x.dtype
@@ -99,12 +131,19 @@ class MoE(nn.Module):
         u = torch.bmm(ex_in, self.we_up.to(dt))
         ex_out = torch.bmm(F.silu(g) * u, self.we_down.to(dt))
 
-        gathered = ex_out[topi.reshape(-1),
+        gathered = ex_out[ei.reshape(-1),
                           torch.clamp(si, max=c - 1).reshape(-1)]
         out = (gathered.reshape(n, k, d) * w[..., None].to(dt)).sum(dim=1)
 
-        if cfg.n_shared_experts:
-            out = out + self.shared(x).reshape(n, d)
+        if not part:
+            if shared:
+                out = out + self.shared(x).reshape(n, d)
+        else:
+            if shared:
+                out = out + self.shared.partial(xm).reshape(n, d)
+            out = tensor.from_model(out)
+            if cfg.n_shared_experts and not shared:
+                out = out + self.shared(x).reshape(n, d)
 
         # load-balancing aux (Switch-style): mean gate x mean assignment
         if split.current() is None:

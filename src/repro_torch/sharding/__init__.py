@@ -2,7 +2,8 @@
 train state, a batch and the serving caches out on a mesh (`rules`), the
 activation hints (`hints`), the port's layout of a state on a mesh of
 processes and its training step there (`layout`), the data-parallel
-split of that step's arithmetic (`split`), and the gather of its
+split of that step's arithmetic (`split`), its tensor and expert
+parallel split on the "model" axis (`tensor`), and the gather of its
 parameters one unit at a time with each unit's gradient reduced in its
 backward (`fsdp`)."""
 from repro_torch.sharding.rules import (

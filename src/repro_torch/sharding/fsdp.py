@@ -13,15 +13,20 @@ are processes.
 
 **The gather is an autograd op** (`_Gather`).  Its inputs are a unit's
 blocks (the model's parameters, laid out by `layout.shard`), its outputs
-the whole tensors (`layout.gather_leaf`; with a cast rule, the cast of
-each block gathered: the same values at the cast's bytes).  Its backward
-sums each whole gradient over the rank's data line (one all_sum a
-tensor, in the block's dtype: every rank of the line gets the same bits,
-`tools/allreduce_bits.py`) and returns the rank's block of it
-(`layout.local_block`), so autograd differentiates the blocks and a
-whole gradient lives only until its unit's backward ends.  An all_sum
-then a cut, not a reduce-scatter: gloo takes CUDA tensors for broadcast
-and all_reduce alone (`split`).
+the tensors the unit computes on (`layout.gather_leaf`; with a cast
+rule, the cast of each block gathered: the same values at the cast's
+bytes): a leaf that the step computes model-parallel
+(`tensor.leaf_modes`: ``split``) gathered over the rank's data line
+only, so that the rank keeps its model block (the spec without "model",
+`layout.model_block`); every other leaf whole.  Its backward sums each
+gradient over the rank's data line -- over the data and model lines at
+once for a ``partial`` leaf, whose ranks of a model line each hold a
+part of it (one all_sum a tensor, in the block's dtype: every rank of
+the line gets the same bits, `tools/allreduce_bits.py`) -- and returns
+the rank's block of it (`layout.local_block`), so autograd
+differentiates the blocks and a gathered gradient lives only until its
+unit's backward ends.  An all_sum then a cut, not a reduce-scatter:
+gloo takes CUDA tensors for broadcast and all_reduce alone (`split`).
 
 **Installed for one step** (`sharded`, `layout.mesh_grad_fn`'s scope).
 Each unit module's ``forward`` is wrapped: it gathers the unit, puts the
@@ -51,8 +56,14 @@ A unit called several times a step (zamba2's ``shared_attn``) is
 gathered and reduced per call; autograd sums the calls' block gradients
 (rounding only, against one reduction of their sum).
 
+**One device** takes a scope of its own under ``cast_params_bf16``
+(``sharded(model)``: every leaf whole, nothing summed), so that each
+unit casts its parameters as it is called, a checkpoint's recomputation
+included (`train.step.make_loss_fn`).
+
 `gather_counts` gives, per unit, how many times a microbatch gathers it
-in its forward and in its backward (`layout.step_plan` counts from it).
+in its forward and in its backward (`layout.step_plan` counts from
+it).
 """
 from __future__ import annotations
 
@@ -63,8 +74,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["units", "unit_of", "sharded", "gathered", "gather", "reduce",
-           "gather_counts", "HighWater", "watching"]
+from repro_torch.sharding import tensor
+from repro_torch.sharding.rules import PartitionSpec, Sharding
+
+__all__ = ["units", "unit_of", "sharded", "installed", "gathered", "gather",
+           "reduce", "gather_counts", "HighWater",
+           "watching"]
 
 ROOT = ""
 
@@ -97,11 +112,15 @@ def units(model) -> Dict[str, List[str]]:
 
 @dataclass
 class _Plan:
-    """One step's installation: the parameters' shardings by name, the
-    data line the gradients are summed over (None: no sum), the cast rule
-    in force (``cast(name, block) -> dtype or None``)."""
-    shardings: dict
+    """One step's installation: each parameter's `tensor.leaf_modes` mode
+    and the sharding it is gathered and cut by (``gathers``), by name; the
+    data line the gradients are summed over (None: no sum), the line of
+    the data and model axes a ``partial`` leaf's gradient is summed over;
+    the cast rule in force (``cast(name, block) -> dtype or None``)."""
+    modes: Dict[str, str]
+    gathers: Dict[str, object]
     line: Optional[object]
+    wide: Optional[object] = None
     cast: Optional[Callable] = None
     # a layer unit's gather (its autograd node) -> its call, while the
     # unit's forward runs (see `_pack`)
@@ -175,16 +194,17 @@ def gather(unit: _Unit, blocks) -> List[torch.Tensor]:
     for name, b in zip(unit.names, blocks):
         dt = plan.cast(name, b) if plan.cast is not None else None
         cast.append(b if dt is None else b.to(dt))
-    out = layout.gather_leaves(cast, [plan.shardings[n] for n in unit.names])
+    out = layout.gather_leaves(cast, [plan.gathers[n] for n in unit.names])
     for hw in _WATCHING:
         hw._note(unit.name, out, blocks)
     return out
 
 
 def reduce(unit: _Unit, grads, blocks) -> List[torch.Tensor]:
-    """The rank's block of each whole gradient summed over the plan's data
-    line, in its block's dtype (a missing gradient counts as zeros): one
-    all_sum a gradient, all issued before the first is waited on."""
+    """The rank's block of each gathered gradient summed over the plan's
+    data line (a ``partial`` leaf's over its data and model lines), in its
+    block's dtype (a missing gradient counts as zeros): one all_sum a
+    gradient, all issued before the first is waited on."""
     from repro_torch.core import mesh as core_mesh
     from repro_torch.sharding import layout
     plan = unit.plan
@@ -192,20 +212,21 @@ def reduce(unit: _Unit, grads, blocks) -> List[torch.Tensor]:
         hw.look()
     whole, works = [], []
     for name, g, b in zip(unit.names, grads, blocks):
+        line = plan.wide if plan.modes[name] == tensor.PARTIAL else plan.line
         if g is None:
-            g = torch.zeros(layout.whole_shape(b.shape, plan.shardings[name]),
+            g = torch.zeros(layout.whole_shape(b.shape, plan.gathers[name]),
                             dtype=b.dtype, device=b.device)
-        elif plan.line is not None:
+        elif line is not None:
             # a copy: the gradient handed to a backward may be shared
             g = g.to(b.dtype, copy=True).contiguous()
         else:
             g = g.to(b.dtype)
-        if plan.line is not None:   # all issued, then waited on
-            works.append(core_mesh.all_sum(plan.line, g, async_op=True))
+        if line is not None:        # all issued, then waited on
+            works.append(core_mesh.all_sum(line, g, async_op=True))
         whole.append(g)
     for w in works:
         w.wait()
-    return [layout.local_block(g, plan.shardings[n])
+    return [layout.local_block(g, plan.gathers[n])
             for n, g in zip(unit.names, whole)]
 
 
@@ -278,13 +299,21 @@ def _slots(model, names):
 
 
 @contextlib.contextmanager
-def sharded(model, shardings: dict, line=None):
+def sharded(model, shardings: Optional[dict] = None, line=None, wide=None):
     """For its scope, every unit module of ``model`` (whose parameters hold
     its blocks) gathers its unit when called, and the root unit is
     gathered by `gathered`; gradients are summed over ``line`` (a
-    `core.mesh.Mesh`; None: not summed).  ``shardings`` maps a parameter
-    name to its `rules.Sharding`."""
-    plan = _Plan(dict(shardings), line)
+    `core.mesh.Mesh`; None: not summed), a ``partial`` leaf's over
+    ``wide`` (the data and model lines; None: not summed).
+    ``shardings`` maps a parameter name to its `rules.Sharding` (None:
+    every parameter whole, one rank's scope)."""
+    from repro_torch.sharding import layout
+    if shardings is None:
+        whole = Sharding(None, PartitionSpec())
+        shardings = {n: whole for n, _ in model.named_parameters()}
+    modes = tensor.leaf_modes(shardings)
+    plan = _Plan(modes, {n: layout.model_block(s) if modes[n] == tensor.SPLIT
+                         else s for n, s in shardings.items()}, line, wide)
     made = {}
     for name, names in units(model).items():
         made[name] = _Unit(name, names, _slots(model, names), plan)
@@ -302,6 +331,11 @@ def sharded(model, shardings: dict, line=None):
         model.__dict__.pop("_fsdp_units", None)
         for mod in wrapped:
             mod.__dict__.pop("forward", None)
+
+
+def installed(model) -> bool:
+    """Whether a `sharded` scope is in force on ``model``."""
+    return "_fsdp_units" in model.__dict__
 
 
 def _pack(plan: _Plan):
@@ -377,3 +411,4 @@ def gather_counts(cfg, names) -> Dict[str, Tuple[int, int]]:
             back = 2 * calls
         out[u] = (calls, back)
     return out
+

@@ -13,21 +13,30 @@ ranks sharing a card all take.  `collective_plan` counts what a gather
 moves.
 
 **The step on a mesh** (`mesh_step`) splits the arithmetic over the data
-axes, in the order the JAX rules apply them:
+axes and over "model", in the order the JAX rules apply them:
 
 - each rank holds its rows of every global microbatch (`batch_rows`; a
-  batch that does not divide the data axes is whole on every rank, and
-  the ranks of one "model" line hold the same rows and compute alike);
+  batch that does not divide the data axes is whole on every rank), and
+  the ranks of one "model" line hold the same rows;
 - the parameters are gathered one unit at a time (`sharding.fsdp`: a
   block module of the stack just before it runs, again for its backward,
   and dropped after; the embedding, the final norm and the head once a
-  microbatch), so no rank holds the whole model at once;
+  microbatch), so no rank holds the whole model at once; a leaf the
+  rules split on "model" and the step computes model-parallel is
+  gathered over the data line only, and the rank keeps its model block
+  (`carries_model`, `model_block`, `tensor.leaf_modes`);
 - the loss runs inside a data split (`sharding.split`) over the rank's
   data line: the statistics of the whole batch (the CE's token count,
   the logdet aux's covariance, MoE's capacity, slots and balance) are
   reduced over the line, and each unit's gradient is summed over it in
   the unit's backward, by one all_sum a tensor (the same bits on every
   rank), of which the rank keeps its block;
+- and inside a model split (`sharding.tensor`) over the rank's model
+  line: the rank computes its q heads (its kv heads where they divide),
+  its mlp columns, its experts and its vocab rows, and the partial sums
+  go over the model line (column-parallel in, row-parallel out); a
+  module whose leaves the rules leave whole there (MoE's router, the SSM
+  blocks) is computed alike on every rank of the line;
 - the clip takes the global norm from the blocks (one all_sum over the
   whole grid of each rank's f64 sum of squares, each element counted by
   one rank), the same on every rank, and the optimizer updates this rank's
@@ -67,11 +76,12 @@ import torch
 from repro_torch.core import mesh as core_mesh
 from repro_torch.optim.optimizers import (clip_by_global_norm, get_optimizer,
                                           jax_ndim)
-from repro_torch.sharding import fsdp, split
+from repro_torch.sharding import fsdp, split, tensor
 from repro_torch.sharding.rules import (PartitionSpec, Sharding,
                                         param_shardings, tree_map)
 
 __all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices",
+           "carries_model", "model_block",
            "local_block", "gather_leaf", "gather_leaves", "shard", "gather",
            "state_shardings", "data_axes", "batch_rows", "mesh_grad_fn",
            "global_norm", "WHOLE_LEAF", "mesh_step", "collective_plan",
@@ -124,6 +134,24 @@ def whole_like(tree, shardings):
     sh = flat(shardings)
     return tree_map(lambda path, t: torch.empty(
         whole_shape(t.shape, sh[path]), dtype=t.dtype, device="meta"), tree)
+
+
+def carries_model(sharding: Sharding) -> bool:
+    """Whether ``sharding``'s spec splits a dim over "model" (of more than
+    one rank)."""
+    return any("model" in axes
+               for _, axes in _entries(sharding.spec, sharding.mesh))
+
+
+def model_block(sharding: Sharding) -> Sharding:
+    """The layout of a rank's block inside its model block: ``sharding``
+    without "model" (gathering by it rebuilds the model block)."""
+    spec = []
+    for e in sharding.spec:
+        axes = () if e is None else tuple(
+            a for a in (e if isinstance(e, tuple) else (e,)) if a != "model")
+        spec.append(axes or None)
+    return Sharding(sharding.mesh, PartitionSpec(*spec))
 
 
 def _block_of(axes, coords, mesh) -> int:
@@ -281,27 +309,37 @@ def mesh_grad_fn(grad_fn, shardings, batch_shardings):
     sharded by ``shardings``, ``batch`` this rank's rows (`batch_rows`).
     Runs ``grad_fn`` (`train.step.make_grad_fn`) with the parameters
     gathered one unit at a time (`fsdp.sharded`) inside the data split of
-    the batch's data line: this rank's blocks of the reduced gradients,
-    the same bits on every rank that holds one, and the global batch's
-    metrics (on a shape-only mesh, a shape-only split and no sum).  On
-    one rank, ``grad_fn`` itself."""
+    the batch's data line and the model split of the rank's model line:
+    this rank's blocks of the reduced gradients, the same bits on every
+    rank that holds one, and the global batch's metrics (on a shape-only
+    mesh, shape-only splits and no sum).  On one rank, ``grad_fn``
+    itself."""
     axes = data_axes(batch_shardings)
     mesh = mesh_of(shardings)
     psh = shardings["params"]
+    msize = mesh.shape.get("model", 1)
 
     def grads(state, batch):
         if mesh.size == 1:
             return grad_fn(state["params"], batch)
-        line = None
-        if axes and mesh.world is not None:
-            line = mesh.line(axes)[0]                   # as remade
+        line = mline = wide = None
+        if mesh.world is not None:                      # lines as remade
+            line = mesh.line(axes)[0] if axes else None
+            if msize > 1:
+                mline = mesh.line(("model",))[0]
+                wide = mesh.line(tuple(axes) + ("model",))[0]
         if not axes:
             data = split.data_split()
         elif line is None:
             data = split.data_split(size=_count(axes, mesh))
         else:
             data = split.data_split(line)
-        with data, fsdp.sharded(state["params"], psh, line):
+        if mline is not None:
+            model = tensor.model_split(mline)
+        else:
+            model = tensor.model_split(
+                size=msize, rank=(mesh.coords or {}).get("model", 0))
+        with data, model, fsdp.sharded(state["params"], psh, line, wide):
             return grad_fn(state["params"], batch)
     return grads
 
@@ -450,54 +488,106 @@ def collective_plan(shardings, shapes) -> Dict[str, float]:
     return {"broadcast": count, "bytes": nbytes}
 
 
-def step_plan(cfg, tcfg, shardings, batch_shardings,
-              params) -> Dict[str, object]:
+def _model_line(cfg, tcfg, shardings, batch_shardings, rows) -> Dict:
+    """``{"all_sum", "bytes"}`` over the model line in one step of this
+    rank, read off the step itself: `mesh_grad_fn` run shape only on
+    meta tensors (a model of ``cfg`` laid out by ``shardings``' specs on
+    a shape-only mesh with this rank's coordinates, on ``rows``' shapes),
+    counting every all_sum that the model split would issue
+    (`tensor.tallying`): the column-parallel inputs' gradients, the
+    row-parallel outputs (in every recomputation too) and the exchanges
+    of the vocab-parallel cross-entropy."""
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.models.common import empty_init
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_grad_fn
+    if rows is None:
+        raise ValueError("step_plan needs the rank's batch rows on a model "
+                         "split")
+    mesh = mesh_of(shardings)
+    coords = mesh.coords or {a: 0 for a in mesh.axis_names}
+    shape_only = GridMesh(mesh.axis_names, tuple(mesh.shape.values()),
+                          rank=mesh.rank_of(coords))
+
+    def on(tree):
+        return tree_map(lambda _, s: Sharding(shape_only, s.spec), tree)
+    meta = torch.device("meta")
+    psh = on(shardings["params"])
+    model = shard(Model(cfg, empty_init(meta)), psh)
+    grads = mesh_grad_fn(make_grad_fn(cfg, tcfg), {"params": psh},
+                         on(batch_shardings))
+    with tensor.tallying() as seen:
+        grads({"params": model}, {k: torch.empty(x.shape, dtype=x.dtype,
+                                                 device=meta)
+                                  for k, x in rows.items()})
+    return seen
+
+
+def step_plan(cfg, tcfg, shardings, batch_shardings, params,
+              rows=None) -> Dict[str, object]:
     """What one `mesh_step` costs each rank.  ``params`` holds the whole
     parameters (a model or a dict, any device, ``meta`` included);
-    ``tcfg`` is the `TrainConfig`.
+    ``tcfg`` is the `TrainConfig`; ``rows`` (this rank's batch rows,
+    `batch_rows`, any device) are needed where the model line splits a
+    leaf.
 
     - broadcasts, each microbatch: every unit's gathers
       (`fsdp.gather_counts`: the root once, a layer unit once a call in
-      the forward and again in the backward), a leaf split n ways costing
-      n broadcasts and its whole bytes in the dtype gathered (bf16 where
-      ``cast_params_bf16`` casts it); with Adafactor, once a step, the
-      clipped gradients gathered whole;
+      the forward and again in the backward), a leaf gathered over n
+      ranks costing n broadcasts and its gathered bytes in the dtype
+      gathered (bf16 where ``cast_params_bf16`` casts it): a leaf the
+      step splits on "model" (`tensor.leaf_modes`) is gathered over the
+      data line only, its model block's bytes; with Adafactor, once a
+      step, the clipped gradients gathered whole;
     - all_sums, each microbatch: the nll metric's, the logdet aux's mean
       and covariance (with ``logdet_reg``), each MoE layer's counts and
       gate sums (twice under remat: the backward recomputes the layer),
-      and one of every gradient a call of its unit, in the parameter's
-      dtype; then, once a step, the global norm's and the one that
-      agrees the step commits.
+      one of every gradient a call of its unit, in the parameter's dtype
+      and gathered size (over the data line; a ``partial`` leaf's over
+      the data and model lines, on a model line alone too), and the
+      model line's, read off the step run shape only (`_model_line`;
+      also as ``model_all_sum`` and ``model_all_sum_bytes``, a step's);
+      then, once a step, the global norm's and
+      the one that agrees the step commits.
 
     -> ``{"broadcast", "bytes" (theirs), "all_sum", "all_sum_bytes" (the
-    tensors summed), "gathered" (the paths of the leaves gathered:
-    parameters only)}``.  One rank issues nothing."""
+    tensors summed), "model_all_sum", "model_all_sum_bytes",
+    "gathered" (the paths of the leaves gathered: parameters only)}``.
+    One rank issues nothing."""
     mesh = mesh_of(shardings)
     named = {".".join(p): t for p, t in flat(params).items()}
     psh = {".".join(p): s for p, s in flat(shardings["params"]).items()}
-    ways = {n: math.prod(_count(axes, psh[n].mesh)
-                         for _, axes in _entries(psh[n].spec, psh[n].mesh))
-            for n in named}
+    modes = tensor.leaf_modes({n: psh[n] for n in named})
+
+    def ways(s):
+        return math.prod(_count(axes, s.mesh)
+                         for _, axes in _entries(s.spec, s.mesh))
+    gsh = {n: model_block(psh[n]) if modes[n] == tensor.SPLIT else psh[n]
+           for n in named}
+    gways = {n: ways(gsh[n]) for n in named}
     plan = {"broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0,
+            "model_all_sum": 0, "model_all_sum_bytes": 0,
             "gathered": sorted("params." + n for n in named
-                               if ways[n] > 1)}
+                               if gways[n] > 1)}
     if mesh.size == 1:
         return plan
     mb = tcfg.microbatches
     axes = data_axes(batch_shardings)
     d = _count(axes, mesh) if axes else 1
+    m = mesh.shape.get("model", 1)
     calls = fsdp.gather_counts(cfg, list(named))
     for n, t in named.items():
         fwd, bwd = calls[fsdp.unit_of(n)]
-        if ways[n] > 1:
+        numel = t.numel() // (ways(psh[n]) // gways[n])
+        if gways[n] > 1:
             cast = (tcfg.cast_params_bf16 and t.dtype == torch.float32
                     and jax_ndim(n, t) >= 2)
             size = 2 if cast else t.element_size()
-            plan["broadcast"] += mb * (fwd + bwd) * ways[n]
-            plan["bytes"] += mb * (fwd + bwd) * t.numel() * size
-        if d > 1:
+            plan["broadcast"] += mb * (fwd + bwd) * gways[n]
+            plan["bytes"] += mb * (fwd + bwd) * numel * size
+        if d > 1 or modes[n] == tensor.PARTIAL:
             plan["all_sum"] += mb * fwd
-            plan["all_sum_bytes"] += mb * fwd * t.numel() * t.element_size()
+            plan["all_sum_bytes"] += mb * fwd * numel * t.element_size()
     if d > 1:
         # the exchanges of one microbatch: the nll; each MoE layer's
         # counts (int64) and gate sums, per forward; the aux's two
@@ -511,12 +601,18 @@ def step_plan(cfg, tcfg, shardings, batch_shardings,
             nbytes += d * w * 4 + d * w * w * 4
         plan["all_sum"] += mb * count
         plan["all_sum_bytes"] += mb * nbytes
+    if m > 1 and any(v == tensor.SPLIT for v in modes.values()):
+        line = _model_line(cfg, tcfg, shardings, batch_shardings, rows)
+        plan["model_all_sum"] = line["all_sum"]
+        plan["model_all_sum_bytes"] = line["bytes"]
+        plan["all_sum"] += line["all_sum"]
+        plan["all_sum_bytes"] += line["bytes"]
     if tcfg.opt.name in WHOLE_LEAF:
         gsize = (torch.empty((), dtype=tcfg.accum_dtype).element_size()
                  if mb > 1 else None)
         for n, t in named.items():
-            if ways[n] > 1:
-                plan["broadcast"] += ways[n]
+            if ways(psh[n]) > 1:
+                plan["broadcast"] += ways(psh[n])
                 plan["bytes"] += t.numel() * (gsize or t.element_size())
     # the global norm's (f64) and the agreement's
     plan["all_sum"] += 2

@@ -35,7 +35,7 @@ import torch
 
 __all__ = ["PartitionSpec", "Sharding", "make_rules", "param_specs",
            "param_shardings", "batch_spec", "cache_shardings",
-           "logical_axes_for", "tree_map"]
+           "logical_axes_for", "tree_map", "MODEL_PARALLEL"]
 
 
 class PartitionSpec(tuple):
@@ -94,6 +94,17 @@ _NAME_AXES: Dict[str, Tuple[str, ...]] = {
     "xattn_gate": ("null",),
     "mlp_gate": ("null",),
 }
+
+
+# the leaves whose "model" split the port's step computes on, each rank
+# its heads, mlp columns, experts or vocab rows (`sharding.tensor`).  The
+# rules also split MoE's router and the SSM blocks' ``inner`` leaves on
+# "model"; the step gathers those whole over the model line and computes
+# them alike there: every rank routes every token, and the rules'
+# contiguous block of the SSM's concatenated [z | x | B | C | dt]
+# projection is not a set of whole heads
+MODEL_PARALLEL = ("embed", "head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+                  "w_gate", "w_up", "w_down", "we_gate", "we_up", "we_down")
 
 
 def _key(k) -> Optional[str]:

@@ -55,8 +55,8 @@ import torch
 
 from repro_torch.core import mesh as core_mesh
 
-__all__ = ["Split", "data_split", "current", "rows", "each", "total",
-           "whole"]
+__all__ = ["Split", "data_split", "current", "rows", "each", "stacked",
+           "ordered_sum", "total", "whole"]
 
 _STATE = types.SimpleNamespace(split=None)
 
@@ -99,22 +99,32 @@ def rows(n: int) -> int:
     return n if s is None else n * s.size
 
 
-def each(t: torch.Tensor) -> torch.Tensor:
-    """(ranks, *t.shape): every rank's ``t`` in rank order, the same bits
-    on every rank; one all_sum of the stack (no gradient)."""
-    s = current()
+def stacked(t: torch.Tensor, size: int, rank: int,
+            line: Optional[core_mesh.Mesh]) -> torch.Tensor:
+    """(size, *t.shape): every rank's ``t`` (this one being ``rank`` of
+    ``line``) in rank order, the same bits on every rank; one all_sum of a
+    stack that holds ``t`` at this rank's row and zeros elsewhere (no
+    gradient).  Shape only without a line: ``t`` at every row."""
     t = t.detach()
-    if s is None:
-        return t[None]
-    if s.line is None:
-        return t[None].expand(s.size, *t.shape).clone()
-    stack = torch.zeros((s.size,) + tuple(t.shape), dtype=t.dtype,
+    if line is None:
+        return t[None].expand(size, *t.shape).clone()
+    stack = torch.zeros((size,) + tuple(t.shape), dtype=t.dtype,
                         device=t.device)
-    stack[s.rank] = t
-    return core_mesh.all_sum(s.line, stack)
+    stack[rank] = t
+    return core_mesh.all_sum(line, stack)
 
 
-def _ordered(stack: torch.Tensor) -> torch.Tensor:
+def each(t: torch.Tensor) -> torch.Tensor:
+    """(ranks, *t.shape): every rank's ``t`` of the data line in rank
+    order (`stacked`); ``t[None]`` with no split."""
+    s = current()
+    if s is None:
+        return t.detach()[None]
+    return stacked(t, s.size, s.rank, s.line)
+
+
+def ordered_sum(stack: torch.Tensor) -> torch.Tensor:
+    """The sum of a stack's rows in rank order."""
     out = stack[0]
     for i in range(1, stack.shape[0]):
         out = out + stack[i]
@@ -124,7 +134,7 @@ def _ordered(stack: torch.Tensor) -> torch.Tensor:
 class _Total(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t):
-        return _ordered(each(t))
+        return ordered_sum(each(t))
 
     @staticmethod
     def backward(ctx, g):
@@ -144,4 +154,4 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     (``t`` alone): `total` of the detached share."""
     if current() is None:
         return t
-    return _ordered(each(t))
+    return ordered_sum(each(t))

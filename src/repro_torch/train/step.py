@@ -19,19 +19,26 @@ point leaves the state bitwise as it was.
 
 **On a mesh** (`repro_torch.sharding.layout.mesh_step`) the loss and the
 gradient function run inside a data split (`repro_torch.sharding.split`)
-with the parameters gathered one unit at a time
-(`repro_torch.sharding.fsdp`): each rank computes on its share of every
-global microbatch, the loss's batch statistics are reduced over the
-ranks, and each unit's gradient is summed over them in the unit's
-backward (one all_sum a tensor), of which the rank keeps its block --
-then, as in the JAX step, compressed and accumulated in ``accum_dtype``
-in microbatch order, on the blocks (elementwise: the same bits as the
-whole gradients' blocks).  ``cast_params_bf16`` casts each block before
-its gather.  The metrics are the global batch's.  Outside a split and a
-`fsdp.sharded` scope nothing of that runs.
+and a model split (`repro_torch.sharding.tensor`) with the parameters
+gathered one unit at a time (`repro_torch.sharding.fsdp`): each rank
+computes on its share of every global microbatch and on its share of
+the heads, mlp columns, experts and vocab rows, the loss's batch
+statistics are reduced over the ranks, and each unit's gradient is
+summed over them in the unit's backward (one all_sum a tensor), of
+which the rank keeps its block -- then, as in the JAX step, compressed
+and accumulated in ``accum_dtype`` in microbatch order, on the blocks
+(elementwise: the same bits as the whole gradients' blocks).  The
+metrics are the global batch's.  Outside the splits and a `fsdp.sharded`
+scope nothing of that runs.
+
+``cast_params_bf16`` casts each block before its gather, as each unit
+is called.  One device takes a one-rank `fsdp.sharded` scope for it, so
+that a checkpoint's recomputation under ``cfg.remat`` casts again, as
+JAX casts inside the rematerialised function.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -62,18 +69,6 @@ class TrainConfig:
                                    # before use; grads reach the f32 leaves
 
 
-class _Bound(torch.nn.Module):
-    """``fn(model, batch)`` as a module call, for `functional_call`."""
-
-    def __init__(self, model, fn):
-        super().__init__()
-        self.model = model
-        self.fn = fn
-
-    def forward(self, batch):
-        return self.fn(self.model, batch)
-
-
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``loss_fn(model, batch) -> (loss, metrics)``: chunked CE on
     `forward_hidden`, plus ``moe_aux_weight`` x each aux, plus
@@ -86,7 +81,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
         loss = chunked_cross_entropy(hidden, model.unembedding(),
                                      batch["targets"],
                                      softcap=cfg.logits_softcap,
-                                     chunk=tcfg.ce_chunk)
+                                     chunk=tcfg.ce_chunk, vocab=cfg.vocab)
         metrics = {"nll": split.whole(loss)}
         value = metrics["nll"]
         for k in sorted(aux):
@@ -96,7 +91,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
         if tcfg.logdet_reg:
             # decorrelation on the mean-pooled token embeddings: the
             # framework-level use of the paper's logdet core
-            emb = embed_lookup(model.embed, batch["tokens"], cfg.dtype)
+            emb = embed_lookup(model.embed, batch["tokens"], cfg.dtype,
+                               cfg.vocab)
             reg = logdet_decorrelation(emb.mean(dim=1))
             loss = loss + tcfg.logdet_reg * reg
             value = value + tcfg.logdet_reg * reg
@@ -107,15 +103,19 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     rule = _bf16 if tcfg.cast_params_bf16 else None
 
     def loss_fn(model, batch):
-        with fsdp.gathered(model, rule) as on_mesh:
-            if rule is None or on_mesh:
-                return body(model, batch)
-            cast = {f"model.{n}": p.to(torch.bfloat16)
-                    if rule(n, p) is not None else p
-                    for n, p in model.named_parameters()}
-            return torch.func.functional_call(_Bound(model, body), cast,
-                                              (batch,))
+        with _cast_scope(model, tcfg), fsdp.gathered(model, rule):
+            return body(model, batch)
     return loss_fn
+
+
+def _cast_scope(model, tcfg: TrainConfig):
+    """Under ``cast_params_bf16`` on one device, a one-rank `fsdp.sharded`
+    scope (every leaf whole, nothing summed), so that each unit casts its
+    parameters as it is called -- a checkpoint's recomputation in the
+    backward too, which must run inside the scope; else nothing."""
+    if tcfg.cast_params_bf16 and not fsdp.installed(model):
+        return fsdp.sharded(model)
+    return contextlib.nullcontext()
 
 
 def _bf16(name: str, p: torch.Tensor):
@@ -152,8 +152,9 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
         return g
 
     def one_micro(model, names, params, mb):
-        loss, metrics = loss_fn(model, mb)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with _cast_scope(model, tcfg):
+            loss, metrics = loss_fn(model, mb)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [compress(torch.zeros_like(p) if g is None else g)
                  for g, p in zip(grads, params)]
         return grads, {k: v.detach() for k, v in metrics.items()}

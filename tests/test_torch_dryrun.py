@@ -14,7 +14,11 @@ state never), one unit at a time: a layer's for its forward and again
 for its backward, the embedding's and the final norm's once; its
 all_sums are the nll's exchange over the D ranks of the data axes (D
 f32s), one of every parameter's gradient (its bytes), the global norm's
-(one f64) and the agreement (one f32).  The skip record and the ``--out`` / ``--skip-existing`` files of
+(one f64) and the agreement (one f32).  A leaf the rules split on "model"
+where the port's step computes its model block (heads, kv heads, mlp,
+vocab, experts; not the router nor the SSM's inner leaves) is gathered
+over the data axes only, and its gradient summed at its model block's
+bytes; the model line adds its activations' all_sums (`_model_line`).  The skip record and the ``--out`` / ``--skip-existing`` files of
 the port's CLI equal the JAX CLI's (run in a subprocess: the JAX module
 sets its device count on import)."""
 from __future__ import annotations
@@ -106,7 +110,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
                                          JR.make_rules(scfg, fm), fm), 0),
                  (caches, JR.cache_shardings(caches, scfg, fm), None)]
         leaves.append((jax.ShapeDtypeStruct((), jnp.int32), JR.P()))
-    leaves = [(leaf, spec, 1, False, False) for leaf, spec in leaves]
+    leaves = [(leaf, spec, 1, False, False, 1) for leaf, spec in leaves]
     # the port holds a parameter's stacked layers as tensors apart (one
     # gather each; ``top`` is where the parameter tree's top-level key
     # sits in a path); optimizer and cache leaves stay stacked
@@ -119,26 +123,70 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
             params = top is not None and (top == 0 or keys[0] == "params")
             depth = STACK_DEPTH.get(keys[top], 0) if params else 0
             leaves.append((leaf, spec, math.prod(leaf.shape[:depth]),
-                           params, depth > 0))
+                           params, depth > 0,
+                           _model_ways(path, leaf, spec, fm)
+                           if params and shape.kind == "train" else 1))
     train = shape.kind == "train"
     data = math.prod(fm.shape[a] for a in ("pod", "data")
                      if a in fm.shape)
     split = train and shape.global_batch % data == 0
     arg, count, wire = 0, 0, 0
     sums, summed = (3, data * 4 + 8 + 4) if split else (0, 0)
-    for leaf, spec, tensors, param, layer in leaves:
+    for leaf, spec, tensors, param, layer, mways in leaves:
         nbytes = int(np.prod(leaf.shape)) * jnp.dtype(leaf.dtype).itemsize
         n = math.prod(_split(spec, fm))
         arg += nbytes // n
-        # a train step gathers a layer's leaf (a stacked one) twice
+        # a train step gathers a layer's leaf (a stacked one) twice; a leaf
+        # computed on its model block over the data line only
         times = 2 if train and layer else 1
-        if n > 1 and (param or not train):
-            count += n * tensors * times
-            wire += nbytes * times
+        if n // mways > 1 and (param or not train):
+            count += n // mways * tensors * times
+            wire += nbytes // mways * times
         if split and param:
             sums += tensors
-            summed += nbytes
+            summed += nbytes // mways
+    if train and fm.shape.get("model", 1) > 1:
+        line, line_bytes = _model_line(jcfg, shape, fm, data)
+        sums += line
+        summed += line_bytes
     return arg, count, wire, sums, summed
+
+
+def _model_ways(path, leaf, spec, fm) -> int:
+    """How many ways the port's step splits a parameter leaf over its
+    model line: the "model" axis where the JAX spec puts it on a dim of
+    logical axis heads, kv_heads, mlp, vocab, or expert outside the router
+    (the SSM's inner leaves and the router are gathered whole), else 1."""
+    last = getattr(path[-1], "key", None)
+    for ax, e in zip(JR.logical_axes_for(path, leaf), spec):
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        if "model" in axes and (ax in ("heads", "kv_heads", "mlp", "vocab")
+                                or (ax == "expert" and last != "router")):
+            return fm.shape["model"]
+    return 1
+
+
+def _model_line(jcfg, shape, fm, data) -> tuple:
+    """(all_sums, their bytes) over the model line in a dense arch's
+    train step without the aux, one microbatch, remat (gemma3-1b): a
+    layer's split attention (heads dividing the model axis) and its split
+    MLP each sum their output twice (the forward and the recomputation)
+    and their input's gradient once, bf16 activations of the rank's rows;
+    a vocab-parallel embedding sums its lookup; each 512-token CE chunk
+    exchanges three f32s a row and rank (twice) and sums its f32 hidden
+    chunk's gradient."""
+    assert jcfg.family == "dense" and jcfg.remat
+    m = fm.shape["model"]
+    b, t, d = shape.global_batch // data, shape.seq_len, jcfg.d_model
+    x = b * t * d * 2
+    per_layer = 3 * ((jcfg.n_heads % m == 0) + (jcfg.d_ff % m == 0))
+    count, nbytes = jcfg.n_layers * per_layer, jcfg.n_layers * per_layer * x
+    if jcfg.vocab % m == 0:
+        chunks = t // min(512, t)
+        count += 1 + 3 * chunks
+        nbytes += x + chunks * (2 * m * 3 * b * min(512, t) * 4
+                                + b * min(512, t) * d * 4)
+    return count, nbytes
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)

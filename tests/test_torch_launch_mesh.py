@@ -26,10 +26,16 @@ gates, and bitwise where the arithmetic is one rank's alike.
   the gradient's reduction, the nll's all_sum, the global norm's and the
   one on which the ranks agree that the step commits; the plan gathers
   no optimizer leaf.
-- The 2x2 run's step-25 checkpoint restores bitwise onto one rank and
-  onto a 2x1 grid; the 2x1 grid splits the batch as the 2x2 one does,
-  so its five steps on end bitwise where the 2x2 run ended, and one
-  rank's within LOSS_RTOL of the one-rank run's losses.
+- The 2x2 run's step-25 checkpoint restores bitwise onto one rank, onto
+  a 2x1 grid and onto a 2x2 grid.  The 2x2 grid's five steps end bitwise
+  on the 2x2 run's step-30 checkpoint.  The others go on within
+  LOSS_RTOL of the run they continue: the 2x1 grid splits the batch as
+  the 2x2 one does, but its ranks compute the heads, mlp columns and
+  vocab rows that the 2x2 grid's model line splits (`sharding.tensor`)
+  whole, so its five steps follow the 2x2 run's losses to rounding, not
+  bitwise; one rank's follow the one-rank run's.
+- Each rank of a model line reports its share of the heads, the mlp
+  columns and the vocab rows (`sharding.tensor.recording`).
 
 LOSS_RTOL comes from f32 rounding: a step's loss sums 128 tokens' terms
 in another order (two ranks' partial sums), at most 128 x 2^-24 = 7.6e-6
@@ -165,7 +171,7 @@ def runs(tmp_path_factory):
         T.rank_restore, n, backend="gloo", device="cpu", timeout=600,
         args=(ARGV + ["--ckpt-dir", str(d / spec)], spec, str(d / "grid"),
               RESTORE_AT, 1, F32))
-        for spec, n in (("1x1", 1), ("2x1", 2))}
+        for spec, n in (("1x1", 1), ("2x1", 2), ("2x2", 4))}
     last = checkpoint_arrays(d / "grid" / "step_00000030")
     return {"dir": d, "one": one, "grid": grid, "restored": restored,
             "last": last, "held_loss": held_loss(last)}
@@ -250,18 +256,30 @@ def test_2x2_collectives_per_step_equal_the_plan(runs):
         plan = r["plan"]
         assert r["counts"]["broadcast"] == plan["broadcast"] > 0
         # the nll's exchange, every gradient's reduction, the global
-        # norm's and the agreement
+        # norm's and the agreement; the model line's: each of the 6
+        # layers' split attention and MLP, their outputs (forward and
+        # recomputation) and their inputs' gradients, the vocab-parallel
+        # lookup and the one CE chunk's exchange (twice) and gradient
         n_grads = sum(k.startswith("params.") for k in r["blocks"])
-        assert r["counts"]["all_sum"] == plan["all_sum"] == 3 + n_grads
+        assert plan["model_all_sum"] == 6 * (3 + 3) + 1 + 3
+        assert r["counts"]["all_sum"] == plan["all_sum"] == (
+            3 + n_grads + plan["model_all_sum"])
+        assert r["shares"] == {"heads": [(2, 4, 2 * r["coords"]["model"])],
+                               "kv_heads": [(1, 1, None)],
+                               "mlp": [(64, 128, 64 * r["coords"]["model"])],
+                               "vocab": [(128, 256,
+                                          128 * r["coords"]["model"])]}
         assert plan["gathered"] and all(
             k.startswith("params.") for k in plan["gathered"])
     one = runs["one"]
     assert one["counts"] == {"broadcast": 0, "all_sum": 0}
     assert one["plan"] == {"broadcast": 0, "bytes": 0, "all_sum": 0,
-                           "all_sum_bytes": 0, "gathered": []}
+                           "all_sum_bytes": 0, "model_all_sum": 0,
+                           "model_all_sum_bytes": 0, "gathered": []}
 
 
-@pytest.mark.parametrize("spec,dims", [("1x1", (1, 1)), ("2x1", (2, 1))])
+@pytest.mark.parametrize("spec,dims", [("1x1", (1, 1)), ("2x1", (2, 1)),
+                                       ("2x2", (2, 2))])
 def test_elastic_restore_is_bitwise_the_saved_blocks(runs, spec, dims):
     ranks = runs["restored"][spec]
     saved = checkpoint_arrays(runs["dir"] / "grid"
@@ -269,13 +287,21 @@ def test_elastic_restore_is_bitwise_the_saved_blocks(runs, spec, dims):
     assert all(r["at"] == RESTORE_AT and r["restored_bitwise"]
                for r in ranks)
     _check_blocks(ranks, dims, saved, key="restored")
-    if spec == "2x1":
-        # the same data split as the 2x2 run: bitwise its end
+    if spec == "2x2":
+        # the layout it was saved from: bitwise the 2x2 run's end
         _check_blocks(ranks, dims, runs["last"])
-    else:
-        want = np.array(runs["one"]["losses"][RESTORE_AT:])
-        err = np.abs(np.array(ranks[0]["losses"]) - want)
+        assert all(r["losses"] == runs["grid"][0]["losses"][RESTORE_AT:]
+                   for r in ranks)
+        return
+    # on to step 30 within LOSS_RTOL of the run it continues: the 2x1
+    # grid splits the batch as the 2x2 one does, but sums the model
+    # line's partial products in one rank; one rank, of the one-rank run
+    ref = runs["grid"][0] if spec == "2x1" else runs["one"]
+    want = np.array(ref["losses"][RESTORE_AT:])
+    for r in ranks:
+        err = np.abs(np.array(r["losses"]) - want)
         assert len(err) == 5 and (err <= LOSS_RTOL * want).all(), err
+    assert all(r["losses"] == ranks[0]["losses"] for r in ranks)
 
 
 def test_2x2_checkpoint_files_hold_the_one_rank_layout(runs):

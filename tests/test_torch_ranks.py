@@ -575,28 +575,32 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
 
 
 def split_step(mesh, spec: str, cases: dict) -> dict:
-    """One rank of a ``spec`` grid ("2x2", "2x1", ...) taking one split
-    mesh step (`sharding.layout.mesh_step`) per case.  ``cases`` maps a
-    name to (arch, a JAX train state's numpy tree, a numpy global batch,
+    """One rank of a ``spec`` grid ("2x2", "2x1", "1x2", ...) taking one
+    split mesh step (`sharding.layout.mesh_step`) per case.  ``cases``
+    maps a name to (arch, a JAX train state's numpy tree or an int seed
+    of the port's own `init_train_state`, a numpy global batch,
     `TrainConfig` keywords with ``optimizer`` and, optionally, the
-    config's ``remat``): the smoke config at f32
-    activations, the state carried across (`from_jax_train_state`) and
-    laid out by `layout.state_shardings`, the step on this rank's rows
-    (`layout.batch_rows`).  -> {name: its coordinates, the reduced
+    config's ``remat``, ``vocab``, ``n_layers``, ``param_dtype`` or
+    ``n_experts``): the
+    smoke config at f32 activations, the state carried across
+    (`from_jax_train_state`) and laid out by `layout.state_shardings`,
+    the step on this rank's rows (`layout.batch_rows`).  -> {name: its coordinates, the reduced
     gradients before the clip, gathered whole after the step (numpy on
     data rank 0 of model column 0, else None), their sha256 digests, the
     digests of this rank's blocks of them (``grad_blocks``), the step's
-    metrics, its collectives and `layout.step_plan`, and the sha256 of
-    every block after it}."""
+    metrics, its collectives and `layout.step_plan`, the shares of the
+    heads, mlp columns, experts and vocab rows it computed
+    (`sharding.tensor.recording`), and the sha256 of every block after
+    it}."""
     import hashlib
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh_like
     from repro_torch.models.convert import from_jax_train_state
     from repro_torch.optim import OptConfig
-    from repro_torch.sharding import layout
+    from repro_torch.sharding import layout, tensor
     from repro_torch.sharding.rules import Sharding, batch_spec
-    from repro_torch.train import TrainConfig, make_grad_fn
+    from repro_torch.train import TrainConfig, init_train_state, make_grad_fn
     grid = make_mesh_like(spec, device="cpu", grid=True)
 
     def digest(t):
@@ -605,11 +609,17 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
     out = {}
     for name, (arch, np_state, batch, kw) in cases.items():
         kw = dict(kw)
-        over = {k: kw.pop(k) for k in ("remat",) if k in kw}
+        over = {k: kw.pop(k) for k in ("remat", "vocab", "n_layers",
+                                       "param_dtype", "n_experts")
+                if k in kw}
         tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
         cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
                                                    **over)
-        state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
+        if isinstance(np_state, int):
+            state = init_train_state(cfg, tcfg, generator=torch.Generator()
+                                     .manual_seed(np_state), device="cpu")
+        else:
+            state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
         sh = layout.state_shardings(state, cfg, grid, tcfg.opt.name)
         state = layout.shard(state, sh)
         b = next(iter(batch.values())).shape[0]
@@ -622,7 +632,8 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
                                   for k, v in batch.items()}, bsh,
                                  tcfg.microbatches)
         M.reset_collective_counts()
-        state, metrics = step(state, rows)
+        with tensor.recording() as shares:
+            state, metrics = step(state, rows)
         counts = M.collective_counts()
         whole = {k: layout.gather_leaf(g, sh["params"][k])
                  for k, g in seen["g"].items()}
@@ -635,12 +646,66 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
             "grad_blocks": {k: digest(g) for k, g in seen["g"].items()},
             "metrics": {k: float(v) for k, v in metrics.items()},
             "counts": counts,
+            "shares": {k: sorted(v, key=str) for k, v in shares.items()},
             "plan": layout.step_plan(
                 cfg, tcfg, sh, bsh,
-                layout.whole_like(state["params"], sh["params"])),
+                layout.whole_like(state["params"], sh["params"]),
+                rows=rows),
             "blocks": {".".join(p): digest(t)
                        for p, t in layout.flat(state).items()}}
     return out
+
+
+def mutated_split_step(mesh, spec: str, cases: dict, mutation: str) -> dict:
+    """`split_step` with one fault planted in the model split
+    (tests/test_torch_model_split.py shows that its gates catch each):
+
+    - ``partial_unsummed``: an attention's k / v projection left whole
+      while its q heads split is reduced over the data line only, so each
+      rank keeps its part of the gradient;
+    - ``partial_twice``: that gradient summed over the model line once
+      more after its reduction;
+    - ``to_model_unsummed``: a column-parallel input's gradient not
+      summed over the model line in the backward;
+    - ``lse_per_rank``: the vocab-parallel cross-entropy's log-sum-exp
+      from this rank's logits alone (the target logit still exchanged)."""
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.sharding import fsdp, tensor
+    if mutation == "partial_unsummed":
+        real_modes = tensor.leaf_modes
+
+        def modes(shardings):
+            return {k: tensor.FULL if v == tensor.PARTIAL else v
+                    for k, v in real_modes(shardings).items()}
+        tensor.leaf_modes = modes
+    elif mutation == "partial_twice":
+        real_reduce = fsdp.reduce
+
+        def reduce(unit, grads, blocks):
+            out = real_reduce(unit, grads, blocks)
+            line = tensor.current().line
+            if line is None:        # shape only (`layout.step_plan`)
+                return out
+            return [core_mesh.all_sum(line, g.clone())
+                    if unit.plan.modes[n] == tensor.PARTIAL else g
+                    for n, g in zip(unit.names, out)]
+        fsdp.reduce = reduce
+    elif mutation == "to_model_unsummed":
+        tensor._ToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    elif mutation == "lse_per_rank":
+        real_each = tensor.each
+
+        def each(t):
+            out = real_each(t)
+            if t.dim() >= 1 and t.shape[0] == 3:     # the CE's exchange
+                out[:, 0] = t[0]
+                out[:, 1] = 0
+                out[tensor.current().rank, 1] = t[1]
+            return out
+        tensor.each = each
+    else:
+        raise ValueError(mutation)
+    return split_step(mesh, spec, cases)
 
 
 # --------------------------------------------------------------------------

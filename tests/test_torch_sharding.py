@@ -231,6 +231,75 @@ def test_specs_equal_the_jax_rules(arch, mesh):
     assert canon(specs["step"]) == canon(jspecs["step"]) == ()
 
 
+@pytest.mark.parametrize("mesh", ["16x16", "2x2"])
+@pytest.mark.parametrize("arch", SPEC_ARCHS + ["whisper-tiny",
+                                  "llama4-maverick-400b-a17b"])
+def test_leaf_modes_read_the_jax_rules_model_axis(arch, mesh):
+    """How the split step treats each parameter on the model line
+    (`sharding.tensor.leaf_modes`), read off the JAX rules: ``split``
+    where the JAX spec puts "model" on a dim whose logical axis is heads,
+    kv_heads, mlp, vocab, or expert outside the router (the SSM's inner
+    leaves and the router stay whole); ``partial`` for an attention's
+    wk / wv / bk / bv left whole where its wq splits; ``full``
+    otherwise.  `layout.model_block` is the JAX spec without "model",
+    and `layout.carries_model` says whether it has "model"."""
+    from repro_torch.sharding import layout, tensor
+    from repro_torch.sharding.rules import param_shardings
+    fm = MESHES[mesh]
+    cfg, state = port_state(arch, "adamw")
+    jcfg, jshapes = jax_state(arch, "adamw")
+    rules = JR.make_rules(jcfg, fm)
+    jleaves = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            jshapes["params"])[0]:
+        axes = JR.logical_axes_for(path, leaf)
+        spec = canon(JR._spec_from_axes(axes, rules, fm, leaf.shape))
+        jleaves[".".join(str(k.key) for k in path)] = (
+            axes, spec + (None,) * (len(axes) - len(spec)))
+    want = {}
+    for leaf in jax_leaves(state["params"]):
+        axes, spec = jleaves[".".join(leaf.path)]
+        depth = len(leaf.lead)
+        for name in leaf.names:
+            last = name.rpartition(".")[2]
+            split = any(
+                "model" in norm(e) and (ax in ("heads", "kv_heads", "mlp",
+                                               "vocab")
+                                        or (ax == "expert"
+                                            and last != "router"))
+                for ax, e in zip(axes[depth:], spec[depth:]))
+            want[name] = (split, tuple(spec[depth:]))
+    modes = tensor.leaf_modes(param_shardings(state["params"], cfg, fm))
+    assert set(modes) == set(want)
+    for name, (split, spec) in want.items():
+        prefix, _, last = name.rpartition(".")
+        partial = (last in ("wk", "wv", "bk", "bv") and not split
+                   and want.get(f"{prefix}.wq", (False,))[0])
+        assert modes[name] == (tensor.SPLIT if split else tensor.PARTIAL
+                               if partial else tensor.FULL), name
+    for name, sh in param_shardings(state["params"], cfg, fm).items():
+        spec = want[name][1]
+        assert layout.carries_model(sh) == any("model" in norm(e)
+                                               for e in spec), name
+        inner = tuple(tuple(a for a in norm(e) if a != "model") or None
+                      for e in spec)
+        got = canon(layout.model_block(sh).spec)
+        assert got + (None,) * (len(inner) - len(got)) == inner, name
+    split = {k for k, v in modes.items() if v == tensor.SPLIT}
+    # what each mesh splits: on 2x2 every arch's q heads (its kv heads
+    # where they divide), mlp and vocab; on 16x16 gemma3's 4 heads stay
+    # whole, its mlp and vocab split
+    if arch == "gemma3-1b":
+        assert ("blocks.0.attn.wq" in split) == (mesh == "2x2")
+        assert {"embed", "blocks.0.mlp.w_down"} <= split
+        assert modes["blocks.0.attn.wk"] == (
+            tensor.PARTIAL if mesh == "2x2" else tensor.FULL)
+    if arch == "mamba2-370m":
+        # the SSM blocks compute alike on the model line (50280 rows do not
+        # divide 16 ways)
+        assert split == ({"embed"} if mesh == "2x2" else set())
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_make_rules_equal_the_jax_rules(arch, mesh):
@@ -387,34 +456,56 @@ def test_step_plan_adds_the_agreeing_all_sum_on_a_grid():
     for its forward and again for its backward (remat), the nll's
     exchange (two f32s), one reduction of each gradient, the global
     norm's all_sum (one f64) and the one that agrees the step commits
-    (one f32); nothing on one rank."""
+    (one f32); the model line's all_sums of a model whose q heads, mlp
+    and vocab the rules split, read off its step; nothing on one rank."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import GridMesh, make_mesh_like
     from repro_torch.sharding import layout
-    from repro_torch.sharding.rules import Sharding
+    from repro_torch.sharding.rules import Sharding, param_shardings
     from repro_torch.train import TrainConfig
     cfg = get_config("gemma3-1b", smoke=True)
     params = {"w": torch.empty(8, 4, device="meta")}
     grid = GridMesh(("data", "model"), (2, 2))
     sh = {"params": {"w": Sharding(grid, P("data", "model"))}}
     bsh = {"tokens": Sharding(grid, P("data"))}
+    none = {"model_all_sum": 0, "model_all_sum_bytes": 0}
     assert layout.step_plan(cfg, TrainConfig(), sh, bsh, params) == {
         "broadcast": 4, "bytes": 8 * 4 * 4, "all_sum": 1 + 1 + 1 + 1,
-        "all_sum_bytes": 2 * 4 + 8 * 4 * 4 + 8 + 4, "gathered": ["params.w"]}
+        "all_sum_bytes": 2 * 4 + 8 * 4 * 4 + 8 + 4, "gathered": ["params.w"],
+        **none}
     params["blocks.0.w"] = torch.empty(8, 4, device="meta")
     sh["params"]["blocks.0.w"] = Sharding(grid, P("data"))
     assert layout.step_plan(cfg, TrainConfig(), sh, bsh, params) == {
         "broadcast": 4 + 2 * 2, "bytes": 8 * 4 * 4 * 3,
         "all_sum": 1 + 2 + 1 + 1,
         "all_sum_bytes": 2 * 4 + 2 * 8 * 4 * 4 + 8 + 4,
-        "gathered": ["params.blocks.0.w", "params.w"]}
+        "gathered": ["params.blocks.0.w", "params.w"], **none}
+    # the smoke model by the rules, its q heads, mlp and vocab split on
+    # "model": the model line's all_sums, read off the step run shape
+    # only.  Each of the 6 layers' attention and MLP sums its output in
+    # the forward and again in the recomputation, and its input's gradient
+    # in the backward; the lookup sums its rows once; the one 5-token CE
+    # chunk exchanges (2 ranks, 3, 2 rows, 5) f32s in its forward and its
+    # recomputation and sums its f32 hidden's gradient.  The rank's 2 x 5
+    # rows of bf16 activations are 1280 bytes.
+    model = Model(cfg, empty_init(torch.device("meta")))
+    msh = {"params": param_shardings(model, cfg, grid)}
+    with pytest.raises(ValueError, match="rows"):
+        layout.step_plan(cfg, TrainConfig(), msh, bsh, model)
+    rows = {"tokens": torch.zeros(2, 5, dtype=torch.int32),
+            "targets": torch.zeros(2, 5, dtype=torch.int32)}
+    plan = layout.step_plan(cfg, TrainConfig(), msh, bsh, model, rows=rows)
+    x = 2 * 5 * 64 * 2
+    assert plan["model_all_sum"] == 6 * (3 + 3) + 1 + 3
+    assert plan["model_all_sum_bytes"] == (
+        (6 * 6 + 1) * x + 2 * (2 * 3 * 2 * 5 * 4) + 2 * 5 * 64 * 4)
     del params["blocks.0.w"], sh["params"]["blocks.0.w"]
     one = make_mesh_like("1x1", device="cpu")
     sh1 = {"params": {"w": Sharding(one, P("data", "model"))}}
     bsh1 = {"tokens": Sharding(one, P("data"))}
     assert layout.step_plan(cfg, TrainConfig(), sh1, bsh1, params) == {
         "broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0,
-        "gathered": []}
+        "gathered": [], **none}
     assert layout.agree(one, True) is True
     assert layout.agree(one, False) is False
 

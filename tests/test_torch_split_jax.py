@@ -5,7 +5,10 @@ fake-device 2x2 mesh (``XLA_FLAGS=--xla_force_host_platform_device_count
 launcher lays it out (`repro.launch.train.build`: ``param_shardings`` in
 and out, the batch by ``batch_spec``).  GSPMD computes the global
 program; the port's ranks each take their share of the batch and reduce
-the statistics of the whole batch over the data axis.
+the statistics of the whole batch over the data axis, and compute their
+share of the heads, mlp columns, experts and vocab rows on the model
+axis (`sharding.tensor`; tests/test_torch_model_split_jax.py holds a
+1x2 grid too).
 
 Two cases at the smoke configs, f32 activations, one step from the JAX
 state carried across (`from_jax_train_state`), batch 4 x 16:
@@ -230,9 +233,17 @@ def test_split_step_collectives_equal_the_plan(runs, arch):
             k.startswith("params.") for k in plan["gathered"])
     # the nll; the MoE layers exchange twice a forward, and remat runs
     # each again; the aux's two; one all_sum of every gradient; the global
-    # norm's; the agreement
+    # norm's; the agreement; and the model line's: a split attention's
+    # output (its forward and its recomputation) and its input's gradient,
+    # a split MLP's the same (gemma3: 6 layers), a MoE layer with split
+    # experts its output twice, its input's and combine weights' gradients
+    # (qwen2-moe: 2 layers), the vocab-parallel lookups (with the aux, its
+    # own too) and the one CE chunk's exchange twice and its gradient
     plan = runs["ranks"][0][arch]["plan"]
     moe = 2 if arch == "qwen2-moe-a2.7b" else 0
     aux = 2 if CASES[arch].get("logdet_reg") else 0
     grads = len(runs["ranks"][0][arch]["digests"])
-    assert plan["all_sum"] == 1 + aux + moe * 2 * 2 + grads + 1 + 1
+    model = {"gemma3-1b": 6 * (3 + 3) + 2 + 3,
+             "qwen2-moe-a2.7b": 2 * (3 + 4) + 1 + 3}[arch]
+    assert plan["model_all_sum"] == model
+    assert plan["all_sum"] == 1 + aux + moe * 2 * 2 + grads + 1 + 1 + model

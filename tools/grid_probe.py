@@ -11,9 +11,13 @@ to that depth on a ("data", "model") 2x2 grid, then take ``--steps``
 mesh steps (`layout.mesh_step`: the parameters gathered one unit at a
 time, `sharding.fsdp`; the rank's rows of the batch; each unit's
 gradient reduced over the data axis in its backward; its optimizer on
-its blocks), each to a `torch.cuda.synchronize`, with the rank's peak
-allocation, the high-water of whole parameter bytes alive at once
-(`fsdp.watching`) and the card's free memory after it; first the raw
+its blocks; its share of the heads, mlp columns and vocab rows on its
+model line, `sharding.tensor`), each to a `torch.cuda.synchronize`, with
+the rank's peak allocation, the high-water of whole parameter bytes
+alive at once (`fsdp.watching`), the shares the rank computed
+(`tensor.recording`) and the card's free memory after it, and the
+step's collectives by `layout.step_plan` (gathered and summed bytes,
+the model line's all_sums and bytes); first the raw
 broadcast of a 64 MB and a 512 MB tensor on the card and on the host
 over the four ranks.  Each rank appends its progress to
 ``<log-dir>/rank<r>.log`` as it goes, so a run that stops shows where.
@@ -65,7 +69,8 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
     """One rank (spawned): see the module docstring."""
     import torch
     from repro_torch.launch import train as T
-    from repro_torch.sharding import fsdp, layout
+    from repro_torch.sharding import fsdp, layout, tensor
+    from repro_torch.sharding.rules import Sharding, batch_spec
     torch.backends.cuda.matmul.allow_tf32 = False
     r = mesh.rank
     _log(log_dir, r, "start layers", layers, "free",
@@ -86,19 +91,26 @@ def grid_rank(mesh, layers: int, optimizer: str, steps: int,
     layer = sum(4 * math.prod(layout.whole_shape(p.shape, sh["params"][n]))
                 for n, p in st["params"].named_parameters()
                 if fsdp.unit_of(n) == "blocks.0")
+    cfg = st["params"].cfg
+    bsh = {k: Sharding(grid, s) for k, s in batch_spec(
+        cfg, grid, kind="train", batch=4).items()}
+    plan = layout.step_plan(cfg, T._tcfg(args), sh, bsh, layout.whole_like(
+        st["params"], sh["params"]), rows=batch_fn(0))
+    plan.pop("gathered")
     out = {"rank": r, "coords": grid.coords, "broadcast_s": rates,
            "resident_bytes": resident, "layer_f32_bytes": layer,
-           "steps": []}
+           "plan": plan, "steps": []}
     for i in range(steps):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with fsdp.watching() as high:
+        with fsdp.watching() as high, tensor.recording() as shares:
             st, m = step_fn(st, batch_fn(i))
         torch.cuda.synchronize()
         rec = {"s": time.perf_counter() - t0,
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "whole_peak_bytes": high.bytes,
                "whole_peak_units": high.units,
+               "shares": {k: sorted(v, key=str) for k, v in shares.items()},
                "card_free_bytes": torch.cuda.mem_get_info()[0],
                "loss": float(m["loss"])}
         out["steps"].append(rec)
