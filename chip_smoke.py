@@ -259,7 +259,14 @@ printed line each, any failure ends the run:
             bitwise the saved blocks and ending on the 2x2 run's last
             checkpoint bit for bit, onto a 2x1 grid bitwise the saved
             blocks and on within LAUNCH_LOSS_RTOL of the 2x2 run, and
-            onto one rank; then the same grid
+            onto one rank; each rank's built blocks (`layout
+            .init_blocks`: its blocks drawn alone) bitwise its blocks
+            of the seed's whole state built on the card; then Adafactor
+            on the grid (LAUNCH_ADAFACTOR_STEPS steps, its factored
+            moments in the rules' blocks, no gradient gathered) against
+            one rank: every loss within LAUNCH_LOSS_RTOL, the final
+            parameters within LAUNCH_ADAFACTOR_RTOL of their largest
+            move, the same bitwise checks; then the same grid
             at full width and depth (gemma3-1b at LAUNCH_WIDE_LAYERS
             layers, LAUNCH_WIDE_STEPS steps of LAUNCH_WIDE_SHAPE, the
             aux, f32, its final checkpoint gathered and written): the
@@ -269,7 +276,11 @@ printed line each, any failure ends the run:
             every rank, a rank's step s and peak, the high-water of whole
             parameter bytes alive at once, the bytes a step, resident
             bytes a rank, beside the step that gathered every parameter
-            whole once a step (LAUNCH_WIDE_GATHER_ALL); (c)
+            whole once a step (LAUNCH_WIDE_GATHER_ALL); a rank's build:
+            its allocation at the end within its blocks plus
+            LAUNCH_BUILD_DRAWS x the largest leaf's f32 bytes, its whole
+            bytes alive at once within the largest leaf's, beside the
+            whole state each rank built before (computed); (c)
             `launch.serve.generate` on LAUNCH_SERVE against the CPU on
             the same parameters (f32 logits within SMOKE_ATOL, greedy
             tokens equal until a near tie), tokens/s, and the CLI; (d)
@@ -4779,6 +4790,27 @@ LAUNCH_GRID_GATHER_ALL = {"broadcasts_per_step": 174, "all_sums_per_step": 60,
 LAUNCH_GRID_DATA_ONLY = {"broadcasts_per_step": 342, "all_sums_per_step": 61,
                          "bytes_per_step": 2.68e6,
                          "rank_step_s_median": [0.54, 0.94]}
+# (b) the builds: each rank draws its blocks alone (`layout.init_blocks`).
+# The smoke grid's ranks hold theirs bitwise against `shard(
+# init_train_state(...))` of the same seed built on the card.  A 26-layer
+# grid rank's allocation at the end of its build stays within its blocks
+# plus LAUNCH_BUILD_DRAWS x the largest leaf's f32 bytes (the draw and its
+# scaled copy), and its whole bytes alive at once within the largest
+# leaf's; beside them, the whole state that every rank built before
+# (computed from the shapes)
+LAUNCH_BUILD_DRAWS = 2
+# (b) Adafactor on the smoke grid: LAUNCH_ARGV with --optimizer adafactor
+# for LAUNCH_ADAFACTOR_STEPS steps, its factored moments in the rules'
+# blocks, against one rank here: each step's loss within LAUNCH_LOSS_RTOL;
+# each final parameter within LAUNCH_ADAFACTOR_RTOL of its tensor's
+# largest move over the run plus two f32 spacings a step.  The grid's
+# gradients differ from one rank's by rounding (TRAIN_GRAD_TOL of the
+# largest element); Adafactor scales each element by its row's and
+# column's RMS, carrying that into the move at about that share of the
+# tensor's step, and adds its means on the grid in another order (1e-7):
+# the gate of tests/test_torch_adafactor_split_jax.py, whose two
+# frameworks differ by as much
+LAUNCH_ADAFACTOR_STEPS, LAUNCH_ADAFACTOR_RTOL = 3, 1e-4
 # the split step against one rank (f32): the first step's reduced gradient
 # within TRAIN_GRAD_TOL of its largest element, its metrics within
 # TRAIN_METRIC_RTOL (grad_norm TRAIN_NORM_RTOL), each step's loss within
@@ -4846,32 +4878,63 @@ DRYRUN_DATA_ONLY = {"gemma3-1b|train_4k": {
     "all_sum_bytes": 3999251020, "temp_bytes": 58.83e9}}
 
 
-def rule_shardings(cfg, state, dims) -> tuple:
+def rule_shardings(cfg, state, dims, optimizer="adamw") -> tuple:
     """(a shape-only ("data", "model") grid of ``dims``, the split step's
-    `Sharding` of every leaf of a whole adamw train state by the rules
-    (`layout.state_shardings`), by `layout.flat` path joined with
+    `Sharding` of every leaf of a whole ``optimizer`` train state by the
+    rules (`layout.state_shardings`), by `layout.flat` path joined with
     dots)."""
     from repro_torch.launch.mesh import GridMesh
     from repro_torch.sharding.layout import flat, state_shardings
     grid = GridMesh(("data", "model"), dims)
-    sh = state_shardings(state, cfg, grid, "adamw")
+    sh = state_shardings(state, cfg, grid, optimizer)
     return grid, {".".join(p): s for p, s in flat(sh).items()}
 
 
 def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
-              ref=None) -> dict:
+              ref=None, built=False) -> dict:
     """One spawned rank of (b)'s grids: `launch.train.rank_main` and the
     kernel launches the rank made.  With ``ref`` (an .npz of one rank's
     first reduced gradients by name) the rank holds its own against it
     here -- ``grad_err`` (the largest difference) and ``grad_max`` (the
     reference's largest element) -- and returns (shape, sha256) digests
-    in place of its arrays."""
+    in place of its arrays.  With ``built`` it also builds the whole
+    state of the run's seed on its card (`train.init_train_state`), cuts
+    its blocks (`layout.shard`) and reports whether the blocks its
+    `launch.train.build` made were bitwise those (``built_bitwise``, over
+    ``built_leaves`` leaves)."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
+    from repro_torch.sharding import layout
+    from repro_torch.train import init_train_state
+
+    def digests(tree):
+        return {".".join(p): hashlib.sha256(
+            t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for p, t in layout.flat(tree).items()}
+    seen, real = {}, T.build
+
+    def build(*a, **k):
+        made = real(*a, **k)
+        seen.update(kw=k, cfg=made[0], sh=made[4], blocks=digests(made[1]))
+        return made
     ops.reset_launch_counts()
-    out = T.rank_main(mesh, argv, threads, detail, layers,
-                      digest and ref is None, dtype)
+    T.build = build if built else real
+    try:
+        out = T.rank_main(mesh, argv, threads, detail, layers,
+                          digest and ref is None, dtype)
+    finally:
+        T.build = real
     out["launches"] = ops.launch_counts()
+    if built:
+        dev = seen["kw"]["mesh"].device
+        whole = init_train_state(seen["cfg"], seen["kw"]["tcfg"],
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(seen["kw"].get("seed", 0)),
+                                 device=dev)
+        want = digests(layout.shard(whole, seen["sh"]))
+        out["built_bitwise"] = want == seen["blocks"]
+        out["built_leaves"] = len(want)
     if ref is not None:
         import numpy as np
         want = np.load(ref)
@@ -4894,7 +4957,7 @@ def _host(x) -> bytes:
     return x[1].encode() if isinstance(x, tuple) else x.tobytes()
 
 
-def hold_grid(ranks, cfg, state, what: str) -> dict:
+def hold_grid(ranks, cfg, state, what: str, optimizer="adamw") -> dict:
     """(b)'s bitwise checks of a grid run against itself: every rank's
     first reduced gradient the same bits; each leaf's blocks of the rules'
     shard shapes, and the ranks that hold one block the same bits (each
@@ -4903,13 +4966,13 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
     a model line computing its own share of the heads, mlp columns and
     vocab rows (`sharding.tensor.recording`: a dim that divides the model
     axis split, its block at the rank's model coordinate, else whole).
-    ``state`` is a whole one-rank state of the same config (its shapes).
-    -> leaves split / whole, a rank's resident bytes, the shares the
-    ranks of model line 0 reported."""
+    ``state`` is a whole one-rank state of the same config (its shapes)
+    and ``optimizer``.  -> leaves split / whole, a rank's resident bytes,
+    the shares the ranks of model line 0 reported."""
     import math
     from repro_torch.sharding.layout import block_slices, flat, shard_shape
     want = {".".join(p): t for p, t in flat(state).items()}
-    grid, sh = rule_shardings(cfg, state, LAUNCH_GRID)
+    grid, sh = rule_shardings(cfg, state, LAUNCH_GRID, optimizer)
     lead = ranks[0]
     for r in ranks:
         require(set(r["grads"]) == set(lead["grads"]) and all(
@@ -4948,7 +5011,10 @@ def hold_grid(ranks, cfg, state, what: str) -> dict:
         shared += len(held) < len(ranks)
     split = sum(tuple(v.shape) != shard_shape(v.shape, sh[k])
                 for k, v in want.items())
+    opt_split = sum(tuple(v.shape) != shard_shape(v.shape, sh[k])
+                    for k, v in want.items() if k.startswith("opt."))
     return {"leaves_split": split, "leaves_whole": len(want) - split,
+            "opt_leaves_split": opt_split,
             "leaves_shared_bitwise": shared,
             "shares_model_line_0": {str(r["coords"]): r["shares"]
                                     for r in ranks
@@ -5032,14 +5098,18 @@ def launch_full(smi: str) -> dict:
     return out
 
 
-def _one_rank(args, dtype, layers=None) -> tuple:
+def _one_rank(args, dtype, layers=None, checkpoint=True) -> tuple:
     """One rank on the card through `launch.train`'s build and loop ->
     (final state, losses, step stats, the first step's reduced gradients
-    and metrics, the peak allocation, the kernel launches)."""
+    and metrics, the peak allocation, the kernel launches).  Without
+    ``checkpoint`` the loop's saves write nothing (a reference run whose
+    checkpoint nothing reads)."""
     import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
     first = {}
+    saves = ckpt.save, ckpt.save_async
 
     def keep(grads, metrics):
         if not first:
@@ -5048,8 +5118,13 @@ def _one_rank(args, dtype, layers=None) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    state, losses, stats = T._run(args, T._mesh("1x1", "cuda"), layers,
-                                  dtype, on_grads=keep)
+    if not checkpoint:
+        ckpt.save = ckpt.save_async = lambda *a, **k: None
+    try:
+        state, losses, stats = T._run(args, T._mesh("1x1", "cuda"), layers,
+                                      dtype, on_grads=keep)
+    finally:
+        ckpt.save, ckpt.save_async = saves
     return (state, losses, stats, first, torch.cuda.max_memory_allocated(),
             ops.launch_counts())
 
@@ -5058,7 +5133,7 @@ def _spread(xs) -> list:
     return [min(xs), max(xs)] if xs else []
 
 
-def launch_grid(smi: str) -> dict:
+def launch_grid(smi: str, beside=None) -> dict:
     """(b): the JAX launcher test's run with the aux, f32, on a 2x2 grid
     of gloo ranks sharing the card (`launch.train.rank_main`) against one
     rank in this process: the split step's gates (the first reduced
@@ -5070,7 +5145,8 @@ def launch_grid(smi: str) -> dict:
     bitwise the saved blocks and on within the loss gate of the 2x2 run
     (its model line's split products are one rank's whole ones there);
     and onto one rank here, bitwise the saved state and on within the
-    loss gate."""
+    loss gate.  ``beside()``, when given, runs beside the restores (its
+    result under ``"beside"``)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
     import torch
@@ -5089,7 +5165,7 @@ def launch_grid(smi: str) -> dict:
                           timeout=LAUNCH_TIMEOUT,
                           args=(argv + ["--mesh", spec, "--device", "cuda",
                                         "--ckpt-dir", f"{tmp}/grid"], None,
-                                True, None, False, f32))
+                                True, None, False, f32, None, True))
         grid_s = time.perf_counter() - t0
         args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
         t0 = time.perf_counter()
@@ -5109,10 +5185,11 @@ def launch_grid(smi: str) -> dict:
         # run's end) and, elastic, onto a 2x1 grid (the same data split),
         # both at once and beside the work below (their seconds are not
         # measured)
-        with ThreadPoolExecutor(2) as pool:
+        with ThreadPoolExecutor(3) as pool:
             restoring = [pool.submit(restore, spec,
                                      LAUNCH_GRID[0] * LAUNCH_GRID[1]),
                          pool.submit(restore, "2x1", 2)]
+            besides = None if beside is None else pool.submit(beside)
             layout_out = hold_grid(ranks, cfg, one, "launch grid")
             # the grid's last parameters, from its step-30 checkpoint
             last, _ = ckpt.restore(f"{tmp}/grid", T.build(
@@ -5137,6 +5214,7 @@ def launch_grid(smi: str) -> dict:
             at1, cont = one_restored["at"], one_restored["losses"]
             restored1 = one_restored["restored_bitwise"]
             restored4, restored2 = (f.result() for f in restoring)
+            aside = None if besides is None else besides.result()
         end = f"step_{args.steps:08d}"
         files = sorted(p.name for p in Path(f"{tmp}/grid/{end}").iterdir())
         end_same = files == sorted(
@@ -5144,6 +5222,10 @@ def launch_grid(smi: str) -> dict:
             Path(f"{tmp}/grid/{end}/{f}").read_bytes()
             == Path(f"{tmp}/restored4/{end}/{f}").read_bytes()
             for f in files)
+    require(all(r["built_bitwise"] and r["built_leaves"] == len(r["blocks"])
+                for r in ranks), "launch grid: the "
+        "blocks a rank built are not bitwise its blocks of the whole state "
+        f"of the seed: {[(r['coords'], r['built_bitwise']) for r in ranks]}")
     # the gates against one rank
     want = first["grads"]
     gmax = max(float(g.abs().max()) for g in want.values())
@@ -5202,6 +5284,7 @@ def launch_grid(smi: str) -> dict:
             f"losses off one rank's by {cont_err}")
     return {"launches": {"launch|grid one rank": one_launches,
                          "launch|grid rank 0": ranks[0]["launches"]},
+            "beside": aside,
             "grid": spec, "backend": "gloo", "ranks": len(ranks),
             "devices": sorted({r["device"] for r in ranks}),
             "grid_run_s": grid_s, "one_rank_run_s": one_s,
@@ -5219,6 +5302,11 @@ def launch_grid(smi: str) -> dict:
             "loss_err_rel": loss_err, "loss_first_last": [losses[0],
                                                          losses[-1]],
             "held_loss_first_last_params": held,
+            "built_bitwise_ranks": sum(r["built_bitwise"] for r in ranks),
+            "built_leaves": ranks[0]["built_leaves"],
+            "rank_build_peak_bytes": [r["build_peak_bytes"] for r in ranks],
+            "rank_build_whole_peak_bytes": [r["build_whole_peak_bytes"]
+                                            for r in ranks],
             "restored_2x2_bitwise_and_end": end_same,
             "restored_2x1_loss_err_rel": end_err,
             "restored_1x1_loss_err_rel": cont_err,
@@ -5231,10 +5319,107 @@ def launch_grid(smi: str) -> dict:
                     "host memory: not a scaling figure"}
 
 
+def adafactor_argv() -> list:
+    """(b)'s Adafactor run: LAUNCH_ARGV with ``--optimizer adafactor`` for
+    LAUNCH_ADAFACTOR_STEPS steps."""
+    n = str(LAUNCH_ADAFACTOR_STEPS)
+    return LAUNCH_ARGV + ["--optimizer", "adafactor", "--steps", n,
+                          "--ckpt-every", n]
+
+
+def adafactor_ranks(tmp: str) -> tuple:
+    """(b)'s Adafactor run on the 2x2 grid of gloo ranks sharing the card,
+    its checkpoints under ``tmp`` -> (the ranks' `grid_rank` results, the
+    run's seconds)."""
+    import torch
+    from repro_torch.core.mesh import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(grid_rank, LAUNCH_GRID[0] * LAUNCH_GRID[1],
+                      backend="gloo", device="cuda", timeout=LAUNCH_TIMEOUT,
+                      args=(adafactor_argv() + [
+                          "--mesh", "x".join(map(str, LAUNCH_GRID)),
+                          "--device", "cuda", "--ckpt-dir", f"{tmp}/grid"],
+                          None, True, None, False, torch.float32))
+    return ranks, time.perf_counter() - t0
+
+
+def launch_grid_adafactor(smi: str, ranks, grid_s: float) -> dict:
+    """(b) with Adafactor: `adafactor_ranks`' run (``ranks``, in
+    ``grid_s`` seconds beside the restores of `launch_grid`; its factored
+    moments in the rules' blocks, no gradient gathered) against one rank
+    here: every step's loss within LAUNCH_LOSS_RTOL, each rank's final
+    blocks within LAUNCH_ADAFACTOR_RTOL of their tensor's largest move on
+    one rank plus two f32 spacings a step, and `hold_grid` (every leaf,
+    ``vr`` and ``vc`` among them, of the rules' shard shapes; the ranks
+    holding one block alike; the collectives equal to
+    `layout.step_plan`)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.sharding.layout import block_slices, flat
+    spec = "x".join(map(str, LAUNCH_GRID))
+    n = LAUNCH_ADAFACTOR_STEPS
+    f32 = torch.float32
+    with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+        args = T.parser().parse_args(adafactor_argv() + ["--ckpt-dir",
+                                                          f"{tmp}/one"])
+        one, losses, stats, _, _, _ = _one_rank(args, f32)
+        start = T.build(args.arch, smoke=True, mesh=T._mesh("1x1", "cuda"),
+                        tcfg=T._tcfg(args), batch=args.batch, seq=args.seq,
+                        dtype=f32)[1]
+    cfg = one["params"].cfg
+    layout_out = hold_grid(ranks, cfg, one, "launch grid adafactor",
+                           "adafactor")
+    loss_err = max(max(abs(a - b) / abs(b) for a, b in
+                       zip(r["losses"], losses)) for r in ranks)
+    require(all(len(r["losses"]) == len(losses) == n for r in ranks)
+            and loss_err <= LAUNCH_LOSS_RTOL, f"launch grid adafactor: the "
+            f"losses off one rank's by {loss_err} relative (gate "
+            f"{LAUNCH_LOSS_RTOL})")
+    _, sh = rule_shardings(cfg, one, LAUNCH_GRID, "adafactor")
+    first = {".".join(p): t.detach().cpu().numpy()
+             for p, t in flat(start["params"]).items()}
+    last = {".".join(p): t.detach().cpu().numpy()
+            for p, t in flat(one["params"]).items()}
+    worst = 0.0
+    for r in ranks:
+        for k, v in last.items():
+            moved = float(np.abs(v.astype(np.float64) - first[k]).max())
+            cut = block_slices(v.shape, sh["params." + k], r["coords"])
+            got = r["blocks"]["params." + k].astype(np.float64)
+            err = np.abs(got - v[cut]) - 2 * n * np.spacing(
+                np.abs(v[cut])).astype(np.float64)
+            worst = max(worst, float(err.max()) / max(moved, 1e-30))
+    require(worst <= LAUNCH_ADAFACTOR_RTOL, f"launch grid adafactor: a "
+            f"final parameter off one rank's by {worst} of its tensor's "
+            f"largest move (gate {LAUNCH_ADAFACTOR_RTOL})")
+    moments = [k for k in sh if k.rsplit(".", 1)[-1] in ("vr", "vc")]
+    whole = {".".join(p): tuple(t.shape) for p, t in flat(one).items()}
+    return {"grid": spec, "backend": "gloo", "steps": n,
+            "grid_run_s_beside_the_restores": grid_s,
+            "rank_step_s_median": [sorted(r["step_s"])[len(r["step_s"]) // 2]
+                                   for r in ranks],
+            "one_rank_step_s_median": sorted(stats.times)[
+                len(stats.times) // 2],
+            "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
+            "all_sums_per_step": ranks[0]["counts"]["all_sum"],
+            "bytes_per_step": ranks[0]["plan"]["bytes"]
+            + ranks[0]["plan"]["all_sum_bytes"],
+            "moments": len(moments), "moments_split": sum(
+                ranks[0]["blocks"][k].shape != whole[k] for k in moments),
+            **layout_out, "loss_err_rel": loss_err,
+            "param_err_of_largest_move": worst,
+            "loss_first_last": [losses[0], losses[-1]],
+            "rank_build_whole_peak_bytes": [r["build_whole_peak_bytes"]
+                                            for r in ranks], "card": smi}
+
+
 def launch_grid_wide(smi: str) -> dict:
     """(b) at full width and depth: gemma3-1b at LAUNCH_WIDE_LAYERS
     layers, LAUNCH_WIDE_STEPS steps with the aux, f32, one rank in this
-    process, then the same run through `launch.train.rank_main` on the
+    process (its checkpoint, which nothing reads, not written), then the
+    same run through `launch.train.rank_main` on the
     2x2 grid of gloo ranks sharing the card (its final checkpoint
     gathered and written by rank 0), the one rank's state dropped first
     (its shapes kept on meta): each rank's first reduced gradient within
@@ -5244,15 +5429,17 @@ def launch_grid_wide(smi: str) -> dict:
     steps x (d_model - 1) on every rank and on one rank; a rank's step
     s, its peak allocation and the high-water of whole parameter bytes
     alive at once in its last step, the bytes a step, a rank's resident
-    bytes, beside the gather-all step's figures."""
+    bytes, beside the gather-all step's figures; a rank's build (its
+    blocks alone, `layout.init_blocks`): its allocation at the end within
+    its blocks plus LAUNCH_BUILD_DRAWS x the largest leaf's f32 bytes, its
+    whole bytes alive at once within the largest leaf's, beside the whole
+    state each rank built before (computed from the shapes)."""
     import tempfile
     import numpy as np
     import torch
     from repro_torch.core.mesh import run_ranks
     from repro_torch.launch import train as T
-    from repro_torch.models.model import Model
-    from repro_torch.models.common import empty_init
-    from repro_torch.optim import OptConfig, get_optimizer
+    from repro_torch.sharding import layout
     b, t = LAUNCH_WIDE_SHAPE
     f32 = torch.float32
     argv = ["--arch", "gemma3-1b", "--full", "--steps",
@@ -5264,17 +5451,15 @@ def launch_grid_wide(smi: str) -> dict:
         args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/one"])
         t0 = time.perf_counter()
         one, losses, stats, first, one_peak, one_launches = _one_rank(
-            args, f32, LAUNCH_WIDE_LAYERS)
+            args, f32, LAUNCH_WIDE_LAYERS, checkpoint=False)
         one_s = time.perf_counter() - t0
         ref = f"{tmp}/one_grads.npz"
         np.savez(ref, **{k: g.numpy() for k, g in first["grads"].items()})
         cfg = one["params"].cfg
         del first, one
         torch.cuda.empty_cache()
-        meta = Model(cfg, empty_init(torch.device("meta")))
-        shapes = {"params": meta,
-                  "opt": get_optimizer(OptConfig())[0](meta),
-                  "step": torch.zeros((), dtype=torch.int32, device="meta")}
+        shapes = layout.state_shapes(cfg, T._tcfg(args))
+        meta = shapes["params"]
         t0 = time.perf_counter()
         ranks = run_ranks(grid_rank, LAUNCH_GRID[0] * LAUNCH_GRID[1],
                           backend="gloo", device="cuda",
@@ -5301,6 +5486,17 @@ def launch_grid_wide(smi: str) -> dict:
             f"rank's {losses} (gate {LAUNCH_LOSS_RTOL} relative)")
     require(written == [f"step_{LAUNCH_WIDE_STEPS:08d}"],
             f"launch grid wide: checkpoints {written}")
+    # the build: a rank's blocks, and one whole leaf at a time
+    largest = max(t.numel() * t.element_size() for t in meta.parameters())
+    largest_f32 = max(t.numel() * 4 for t in meta.parameters())
+    build_cap = layout_out["resident_bytes_rank0"] + (
+        LAUNCH_BUILD_DRAWS * largest_f32)
+    require(all(r["build_peak_bytes"] <= build_cap
+                and r["build_whole_peak_bytes"] <= largest for r in ranks),
+            f"launch grid wide: build peaks "
+            f"{[r['build_peak_bytes'] for r in ranks]} (cap {build_cap}), "
+            f"whole bytes at once {[r['build_whole_peak_bytes'] for r in ranks]}"
+            f" (the largest leaf {largest})")
     k1 = [r["launches"].get("rank1_update", 0) for r in ranks]
     want_k1 = LAUNCH_WIDE_STEPS * (cfg.d_model - 1)
     one_k1 = one_launches.get("rank1_update", 0)
@@ -5322,6 +5518,13 @@ def launch_grid_wide(smi: str) -> dict:
             "rank_step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
             "rank_whole_peak_bytes": [r["whole_peak_bytes"] for r in ranks],
             "rank_whole_peak_units": [r["whole_peak_units"] for r in ranks],
+            "rank_build_peak_bytes": [r["build_peak_bytes"] for r in ranks],
+            "rank_build_whole_peak_bytes": [r["build_whole_peak_bytes"]
+                                            for r in ranks],
+            "build_peak_cap_bytes": build_cap,
+            "largest_leaf_bytes": largest,
+            "whole_state_a_rank_built_before_computed": layout_out[
+                "whole_bytes"],
             "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
             "all_sums_per_step": ranks[0]["counts"]["all_sum"],
             "bytes_per_step": ranks[0]["plan"]["bytes"]
@@ -5442,7 +5645,9 @@ def launch_phase(seed: int, smi: str) -> dict:
     width; (c) `launch.serve`; (d) the dry run, which needs no card (meta
     tensors), in a process of its own beside (a)-(c).
     Returns launches by route."""
+    import functools
     import multiprocessing
+    import tempfile
     from concurrent.futures import ProcessPoolExecutor
     import torch
     t0 = time.perf_counter()
@@ -5453,9 +5658,13 @@ def launch_phase(seed: int, smi: str) -> dict:
         launches = {"launch|train gemma3-1b full": full.pop("launches")}
         say("launch", part="train gemma3-1b full", **full)
         torch.cuda.empty_cache()
-        grid = launch_grid(smi)
+        with tempfile.TemporaryDirectory(prefix="repro_torch_launch_") as tmp:
+            grid = launch_grid(smi, functools.partial(adafactor_ranks, tmp))
         launches.update(grid.pop("launches"))
+        aside = grid.pop("beside")
         say("launch", part="grid", **grid)
+        say("launch", part="grid adafactor",
+            **launch_grid_adafactor(smi, *aside))
         wide = launch_grid_wide(smi)
         launches.update(wide.pop("launches"))
         say("launch", part="grid gemma3-1b full width and depth", **wide)

@@ -47,21 +47,23 @@ from repro_torch.launch.mesh import make_mesh_like, parse_mesh
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.sharding import fsdp, hints, layout, tensor
 from repro_torch.sharding.rules import Sharding, batch_spec
-from repro_torch.train.step import (TrainConfig, init_train_state,
-                                    make_grad_fn)
+from repro_torch.train.step import TrainConfig, make_grad_fn
 
 __all__ = ["build", "main", "parser", "rank_main", "rank_restore"]
 
 
 def build(arch: str, *, smoke: bool, mesh, tcfg: TrainConfig, seed: int = 0,
           batch: int = 8, seq: int = 128, layers: int | None = None,
-          dtype=None, on_grads=None):
+          dtype=None, on_grads=None, draw: bool = True):
     """-> (cfg, this rank's state, step_fn, batch_fn, state shardings) on
     ``mesh`` (a `launch.mesh.GridMesh`; its device is the rank's).
     ``layers`` cuts the config's depth (a full-width run at reduced
     depth), ``dtype`` sets the activations' (the config's by default);
     ``on_grads`` as in `sharding.layout.mesh_step`.  ``batch_fn(step)``
-    gives this rank's rows of the global batch (`layout.batch_rows`)."""
+    gives this rank's rows of the global batch (`layout.batch_rows`).
+    The state's shardings come from its shapes alone and the rank builds
+    its blocks only (`layout.init_blocks`), drawn from ``seed`` -- or,
+    without ``draw``, left uninitialized for a restore to fill."""
     cfg = get_config(arch, smoke=smoke)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
@@ -70,13 +72,13 @@ def build(arch: str, *, smoke: bool, mesh, tcfg: TrainConfig, seed: int = 0,
     hints.configure(cfg, mesh)
     data = DataConfig(seed=seed, batch=batch, seq=seq, kind="markov")
     dev = mesh.device
-    state = init_train_state(cfg, tcfg, generator=torch.Generator(
-        device=dev).manual_seed(seed), device=dev)
-    state_shardings = layout.state_shardings(state, cfg, mesh,
-                                             tcfg.opt.name)
+    state_shardings = layout.state_shardings(
+        layout.state_shapes(cfg, tcfg), cfg, mesh, tcfg.opt.name)
+    gen = torch.Generator(device=dev).manual_seed(seed) if draw else None
+    state = layout.init_blocks(cfg, tcfg, state_shardings, generator=gen,
+                               device=dev)
     bshard = {k: Sharding(mesh, s) for k, s in
               batch_spec(cfg, mesh, kind="train", batch=batch).items()}
-    state = layout.shard(state, state_shardings)
     step_fn = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt,
                                state_shardings, bshard, on_grads=on_grads)
 
@@ -201,9 +203,12 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     ``whole_peak_units``: `sharding.fsdp.watching`), the shares of the
     heads, mlp columns, experts and vocab rows it computed (``shares``:
     `sharding.tensor.recording`) and, on a card, its
-    peak allocation (``step_peak_bytes``); with ``digest``, (shape,
-    sha256 of the bytes) in place of every array.  ``layers`` and
-    ``dtype`` as in `build`."""
+    peak allocation (``step_peak_bytes``); of its `build`, the
+    high-water of whole parameter bytes alive at once
+    (``build_whole_peak_bytes``: `sharding.fsdp.watching`) and, on a card,
+    the peak allocation at its end (``build_peak_bytes``); with
+    ``digest``, (shape, sha256 of the bytes) in place of every array.
+    ``layers`` and ``dtype`` as in `build`."""
     args = parser().parse_args(argv)
     _threads(mesh, threads)
     grid = _mesh(args.mesh, args.device, args.collective_timeout)
@@ -215,9 +220,17 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
             first["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
             first["grad_metrics"] = {k: float(v) for k, v in metrics.items()}
     tcfg = _tcfg(args)
-    cfg, state, step_fn, batch_fn, sh = build(
-        args.arch, smoke=args.smoke, mesh=grid, tcfg=tcfg, batch=args.batch,
-        seq=args.seq, layers=layers, dtype=dtype, on_grads=keep_first)
+    if on_card:
+        torch.cuda.synchronize(grid.device)
+        torch.cuda.reset_peak_memory_stats(grid.device)
+    with fsdp.watching() as built:
+        cfg, state, step_fn, batch_fn, sh = build(
+            args.arch, smoke=args.smoke, mesh=grid, tcfg=tcfg,
+            batch=args.batch, seq=args.seq, layers=layers, dtype=dtype,
+            on_grads=keep_first)
+    made = {"build_whole_peak_bytes": built.bytes,
+            "build_peak_bytes": torch.cuda.max_memory_allocated(grid.device)
+            if on_card else None}
 
     def measured(state, batch):
         if on_card:
@@ -249,7 +262,7 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     plan = layout.step_plan(cfg, tcfg, sh, bsh, layout.whole_like(
         state["params"], sh["params"]), rows=last.pop("rows"))
     out.update(first)
-    out.update(last, coords=grid.coords, device=str(grid.device),
+    out.update(last, **made, coords=grid.coords, device=str(grid.device),
                blocks={".".join(p): _host(t, digest)
                        for p, t in layout.flat(state).items()},
                plan=plan, step_s=stats.times)
@@ -271,9 +284,10 @@ def rank_restore(mesh, argv, spec, ckpt_dir, step, threads=None,
     args = parser().parse_args(argv)
     _threads(mesh, threads)
     grid = _mesh(spec, args.device, args.collective_timeout)
+    # every leaf is read from the checkpoint: nothing is drawn
     cfg, state, step_fn, batch_fn, sh = build(
         args.arch, smoke=args.smoke, mesh=grid, tcfg=_tcfg(args),
-        batch=args.batch, seq=args.seq, dtype=dtype)
+        batch=args.batch, seq=args.seq, dtype=dtype, draw=False)
     state, at = ckpt.restore(ckpt_dir, state, step=step, shardings=sh,
                              device=grid.device)
     saved, fsh = Path(ckpt_dir) / f"step_{step:08d}", layout.flat(sh)

@@ -1,8 +1,8 @@
 """Optimizers -- counterpart of `repro.optim`."""
 from repro_torch.optim.optimizers import (
-    OptConfig, clip_by_global_norm, get_optimizer, global_norm, jax_leaves,
-    lr_at,
+    BlockSplit, OptConfig, clip_by_global_norm, get_optimizer, global_norm,
+    jax_leaves, lr_at,
 )
 
 __all__ = ["OptConfig", "get_optimizer", "clip_by_global_norm",
-           "global_norm", "lr_at", "jax_leaves"]
+           "global_norm", "lr_at", "jax_leaves", "BlockSplit"]

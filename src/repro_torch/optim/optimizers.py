@@ -33,29 +33,35 @@ state, params) -> (params, state)`` writes both in place and returns
 them.
 
 **On blocks** (the step on a mesh, `repro_torch.sharding.layout
-.mesh_step`): ``params`` and ``state`` hold this rank's blocks.  AdamW
-and SGD are elementwise: ``grads`` are the gradients' blocks, and the
-update of a block is bitwise that block of the whole update.
-Adafactor's factored moments and its RMS-1 clip are over the whole
-leaf, so its state is whole on every rank, ``grads`` are whole (every
-rank holds them alike) and ``update(..., blocks=...)`` maps a parameter
-name to its block's slices of the whole parameter (every layer of a JAX
-leaf splits alike, and no rule splits a stack axis): it takes the whole
-update's block.
+.mesh_step`): ``params``, ``state`` and ``grads`` hold this rank's
+blocks, every leaf of the optimizer state in the block the sharding
+rules give it.  AdamW and SGD are elementwise: the update of a block is
+bitwise that block of the whole update.  Adafactor's factored moments
+are means over a dim of the whole leaf (``vr`` over the last, ``vc``
+over the second to last, and ``vr``'s own mean), and its RMS-1 clip is
+over the whole stacked leaf, so ``update(..., split=...)`` maps each
+parameter name to its `BlockSplit` (every layer of a JAX leaf splits
+alike, and no rule splits a stack axis): each mean over a dim that a
+mesh axis splits is the sum of the ranks' partial sums over the line of
+that axis, by one collective a dependent round (the rows; the columns
+with ``vr``'s mean; the clip's sum of squares), over the whole dim's
+length.  A leaf that no axis splits sums nothing and steps bitwise as on
+one device.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models.convert import STACK_DEPTH
 
 __all__ = ["OptConfig", "lr_at", "global_norm", "clip_by_global_norm",
-           "get_optimizer", "OPTIMIZERS", "JaxLeaf", "jax_leaves",
+           "get_optimizer", "OPTIMIZERS", "BlockSplit", "JaxLeaf",
+           "jax_leaves",
            "jax_ndim", "adamw_init", "adamw_update", "adafactor_init",
            "adafactor_update", "sgd_init", "sgd_update"]
 
@@ -127,6 +133,25 @@ class JaxLeaf:
     lead: Tuple[int, ...]
 
 
+@dataclass(frozen=True)
+class BlockSplit:
+    """How a mesh cuts one parameter (a layer of its JAX leaf) into this
+    rank's block: ``whole``, the whole parameter's shape; ``dims``, each
+    split dim (negative, so that it names the stacked leaf's dim too) and
+    the mesh axes that split it; ``sum(ts, axes)``, each tensor of ``ts``
+    summed over this rank's line along ``axes`` (the ranks that hold the
+    other blocks there), all in one collective, the same bits on every
+    rank of the line."""
+    whole: Tuple[int, ...]
+    dims: Dict[int, Tuple[str, ...]]
+    sum: Callable[[List[torch.Tensor], Tuple[str, ...]], List[torch.Tensor]]
+
+    def axes(self, dims=None) -> Tuple[str, ...]:
+        """The axes that split any of ``dims`` (every split dim: None)."""
+        return tuple(a for d, ax in sorted(self.dims.items())
+                     if dims is None or d in dims for a in ax)
+
+
 def _split(name: str):
     parts = name.split(".")
     depth = STACK_DEPTH.get(parts[0], 0)
@@ -193,11 +218,6 @@ def _put(tree, path, value):
 
 def _device(named) -> torch.device:
     return next(iter(named.values())).device if named else torch.device("cpu")
-
-
-def _cut(leaf: JaxLeaf, blocks):
-    """The slices of a stacked leaf's block."""
-    return (slice(None),) * len(leaf.lead) + tuple(blocks[leaf.names[0]])
 
 
 def _leaf_tensors(leaf: JaxLeaf, named, grads):
@@ -278,24 +298,39 @@ def adafactor_init(params):
     return {"f": f, "count": _count(named)}
 
 
+def _means(cut: Optional[BlockSplit], dim: int, xs):
+    """The whole leaf's means over ``dim`` of each block of ``xs`` (each
+    reduced over its own ``dim`` entry of ``xs``: (x, its dim)): where no
+    axis splits the leaf's ``dim``, ``x.mean(d)`` itself; else the sums
+    over the line that splits it, in one collective, over the whole
+    dim's length."""
+    axes = () if cut is None else cut.axes((dim,))
+    if not axes:
+        return [x.mean(dim=d) for x, d in xs]
+    n = cut.whole[dim]
+    return [s / n for s in cut.sum([x.sum(dim=d) for x, d in xs], axes)]
+
+
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, grads, state, params, blocks=None):
+def adafactor_update(cfg: OptConfig, grads, state, params, split=None):
     named = _named(params)
     c = state["count"] + 1
     lr = lr_at(cfg, state["count"])
     decay = 1.0 - c.to(torch.float32) ** -0.8
     for leaf in jax_leaves(named):
-        # on blocks: the whole leaf's step from the whole gradient and the
-        # whole moments, then this rank's block of it
         ps, p, g = _leaf_tensors(leaf, named, grads)
         f = _get(state["f"], leaf.path)
+        cut = None if split is None else split[leaf.names[0]]
         g2 = g * g + 1e-30
         if p.dim() >= 2:
-            vr = decay * f["vr"] + (1 - decay) * g2.mean(dim=-1)
-            vc = decay * f["vc"] + (1 - decay) * g2.mean(dim=-2)
+            # rounds: the rows, then the columns with vr's mean (vr's last
+            # dim is the leaf's second to last)
+            rows, = _means(cut, -1, [(g2, -1)])
+            vr = decay * f["vr"] + (1 - decay) * rows
+            cols, vr_mean = _means(cut, -2, [(g2, -2), (vr, -1)])
+            vc = decay * f["vc"] + (1 - decay) * cols
             denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(dim=-1)[..., None, None],
-                                   min=1e-30))
+                     / torch.clamp(vr_mean[..., None, None], min=1e-30))
             step = g * torch.rsqrt(denom + 1e-30)
             new_f = {"vr": vr, "vc": vc}
         else:
@@ -303,10 +338,14 @@ def adafactor_update(cfg: OptConfig, grads, state, params, blocks=None):
             step = g * torch.rsqrt(v + 1e-30)
             new_f = {"v": v}
         # update clipping (Adafactor's RMS-1 rule), over the whole JAX leaf
-        rms = torch.sqrt(torch.mean(step * step) + 1e-30)
+        axes = () if cut is None else cut.axes()
+        if axes:
+            sq, = cut.sum([torch.sum(step * step).reshape(1)], axes)
+            n = math.prod(leaf.lead) * math.prod(cut.whole)
+            rms = torch.sqrt(sq.reshape(()) / n + 1e-30)
+        else:
+            rms = torch.sqrt(torch.mean(step * step) + 1e-30)
         step = step / torch.clamp(rms, min=1.0)
-        if blocks is not None:
-            step = step[_cut(leaf, blocks)]
         if p.dim() >= 2:
             step = step + cfg.weight_decay * p.to(torch.float32)
         new = (p.to(torch.float32) - lr * step).to(p.dtype)
@@ -346,7 +385,7 @@ OPTIMIZERS = {
 
 def get_optimizer(cfg: OptConfig):
     """(init(params) -> state, update(grads, state, params) -> (params,
-    state)); Adafactor's update also takes ``blocks=`` (see the module
-    docstring)."""
+    state)); Adafactor's update also takes ``split=`` on a mesh (each
+    parameter name's `BlockSplit`; see the module docstring)."""
     init, update = OPTIMIZERS[cfg.name]
     return init, functools.partial(update, cfg)

@@ -79,7 +79,7 @@ from repro_torch.sharding.rules import PartitionSpec, Sharding
 
 __all__ = ["units", "unit_of", "sharded", "installed", "gathered", "gather",
            "reduce", "gather_counts", "HighWater",
-           "watching"]
+           "watching", "note"]
 
 ROOT = ""
 
@@ -148,8 +148,8 @@ class HighWater:
     """The most bytes of gathered whole parameters alive at once
     (``bytes``), and the most layer units with a whole alive at once
     (``units``), looked at by weak references to every whole that
-    `gather` makes, at every gather and every reduction while
-    `watching`."""
+    `gather` makes (or that `note` is given), at every gather, every
+    reduction and every `note` while `watching`."""
 
     def __init__(self):
         self.bytes = 0
@@ -195,9 +195,16 @@ def gather(unit: _Unit, blocks) -> List[torch.Tensor]:
         dt = plan.cast(name, b) if plan.cast is not None else None
         cast.append(b if dt is None else b.to(dt))
     out = layout.gather_leaves(cast, [plan.gathers[n] for n in unit.names])
-    for hw in _WATCHING:
-        hw._note(unit.name, out, blocks)
+    note(unit.name, out, blocks)
     return out
+
+
+def note(unit: str, wholes, blocks) -> None:
+    """Every `HighWater` that is `watching` holds a weak reference to each
+    of ``wholes`` that is not its block (the matching ``blocks`` entry
+    itself), of ``unit``, and looks at what is alive."""
+    for hw in _WATCHING:
+        hw._note(unit, wholes, blocks)
 
 
 def reduce(unit: _Unit, grads, blocks) -> List[torch.Tensor]:

@@ -40,15 +40,18 @@ axes and over "model", in the order the JAX rules apply them:
 - the clip takes the global norm from the blocks (one all_sum over the
   whole grid of each rank's f64 sum of squares, each element counted by
   one rank), the same on every rank, and the optimizer updates this rank's
-  blocks only: the optimizer state is never gathered (Adafactor, whose
-  update reads the whole leaf, gets its clipped gradients gathered
-  whole).
+  blocks only: neither the optimizer state nor a gradient is gathered.
+  Adafactor's factored moments are in the rules' blocks too; the means
+  its update takes over a split dim of the whole leaf, and its RMS clip,
+  are summed over the lines that split the leaf (`optim.BlockSplit`,
+  `block_splits`), a few small all_sums a leaf.
 
 A step commits on every rank or on none: after the compute the ranks
 `agree` (one all_sum over the whole process group, which no step
 collective uses) on whether any of them raised, and if one did, every
 rank raises with its blocks as they were; only then does the optimizer
-write.  A rank that raises inside the compute leaves the other ranks of
+write (Adafactor's small all_sums come after that point, when every rank
+has agreed to commit).  A rank that raises inside the compute leaves the other ranks of
 its data line waiting in the step's next collective over it; that wait
 ends at the grid's collective timeout (`launch.mesh.GridMesh`) with a
 raise, so they too reach `agree`, and every rank remakes its line
@@ -58,7 +61,10 @@ counts one step's collectives.
 
 A sharded state is the state's own tree holding blocks: the model's
 parameters are swapped to their blocks in place (``p.data``), the
-optimizer tree and the step are new trees.  A one-rank mesh (or a spec
+optimizer tree and the step are new trees.  `init_blocks` builds a
+rank's blocks of a fresh state without the whole state: each parameter
+is drawn whole in the model's order, as `train.init_train_state` draws
+it, and only its block is kept.  A one-rank mesh (or a spec
 whose axes have size 1) shards nothing and issues no collective, and its
 step is bitwise the single-device step.  On a shape-only mesh (no
 process group behind it: the dry run on meta tensors) `gather` fills
@@ -67,6 +73,7 @@ exchanged.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Dict, List, Tuple
@@ -74,7 +81,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.core import mesh as core_mesh
-from repro_torch.optim.optimizers import (clip_by_global_norm, get_optimizer,
+from repro_torch.optim.optimizers import (BlockSplit, clip_by_global_norm,
+                                          get_optimizer, jax_leaves,
                                           jax_ndim)
 from repro_torch.sharding import fsdp, split, tensor
 from repro_torch.sharding.rules import (PartitionSpec, Sharding,
@@ -83,9 +91,9 @@ from repro_torch.sharding.rules import (PartitionSpec, Sharding,
 __all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices",
            "carries_model", "model_block",
            "local_block", "gather_leaf", "gather_leaves", "shard", "gather",
-           "state_shardings", "data_axes", "batch_rows", "mesh_grad_fn",
-           "global_norm", "WHOLE_LEAF", "mesh_step", "collective_plan",
-           "step_plan", "flat", "mesh_of",
+           "state_shapes", "state_shardings", "init_blocks", "data_axes",
+           "batch_rows", "mesh_grad_fn", "global_norm", "block_splits",
+           "mesh_step", "collective_plan", "step_plan", "flat", "mesh_of",
            "agree", "barrier", "resident_bytes"]
 
 
@@ -257,18 +265,122 @@ def gather(state, shardings):
     return _leafwise(gather_leaf, state, shardings)
 
 
+def state_shapes(cfg, tcfg):
+    """A whole train state of ``cfg`` on the meta device (shapes and
+    dtypes only): the model, ``tcfg``'s optimizer state, the step."""
+    from repro_torch.models.common import empty_init
+    from repro_torch.models.model import Model
+    model = Model(cfg, empty_init(torch.device("meta")))
+    return {"params": model, "opt": get_optimizer(tcfg.opt)[0](model),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
 def state_shardings(state, cfg, mesh, optimizer: str):
-    """The shardings of a train state (``{"params", "opt", "step"}``) on
-    ``mesh`` for `mesh_step`: the parameters and AdamW's moments by the
-    JAX rules; Adafactor's moments whole on every rank, as its update
-    reads the whole leaf (rows plus columns of each; `optim`); the step
-    whole."""
-    whole = Sharding(mesh, PartitionSpec())
+    """The shardings of a train state (``{"params", "opt", "step"}``, any
+    device, ``meta`` included: `state_shapes`) on ``mesh`` for
+    `mesh_step`: the parameters and the optimizer state by the JAX rules
+    (AdamW's moments as their parameters; Adafactor's ``vr`` and ``vc``
+    as their parameter without its last, or its second to last, dim: the
+    blocks of the means its update takes), the step whole."""
+    params = param_shardings(state["params"], cfg, mesh)
     opt = param_shardings(state["opt"], cfg, mesh)
     if optimizer == "adafactor":
-        opt = tree_map(lambda _, s: whole, opt)
-    return {"params": param_shardings(state["params"], cfg, mesh),
-            "opt": opt, "step": whole}
+        _factored_follow(state, params, opt)
+    return {"params": params, "opt": opt,
+            "step": Sharding(mesh, PartitionSpec())}
+
+
+def _split_dims(sharding: Sharding, ndim: int) -> Dict[int, Tuple[str, ...]]:
+    """{dim (negative): the axes that split it} of a rank-``ndim`` leaf."""
+    return {d - ndim: axes for d, axes in _entries(sharding.spec,
+                                                   sharding.mesh)}
+
+
+def _factored_follow(state, params, opt) -> None:
+    """Raise unless each of Adafactor's ``vr`` / ``vc`` splits as the
+    dims of its parameter that it keeps: its update sums the means over a
+    split dim on the parameter's lines (`optim.BlockSplit`).  The JAX
+    rules give that, choosing a spec's entries dim by dim, and no rule
+    maps a parameter's last two dims to one mesh axis."""
+    named = dict(state["params"].named_parameters()) \
+        if isinstance(state["params"], torch.nn.Module) \
+        else dict(state["params"])
+    for leaf in jax_leaves(named):
+        f, sh = state["opt"]["f"], opt["f"]
+        for k in leaf.path:
+            f, sh = f[k], sh[k]
+        if "vr" not in f:
+            continue
+        name = leaf.names[0]
+        dims = _split_dims(params[name], named[name].dim())
+        want = {"vr": {d + 1: a for d, a in dims.items() if d != -1},
+                "vc": {d if d == -1 else d + 1: a for d, a in dims.items()
+                       if d != -2}}
+        for k in ("vr", "vc"):
+            got = _split_dims(sh[k], f[k].dim())
+            if got != want[k]:
+                raise ValueError(f"{name}: Adafactor's {k} splits {got}, "
+                                 f"its parameter's dims {want[k]}")
+
+
+def init_blocks(cfg, tcfg, shardings, *, generator=None, device=None):
+    """This rank's blocks of a fresh train state laid out by ``shardings``
+    (`state_shardings` of `state_shapes`), on the card unless
+    ``device="cpu"``: bitwise ``shard(train.init_train_state(cfg, tcfg,
+    generator=generator, device=device), shardings)``, and the generator
+    left as that leaves it.  Each parameter is drawn whole in the order
+    the model draws them (`_draw_order`), scaled and cast as
+    `models.common.normal_init` does, its block copied out and the whole
+    dropped before the next draw (each whole is shown to `fsdp.note`); a
+    parameter drawn as zeros is made at its block's shape.  The
+    optimizer's state is made from the blocks, in the rules' blocks.
+    With no ``generator`` nothing is drawn: the parameters' blocks are
+    uninitialized (a state whose every leaf is loaded next)."""
+    from repro_torch.estimators.operators.base import resolve_device
+    from repro_torch.models.common import empty_init, normal_init
+    from repro_torch.models.model import Model
+    dev = resolve_device(device)
+    psh = shardings["params"]
+    draw = empty_init(dev) if generator is None \
+        else normal_init(generator, dev)
+    names = iter(_draw_order(cfg))
+
+    def init(shape, dtype, scale):
+        name = next(names)
+        block = shard_shape(shape, psh[name])
+        if scale is None or generator is None:
+            return draw(block, dtype, scale)
+        whole = draw(shape, dtype, scale)
+        mine = local_block(whole, psh[name])
+        fsdp.note(fsdp.unit_of(name), [whole], [mine])
+        return mine
+    model = Model(cfg, init)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=next(model.parameters()).device)
+    return {"params": model, "opt": get_optimizer(tcfg.opt)[0](model),
+            "step": step}
+
+
+def _draw_order(cfg) -> List[str]:
+    """The names of ``cfg``'s parameters in the order `models.Model`
+    draws them (its construction order), read off a model built on the
+    meta device: each parameter is paired with its draw by the storage
+    it wraps, not by its place in ``named_parameters``."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from repro_torch.models.model import Model
+    made = []
+
+    def init(shape, dtype, scale):
+        made.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return made[-1]
+    model = Model(cfg, init)
+    at = {StorageWeakRef(t.untyped_storage()): i for i, t in enumerate(made)}
+    order = [None] * len(made)
+    for name, p in model.named_parameters():
+        order[at[StorageWeakRef(p.untyped_storage())]] = name
+    if len(at) != len(made) or None in order:
+        raise ValueError(f"{cfg.name}: a draw that is not one parameter")
+    return order
 
 
 def data_axes(batch_shardings) -> Tuple[str, ...]:
@@ -374,18 +486,42 @@ def global_norm(grads, shardings, mesh) -> torch.Tensor:
     return torch.sqrt(sq.to(torch.float32))
 
 
-# the optimizers whose update reads the whole leaf (`optim` ``blocks=``)
-WHOLE_LEAF = ("adafactor",)
+def _line_sum(mesh, ts, axes) -> List[torch.Tensor]:
+    """Each of ``ts`` summed over this rank's line of ``mesh`` along
+    ``axes`` by one all_sum of them all (on a shape-only mesh, ``ts``)."""
+    if mesh.world is None:
+        return list(ts)
+    buf = torch.cat([t.reshape(-1) for t in ts])
+    core_mesh.all_sum(mesh.line(axes)[0], buf)
+    out, at = [], 0
+    for t in ts:
+        out.append(buf[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+def block_splits(shardings, blocks) -> Dict[str, BlockSplit]:
+    """The `optim.BlockSplit` of each of ``blocks`` (a dict of parameter
+    names to this rank's blocks, or their gradients' blocks) laid out by
+    ``shardings`` (by name): its whole shape, its split dims and the sum
+    over its lines (`_line_sum`)."""
+    out = {}
+    for n, b in blocks.items():
+        s = shardings[n]
+        out[n] = BlockSplit(whole_shape(b.shape, s), _split_dims(s, b.dim()),
+                            functools.partial(_line_sum, s.mesh))
+    return out
 
 
 def mesh_step(grad_fn, opt, shardings, batch_shardings, on_grads=None):
     """``step(state, batch) -> (state, metrics)`` on a mesh (see the
     module docstring): `mesh_grad_fn`, the clip by the blocks' global
     norm, then ``opt``'s (an `OptConfig`) update of this rank's blocks in
-    place; ``metrics`` as `train.step.make_train_step`'s.
-    ``on_grads(grads, metrics)``, when given, sees this rank's blocks of
-    the reduced gradients before the clip.  If the compute raises on any
-    rank, every rank raises and keeps its blocks as they were."""
+    place (Adafactor's with their `block_splits`); ``metrics`` as
+    `train.step.make_train_step`'s.  ``on_grads(grads, metrics)``, when
+    given, sees this rank's blocks of the reduced gradients before the
+    clip.  If the compute raises on any rank, every rank raises and keeps
+    its blocks as they were."""
     mesh = mesh_of(shardings)
     grads_of = mesh_grad_fn(grad_fn, shardings, batch_shardings)
     _, update = get_optimizer(opt)
@@ -400,21 +536,17 @@ def mesh_step(grad_fn, opt, shardings, batch_shardings, on_grads=None):
             norm = None if mesh.size == 1 else global_norm(grads, psh, mesh)
             grads, gnorm = clip_by_global_norm(grads, opt.clip_norm,
                                                norm=norm)
-            blocks = None
-            if opt.name in WHOLE_LEAF and mesh.size > 1:
-                blocks = {n: block_slices(whole_shape(g.shape, psh[n]),
-                                          psh[n]) for n, g in grads.items()}
-                grads = {n: gather_leaf(g, psh[n]) for n, g in grads.items()}
         except Exception as e:          # noqa: BLE001 -- agreed below
             err = e
         if agree(mesh, err is not None):
             raise err if err is not None else RuntimeError(
                 "the step failed on another rank of the mesh")
         # ---- the commit point: nothing above wrote the state ----
-        if blocks is None:
-            update(grads, state["opt"], state["params"])
+        if opt.name == "adafactor" and mesh.size > 1:
+            update(grads, state["opt"], state["params"],
+                   split=block_splits(psh, grads))
         else:
-            update(grads, state["opt"], state["params"], blocks=blocks)
+            update(grads, state["opt"], state["params"])
         state["step"].add_(1)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
@@ -537,8 +669,7 @@ def step_plan(cfg, tcfg, shardings, batch_shardings, params,
       ranks costing n broadcasts and its gathered bytes in the dtype
       gathered (bf16 where ``cast_params_bf16`` casts it): a leaf the
       step splits on "model" (`tensor.leaf_modes`) is gathered over the
-      data line only, its model block's bytes; with Adafactor, once a
-      step, the clipped gradients gathered whole;
+      data line only, its model block's bytes;
     - all_sums, each microbatch: the nll metric's, the logdet aux's mean
       and covariance (with ``logdet_reg``), each MoE layer's counts and
       gate sums (twice under remat: the backward recomputes the layer),
@@ -547,8 +678,8 @@ def step_plan(cfg, tcfg, shardings, batch_shardings, params,
       the data and model lines, on a model line alone too), and the
       model line's, read off the step run shape only (`_model_line`;
       also as ``model_all_sum`` and ``model_all_sum_bytes``, a step's);
-      then, once a step, the global norm's and
-      the one that agrees the step commits.
+      then, once a step, the global norm's, the one that agrees the step
+      commits and, with Adafactor, its update's (`_factored_sums`).
 
     -> ``{"broadcast", "bytes" (theirs), "all_sum", "all_sum_bytes" (the
     tensors summed), "model_all_sum", "model_all_sum_bytes",
@@ -607,17 +738,39 @@ def step_plan(cfg, tcfg, shardings, batch_shardings, params,
         plan["model_all_sum_bytes"] = line["bytes"]
         plan["all_sum"] += line["all_sum"]
         plan["all_sum_bytes"] += line["bytes"]
-    if tcfg.opt.name in WHOLE_LEAF:
-        gsize = (torch.empty((), dtype=tcfg.accum_dtype).element_size()
-                 if mb > 1 else None)
-        for n, t in named.items():
-            if ways(psh[n]) > 1:
-                plan["broadcast"] += ways(psh[n])
-                plan["bytes"] += t.numel() * (gsize or t.element_size())
+    if tcfg.opt.name == "adafactor":
+        count, nbytes = _factored_sums(named, psh)
+        plan["all_sum"] += count
+        plan["all_sum_bytes"] += nbytes
     # the global norm's (f64) and the agreement's
     plan["all_sum"] += 2
     plan["all_sum_bytes"] += 8 + 4
     return plan
+
+
+def _factored_sums(named, psh) -> Tuple[int, int]:
+    """(all_sums, their bytes) of one Adafactor update on a rank's blocks
+    of the whole parameters ``named`` laid out by ``psh`` (by name), per
+    JAX leaf: a factored leaf's row sums where its last dim is split, its
+    column sums with ``vr``'s where its second to last is, and (any leaf)
+    the clip's sum of squares where any dim is; f32 each."""
+    count, nbytes = 0, 0
+    for leaf in jax_leaves(named):
+        n = leaf.names[0]
+        block = shard_shape(named[n].shape, psh[n])
+        split = _split_dims(psh[n], len(block))
+        lead = math.prod(leaf.lead)
+        if len(leaf.lead) + len(block) >= 2:
+            if -1 in split:
+                count += 1
+                nbytes += lead * math.prod(block[:-1]) * 4
+            if -2 in split:
+                count += 1
+                nbytes += lead * math.prod(block[:-2]) * (block[-1] + 1) * 4
+        if split:
+            count += 1
+            nbytes += 4
+    return count, nbytes
 
 
 def resident_bytes(shardings, shapes) -> int:

@@ -28,8 +28,10 @@ Held (the gates of tests/test_torch_split_jax.py, `check_*`):
   gradient block bitwise its block of them (so the ranks that hold one
   block hold the same bits), and the ranks that hold one block of a
   leaf after the step bitwise alike;
-- the step's collectives equal to `layout.step_plan`, which gathers no
-  optimizer leaf.
+- the step's collectives equal to `layout.step_plan`, which gathers the
+  parameters alone: no optimizer leaf and no gradient (Adafactor's
+  factored moments are in the rules' blocks too, its means summed over
+  the lines that split a leaf).
 """
 from __future__ import annotations
 
@@ -186,7 +188,9 @@ def check_shared_bits(runs, name) -> None:
         assert r["metrics"] == ranks[0]["metrics"], r["coords"]
     kw = dict(kw)
     over = {k: kw.pop(k) for k in ("remat",) if k in kw}
-    tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
+    kw.pop("steps", None)
+    tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer"),
+                                     **kw.pop("opt", {})), **kw)
     cfg = get_config(arch, smoke=True).replace(dtype=torch.float32, **over)
     state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
     sh = layout.flat(layout.state_shardings(

@@ -8,9 +8,9 @@ reduction of the forward or the backward are
 more than the root unit and two layer units whole alive; no whole
 gradient of a split leaf outlives its unit's reduction; the high-water
 of whole bytes is the same at 2 and 12 layers.  Then Adafactor, whose
-update reads the whole leaf, against the JAX package's jitted step
-(`_torch_layer_gather`), and a one-rank mesh step bitwise the
-single-device step."""
+factored moments are in the rules' blocks, against the JAX package's
+jitted step (`_torch_layer_gather`), and a one-rank mesh step (AdamW and
+Adafactor) bitwise the single-device step."""
 from __future__ import annotations
 
 import copy
@@ -72,16 +72,17 @@ def test_adafactor_step_is_the_jax_meshs_step(runs):
     LG.check_plan(runs, "adafactor")
 
 
-def test_a_one_rank_mesh_step_is_the_single_device_step():
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_a_one_rank_mesh_step_is_the_single_device_step(opt):
     """`layout.mesh_step` on a one-rank mesh gathers nothing and reduces
     nothing: its gradients, metrics and state after the step are bitwise
-    `train.make_train_step`'s."""
+    `train.make_train_step`'s (Adafactor's update sums no mean)."""
     from repro_torch.configs import get_config
     from repro_torch.models.convert import from_jax_train_state
     from repro_torch.optim import OptConfig
     from repro_torch.sharding import layout
     from repro_torch.train import TrainConfig, make_train_step
-    arch, kw = CASES["adafactor"][0], {"optimizer": "adamw",
+    arch, kw = CASES["adafactor"][0], {"optimizer": opt,
                                        "logdet_reg": 0.05}
     cases = {"one": (arch, *LG._case(arch, kw), kw)}
     threads = torch.get_num_threads()
@@ -92,7 +93,7 @@ def test_a_one_rank_mesh_step_is_the_single_device_step():
     assert mesh["counts"] == {"broadcast": 0, "all_sum": 0}
     _, np_state, batch, _ = cases["one"]
     cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
-    tcfg = TrainConfig(opt=OptConfig(name="adamw"), logdet_reg=0.05)
+    tcfg = TrainConfig(opt=OptConfig(name=opt), logdet_reg=0.05)
     state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
     torch.set_num_threads(1)
     try:

@@ -328,6 +328,7 @@ def test_port_never_imports_jax_or_the_jax_package():
               ROOT / "tools" / "serve_smoke_torch.py",
               ROOT / "tools" / "models_probe.py",
               ROOT / "tools" / "train_probe.py",
+              ROOT / "tools" / "launch_timing.py",
               ROOT / "examples" / "quickstart_torch.py",
               ROOT / "examples" / "gmm_fit_torch.py",
               ROOT / "examples" / "gmm_loglik_torch.py"]

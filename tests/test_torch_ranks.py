@@ -575,23 +575,29 @@ def launch_faults(mesh, argv: list, faults: dict, ckpt_dir: str) -> dict:
 
 
 def split_step(mesh, spec: str, cases: dict) -> dict:
-    """One rank of a ``spec`` grid ("2x2", "2x1", "1x2", ...) taking one
-    split mesh step (`sharding.layout.mesh_step`) per case.  ``cases``
+    """One rank of a ``spec`` grid ("2x2", "2x1", "1x2", ...) taking split
+    mesh steps (`sharding.layout.mesh_step`) per case, one unless the
+    case says ``steps``.  ``cases``
     maps a name to (arch, a JAX train state's numpy tree or an int seed
     of the port's own `init_train_state`, a numpy global batch,
-    `TrainConfig` keywords with ``optimizer`` and, optionally, the
-    config's ``remat``, ``vocab``, ``n_layers``, ``param_dtype`` or
-    ``n_experts``): the
+    `TrainConfig` keywords with ``optimizer``, optionally ``opt`` (more
+    `OptConfig` keywords) and ``steps`` (steps on that batch), and,
+    optionally, the config's ``remat``, ``vocab``, ``n_layers``,
+    ``param_dtype`` or ``n_experts``): the
     smoke config at f32 activations, the state carried across
     (`from_jax_train_state`) and laid out by `layout.state_shardings`,
     the step on this rank's rows (`layout.batch_rows`).  -> {name: its coordinates, the reduced
-    gradients before the clip, gathered whole after the step (numpy on
+    gradients of the first step before the clip, gathered whole after
+    the steps (numpy on
     data rank 0 of model column 0, else None), their sha256 digests, the
-    digests of this rank's blocks of them (``grad_blocks``), the step's
-    metrics, its collectives and `layout.step_plan`, the shares of the
+    digests of this rank's blocks of them (``grad_blocks``), the first
+    step's metrics, the last step's collectives and `layout.step_plan`,
+    the shares of the
     heads, mlp columns, experts and vocab rows it computed
-    (`sharding.tensor.recording`), and the sha256 of every block after
-    it}."""
+    (`sharding.tensor.recording`), the sha256 of every block after
+    the steps, the shapes of its blocks (``shapes``, by `layout.flat`
+    path joined with dots) and, with ``steps``, the whole state after
+    each step (``states``: numpy by path, on the lead rank, else None)}."""
     import hashlib
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
@@ -612,7 +618,9 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
         over = {k: kw.pop(k) for k in ("remat", "vocab", "n_layers",
                                        "param_dtype", "n_experts")
                 if k in kw}
-        tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer")), **kw)
+        steps = kw.pop("steps", None)
+        tcfg = TrainConfig(opt=OptConfig(name=kw.pop("optimizer"),
+                                         **kw.pop("opt", {})), **kw)
         cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
                                                    **over)
         if isinstance(np_state, int):
@@ -622,29 +630,39 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
             state = from_jax_train_state(np_state, cfg, tcfg, device="cpu")
         sh = layout.state_shardings(state, cfg, grid, tcfg.opt.name)
         state = layout.shard(state, sh)
+        fsh = layout.flat(sh)
         b = next(iter(batch.values())).shape[0]
         bsh = {k: Sharding(grid, s) for k, s in batch_spec(
             cfg, grid, kind="train", batch=b).items()}
         seen = {}
         step = layout.mesh_step(make_grad_fn(cfg, tcfg), tcfg.opt, sh, bsh,
-                                on_grads=lambda g, m: seen.update(g=g))
+                                on_grads=lambda g, m: seen.setdefault("g", g))
         rows = layout.batch_rows({k: torch.from_numpy(v)
                                   for k, v in batch.items()}, bsh,
                                  tcfg.microbatches)
-        M.reset_collective_counts()
-        with tensor.recording() as shares:
-            state, metrics = step(state, rows)
-        counts = M.collective_counts()
+        lead = all(v == 0 for v in grid.coords.values())
+        states, first = [], None
+        for _ in range(steps or 1):
+            M.reset_collective_counts()
+            with tensor.recording() as shares:
+                state, metrics = step(state, rows)
+            counts = M.collective_counts()
+            first = first or {k: float(v) for k, v in metrics.items()}
+            if steps:
+                # every rank gathers every leaf, in one order
+                now = {".".join(p): layout.gather_leaf(t.detach(), fsh[p])
+                       for p, t in layout.flat(state).items()}
+                states.append({k: t.numpy().copy() for k, t in now.items()}
+                              if lead else None)
         whole = {k: layout.gather_leaf(g, sh["params"][k])
                  for k, g in seen["g"].items()}
-        lead = all(v == 0 for v in grid.coords.values())
         out[name] = {
             "coords": grid.coords,
             "grads": {k: g.numpy().copy() for k, g in whole.items()}
             if lead else None,
             "digests": {k: digest(g) for k, g in whole.items()},
             "grad_blocks": {k: digest(g) for k, g in seen["g"].items()},
-            "metrics": {k: float(v) for k, v in metrics.items()},
+            "metrics": first,
             "counts": counts,
             "shares": {k: sorted(v, key=str) for k, v in shares.items()},
             "plan": layout.step_plan(
@@ -652,7 +670,10 @@ def split_step(mesh, spec: str, cases: dict) -> dict:
                 layout.whole_like(state["params"], sh["params"]),
                 rows=rows),
             "blocks": {".".join(p): digest(t)
-                       for p, t in layout.flat(state).items()}}
+                       for p, t in layout.flat(state).items()},
+            "shapes": {".".join(p): tuple(t.shape)
+                       for p, t in layout.flat(state).items()},
+            "states": states or None}
     return out
 
 

@@ -33,6 +33,7 @@ from repro_torch.models import Model, cache_specs
 from repro_torch.models.common import empty_init
 from repro_torch.optim import OptConfig, get_optimizer, jax_leaves
 from repro_torch.sharding import hints
+from repro_torch.train import TrainConfig
 from repro_torch.sharding.rules import (PartitionSpec as P, batch_spec,
                                         cache_shardings, logical_axes_for,
                                         make_rules, param_specs)
@@ -229,6 +230,30 @@ def test_specs_equal_the_jax_rules(arch, mesh):
     for k, want in jopt.items():
         assert canon(got[k]) == canon(want), (k, got[k], want)
     assert canon(specs["step"]) == canon(jspecs["step"]) == ()
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x2"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_adafactors_moments_are_laid_out_by_the_jax_rules(arch, mesh):
+    """`layout.state_shardings` of an Adafactor state, from its shapes
+    alone (`layout.state_shapes`), lays out every optimizer leaf by its
+    JAX spec (``vr`` / ``vc`` split, not whole), each factored moment
+    splitting as the dims of its parameter that it keeps."""
+    from repro_torch.sharding import layout
+    fm = MESHES[mesh]
+    cfg = get_config(arch)
+    state = layout.state_shapes(cfg, TrainConfig(
+        opt=OptConfig(name="adafactor")))
+    sh = layout.state_shardings(state, cfg, fm, "adafactor")
+    jcfg, jshapes = jax_state(arch, "adafactor")
+    jopt = jax_flat(JR.param_specs(jshapes, jcfg, JR.make_rules(jcfg, fm),
+                                   fm)["opt"])
+    got = {k: s.spec for k, s in port_flat(sh["opt"]).items()}
+    assert set(got) == set(jopt)
+    for k, want in jopt.items():
+        assert canon(got[k]) == canon(want), (k, got[k], want)
+    assert any(k.endswith((".vr", ".vc")) and any(e is not None for e in v)
+               for k, v in got.items())
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x2"])
