@@ -280,16 +280,31 @@ printed line each, any failure ends the run:
             its allocation at the end within its blocks plus
             LAUNCH_BUILD_DRAWS x the largest leaf's f32 bytes, its whole
             bytes alive at once within the largest leaf's, beside the
-            whole state each rank built before (computed); (c)
+            whole state each rank built before (computed); then, in the
+            same rank processes on their trained blocks, the grid
+            serves (`sharding.serving`): `mesh_prefill` of a
+            LAUNCH_WIDE_SHAPE prompt and SERVE_GRID_GEN greedy
+            `mesh_decode` steps, against one rank on the card running
+            `models.prefill` / `decode_step` on the grid's final
+            checkpoint (f32, fed the grid's tokens): the logits and
+            every rank's cache blocks within SERVE_GRID_RTOL of max(1,
+            |one rank's|), the tokens equal up to a near tie, every rank
+            the same logits bitwise and the ranks sharing a cache block
+            alike, each call's collectives equal to
+            `layout.serve_plan`, no kernel launched; prefill s, decode
+            ms a step, tokens/s, a rank's peak and cache bytes, a decode
+            step's collectives, beside the whole-argument gather the dry
+            run priced before (computed); (c)
             `launch.serve.generate` on LAUNCH_SERVE against the CPU on
             the same parameters (f32 logits within SMOKE_ATOL, greedy
             tokens equal until a near tie), tokens/s, and the CLI; (d)
             the dry run's DRYRUN_CELLS at full size, argument bytes,
             broadcasts, all_sums and their bytes equal to the JAX rules'
-            totals recorded beside each cell (a train cell: rank 0's share of
-            the split step), the memory tracker's temp bytes where the
-            cell is not fast, the records printed beside the
-            gather-all step's (DRYRUN_GATHER_ALL).
+            totals recorded beside each cell (rank 0's share of the
+            split step, or of the served prefill or decode), the memory
+            tracker's temp bytes where the cell is not fast, the records
+            printed beside the gather-everything figures
+            (DRYRUN_GATHER_ALL).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4846,6 +4861,23 @@ LAUNCH_WIDE_DATA_ONLY = {"gathered_bytes_per_step": 6790537728,
                          "rank_peak_bytes": 6904838144,
                          "rank_whole_peak_bytes": 1.315e9,
                          "rank_step_s": [13.40, 24.40]}
+# (b) serving on the 26-layer grid, in its rank processes after its
+# training steps, on their trained blocks (`sharding.serving`): a seeded
+# LAUNCH_WIDE_SHAPE prompt (SERVE_GRID_SEED), max length seq +
+# SERVE_GRID_GEN, SERVE_GRID_GEN greedy decode steps.  gemma3-1b's one kv
+# head does not divide the model line and its head_dim does: each rank
+# keeps a head_dim half of its two rows' caches (case (b) of
+# `sharding.serving`).  Against one rank on the card (the grid's final
+# checkpoint, f32, fed the grid's tokens) within SERVE_GRID_RTOL of max(1,
+# |one rank's|), logits and caches: the grid adds each layer's sums in
+# another order (two partial sums over the model line; the card's GEMM
+# tiles of other shapes), some sqrt(n) u of a sum's scale for n <= d_ff =
+# 6912 terms (u = 2^-24: 5e-6); 26 layers stack that on the residual
+# stream, ~1.3e-4 of its scale, which the final norm and the unembedding
+# carry into the logits (softcap 30).  A greedy token may differ only
+# where one rank's top-2 margin is within twice that.  No kernel runs: the
+# models are plain tensor ops
+SERVE_GRID_GEN, SERVE_GRID_SEED, SERVE_GRID_RTOL = 4, 0, 2e-4
 # (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
 # card against CPU on the same parameters; greedy tokens equal until the
 # CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
@@ -4853,26 +4885,37 @@ LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
 # (d) the dry run's cells at full size: (arch, shape, multi_pod, fast --
 # fast skips the memory tracker's pass -- and what the JAX rules give for
 # the cell: (argument bytes a device, broadcasts and their bytes, all_sums
-# and their bytes: a train cell's split step gathers the parameters one
-# unit at a time, a layer's twice (its forward and its backward), a leaf
-# the model line splits over the 16 data ranks only (its model block),
-# and all_sums each gradient (a split leaf's block), the nll, the global
-# norm and the agreement over the 16 data ranks, and the model line's
-# activations (a split MLP's output twice and its input's gradient a
-# layer, the vocab-parallel lookup, each CE chunk's exchange twice and
-# its gradient); a serving cell gathers its arguments;
+# and their bytes: every cell is rank 0's share and gathers the
+# parameters one unit at a time, a leaf the model line splits over the
+# data ranks only (its model block).  The train cell's split step
+# gathers a layer's twice (its forward and its backward), and all_sums
+# each gradient (a split leaf's block), the nll, the global norm and the
+# agreement over the 16 data ranks, and the model line's activations (a
+# split MLP's output twice and its input's gradient a layer, the
+# vocab-parallel lookup, each CE chunk's exchange twice and its
+# gradient).  The decode cell gathers once, and all_sums a layer's f32
+# scores of its head_dim block and p.v's blocks (llama4's 8 kv heads do
+# not divide the 16-rank model line, its head_dim does), a split MLP's
+# or MoE's output, a MoE layer's counts and gate sums over the 32 data
+# ranks, the vocab-parallel lookup and the whole logits;
 # tests/test_torch_dryrun.py derives these from the JAX package).
-# DRYRUN_GATHER_ALL: the earlier step's figures for the train cell, every
-# parameter gathered whole once a step (its temp bytes from the CLI's
-# memory pass; PERF.md §6); DRYRUN_DATA_ONLY: the step before the model
-# split, every leaf gathered over the whole grid
+# DRYRUN_GATHER_ALL: the earlier figures, every parameter (and every
+# cache) gathered whole once a step: the train cell's step (its temp
+# bytes from the CLI's memory pass; PERF.md §6), and the decode cell's
+# arguments as the dry run priced them before it ran a rank's share;
+# DRYRUN_DATA_ONLY: the train step before the model split, every leaf
+# gathered over the whole grid
 DRYRUN_CELLS = [
     ("gemma3-1b", "train_4k", False, False,
      (101347048, 7520, 999940608, 342, 12793477708)),
     ("llama4-maverick-400b-a17b", "decode_32k", True, False,
-     (3341134676, 135232, 1620049078784, 0, 0))]
+     (3341134676, 28512, 55435683840, 194, 1115234304))]
 DRYRUN_GATHER_ALL = {"gemma3-1b|train_4k": {"bytes_per_step": 7998501956,
-                                      "temp_bytes": 58.8e9}}
+                                      "temp_bytes": 58.8e9},
+                     "llama4-maverick-400b-a17b|decode_32k": {
+                         "argument_bytes": 3341134676,
+                         "broadcasts": 135232,
+                         "bytes_per_step": 1620049078784}}
 DRYRUN_DATA_ONLY = {"gemma3-1b|train_4k": {
     "broadcasts": 45200, "broadcast_bytes": 6790537728, "all_sums": 239,
     "all_sum_bytes": 3999251020, "temp_bytes": 58.83e9}}
@@ -4891,7 +4934,7 @@ def rule_shardings(cfg, state, dims, optimizer="adamw") -> tuple:
 
 
 def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
-              ref=None, built=False) -> dict:
+              ref=None, built=False, serve=False) -> dict:
     """One spawned rank of (b)'s grids: `launch.train.rank_main` and the
     kernel launches the rank made.  With ``ref`` (an .npz of one rank's
     first reduced gradients by name) the rank holds its own against it
@@ -4901,7 +4944,8 @@ def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
     state of the run's seed on its card (`train.init_train_state`), cuts
     its blocks (`layout.shard`) and reports whether the blocks its
     `launch.train.build` made were bitwise those (``built_bitwise``, over
-    ``built_leaves`` leaves)."""
+    ``built_leaves`` leaves).  With ``serve`` the rank then serves on its
+    trained blocks (`serve_grid_rank`: ``after``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
@@ -4922,7 +4966,8 @@ def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
     T.build = build if built else real
     try:
         out = T.rank_main(mesh, argv, threads, detail, layers,
-                          digest and ref is None, dtype)
+                          digest and ref is None, dtype,
+                          serve_grid_rank if serve else None)
     finally:
         T.build = real
     out["launches"] = ops.launch_counts()
@@ -4949,6 +4994,212 @@ def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
         for key in ("grads", "blocks"):
             out[key] = {k: digest_of(a) for k, a in out[key].items()}
     return out
+
+
+def serve_prompt(vocab: int):
+    """(b)'s seeded serving prompt, LAUNCH_WIDE_SHAPE tokens (int64)."""
+    import numpy as np
+    return np.random.default_rng(SERVE_GRID_SEED).integers(
+        0, vocab, LAUNCH_WIDE_SHAPE).astype(np.int64)
+
+
+def serve_grid_rank(grid, cfg, state, sh) -> dict:
+    """One rank of (b)'s serve grid on its trained blocks (``state``,
+    laid out by ``sh``; `launch.train.rank_main`'s ``after``):
+    `sharding.serving.mesh_prefill` of `serve_prompt` at max length seq +
+    SERVE_GRID_GEN, then SERVE_GRID_GEN greedy `mesh_decode` steps ->
+    its coordinates, the prefill's seconds and each step's, each call's
+    collectives (`core.mesh.tallying`) and `layout.serve_plan`'s, the
+    kernels launched meanwhile, its peak allocation and its caches'
+    bytes, the greedy tokens, the whole last-token logits (on rank 0;
+    every rank's sha256 digests), its cache blocks after the prefill and
+    after the last step (numpy by `layout.flat` path)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.sharding import layout, serving
+    from repro_torch.sharding.rules import (Sharding, batch_spec,
+                                            cache_shardings, tree_map)
+    b, t = LAUNCH_WIDE_SHAPE
+    max_len, dev = t + SERVE_GRID_GEN, grid.device
+    shs = {"params": sh["params"], "caches": tree_map(
+        lambda _, s: Sharding(grid, s),
+        cache_shardings(M.cache_specs(cfg, b, max_len), cfg, grid))}
+    bsh = {kind: {k: Sharding(grid, s) for k, s in batch_spec(
+        cfg, grid, kind=kind, batch=b).items()}
+        for kind in ("prefill", "decode")}
+    prefill = serving.mesh_prefill(shs, bsh["prefill"])
+    decode = serving.mesh_decode(shs, bsh["decode"])
+    prompt = torch.from_numpy(serve_prompt(cfg.vocab)).to(dev)
+    model = state["params"]
+
+    def host(caches):
+        return {".".join(p): c.cpu().numpy().copy()
+                for p, c in layout.flat(caches).items()}
+    began = time.perf_counter()
+    before = ops.launch_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls, seconds, logits, tokens = [], [], [], []
+    caches, step = None, None
+    for i in range(SERVE_GRID_GEN + 1):
+        with core_mesh.tallying() as seen:
+            t0 = time.perf_counter()
+            if i == 0:
+                out, caches = prefill(model, {"tokens": prompt}, max_len)
+            else:
+                out, caches = decode(model, step, caches, t + i - 1)
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        calls.append(dict(seen))
+        logits.append(out[:, -1].float().cpu().numpy())
+        step = out[:, -1].argmax(-1, keepdim=True)
+        tokens.append(step.cpu().numpy())
+        if i == 0:
+            first = host(caches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    plans = {kind: layout.serve_plan(cfg, shs, bsh[kind], kind, {
+        "tokens": prompt if kind == "prefill" else step}, max_len)
+        for kind in ("prefill", "decode")}
+    last = host(caches)
+    return {"coords": grid.coords, "prefill_s": seconds[0],
+            "step_s": seconds[1:], "calls": calls, "plans": plans,
+            "launches": launched, "peak_bytes": peak,
+            "cache_bytes": sum(a.nbytes for a in last.values()),
+            "tokens": np.concatenate(tokens[:-1], axis=1),
+            "logits": logits if grid.rank == 0 else None,
+            "logit_digests": [hashlib.sha256(a.tobytes()).hexdigest()
+                              for a in logits],
+            "prefill_caches": first, "caches": last,
+            "serve_s": time.perf_counter() - began}
+
+
+def _gather_all(shardings, shapes) -> dict:
+    """What gathering every split leaf of a tree whole costs a rank: one
+    broadcast a block, the leaf's whole bytes (the dry run's price of a
+    serving cell before it ran a rank's share)."""
+    import math
+    from repro_torch.sharding.layout import flat, shard_shape
+    sh, count, nbytes = flat(shardings), 0, 0
+    for path, t in flat(shapes).items():
+        n = math.prod(t.shape) // math.prod(shard_shape(t.shape, sh[path]))
+        if n > 1:
+            count += n
+            nbytes += t.numel() * t.element_size()
+    return {"broadcasts": count, "bytes": nbytes}
+
+
+def hold_serve_grid(ranks, cfg, ckpt: Path, smi: str) -> dict:
+    """(b)'s serve grid against one rank on the card: `models.prefill` and
+    `decode_step` on the parameters of the grid's final checkpoint
+    (``ckpt``), f32, fed the grid's greedy tokens.  Held: every rank's
+    logits the same bits; rank 0's within SERVE_GRID_RTOL of max(1, |one
+    rank's|) and its tokens equal to one rank's greedy ones unless one
+    rank's top-2 margin is within twice that; every rank's cache blocks,
+    after the prefill and after the last step, of the rules' shapes and
+    within SERVE_GRID_RTOL of max(1, |one rank's cache|), the ranks that
+    hold one block alike bitwise; each call's collectives equal to
+    `layout.serve_plan`; no kernel launched.  -> the figures."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.models import model as M
+    from repro_torch.models.common import empty_init
+    from repro_torch.sharding.layout import block_slices, flat, shard_shape
+    from repro_torch.sharding.rules import (Sharding, cache_shardings,
+                                            param_shardings, tree_map)
+    runs = [r["after"] for r in ranks]
+    lead = runs[0]
+    b, t = LAUNCH_WIDE_SHAPE
+    max_len = t + SERVE_GRID_GEN
+    model = M.Model(cfg, empty_init("cuda"))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(np.load(
+                ckpt / f"params__{name.replace('.', '__')}.npy")))
+        prompt = torch.from_numpy(serve_prompt(cfg.vocab)).to("cuda")
+        out, caches = M.prefill(model, {"tokens": prompt}, max_len)
+        want = [out[:, -1].float().cpu().numpy()]
+        first = {".".join(p): c.cpu().numpy().copy()
+                 for p, c in flat(caches).items()}
+        for i in range(SERVE_GRID_GEN):
+            step = torch.from_numpy(lead["tokens"][:, i:i + 1]).to("cuda")
+            out, caches = M.decode_step(model, step, caches, t + i)
+            want.append(out[:, -1].float().cpu().numpy())
+        last = {".".join(p): c.cpu().numpy() for p, c in flat(caches).items()}
+    del model, caches, out
+    torch.cuda.empty_cache()
+    logit_err, near_ties = 0.0, 0
+    for i, (got, w) in enumerate(zip(lead["logits"], want)):
+        scale = max(1.0, float(np.abs(w).max()))
+        logit_err = max(logit_err, float(np.abs(got - w).max()) / scale)
+        if i < SERVE_GRID_GEN:
+            top2 = np.sort(w, axis=-1)[:, -2:]
+            tie = (top2[:, 1] - top2[:, 0]) <= 2 * SERVE_GRID_RTOL * scale
+            same = lead["tokens"][:, i] == w.argmax(-1)
+            require(bool(np.all(same | tie)), f"serve grid: greedy token {i}"
+                    f" {lead['tokens'][:, i]}, one rank's {w.argmax(-1)}")
+            near_ties += int(tie.sum())
+    require(logit_err <= SERVE_GRID_RTOL, f"serve grid: logits off one "
+            f"rank's by {logit_err} of max(1, |logits|) (gate "
+            f"{SERVE_GRID_RTOL})")
+    grid = GridMesh(("data", "model"), LAUNCH_GRID)
+    csh = flat(tree_map(lambda _, s: Sharding(grid, s), cache_shardings(
+        M.cache_specs(cfg, b, max_len), cfg, grid)))
+    cache_err, shared = 0.0, 0
+    for which, whole in (("prefill_caches", first), ("caches", last)):
+        for k, w in whole.items():
+            sh = csh[tuple(k.split("."))]
+            scale = max(1.0, float(np.abs(w).max()))
+            held = {}
+            for r in runs:
+                got = r[which][k]
+                require(got.shape == shard_shape(w.shape, sh), f"serve grid: "
+                        f"rank {r['coords']} holds {which} {k} {got.shape}, "
+                        f"the rules' block {shard_shape(w.shape, sh)}")
+                where = block_slices(w.shape, sh, r["coords"])
+                cache_err = max(cache_err, float(np.abs(got - w[where]).max())
+                                / scale)
+                held.setdefault(str(where), set()).add(got.tobytes())
+            require(all(len(v) == 1 for v in held.values()), f"serve grid: "
+                    f"the ranks holding one block of {which} {k} differ")
+            shared += len(held) < len(runs)
+    require(cache_err <= SERVE_GRID_RTOL, f"serve grid: cache blocks off "
+            f"one rank's by {cache_err} of max(1, |cache|)")
+    for r in runs:
+        require(r["logit_digests"] == lead["logit_digests"], f"serve grid: "
+                f"rank {r['coords']}'s logits differ from rank 0's")
+        require(r["calls"] == [r["plans"]["prefill"]] + [
+            r["plans"]["decode"]] * SERVE_GRID_GEN, f"serve grid: rank "
+            f"{r['coords']} collectives {r['calls']}, plan {r['plans']}")
+        require(not any(r["launches"].values()), f"serve grid: rank "
+                f"{r['coords']} launched {r['launches']}")
+    meta = M.Model(cfg, empty_init("meta"))
+    gather_all = _gather_all(
+        {"params": param_shardings(meta, cfg, grid),
+         "caches": tree_map(lambda _, s: Sharding(grid, s), cache_shardings(
+             M.cache_specs(cfg, b, max_len), cfg, grid))},
+        {"params": meta, "caches": M.cache_specs(cfg, b, max_len)})
+    step_s = [s for r in runs for s in r["step_s"]]
+    dec = lead["plans"]["decode"]
+    return {"launches": lead["launches"], "shape": [b, t],
+            "gen": SERVE_GRID_GEN, "max_len": max_len,
+            "rank_serve_s": [r["serve_s"] for r in runs],
+            "rank_prefill_s": [r["prefill_s"] for r in runs],
+            "rank_decode_ms": [[1e3 * s for s in r["step_s"]] for r in runs],
+            "prefill_tokens_per_s": b * t / max(r["prefill_s"] for r in runs),
+            "decode_tokens_per_s": b / (sorted(step_s)[len(step_s) // 2]),
+            "rank_peak_bytes": [r["peak_bytes"] for r in runs],
+            "rank_cache_bytes": [r["cache_bytes"] for r in runs],
+            "decode_step_collectives": dec,
+            "prefill_collectives": lead["plans"]["prefill"],
+            "gather_all_a_call_before": gather_all,
+            "logit_err_rel": logit_err, "cache_err_rel": cache_err,
+            "near_ties": near_ties, "cache_leaves_shared_bitwise": shared,
+            "tokens": lead["tokens"].tolist(), "card": smi}
 
 
 def _host(x) -> bytes:
@@ -5433,7 +5684,10 @@ def launch_grid_wide(smi: str) -> dict:
     blocks alone, `layout.init_blocks`): its allocation at the end within
     its blocks plus LAUNCH_BUILD_DRAWS x the largest leaf's f32 bytes, its
     whole bytes alive at once within the largest leaf's, beside the whole
-    state each rank built before (computed from the shapes)."""
+    state each rank built before (computed from the shapes).  Then the
+    ranks serve on their trained blocks (`serve_grid_rank`), held against
+    one rank on the grid's final checkpoint (`hold_serve_grid`:
+    ``serve``)."""
     import tempfile
     import numpy as np
     import torch
@@ -5466,9 +5720,14 @@ def launch_grid_wide(smi: str) -> dict:
                           timeout=LAUNCH_WIDE_TIMEOUT,
                           args=(argv + ["--mesh", spec, "--device", "cuda",
                                         "--ckpt-dir", f"{tmp}/grid"], None,
-                                True, LAUNCH_WIDE_LAYERS, True, f32, ref))
+                                True, LAUNCH_WIDE_LAYERS, True, f32, ref,
+                                False, True))
         grid_s = time.perf_counter() - t0
         written = sorted(p.name for p in Path(f"{tmp}/grid").iterdir())
+        t0 = time.perf_counter()
+        serve = hold_serve_grid(
+            ranks, cfg, Path(f"{tmp}/grid/step_{LAUNCH_WIDE_STEPS:08d}"), smi)
+        serve["one_rank_and_checks_s"] = time.perf_counter() - t0
     layout_out = hold_grid(ranks, cfg, shapes, "launch grid wide")
     gmax = ranks[0]["grad_max"]
     worst = max(r["grad_err"] for r in ranks)
@@ -5504,7 +5763,9 @@ def launch_grid_wide(smi: str) -> dict:
             f"launch grid wide: K1 {k1} on the ranks (want {want_k1} "
             f"each), {one_k1} on one rank")
     return {"launches": {"launch|grid wide one rank": one_launches,
-                         "launch|grid wide rank 0": ranks[0]["launches"]},
+                         "launch|grid wide rank 0": ranks[0]["launches"],
+                         "launch|grid serve rank 0": serve.pop("launches")},
+            "serve": serve,
             "arch": "gemma3-1b", "d_model": cfg.d_model,
             "layers": cfg.n_layers, "vocab": cfg.vocab, "dtype": "float32",
             "logdet_reg": TRAIN_LOGDET,
@@ -5667,7 +5928,10 @@ def launch_phase(seed: int, smi: str) -> dict:
             **launch_grid_adafactor(smi, *aside))
         wide = launch_grid_wide(smi)
         launches.update(wide.pop("launches"))
+        serve = wide.pop("serve")
         say("launch", part="grid gemma3-1b full width and depth", **wide)
+        say("launch", part="grid serve gemma3-1b full width and depth",
+            **serve)
         say("launch", part="serve", **launch_serve(seed, smi))
         cells = dryrun.result()
     for cell, rec in cells.items():

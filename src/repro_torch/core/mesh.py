@@ -13,7 +13,10 @@ the same result; the port slices the rank's row block onto
 alike on every rank, so the replicated slabs are identical.
 
 `collective_counts` tallies the collectives this process has issued
-through the helpers (the analogue of the kernels' launch counts).
+through the helpers (the analogue of the kernels' launch counts);
+`tallying` also adds up their bytes in its scope, and takes the
+collectives that a shape-only run (no process group: the dry run on
+meta tensors) would issue, through `tally`.
 
 Only ``broadcast`` and ``all_reduce`` are used, on every backend: NCCL
 takes one rank per card, and gloo, which runs several ranks on one card
@@ -27,6 +30,7 @@ results.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue as _queue
@@ -41,7 +45,7 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "run_ranks", "broadcast", "all_sum",
            "gather_rows", "rank_device", "collective_counts",
-           "reset_collective_counts"]
+           "reset_collective_counts", "tallying", "tally"]
 
 # collectives issued through the helpers below since the last reset
 _collectives = {"broadcast": 0, "all_sum": 0}
@@ -56,6 +60,33 @@ def collective_counts() -> dict:
 def reset_collective_counts() -> None:
     for key in _collectives:
         _collectives[key] = 0
+
+
+_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def tallying():
+    """``{"broadcast", "bytes", "all_sum", "all_sum_bytes"}``: the
+    collectives issued in its scope through the helpers below, or
+    `tally`'d by a shape-only run, and the bytes of the tensors they
+    move (a broadcast's block, an all_sum's tensor)."""
+    seen = {"broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0}
+    _TALLIES.append(seen)
+    try:
+        yield seen
+    finally:
+        _TALLIES.remove(seen)
+
+
+def tally(kind: str, t: torch.Tensor) -> None:
+    """Count one ``kind`` ("broadcast" or "all_sum") of ``t`` in every
+    `tallying` scope (what the helpers do; a shape-only run calls it for
+    the collective it stands in for)."""
+    key = "bytes" if kind == "broadcast" else "all_sum_bytes"
+    for seen in _TALLIES:
+        seen[kind] += 1
+        seen[key] += t.numel() * t.element_size()
 
 
 @dataclass(frozen=True)
@@ -133,6 +164,7 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int, async_op: bool = False):
     ``async_op`` returns the work handle to ``wait()`` on before ``t`` is
     read."""
     _collectives["broadcast"] += 1
+    tally("broadcast", t)
     return dist.broadcast(t, _global(mesh, src), group=mesh.group,
                           async_op=async_op)
 
@@ -142,6 +174,7 @@ def all_sum(mesh: Mesh, t: torch.Tensor, async_op: bool = False):
     or with ``async_op`` the work handle to ``wait()`` on before ``t`` is
     read."""
     _collectives["all_sum"] += 1
+    tally("all_sum", t)
     work = dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group,
                            async_op=async_op)
     return work if async_op else t

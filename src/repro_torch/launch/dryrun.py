@@ -9,46 +9,51 @@ record key takes a torch meaning here, on tensors that hold no storage:
 - ``memory.argument_bytes_per_device``: one rank's blocks of the cell's
   arguments (the train state, or the parameters and caches, plus the
   batch) by the rules on the production mesh (`sharding.layout`);
-  ``output_bytes_per_device`` likewise for the outputs (the logits and
-  metrics whole);
-- a train cell runs rank 0's share of the split mesh step: the step
-  itself (`sharding.layout.mesh_step`) on a shape-only mesh with rank
-  0's coordinates, so the parameters' gathers (one unit at a time,
-  `sharding.fsdp`) copy rank 0's blocks into the tensors it computes on
-  (a leaf the model line splits: its model block), its rows of every
-  microbatch run inside a shape-only data split (`sharding.split`: the
-  statistics of the whole batch and the gradients' reduction keep their
-  shapes, nothing is exchanged) and a shape-only model split
-  (`sharding.tensor`: rank 0's heads, mlp columns, experts and vocab
-  rows), and the optimizer updates its blocks.  A serving cell runs the
-  cell's whole program;
+  ``output_bytes_per_device`` likewise for the outputs (the state's or
+  the caches' blocks, the logits and metrics whole);
+- every cell runs rank 0's share on a shape-only mesh with rank 0's
+  coordinates.  A train cell takes the split mesh step itself
+  (`sharding.layout.mesh_step`): the parameters' gathers (one unit at a
+  time, `sharding.fsdp`) copy rank 0's blocks into the tensors it
+  computes on (a leaf the model line splits: its model block), its rows
+  of every microbatch run inside a shape-only data split
+  (`sharding.split`: the statistics of the whole batch and the
+  gradients' reduction keep their shapes, nothing is exchanged) and a
+  shape-only model split (`sharding.tensor`: rank 0's heads, mlp
+  columns, experts and vocab rows), and the optimizer updates its
+  blocks.  A serving cell runs `sharding.serving`'s ``mesh_prefill`` /
+  ``mesh_decode`` the same way, forward only, on rank 0's rows and its
+  blocks of the caches;
 - ``hlo_flops_global``: the FLOPs `torch.utils.flop_counter` counts over
-  that run on the meta device; a train cell's is ``flops_per_device``
-  (rank 0's share, a 1/``chips`` share of the work the rules split)
-  times ``chips``, what the mesh executes: a module the rules leave
-  whole on the model axis (gemma3-1b's 4 heads on 16, the router, the
-  SSM blocks) is computed alike by every rank of a model line, which
-  ``useful_flops_frac`` shows;
+  that run on the meta device, ``flops_per_device`` (rank 0's share, a
+  1/``chips`` share of the work the rules split) times ``chips``, what
+  the mesh executes: a module the rules leave whole on the model axis
+  (gemma3-1b's 4 heads on 16, the router, the SSM blocks) is computed
+  alike by every rank of a model line, which ``useful_flops_frac``
+  shows;
 - ``hlo_bytes_global``: the operand and result bytes of every ATen op of
   that run, recorded on meta (`analysis.ir.record`): the eager port runs
-  unfused, so this is what its step moves; a train cell's is
-  ``hlo_bytes_per_device`` times ``chips``;
-- ``wire_bytes_per_chip`` / ``collective_counts``: the step's collectives
-  a rank (`sharding.layout.step_plan`: the parameters' gathers by
-  broadcasts, a layer's for its forward and again for its backward; the
-  batch statistics' exchanges, the gradients' reduction, the model
-  line's partial sums, the global norm and the agreement by all_sums,
-  each counted by the bytes of the tensor summed); a serving cell
-  gathers its arguments (`layout.collective_plan`);
+  unfused, so this is what its step moves; ``hlo_bytes_per_device``
+  times ``chips``;
+- ``wire_bytes_per_chip`` / ``collective_counts``: the call's
+  collectives a rank, each counted by the bytes of the tensor it moves.
+  A train cell's are `sharding.layout.step_plan`'s: the parameters'
+  gathers by broadcasts, a layer's for its forward and again for its
+  backward; the batch statistics' exchanges, the gradients' reduction,
+  the model line's partial sums, the global norm and the agreement by
+  all_sums.  A serving cell's are `sharding.layout.serve_plan`'s, read
+  off the call: the parameters' gathers for the forward, the model
+  line's partial sums and the caches' exchanges, MoE's statistics over
+  the data line and the whole logits' gather, by all_sums;
 - ``memory.temp_bytes_per_device``: what the step allocates at its peak
   beyond what it holds at its start, by
   `torch.distributed._tools.mem_tracker` under `FakeTensorMode`, a
   second pass (null with ``fast``, and null with the error in
   ``temp_bytes_error`` where that tool fails);
-  ``held_bytes_per_device``: what a rank holds at the step's start (a
-  train cell: its blocks of the state and its rows of the batch, the
-  units' wholes being gathered inside the step, and counted there; a
-  serving cell: the whole arguments); the peak is the two together;
+  ``held_bytes_per_device``: what a rank holds at the step's start (its
+  blocks of the state, or of the parameters and caches, and the batch,
+  the units' wholes being gathered inside the call, and counted there);
+  the peak is the two together;
 - ``model_flops``, ``useful_flops_frac`` and the roofline terms from
   `analysis.ir.roofline` with the H100's ``HW``.
 
@@ -84,7 +89,7 @@ from repro_torch.launch.mesh import GridMesh, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models.common import empty_init
 from repro_torch.optim.optimizers import OptConfig, get_optimizer
-from repro_torch.sharding import hints, layout
+from repro_torch.sharding import hints, layout, serving
 from repro_torch.sharding.rules import (PartitionSpec, Sharding, batch_spec,
                                         cache_shardings, param_shardings,
                                         tree_map)
@@ -114,12 +119,13 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
                device="meta"):
     """Build one cell on ``device`` (``meta``, or the CPU inside a
     `FakeTensorMode`) -> (run, args, shardings, cfg, held): ``run()``
-    takes the cell's step once (a train cell: rank 0's share, through
-    `layout.mesh_step` on a shape-only mesh with rank 0's coordinates)
-    and returns its outputs, ``args`` the tree of its arguments (a train
-    cell's state holds rank 0's blocks; `layout.whole_like` gives their
-    whole shapes), ``shardings`` the matching tree, ``held`` the bytes a
-    rank holds at the step's start."""
+    takes the cell's step once (rank 0's share, through `layout.mesh_step`
+    or `serving.mesh_prefill` / `mesh_decode` on a shape-only mesh with
+    rank 0's coordinates) and returns its outputs, ``args`` the tree of
+    its arguments (rank 0's blocks of the state, or of the parameters and
+    caches; `layout.whole_like` gives their whole shapes), ``shardings``
+    the matching tree (a prefill cell's with its output caches'),
+    ``held`` the bytes a rank holds at the step's start."""
     cfg = get_config(arch, smoke=smoke)
     shape = SHAPES[shape_name]
     dev = torch.device(device)
@@ -141,7 +147,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     dsize = math.prod(mesh.shape[a] for a in data)
     masked = shape.kind == "decode" and shape.global_batch % dsize != 0
     hints.configure(cfg, mesh, kv_masked_write=masked)
-    replicated = Sharding(mesh, PartitionSpec())
 
     if shape.kind == "train":
         tcfg = _tcfg_for(cfg)
@@ -158,28 +163,42 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
                 {"state": sh, "batch": bsh}, cfg,
                 _bytes(state) + _bytes(rows))
 
+    # a serving cell: rank 0's share of `serving.mesh_prefill` /
+    # `mesh_decode` on the shape-only mesh, its blocks of the parameters
+    # and the caches, the global batch
     scfg = _serving_cfg(cfg)
+    zero = GridMesh(mesh.axis_names, tuple(mesh.shape.values()), rank=0)
     model = M.Model(scfg, empty_init(dev))
-    pshard = param_shardings(model, scfg, mesh)
+    bsh = tree_map(lambda _, s: Sharding(zero, s.spec), bshard)
+    sh = {"params": param_shardings(model, scfg, zero),
+          "caches": tree_map(lambda _, s: Sharding(zero, s), cache_shardings(
+              M.cache_specs(scfg, shape.global_batch, shape.seq_len), scfg,
+              zero))}
+    model = layout.shard(model, sh["params"])
+    # what a rank holds: its blocks and its rows of the global batch
+    held = _bytes(model) + _bytes(layout.batch_rows(specs, bsh))
     if shape.kind == "prefill":
         args = {"params": model, "batch": specs}
-        return (lambda: M.prefill(model, specs, shape.seq_len), args,
-                {"params": pshard, "batch": bshard}, scfg, _bytes(args))
+        prefill = serving.mesh_prefill(sh, bsh)
+        return (lambda: prefill(model, specs, shape.seq_len), args,
+                {"params": sh["params"], "caches": sh["caches"],
+                 "batch": bsh}, scfg, held)
     if shape.kind != "decode":
         raise ValueError(shape.kind)
-    caches = alloc(M.cache_specs(scfg, shape.global_batch, shape.seq_len))
-    cshard = on(cache_shardings(caches, scfg, mesh))
+    caches = layout.shard(alloc(M.cache_specs(
+        scfg, shape.global_batch, shape.seq_len)), sh["caches"])
     tokens = specs.pop("tokens")
     extras = specs or None
     pos = torch.zeros((), dtype=torch.int32, device=dev)
     args = {"params": model, "tokens": tokens, "caches": caches, "pos": pos,
             "extras": extras}
-    return (lambda: M.decode_step(model, tokens, caches, pos,
-                                  batch_extras=extras), args,
-            {"params": pshard, "tokens": bshard["tokens"], "caches": cshard,
-             "pos": replicated,
-             "extras": {k: bshard[k] for k in extras or {}} or None}, scfg,
-            _bytes(args))
+    decode = serving.mesh_decode(sh, bsh)
+    return (lambda: decode(model, tokens, caches, pos, extras), args,
+            {"params": sh["params"], "tokens": bsh["tokens"],
+             "caches": sh["caches"],
+             "pos": Sharding(zero, PartitionSpec()),
+             "extras": {k: bsh[k] for k in extras or {}} or None}, scfg,
+            held + _bytes(caches) + _bytes(pos))
 
 
 def _bytes(tree) -> int:
@@ -187,17 +206,13 @@ def _bytes(tree) -> int:
                for t in layout.flat(tree_map(lambda _, x: x, tree)).values())
 
 
-def _outputs(kind, args, shardings, out, cfg, mesh) -> int:
+def _outputs(kind, args, shardings, out) -> int:
     """One rank's bytes of the step's outputs: the state's or the caches'
     blocks, the logits and metrics whole."""
     if kind == "train":
         return (layout.resident_bytes(shardings["state"], args["state"])
                 + _bytes(out[1]))
-    logits, caches = out
-    cshard = tree_map(lambda _, s: Sharding(mesh, s),
-                      cache_shardings(caches, cfg, mesh))
-    return (logits.numel() * logits.element_size()
-            + layout.resident_bytes(cshard, caches))
+    return _bytes(out)
 
 
 def _temp_bytes(arch, shape_name, mesh, smoke):
@@ -233,9 +248,9 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     counter = FlopCounterMode(display=False)
     with counter, ir.Recorder() as mod:
         out = run()
-    if shape.kind == "train":
-        args = dict(args, state=layout.whole_like(args["state"],
-                                                  shardings["state"]))
+    # the arguments' whole shapes (rank 0 held its blocks)
+    args = dict(args, **{k: layout.whole_like(args[k], shardings[k])
+                         for k in ("state", "params", "caches") if k in args})
     flops = float(counter.get_total_flops())
     hbm = float(sum(i.operand_bytes + i.result_bytes
                     for i in mod.instructions))
@@ -246,12 +261,14 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
                                 rows=layout.batch_rows(
                                     args["batch"], shardings["batch"],
                                     tcfg.microbatches))
-        scale = chips           # every rank runs a share like rank 0's,
-                                # its model line repeating what the rules
-                                # leave whole on "model"
     else:
-        plan = layout.collective_plan(shardings, args)
-        scale = 1               # every rank runs the whole program
+        prefill = shape.kind == "prefill"
+        bsh = shardings["batch"] if prefill else dict(
+            shardings["extras"] or {}, tokens=shardings["tokens"])
+        glob = args["batch"] if prefill else dict(
+            args["extras"] or {}, tokens=args["tokens"])
+        plan = layout.serve_plan(cfg, shardings, bsh, shape.kind, glob,
+                                 shape.seq_len)
     counts = {"broadcast": plan["broadcast"]}
     by_op = {"broadcast": float(plan["bytes"])}
     if plan.get("all_sum"):
@@ -262,9 +279,11 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     n_tok = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                   else 1)
     model_fl = 2 * n_active * n_tok * (3 if shape.kind == "train" else 1)
-    # the analytic FLOPs bound the compute term from below, as in JAX
-    terms = roofline(flops=max(flops * scale, float(model_fl)),
-                     hbm_bytes=hbm * scale, wire_bytes_per_chip=wire,
+    # every rank runs a share like rank 0's, its model line repeating what
+    # the rules leave whole on "model"; the analytic FLOPs bound the
+    # compute term from below, as in JAX
+    terms = roofline(flops=max(flops * chips, float(model_fl)),
+                     hbm_bytes=hbm * chips, wire_bytes_per_chip=wire,
                      chips=chips)
     arg_bytes = layout.resident_bytes(shardings, args)
     temp, err = (None, None) if fast else _temp_bytes(arch, shape_name,
@@ -272,26 +291,25 @@ def analyze(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     rec = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "chips": chips,
-        "hlo_flops_global": flops * scale,
-        "hlo_bytes_global": hbm * scale,
+        "hlo_flops_global": flops * chips,
+        "hlo_bytes_global": hbm * chips,
         "wire_bytes_per_chip": wire,
         "collective_counts": counts,
         "collective_bytes_by_op": by_op,
         "model_flops": model_fl,
-        "useful_flops_frac": model_fl / max(flops * scale, 1.0),
+        "useful_flops_frac": model_fl / max(flops * chips, 1.0),
         **{k: terms[k] for k in ("compute_s", "memory_s", "collective_s",
                                  "bottleneck", "step_s_lower_bound")},
         "memory": {
             "argument_bytes_per_device": arg_bytes,
             "output_bytes_per_device": _outputs(shape.kind, args, shardings,
-                                                out, cfg, mesh),
+                                                out),
             "temp_bytes_per_device": temp,
             "held_bytes_per_device": held,
             "peak_bytes_per_device": held + (temp or 0),
         },
     }
-    if shape.kind == "train":
-        rec["flops_per_device"], rec["hlo_bytes_per_device"] = flops, hbm
+    rec["flops_per_device"], rec["hlo_bytes_per_device"] = flops, hbm
     if err is not None:
         rec["memory"]["temp_bytes_error"] = err
     hints.configure(cfg, None)

@@ -187,7 +187,7 @@ def _host(t, digest: bool):
 
 
 def rank_main(mesh, argv, threads=None, detail=False, layers=None,
-              digest=False, dtype=None):
+              digest=False, dtype=None, after=None):
     """One spawned rank of `main` (``mesh``, run_ranks' 1-D mesh, is
     replaced by the ``--mesh`` grid over the same group) -> its losses,
     restarts and stragglers.  A CPU rank takes ``threads`` threads
@@ -208,7 +208,10 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     (``build_whole_peak_bytes``: `sharding.fsdp.watching`) and, on a card,
     the peak allocation at its end (``build_peak_bytes``); with
     ``digest``, (shape, sha256 of the bytes) in place of every array.
-    ``layers`` and ``dtype`` as in `build`."""
+    ``layers`` and ``dtype`` as in `build`.  ``after(grid, cfg, state,
+    shardings)``, when given, runs on the trained state (this rank's
+    blocks) once the run ends, every rank of the grid alike, and its
+    result is ``after``'s entry."""
     args = parser().parse_args(argv)
     _threads(mesh, threads)
     grid = _mesh(args.mesh, args.device, args.collective_timeout)
@@ -250,6 +253,8 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
         cfg, state, measured if detail else step_fn, batch_fn, sh))
     out = {"losses": losses, "restarts": stats.restarts,
            "stragglers": stats.stragglers}
+    if after is not None:
+        out["after"] = after(grid, cfg, state, sh)
     if not detail:
         return out
     # the first step's gradient blocks gathered whole (every rank of the

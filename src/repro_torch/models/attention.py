@@ -25,6 +25,14 @@ an indexed write (``index_copy_``), or, under the sharding hint
 ``kv_masked_write`` (`repro_torch.sharding.hints`), a one-hot masked
 merge over S, the JAX package's form for a sequence-sharded cache; the
 two write the same bits.
+
+Served on a grid (`repro_torch.sharding.serving`) a rank's cache is its
+block by the rules: its kv heads, or, where those do not divide the
+model line, a head_dim block of every kv head (the rank then projects
+every kv head for its cache), and, at a batch that does not divide the
+data axes, a block of S.  Prefill keeps its blocks
+(`serving.kv_block`); decode writes its blocks of the new key and value
+and attends as `_decode_split` says.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.common import (
     ModelConfig, ParamInit, apply_rope, param, rope_freqs,
 )
-from repro_torch.sharding import hints, tensor
+from repro_torch.sharding import hints, serving, tensor
 
 __all__ = ["Attention", "NEG_INF", "FULL_WINDOW"]
 
@@ -95,6 +103,60 @@ def _sdpa_full(q, k, v, bias):
         logits = logits + bias[None, None]
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", w, v)
+
+
+def _decode_split(q, k, v, bias, first, cut, hd):
+    """One decode step's attention on this rank's cache blocks k / v (B,
+    S_r, kv heads, hd_r) under a serving cut (`serving.CacheSplit`) that
+    splits head_dim over the model line or S over a line; ``q`` (B, 1,
+    H_r, hd) its q heads (``first`` the first, None: every head) and
+    ``bias`` (1, S_r) its positions' mask.
+
+    Where the cache's head_dim (or S over a line with "model") splits and
+    the q heads do too, every rank gets every head's q (`tensor.each`).
+    The scores of a head_dim block are summed over the model line
+    (`tensor.from_model`).  Where S splits, each rank takes (max, sum of
+    exponentials, weighted values) on its positions and the ranks' are
+    combined in block order after one exchange (`serving.exchange`);
+    else the softmax is `_sdpa_full`'s.  A head_dim block's p.v is
+    gathered over the model line; the rank's own heads come back out.
+    Every rank of a line gets the same bits -> (B, 1, H_r, hd)."""
+    h_r = q.shape[2]
+    gather_q = first is not None and (
+        cut.hd is not None or (cut.seq is not None
+                               and "model" in cut.seq.axes))
+    if gather_q:
+        q = torch.cat(tensor.each(q).unbind(0), dim=2)   # every q head
+    # the cache holds the kv heads of the q heads here (every one, or
+    # the rank's where they split), in order
+    kf, vf = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
+    qh = q if cut.hd is None else q[..., cut.hd.block(hd)]
+    logits = torch.einsum("bqhk,bshk->bhqs", qh.float(), kf.float())
+    if cut.hd is not None:
+        logits = tensor.from_model(logits)
+    logits = logits / math.sqrt(hd) + bias[None, None]
+    if cut.seq is None:
+        w = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqs,bshk->bqhk", w, vf)
+    else:
+        m = logits.amax(dim=-1)                                # (B,H,1)
+        p = torch.exp(logits - m[..., None])
+        part = torch.cat([m[..., None], p.sum(-1)[..., None],
+                          torch.einsum("bhqs,bshk->bhqk", p,
+                                       vf.float())], dim=-1)
+        every = serving.exchange(part, cut.seq)     # (n, B, H, 1, hd_r+2)
+        top = every[..., 0].amax(dim=0)
+        den, num = 0, 0
+        for r in range(every.shape[0]):
+            a = torch.exp(every[r, ..., 0] - top)
+            den = den + a * every[r, ..., 1]
+            num = num + a[..., None] * every[r, ..., 2:]
+        out = (num / den[..., None]).to(q.dtype).transpose(1, 2)
+    if cut.hd is not None:
+        out = torch.cat(tensor.each(out).unbind(0), dim=-1)
+    if gather_q:
+        out = out[:, :, first:first + h_r]
+    return out
 
 
 def _sdpa_chunked(q, k, v, q_pos, k_pos, window, mode, chunk):
@@ -200,6 +262,9 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         dev = x.device
         first, kv, heads = self._heads(dev)
+        if kv is not None and mode in ("prefill", "decode"):
+            # a served cache holds every kv head: project them all
+            heads, kv = heads + kv.start, None
         if first is not None:
             x = tensor.to_model(x)
             if memory is not None:
@@ -223,15 +288,24 @@ class Attention(nn.Module):
             k_pos = q_pos
 
         new_cache = None
+        cut = serving.current() if mode == "decode" else None
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
         elif mode == "decode":
             if cache is None or cache_pos is None:
                 raise ValueError("decode needs a cache and cache_pos")
             at = _position(cache_pos, dev)
-            if hints.flag("kv_masked_write"):
-                slot = (torch.arange(cache["k"].shape[1], device=dev)
-                        == at)[None, :, None, None]
+            if cut is not None and cut.hd is not None:
+                blk = cut.hd.block(cfg.hd)      # this rank's head_dim block
+                k, v = k[..., blk], v[..., blk]
+            s_r = cache["k"].shape[1]
+            seq = None if cut is None else cut.seq
+            # this rank's block of S starts at ``start``
+            start = 0 if seq is None else seq.index * s_r
+            k_pos = start + arange(s_r)
+            if seq is not None or hints.flag("kv_masked_write"):
+                # the write lands on the rank that owns ``at`` alone
+                slot = (k_pos == at)[None, :, None, None]
                 ck = cache["k"].copy_(torch.where(
                     slot, k.to(cache["k"].dtype), cache["k"]))
                 cv = cache["v"].copy_(torch.where(
@@ -241,25 +315,30 @@ class Attention(nn.Module):
                 cv = cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
             new_cache = cache
             k, v = ck, cv
-            k_pos = arange(ck.shape[1])
             if positions is None:
                 q_pos = at.expand(t)
-
-        kf = _repeat_kv(k, q.shape[2], heads)
-        vf = _repeat_kv(v, q.shape[2], heads)
 
         if mode == "decode":
             # single-token query: a (B, H, 1, S) product, linear in S;
             # unwritten slots are masked out
             keep = (k_pos <= cache_pos)[None, :] & _keep(q_pos, k_pos,
                                                          window)
-            out = _sdpa_full(q, kf, vf, _bias(keep))
-        elif cfg.attn_impl == "chunked" and mode in ("train", "prefill"):
-            out = _sdpa_chunked(q, kf, vf, q_pos, k_pos, window, mode,
-                                cfg.attn_chunk)
+            if cut is not None and (cut.hd is not None
+                                    or cut.seq is not None):
+                out = _decode_split(q, k, v, _bias(keep), first, cut, cfg.hd)
+            else:
+                out = _sdpa_full(q, _repeat_kv(k, q.shape[2], heads),
+                                 _repeat_kv(v, q.shape[2], heads),
+                                 _bias(keep))
         else:
-            out = _sdpa_full(q, kf, vf, _mask_bias(mode, q_pos, k_pos,
-                                                   window))
+            kf = _repeat_kv(k, q.shape[2], heads)
+            vf = _repeat_kv(v, q.shape[2], heads)
+            if cfg.attn_impl == "chunked" and mode in ("train", "prefill"):
+                out = _sdpa_chunked(q, kf, vf, q_pos, k_pos, window, mode,
+                                    cfg.attn_chunk)
+            else:
+                out = _sdpa_full(q, kf, vf, _mask_bias(mode, q_pos, k_pos,
+                                                       window))
 
         o = torch.einsum("bthk,hkd->btd", out, self.wo.to(x.dtype))
         if first is not None:

@@ -5,6 +5,9 @@ architecture family, with KV/SSM caches and the entry points
     forward(model, batch)                       -> (logits, aux)     [train]
     prefill(model, batch, max_len)              -> (logits, caches)
     decode_step(model, tokens, caches, pos)     -> (logits, caches)
+
+(on a grid of ranks: `repro_torch.sharding.serving`'s ``mesh_prefill``
+and ``mesh_decode`` run these on each rank's share)
     cache_specs(cfg, batch_size, max_len)       -> meta-tensor pytree
 
 Families: dense | moe | ssm | encdec | vlm | hybrid.  Heterogeneous stacks
@@ -45,6 +48,7 @@ from repro_torch.models.common import (
     unembed,
 )
 from repro_torch.models.ssm import ssm_cache_spec
+from repro_torch.sharding import serving
 
 __all__ = ["Model", "init_model", "forward", "forward_hidden", "prefill",
            "decode_step", "cache_specs", "layer_windows", "model_flops",
@@ -97,7 +101,8 @@ def _stack(trees):
 
 
 def _pad_kv(nc, pad_to):
-    """Pad a block-level {"k","v"} (B, T, kvh, hd) cache along time."""
+    """Pad a block-level {"k","v"} (B, T, kvh, hd) cache along time; served
+    on a grid, this rank's block of it (`sharding.serving.kv_block`)."""
     if nc is None or pad_to is None:
         return nc
 
@@ -106,7 +111,7 @@ def _pad_kv(nc, pad_to):
         if t >= pad_to:
             return x[:, :pad_to]
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad_to - t))
-    return {k: pad(v) for k, v in nc.items()}
+    return {k: serving.kv_block(pad(v)) for k, v in nc.items()}
 
 
 def _sum_aux(auxs):
@@ -384,14 +389,14 @@ def prefill(model: Model, batch, max_len: int):
     cfg = model.cfg
     tokens = batch["tokens"]
     t = tokens.shape[1]
-    x = embed_lookup(model.embed, tokens, cfg.dtype)
+    x = embed_lookup(model.embed, tokens, cfg.dtype, cfg.vocab)
     memory = _memory_for(model, batch)
     x, caches, _ = _run_stack(model, x, mode="prefill",
                               positions=torch.arange(t, device=x.device),
                               memory=memory, pad_to=max_len)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = unembed(model.unembedding(), x[:, -1:],
-                     softcap=cfg.logits_softcap)
+                     softcap=cfg.logits_softcap, vocab=cfg.vocab)
     return logits, caches
 
 
@@ -400,7 +405,7 @@ def decode_step(model: Model, tokens, caches, pos, batch_extras=None):
     is the index into the caches, which are written in place and
     returned."""
     cfg = model.cfg
-    x = embed_lookup(model.embed, tokens, cfg.dtype)
+    x = embed_lookup(model.embed, tokens, cfg.dtype, cfg.vocab)
     memory = None
     if batch_extras is not None:
         memory = _memory_for(model, batch_extras)
@@ -409,7 +414,8 @@ def decode_step(model: Model, tokens, caches, pos, batch_extras=None):
                                   cache_pos=pos, positions=positions,
                                   memory=memory)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
-    logits = unembed(model.unembedding(), x, softcap=cfg.logits_softcap)
+    logits = unembed(model.unembedding(), x, softcap=cfg.logits_softcap,
+                     vocab=cfg.vocab)
     return logits, new_caches
 
 

@@ -11,7 +11,11 @@ on [x|B|C], SSD with per-head scalar decay A, skip D, gated RMSNorm,
 out_proj.
 
 Decode cache: {"conv": (B, d_conv-1, convdim), "ssm": (B, nh, hp, state)},
-updated in place by a decode step.
+updated in place by a decode step.  Served on a grid
+(`repro_torch.sharding.serving`), a rank holds its blocks of both as the
+rules split them on "model" while the layer runs whole on the model
+line: a decode step gathers the blocks over the line, computes alike on
+every rank and writes back the rank's blocks; prefill keeps them.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, ParamInit, param, rmsnorm
+from repro_torch.sharding import serving
 
 __all__ = ["SSM", "ssm_cache_spec"]
 
@@ -164,7 +169,8 @@ class SSM(nn.Module):
         if mode == "decode":
             if cache is None or t != 1:
                 raise ValueError("SSM decode takes one token and a cache")
-            conv_hist = torch.cat([cache["conv"], xbc_raw], dim=1)
+            conv_c, ssm_c = serving.ssm_whole(cache)
+            conv_hist = torch.cat([conv_c, xbc_raw], dim=1)
             w, bias = self.conv_w.to(dt_f), self.conv_b.to(dt_f)
             k = w.shape[0]
             xbc = F.silu((conv_hist[:, -k:] * w[None]).sum(1) + bias)[:, None]
@@ -177,11 +183,10 @@ class SSM(nn.Module):
             dt1 = dt[:, 0]                                    # (B,nh)
             da = torch.exp(dt1 * A)                           # (B,nh)
             xdt = xh[:, 0] * dt1[..., None].to(dt_f)
-            h = (cache["ssm"] * da[..., None, None].to(dt_f)
+            h = (ssm_c * da[..., None, None].to(dt_f)
                  + torch.einsum("bhp,bhs->bhps", xdt, bh.to(dt_f)))
             y = torch.einsum("bhs,bhps->bhp", ch.to(dt_f), h)[:, None]
-            cache["conv"].copy_(conv_hist[:, -(k - 1):])
-            cache["ssm"].copy_(h)
+            serving.ssm_write(cache, conv_hist[:, -(k - 1):], h)
             new_cache = cache
         else:
             xbc = _conv_full(xbc_raw, self.conv_w.to(dt_f),
@@ -192,7 +197,8 @@ class SSM(nn.Module):
                                 cmat.reshape(b, t, g, st), dt, A, cfg)
             if mode == "prefill":
                 k = self.conv_w.shape[0]
-                new_cache = {"conv": xbc_raw[:, -(k - 1):], "ssm": h}
+                new_cache = serving.ssm_block(
+                    {"conv": xbc_raw[:, -(k - 1):], "ssm": h})
 
         y = y + xh * self.D[None, None, :, None].to(dt_f)
         y = y.reshape(b, t, d_in)

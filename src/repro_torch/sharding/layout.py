@@ -9,8 +9,7 @@ A block owned by another rank arrives by one `core.mesh.broadcast` from
 its owner over the line of ranks that hold the tensor's other blocks
 (`launch.mesh.GridMesh.line`): the bytes of an all_gather along those
 axes, through the one collective that NCCL, gloo on the CPU and gloo
-ranks sharing a card all take.  `collective_plan` counts what a gather
-moves.
+ranks sharing a card all take.
 
 **The step on a mesh** (`mesh_step`) splits the arithmetic over the data
 axes and over "model", in the order the JAX rules apply them:
@@ -73,6 +72,7 @@ exchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import math
@@ -93,7 +93,8 @@ __all__ = ["shard_shape", "whole_shape", "whole_like", "block_slices",
            "local_block", "gather_leaf", "gather_leaves", "shard", "gather",
            "state_shapes", "state_shardings", "init_blocks", "data_axes",
            "batch_rows", "mesh_grad_fn", "global_norm", "block_splits",
-           "mesh_step", "collective_plan", "step_plan", "flat", "mesh_of",
+           "mesh_scope", "mesh_step", "step_plan", "serve_plan", "flat",
+           "mesh_of",
            "agree", "barrier", "resident_bytes"]
 
 
@@ -138,7 +139,7 @@ def whole_shape(shape, sharding: Sharding) -> Tuple[int, ...]:
 
 def whole_like(tree, shardings):
     """Meta tensors of the whole shapes of a tree of blocks (for
-    `collective_plan` without a gather)."""
+    `resident_bytes` and the plans without a gather)."""
     sh = flat(shardings)
     return tree_map(lambda path, t: torch.empty(
         whole_shape(t.shape, sh[path]), dtype=t.dtype, device="meta"), tree)
@@ -204,7 +205,8 @@ def gather_leaves(ts, shardings) -> List[torch.Tensor]:
     """`gather_leaf` of each block of ``ts`` (laid out by the matching
     ``shardings``), every broadcast issued before the first is waited on:
     the same broadcasts, in the same order, with the line's latency
-    overlapped."""
+    overlapped.  On a shape-only mesh each block's broadcast is
+    `core_mesh.tally`'d."""
     outs, fills, works = [], [], []
     for t, sharding in zip(ts, shardings):
         mesh = sharding.mesh
@@ -214,8 +216,10 @@ def gather_leaves(ts, shardings) -> List[torch.Tensor]:
             continue
         shape = whole_shape(t.shape, sharding)
         if mesh.world is None:
-            outs.append(t.repeat(tuple(w // b for w, b in zip(shape,
-                                                              t.shape))))
+            reps = tuple(w // b for w, b in zip(shape, t.shape))
+            for _ in range(math.prod(reps)):
+                core_mesh.tally("broadcast", t)
+            outs.append(t.repeat(reps))
             continue
         axes_all = [a for _, axes in entries for a in axes]
         line, ranks = mesh.line(axes_all)
@@ -416,42 +420,56 @@ def batch_rows(batch, batch_shardings, microbatches: int = 1):
     return out
 
 
+@contextlib.contextmanager
+def mesh_scope(model, psh, batch_shardings, reduce: bool = True):
+    """The scopes that a model's call on a mesh runs in: the data split
+    of the batch's data line, the model split of the rank's model line
+    and the unit gathers of ``model`` (its blocks laid out by ``psh``, by
+    name; `fsdp.sharded`), whose gradients are summed over the data line
+    (a ``partial`` leaf's over the data and model lines) when ``reduce``.
+    On a shape-only mesh the splits are shape only."""
+    axes = data_axes(batch_shardings)
+    mesh = mesh_of(psh)
+    msize = mesh.shape.get("model", 1)
+    line = mline = wide = None
+    if mesh.world is not None:                          # lines as remade
+        line = mesh.line(axes)[0] if axes else None
+        if msize > 1:
+            mline = mesh.line(("model",))[0]
+            wide = mesh.line(tuple(axes) + ("model",))[0]
+    if not axes:
+        data = split.data_split()
+    elif line is None:
+        data = split.data_split(size=_count(axes, mesh))
+    else:
+        data = split.data_split(line)
+    if mline is not None:
+        model_ctx = tensor.model_split(mline)
+    else:
+        model_ctx = tensor.model_split(
+            size=msize, rank=(mesh.coords or {}).get("model", 0))
+    with data, model_ctx, fsdp.sharded(model, psh, line if reduce else None,
+                                       wide if reduce else None):
+        yield
+
+
 def mesh_grad_fn(grad_fn, shardings, batch_shardings):
     """``grads(state, batch) -> (grads, metrics)`` on a mesh: ``state``
     sharded by ``shardings``, ``batch`` this rank's rows (`batch_rows`).
     Runs ``grad_fn`` (`train.step.make_grad_fn`) with the parameters
     gathered one unit at a time (`fsdp.sharded`) inside the data split of
-    the batch's data line and the model split of the rank's model line:
-    this rank's blocks of the reduced gradients, the same bits on every
-    rank that holds one, and the global batch's metrics (on a shape-only
-    mesh, shape-only splits and no sum).  On one rank, ``grad_fn``
-    itself."""
-    axes = data_axes(batch_shardings)
+    the batch's data line and the model split of the rank's model line
+    (`mesh_scope`): this rank's blocks of the reduced gradients, the same
+    bits on every rank that holds one, and the global batch's metrics (on
+    a shape-only mesh, shape-only splits and no sum).  On one rank,
+    ``grad_fn`` itself."""
     mesh = mesh_of(shardings)
     psh = shardings["params"]
-    msize = mesh.shape.get("model", 1)
 
     def grads(state, batch):
         if mesh.size == 1:
             return grad_fn(state["params"], batch)
-        line = mline = wide = None
-        if mesh.world is not None:                      # lines as remade
-            line = mesh.line(axes)[0] if axes else None
-            if msize > 1:
-                mline = mesh.line(("model",))[0]
-                wide = mesh.line(tuple(axes) + ("model",))[0]
-        if not axes:
-            data = split.data_split()
-        elif line is None:
-            data = split.data_split(size=_count(axes, mesh))
-        else:
-            data = split.data_split(line)
-        if mline is not None:
-            model = tensor.model_split(mline)
-        else:
-            model = tensor.model_split(
-                size=msize, rank=(mesh.coords or {}).get("model", 0))
-        with data, model, fsdp.sharded(state["params"], psh, line, wide):
+        with mesh_scope(state["params"], psh, batch_shardings):
             return grad_fn(state["params"], batch)
     return grads
 
@@ -603,23 +621,6 @@ def barrier(mesh) -> None:
     agree(mesh, False)
 
 
-def collective_plan(shardings, shapes) -> Dict[str, float]:
-    """What gathering a tree costs each rank: ``{"broadcast": count,
-    "bytes": wire bytes}`` (a broadcast moves its block, so a split leaf
-    costs its whole bytes).  ``shapes`` is the matching tree of whole
-    tensors (any device, ``meta`` included)."""
-    count, nbytes = 0, 0
-    sh = flat(shardings)
-    for path, t in flat(tree_map(lambda p, x: x, shapes)).items():
-        s = sh[path]
-        n = math.prod(_count(axes, s.mesh)
-                      for _, axes in _entries(s.spec, s.mesh))
-        if n > 1:
-            count += n
-            nbytes += t.numel() * t.element_size()
-    return {"broadcast": count, "bytes": nbytes}
-
-
 def _model_line(cfg, tcfg, shardings, batch_shardings, rows) -> Dict:
     """``{"all_sum", "bytes"}`` over the model line in one step of this
     rank, read off the step itself: `mesh_grad_fn` run shape only on
@@ -746,6 +747,57 @@ def step_plan(cfg, tcfg, shardings, batch_shardings, params,
     plan["all_sum"] += 2
     plan["all_sum_bytes"] += 8 + 4
     return plan
+
+
+def serve_plan(cfg, shardings, batch_shardings, kind: str, batch,
+               max_len: int) -> Dict[str, int]:
+    """What one serving call on a mesh costs this rank, read off the call
+    itself: `serving.mesh_prefill` (``kind`` "prefill") or
+    `serving.mesh_decode` ("decode") run shape only on meta tensors -- a
+    model of ``cfg`` laid out by ``shardings["params"]``' specs and, to
+    decode, caches at ``max_len`` by ``shardings["caches"]``', on a
+    shape-only mesh with this rank's coordinates, ``batch`` the global
+    batch's shapes (tokens (B, T), or (B, 1) and the extras; any device)
+    -- with every collective that the call would issue
+    `core_mesh.tally`'d: the parameters' gathers, one unit at a time, by
+    broadcasts (a leaf the model line splits over the data line only),
+    and the all_sums of the model line (the row-parallel outputs, the
+    serving exchanges of the caches' cuts), of the data line (MoE's
+    counts and gate sums) and the whole logits' gather.
+
+    -> ``{"broadcast", "bytes" (the blocks broadcast), "all_sum",
+    "all_sum_bytes" (the tensors summed)}``.  One rank issues nothing."""
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.models import model as M
+    from repro_torch.models.common import empty_init
+    from repro_torch.sharding import serving
+    mesh = mesh_of(shardings)
+    if mesh.size == 1:
+        return {"broadcast": 0, "bytes": 0, "all_sum": 0, "all_sum_bytes": 0}
+    coords = mesh.coords or {a: 0 for a in mesh.axis_names}
+    shape_only = GridMesh(mesh.axis_names, tuple(mesh.shape.values()),
+                          rank=mesh.rank_of(coords))
+
+    def on(tree):
+        return tree_map(lambda _, s: Sharding(shape_only, s.spec), tree)
+    sh = {"params": on(shardings["params"]), "caches": on(shardings["caches"])}
+    bsh = on(batch_shardings)
+    meta = torch.device("meta")
+    model = shard(M.Model(cfg, empty_init(meta)), sh["params"])
+    glob = {k: torch.empty(x.shape, dtype=x.dtype, device=meta)
+            for k, x in batch.items()}
+    with core_mesh.tallying() as seen:
+        if kind == "prefill":
+            serving.mesh_prefill(sh, bsh)(model, glob, max_len)
+        elif kind == "decode":
+            tokens = glob.pop("tokens")
+            caches = shard(M.cache_specs(cfg, tokens.shape[0], max_len),
+                           sh["caches"])
+            serving.mesh_decode(sh, bsh)(model, tokens, caches, 0,
+                                         glob or None)
+        else:
+            raise ValueError(kind)
+    return dict(seen)
 
 
 def _factored_sums(named, psh) -> Tuple[int, int]:

@@ -104,10 +104,13 @@ def stacked(t: torch.Tensor, size: int, rank: int,
     """(size, *t.shape): every rank's ``t`` (this one being ``rank`` of
     ``line``) in rank order, the same bits on every rank; one all_sum of a
     stack that holds ``t`` at this rank's row and zeros elsewhere (no
-    gradient).  Shape only without a line: ``t`` at every row."""
+    gradient).  Shape only without a line: ``t`` at every row (the
+    all_sum `core_mesh.tally`'d)."""
     t = t.detach()
     if line is None:
-        return t[None].expand(size, *t.shape).clone()
+        out = t[None].expand(size, *t.shape).clone()
+        core_mesh.tally("all_sum", out)
+        return out
     stack = torch.zeros((size,) + tuple(t.shape), dtype=t.dtype,
                         device=t.device)
     stack[rank] = t

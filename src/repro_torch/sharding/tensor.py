@@ -162,6 +162,7 @@ def _sum(line, t: torch.Tensor) -> torch.Tensor:
     backward, or saved, may be shared); shape only without a line."""
     _tally(t)
     if line is None:
+        core_mesh.tally("all_sum", t)
         return t.clone()
     return core_mesh.all_sum(line, t.contiguous().clone())
 

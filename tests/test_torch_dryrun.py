@@ -7,11 +7,14 @@ bottleneck one of the three terms, the mesh named.  Their argument bytes
 per device equal the bytes of the JAX rules' shards of the JAX cell's
 arguments (``jax.eval_shape`` trees, `repro.sharding.rules` specs on a
 `FakeMesh` of the production shape), computed without compiling.  Their
-broadcasts and wire bytes: a serving cell gathers those shards (one
-broadcast per block of every split leaf, the leaf's bytes on the wire);
-a train cell's split step gathers the parameters only (the optimizer
-state never), one unit at a time: a layer's for its forward and again
-for its backward, the embedding's and the final norm's once; its
+broadcasts and wire bytes: every cell runs rank 0's share and gathers
+the parameters only (the optimizer state and the caches never), one
+unit at a time -- a serving cell's once for its forward; a train cell's
+split step a layer's for its forward and again for its backward, the
+embedding's and the final norm's once; a serving cell's all_sums are
+its model line's partial sums, its caches' exchanges (`_serve_line`),
+MoE's statistics over the data ranks and the whole logits' gather; a
+train cell's
 all_sums are the nll's exchange over the D ranks of the data axes (D
 f32s), one of every parameter's gradient (its bytes), the global norm's
 (one f64) and the agreement (one f32).  A leaf the rules split on "model"
@@ -78,12 +81,14 @@ def _split(spec, fm) -> list:
 
 def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
     """(argument bytes per device, broadcasts, their wire bytes, all_sums,
-    their bytes) of the JAX cell's arguments laid out by the JAX rules: a
-    serving cell's gathers; a train cell's split step (one microbatch, no
-    aux and no MoE layer, as the port's dry run trains these archs): the
-    parameters' gathers (a stacked layer leaf twice: its forward and its
-    backward), then the nll's exchange over the data axes, the gradients'
-    reduction, the global norm's and the agreement."""
+    their bytes) of the JAX cell's arguments laid out by the JAX rules:
+    the parameters' gathers (a leaf the model line splits over the data
+    axes only); a serving cell's forward once, then its all_sums
+    (`_serve_line`); a train cell's split step (one microbatch, no aux
+    and no MoE layer, as the port's dry run trains these archs) gathers
+    a stacked layer leaf twice (its forward and its backward), then the
+    nll's exchange over the data axes, the gradients' reduction, the
+    global norm's and the agreement."""
     from repro_torch.configs.shapes import SHAPES
     shape = SHAPES[shape_name]
     fm = _mesh(multi_pod)
@@ -125,7 +130,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
             leaves.append((leaf, spec, math.prod(leaf.shape[:depth]),
                            params, depth > 0,
                            _model_ways(path, leaf, spec, fm)
-                           if params and shape.kind == "train" else 1))
+                           if params else 1))
     train = shape.kind == "train"
     data = math.prod(fm.shape[a] for a in ("pod", "data")
                      if a in fm.shape)
@@ -139,7 +144,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
         # a train step gathers a layer's leaf (a stacked one) twice; a leaf
         # computed on its model block over the data line only
         times = 2 if train and layer else 1
-        if n // mways > 1 and (param or not train):
+        if n // mways > 1 and param:
             count += n // mways * tensors * times
             wire += nbytes // mways * times
         if split and param:
@@ -149,6 +154,8 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
         line, line_bytes = _model_line(jcfg, shape, fm, data)
         sums += line
         summed += line_bytes
+    if not train:
+        sums, summed = _serve_line(jcfg, shape, fm, data)
     return arg, count, wire, sums, summed
 
 
@@ -189,6 +196,46 @@ def _model_line(jcfg, shape, fm, data) -> tuple:
     return count, nbytes
 
 
+def _serve_line(jcfg, shape, fm, data) -> tuple:
+    """(all_sums, their bytes) of rank 0's decode step by the JAX rules,
+    for a dense or a dense/MoE-interleaved arch at a batch that divides
+    the D data ranks (b rows a rank; activations of the config's dtype,
+    x = b d of them):
+
+    - an attention layer whose kv heads do not divide the model axis M
+      and whose head_dim does (the rules put the caches' head_dim on
+      "model"): every q head's q gathered where the q heads split (M
+      blocks of b H/M hd), the f32 scores (b, H, 1, S) of the rank's
+      head_dim block summed, and p.v of its block gathered (M blocks of
+      b H hd/M); where the q heads split, wo's partial output (x);
+    - an MLP whose d_ff splits: its partial output (x);
+    - a MoE layer: its expert counts (int64) and gate sums (f32), D x
+      experts each, over the data ranks, and its partial output (x);
+    - a vocab-parallel embedding's lookup (x), and the whole f32 logits
+      (B, 1, V), gathered over the grid."""
+    assert shape.kind == "decode" and jcfg.family in ("dense", "moe")
+    m = fm.shape["model"]
+    big_b, s = shape.global_batch, shape.seq_len
+    assert big_b % data == 0
+    b, d, h, hd = big_b // data, jcfg.d_model, jcfg.n_heads, jcfg.hd
+    act = jnp.dtype(jcfg.dtype).itemsize
+    x = b * d * act
+    attn = []
+    if jcfg.n_kv_heads % m and hd % m == 0:
+        if h % m == 0:
+            attn.append(b * h * hd * act)
+        attn += [b * h * s * 4, b * h * hd * act]
+    if h % m == 0:
+        attn.append(x)
+    n_moe = jcfg.n_layers // max(jcfg.moe_every, 1) if jcfg.n_experts else 0
+    sums = (jcfg.n_layers * attn
+            + (jcfg.n_layers - n_moe) * ([x] if jcfg.d_ff % m == 0 else [])
+            + n_moe * [data * jcfg.n_experts * 8, data * jcfg.n_experts * 4,
+                       x]
+            + ([x] if jcfg.vocab % m == 0 else []) + [big_b * jcfg.vocab * 4])
+    return len(sums), sum(sums)
+
+
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
 def test_smoke_cell_records(arch, shape, multi_pod):
     rec = D.run_cell(arch, shape, multi_pod=multi_pod, smoke=True, fast=True)
@@ -200,10 +247,10 @@ def test_smoke_cell_records(arch, shape, multi_pod):
     assert rec["memory"]["argument_bytes_per_device"] == arg
     # a train step adds the nll's exchange over the 16 data ranks, the
     # gradients' reduction, the global norm's and the agreement that it
-    # commits
-    assert (sums > 0) == shape.startswith("train")
-    assert rec["collective_counts"] == dict(
-        {"broadcast": count}, **({"all_sum": sums} if sums else {}))
+    # commits; a decode step its model line's sums, its caches' exchanges
+    # and the logits' gather
+    assert sums > 0
+    assert rec["collective_counts"] == {"broadcast": count, "all_sum": sums}
     assert rec["wire_bytes_per_chip"] == wire + summed
     assert rec["memory"]["temp_bytes_per_device"] is None     # fast
     assert rec["hlo_flops_global"] >= rec["model_flops"] > 0

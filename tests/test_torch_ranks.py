@@ -817,3 +817,89 @@ def layer_gather_memory(mesh, spec: str, runs: list) -> list:
                         grads_seen=len(grads),
                         loss=float(metrics["loss"])))
     return out
+
+
+# --------------------------------------------------------------------------
+# prefill and decode on a grid (tests/test_torch_serve_split*.py)
+# --------------------------------------------------------------------------
+
+def serve_model(arch: str, params, device="cpu"):
+    """(the smoke config at f32 activations as the JAX dry run serves it:
+    chunked attention, no remat; its model from a JAX parameter tree of
+    numpy leaves, or from an int seed of the port's `init_model`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.models.convert import from_jax_params
+    cfg = get_config(arch, smoke=True).replace(
+        dtype=torch.float32, attn_impl="chunked", remat=False)
+    if isinstance(params, int):
+        return cfg, init_model(cfg, generator=torch.Generator()
+                               .manual_seed(params), device=device)
+    return cfg, from_jax_params(params, cfg, device=device)
+
+
+def serve_split(mesh, spec: str, cases: dict) -> dict:
+    """One rank of a ``spec`` grid ("1x2", "2x2", "2x1", ...) serving each
+    case through `sharding.serving`: ``cases`` maps a name to (arch, its
+    parameters as `serve_model` takes them, the global prompt (B, T) and
+    the tokens fed to the G decode steps (B, G), numpy, and the caches'
+    max length).  The model is laid out by the rules (the rank keeps its
+    blocks), the caches by `rules.cache_shardings`, the batch by
+    `rules.batch_spec`, with ``kv_masked_write`` where the batch does not
+    divide the data axes.  -> {name: its coordinates, the whole logits of
+    the prefill and of each step (numpy), its cache blocks after the
+    prefill and after the last step (numpy by `layout.flat` path joined
+    with dots), each call's collectives (`core.mesh.tallying`) and
+    `layout.serve_plan`'s for a prefill and a step}."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_mesh_like
+    from repro_torch.models import model as MM
+    from repro_torch.sharding import hints, layout, serving
+    from repro_torch.sharding.rules import (Sharding, batch_spec,
+                                            cache_shardings, param_shardings,
+                                            tree_map)
+    grid = make_mesh_like(spec, device="cpu", grid=True)
+    data = [a for a in ("pod", "data") if a in grid.axis_names]
+    dsize = int(np.prod([grid.shape[a] for a in data]))
+
+    def blocks(caches):
+        return {".".join(p): t.numpy().copy()
+                for p, t in layout.flat(caches).items()}
+    out = {}
+    for name, (arch, params, prompt, fed, max_len) in cases.items():
+        cfg, model = serve_model(arch, params)
+        psh = param_shardings(model, cfg, grid)
+        layout.shard(model, psh)
+        b = prompt.shape[0]
+        sh = {"params": psh, "caches": tree_map(
+            lambda _, s: Sharding(grid, s),
+            cache_shardings(MM.cache_specs(cfg, b, max_len), cfg, grid))}
+        bsh = {kind: {k: Sharding(grid, s) for k, s in batch_spec(
+            cfg, grid, kind=kind, batch=b).items()}
+            for kind in ("prefill", "decode")}
+        hints.configure(cfg, grid, kv_masked_write=b % dsize != 0)
+        prefill = serving.mesh_prefill(sh, bsh["prefill"])
+        decode = serving.mesh_decode(sh, bsh["decode"])
+        try:
+            with M.tallying() as seen:
+                logits, caches = prefill(
+                    model, {"tokens": torch.from_numpy(prompt)}, max_len)
+            tallies, got = [dict(seen)], [logits.numpy().copy()]
+            first = blocks(caches)
+            for i in range(fed.shape[1]):
+                with M.tallying() as seen:
+                    logits, caches = decode(
+                        model, torch.from_numpy(fed[:, i:i + 1]), caches,
+                        prompt.shape[1] + i)
+                tallies.append(dict(seen))
+                got.append(logits.numpy().copy())
+            plans = {kind: layout.serve_plan(cfg, sh, bsh[kind], kind, {
+                "tokens": torch.from_numpy(prompt if kind == "prefill"
+                                           else fed[:, :1])}, max_len)
+                for kind in ("prefill", "decode")}
+        finally:
+            hints.configure(cfg, None)
+        out[name] = {"coords": grid.coords, "logits": got,
+                     "prefill_caches": first, "caches": blocks(caches),
+                     "tallies": tallies, "plans": plans}
+    return out

@@ -420,7 +420,7 @@ def test_blocks_tile_the_whole_tensor(spec):
     assert float(cover.sum()) == n and cover.min() >= 1
 
 
-def test_collective_plan_counts_each_split_leafs_blocks():
+def test_resident_bytes_and_flat_paths_of_a_tree():
     from repro_torch.launch.mesh import GridMesh
     from repro_torch.sharding import layout
     from repro_torch.sharding.rules import Sharding
@@ -432,13 +432,35 @@ def test_collective_plan_counts_each_split_leafs_blocks():
     sh = {"a": Sharding(grid, P(("pod", "data"))),
           "b": {"c.d": Sharding(grid, P("model"))},     # a size-1 axis
           "e": Sharding(grid, P()), "f": None}
-    assert layout.collective_plan(sh, tree) == {"broadcast": 8,
-                                                "bytes": 8 * 4 * 4}
     assert layout.resident_bytes(sh, tree) == 4 * 4 + 8 * 4 + 4
     assert set(layout.flat(sh)) == {("a",), ("b", "c", "d"), ("e",)}
     assert layout.mesh_of(sh) is grid
     with pytest.raises(ValueError, match="does not split"):
         layout.shard_shape((6,), Sharding(grid, P(("pod", "data"))))
+
+
+def test_a_shape_only_gather_tallies_each_blocks_broadcast():
+    """On a shape-only mesh `layout.gather` issues nothing, and
+    `core.mesh.tallying` counts what it would: one broadcast of a block
+    per block of every split leaf (a split leaf costs its whole bytes),
+    nothing for a leaf whole or split over a size-1 axis; the gather
+    tiles this rank's block."""
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.launch.mesh import GridMesh
+    from repro_torch.sharding import layout
+    from repro_torch.sharding.rules import Sharding
+    grid = GridMesh(("pod", "data", "model"), (2, 4, 1), rank=3)
+    tree = {"a": torch.arange(4.0).reshape(1, 4),
+            "b": {"c.d": torch.arange(8.0)}, "e": torch.zeros(())}
+    sh = {"a": Sharding(grid, P(("pod", "data"))),
+          "b": {"c.d": Sharding(grid, P("model"))},
+          "e": Sharding(grid, P())}
+    with core_mesh.tallying() as seen:
+        whole = layout.gather(tree, sh)
+    assert seen == {"broadcast": 8, "bytes": 8 * 4 * 4, "all_sum": 0,
+                    "all_sum_bytes": 0}
+    assert torch.equal(whole["a"], tree["a"].repeat(8, 1))
+    assert whole["b"]["c.d"] is tree["b"]["c.d"]
 
 
 def test_grid_coordinates_and_lines_are_row_major():
