@@ -294,7 +294,22 @@ printed line each, any failure ends the run:
             `layout.serve_plan`, no kernel launched; prefill s, decode
             ms a step, tokens/s, a rank's peak and cache bytes, a decode
             step's collectives, beside the whole-argument gather the dry
-            run priced before (computed); (c)
+            run priced before (computed); then, in the same rank
+            processes, the SSM blocks: mamba2-370m at full width,
+            LAUNCH_SSM_LAYERS layers, f32, no aux, LAUNCH_WIDE_STEPS
+            steps and the same serving, each rank of a model line
+            computing 16 of the 32 SSM heads, against one rank on the
+            card: the losses, logits and cache blocks within
+            `ssm_bound`, tokens equal up to a near tie, each leaf of the
+            first reduced gradient within LAUNCH_SSM_SENS_K x its
+            measured sensitivity (its largest change over
+            LAUNCH_SSM_DRAWS draws of one rank's gradient with every
+            contraction and sum moved by a rounding, `reordered`) plus
+            `ssm_bound` of its largest element; the same bitwise and
+            plan checks, a decode
+            step's all_sums those of `ssm_decode_sums` (no SSM state
+            among them) beside what gathering the state would add, no
+            kernel launched; (c)
             `launch.serve.generate` on LAUNCH_SERVE against the CPU on
             the same parameters (f32 logits within SMOKE_ATOL, greedy
             tokens equal until a near tie), tokens/s, and the CLI; (d)
@@ -4878,6 +4893,53 @@ LAUNCH_WIDE_DATA_ONLY = {"gathered_bytes_per_step": 6790537728,
 # where one rank's top-2 margin is within twice that.  No kernel runs: the
 # models are plain tensor ops
 SERVE_GRID_GEN, SERVE_GRID_SEED, SERVE_GRID_RTOL = 4, 0, 2e-4
+# (b) the SSM blocks on the model line: mamba2-370m at full width (d_model
+# 1024, 32 SSM heads of 64 channels, state 128) at LAUNCH_SSM_LAYERS
+# layers, f32, no aux, on the same 2x2 grid: LAUNCH_WIDE_STEPS adamw steps
+# of LAUNCH_WIDE_SHAPE, then `mesh_prefill` of the seeded
+# LAUNCH_WIDE_SHAPE prompt and SERVE_GRID_GEN greedy `mesh_decode` steps
+# on the trained blocks.  Each rank of a model line computes 16 of the 32
+# heads; a decode step exchanges the conv cache's blocks, never the
+# state.  Against one rank on the card (the same seed; its serving on the
+# grid's final checkpoint, fed the grid's tokens), within `ssm_bound`:
+# the grid adds each of a layer's sums of up to d_inner = 2048 terms in
+# another order (the rank's column runs of in_proj, out_proj's and the
+# gated norm's two partial sums, the batch's two data ranks), some
+# sqrt(2048) u of the sum's scale (u = 2^-24: 2.7e-6), which the residual
+# stream carries through the layers, at worst adding up: 2 x layers x
+# sqrt(d_inner) u (the 2 for the forward and the backward) of each loss,
+# and of max(1, |one rank's|) for the last-token logits and the cache
+# blocks; a greedy token may differ only where one rank's top-2 margin
+# is within twice that.  The first reduced gradient is not held to that
+# bound: the random-init stack's gradient grows with depth (its largest
+# element 15 at 16 layers, 90 at 24, 2456 at 48), and a rounding anywhere
+# in the forward or backward moves a leaf by up to some 4 % of its own
+# largest element at 16 and 24 layers, mostly along a few directions the
+# deep stack amplifies, so one leaf's change is a random multiple of a
+# fixed pattern (`tools/ssm_grid_probe.py`; PERF.md §6).  So each leaf
+# k is held to LAUNCH_SSM_SENS_K x sens_k plus `ssm_bound` of one rank's
+# largest element of k, where sens_k is k's largest change over
+# LAUNCH_SSM_DRAWS draws of one rank's first gradient with every
+# contraction and sum, forward and backward, moved by a rounding
+# (`reordered`: what summing in another order does, which is all the
+# grid does differently).  If the grid's change is one more such draw,
+# a multiple a of the pattern with a normal, it passes past K x the
+# largest of N draws with the chance P(|a0| > K max |ai|): 3.0e-4 for
+# K = 8 and N = 4, where one draw and K = 16 would give 4e-2.  On the
+# card (H100 80GB HBM3, 700 W) the grid's worst leaf reached 0.42 /
+# 0.40 / 0.54 of this gate at 16 / 24 / 48 layers, and the gate flagged
+# faults the probe planted in the ranks: every layer's SSM out_proj
+# left unsummed over the data line, and the PARTIAL leaves left
+# unsummed over the model line in all but 2 of 112 (16 layers) and of
+# 168 (24) leaves; at 48 layers it flags few, the sensitivity there
+# reaching a leaf's own size.  The part runs in the wide grid's rank
+# processes after their own run (no spawn of its own).
+# LAUNCH_SSM_LAYERS: the part must add at most 35 s to phase 15; in the
+# wide grid's rank processes on the card it took 26.9 s at 16 layers and
+# 42.9 s at 24 (the whole script 1109.3 s and 1025.9 s of its 1200), and
+# the probe's 48 layers 82 s; 20 layers, interpolated, would sit at the
+# allowance's edge, so 16 is the deepest stack measured within it
+LAUNCH_SSM_LAYERS, LAUNCH_SSM_SENS_K, LAUNCH_SSM_DRAWS = 16, 8, 4
 # (c) launch.serve: (arch, batch, prompt length, generated tokens), f32,
 # card against CPU on the same parameters; greedy tokens equal until the
 # CPU's top-2 logit margin is within 2 x SMOKE_ATOL (of max(1, |logits|))
@@ -4897,25 +4959,39 @@ LAUNCH_SERVE = [("mamba2-370m", 2, 8, 4), ("gemma3-1b", 2, 8, 4)]
 # scores of its head_dim block and p.v's blocks (llama4's 8 kv heads do
 # not divide the 16-rank model line, its head_dim does), a split MLP's
 # or MoE's output, a MoE layer's counts and gate sums over the 32 data
-# ranks, the vocab-parallel lookup and the whole logits;
-# tests/test_torch_dryrun.py derives these from the JAX package).
+# ranks, the vocab-parallel lookup and the whole logits; mamba2-370m's
+# decode cell gathers a layer's in_proj, conv and norm whole and its
+# out_proj over the data ranks (the 32 SSM heads divide 16: a rank
+# computes 2), and all_sums a layer's conv blocks, its gated norm's sums
+# of squares and out_proj's partial output, never the state, and the
+# whole logits; tests/test_torch_dryrun.py derives these from the JAX
+# package).
 # DRYRUN_GATHER_ALL: the earlier figures, every parameter (and every
 # cache) gathered whole once a step: the train cell's step (its temp
 # bytes from the CLI's memory pass; PERF.md §6), and the decode cell's
 # arguments as the dry run priced them before it ran a rank's share;
+# mamba2-370m's decode cell as the dry run ran it while the SSM layers
+# ran whole on the model line, the state gathered every layer (the
+# parent tree's CLI on the chip machine, PERF.md §6);
 # DRYRUN_DATA_ONLY: the train step before the model split, every leaf
 # gathered over the whole grid
 DRYRUN_CELLS = [
     ("gemma3-1b", "train_4k", False, False,
      (101347048, 7520, 999940608, 342, 12793477708)),
     ("llama4-maverick-400b-a17b", "decode_32k", True, False,
-     (3341134676, 28512, 55435683840, 194, 1115234304))]
+     (3341134676, 28512, 55435683840, 194, 1115234304)),
+    ("mamba2-370m", "decode_32k", False, True,
+     (30919972, 16160, 1095847936, 145, 31839744))]
 DRYRUN_GATHER_ALL = {"gemma3-1b|train_4k": {"bytes_per_step": 7998501956,
                                       "temp_bytes": 58.8e9},
                      "llama4-maverick-400b-a17b|decode_32k": {
                          "argument_bytes": 3341134676,
                          "broadcasts": 135232,
-                         "bytes_per_step": 1620049078784}}
+                         "bytes_per_step": 1620049078784},
+                     "mamba2-370m|decode_32k": {
+                         "broadcasts": 27680, "broadcast_bytes": 1473335296,
+                         "all_sums": 97, "all_sum_bytes": 232378368,
+                         "useful_flops_frac": 0.06052124741451748}}
 DRYRUN_DATA_ONLY = {"gemma3-1b|train_4k": {
     "broadcasts": 45200, "broadcast_bytes": 6790537728, "all_sums": 239,
     "all_sum_bytes": 3999251020, "temp_bytes": 58.83e9}}
@@ -4934,18 +5010,23 @@ def rule_shardings(cfg, state, dims, optimizer="adamw") -> tuple:
 
 
 def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
-              ref=None, built=False, serve=False) -> dict:
+              ref=None, built=False, serve=False, then=None) -> dict:
     """One spawned rank of (b)'s grids: `launch.train.rank_main` and the
     kernel launches the rank made.  With ``ref`` (an .npz of one rank's
     first reduced gradients by name) the rank holds its own against it
     here -- ``grad_err`` (the largest difference) and ``grad_max`` (the
     reference's largest element) -- and returns (shape, sha256) digests
-    in place of its arrays.  With ``built`` it also builds the whole
+    in place of its arrays (``grad_errs``: each leaf's largest
+    difference).  With ``built`` it also builds the whole
     state of the run's seed on its card (`train.init_train_state`), cuts
     its blocks (`layout.shard`) and reports whether the blocks its
     `launch.train.build` made were bitwise those (``built_bitwise``, over
     ``built_leaves`` leaves).  With ``serve`` the rank then serves on its
-    trained blocks (`serve_grid_rank`: ``after``)."""
+    trained blocks (`serve_grid_rank`: ``after``).  ``then`` (argv,
+    layers, ref) runs a second `grid_rank` in the same process over the
+    same process group once the first is done (its result under
+    ``"then"``), serving too: no second spawn, and the card's libraries
+    already loaded."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
@@ -4983,8 +5064,9 @@ def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
     if ref is not None:
         import numpy as np
         want = np.load(ref)
-        out["grad_err"] = max(float(np.abs(g - want[k]).max())
-                              for k, g in out["grads"].items())
+        out["grad_errs"] = {k: float(np.abs(g - want[k]).max())
+                            for k, g in out["grads"].items()}
+        out["grad_err"] = max(out["grad_errs"].values())
         out["grad_max"] = max(float(np.abs(want[k]).max())
                               for k in want.files)
 
@@ -4993,6 +5075,12 @@ def grid_rank(mesh, argv, threads, detail, layers, digest, dtype,
                 .hexdigest()
         for key in ("grads", "blocks"):
             out[key] = {k: digest_of(a) for k, a in out[key].items()}
+    if then is not None:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["then"] = grid_rank(mesh, then[0], threads, detail, then[1],
+                                digest, dtype, then[2], False, True)
+        out["then"]["run_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5092,15 +5180,17 @@ def _gather_all(shardings, shapes) -> dict:
     return {"broadcasts": count, "bytes": nbytes}
 
 
-def hold_serve_grid(ranks, cfg, ckpt: Path, smi: str) -> dict:
+def hold_serve_grid(ranks, cfg, ckpt: Path, smi: str,
+                    tol: float = SERVE_GRID_RTOL,
+                    what: str = "serve grid") -> dict:
     """(b)'s serve grid against one rank on the card: `models.prefill` and
     `decode_step` on the parameters of the grid's final checkpoint
     (``ckpt``), f32, fed the grid's greedy tokens.  Held: every rank's
-    logits the same bits; rank 0's within SERVE_GRID_RTOL of max(1, |one
+    logits the same bits; rank 0's within ``tol`` of max(1, |one
     rank's|) and its tokens equal to one rank's greedy ones unless one
     rank's top-2 margin is within twice that; every rank's cache blocks,
     after the prefill and after the last step, of the rules' shapes and
-    within SERVE_GRID_RTOL of max(1, |one rank's cache|), the ranks that
+    within ``tol`` of max(1, |one rank's cache|), the ranks that
     hold one block alike bitwise; each call's collectives equal to
     `layout.serve_plan`; no kernel launched.  -> the figures."""
     import numpy as np
@@ -5138,14 +5228,14 @@ def hold_serve_grid(ranks, cfg, ckpt: Path, smi: str) -> dict:
         logit_err = max(logit_err, float(np.abs(got - w).max()) / scale)
         if i < SERVE_GRID_GEN:
             top2 = np.sort(w, axis=-1)[:, -2:]
-            tie = (top2[:, 1] - top2[:, 0]) <= 2 * SERVE_GRID_RTOL * scale
+            tie = (top2[:, 1] - top2[:, 0]) <= 2 * tol * scale
             same = lead["tokens"][:, i] == w.argmax(-1)
-            require(bool(np.all(same | tie)), f"serve grid: greedy token {i}"
+            require(bool(np.all(same | tie)), f"{what}: greedy token {i}"
                     f" {lead['tokens'][:, i]}, one rank's {w.argmax(-1)}")
             near_ties += int(tie.sum())
-    require(logit_err <= SERVE_GRID_RTOL, f"serve grid: logits off one "
+    require(logit_err <= tol, f"{what}: logits off one "
             f"rank's by {logit_err} of max(1, |logits|) (gate "
-            f"{SERVE_GRID_RTOL})")
+            f"{tol})")
     grid = GridMesh(("data", "model"), LAUNCH_GRID)
     csh = flat(tree_map(lambda _, s: Sharding(grid, s), cache_shardings(
         M.cache_specs(cfg, b, max_len), cfg, grid)))
@@ -5157,25 +5247,25 @@ def hold_serve_grid(ranks, cfg, ckpt: Path, smi: str) -> dict:
             held = {}
             for r in runs:
                 got = r[which][k]
-                require(got.shape == shard_shape(w.shape, sh), f"serve grid: "
+                require(got.shape == shard_shape(w.shape, sh), f"{what}: "
                         f"rank {r['coords']} holds {which} {k} {got.shape}, "
                         f"the rules' block {shard_shape(w.shape, sh)}")
                 where = block_slices(w.shape, sh, r["coords"])
                 cache_err = max(cache_err, float(np.abs(got - w[where]).max())
                                 / scale)
                 held.setdefault(str(where), set()).add(got.tobytes())
-            require(all(len(v) == 1 for v in held.values()), f"serve grid: "
+            require(all(len(v) == 1 for v in held.values()), f"{what}: "
                     f"the ranks holding one block of {which} {k} differ")
             shared += len(held) < len(runs)
-    require(cache_err <= SERVE_GRID_RTOL, f"serve grid: cache blocks off "
+    require(cache_err <= tol, f"{what}: cache blocks off "
             f"one rank's by {cache_err} of max(1, |cache|)")
     for r in runs:
-        require(r["logit_digests"] == lead["logit_digests"], f"serve grid: "
+        require(r["logit_digests"] == lead["logit_digests"], f"{what}: "
                 f"rank {r['coords']}'s logits differ from rank 0's")
         require(r["calls"] == [r["plans"]["prefill"]] + [
-            r["plans"]["decode"]] * SERVE_GRID_GEN, f"serve grid: rank "
+            r["plans"]["decode"]] * SERVE_GRID_GEN, f"{what}: rank "
             f"{r['coords']} collectives {r['calls']}, plan {r['plans']}")
-        require(not any(r["launches"].values()), f"serve grid: rank "
+        require(not any(r["launches"].values()), f"{what}: rank "
                 f"{r['coords']} launched {r['launches']}")
     meta = M.Model(cfg, empty_init("meta"))
     gather_all = _gather_all(
@@ -5208,15 +5298,17 @@ def _host(x) -> bytes:
     return x[1].encode() if isinstance(x, tuple) else x.tobytes()
 
 
-def hold_grid(ranks, cfg, state, what: str, optimizer="adamw") -> dict:
+def hold_grid(ranks, cfg, state, what: str, optimizer="adamw",
+              kinds=("heads", "mlp", "vocab")) -> dict:
     """(b)'s bitwise checks of a grid run against itself: every rank's
     first reduced gradient the same bits; each leaf's blocks of the rules'
     shard shapes, and the ranks that hold one block the same bits (each
     updated it from the same gradient); the last step's collectives equal
     to `layout.step_plan`, which gathers no optimizer leaf; every rank of
-    a model line computing its own share of the heads, mlp columns and
-    vocab rows (`sharding.tensor.recording`: a dim that divides the model
-    axis split, its block at the rank's model coordinate, else whole).
+    a model line computing its own share of ``kinds`` (the heads, mlp
+    columns and vocab rows; `sharding.tensor.recording`: a dim that
+    divides the model axis split, its block at the rank's model
+    coordinate, else whole).
     ``state`` is a whole one-rank state of the same config (its shapes)
     and ``optimizer``.  -> leaves split / whole, a rank's resident bytes,
     the shares the ranks of model line 0 reported."""
@@ -5233,7 +5325,7 @@ def hold_grid(ranks, cfg, state, what: str, optimizer="adamw") -> dict:
         require(set(r["blocks"]) == set(want), f"{what}: rank "
                 f"{r['coords']} holds other leaves than the one-rank state")
         m, msize = r["coords"]["model"], LAUNCH_GRID[1]
-        require({"heads", "mlp", "vocab"} <= set(r["shares"]) and all(
+        require(set(kinds) <= set(r["shares"]) and all(
             (n, first) == ((whole // msize, m * whole // msize)
                            if whole % msize == 0 else (whole, None))
             for seen in r["shares"].values() for n, whole, first in seen),
@@ -5666,7 +5758,7 @@ def launch_grid_adafactor(smi: str, ranks, grid_s: float) -> dict:
                                             for r in ranks], "card": smi}
 
 
-def launch_grid_wide(smi: str) -> dict:
+def launch_grid_wide(smi: str, then=None) -> dict:
     """(b) at full width and depth: gemma3-1b at LAUNCH_WIDE_LAYERS
     layers, LAUNCH_WIDE_STEPS steps with the aux, f32, one rank in this
     process (its checkpoint, which nothing reads, not written), then the
@@ -5687,7 +5779,9 @@ def launch_grid_wide(smi: str) -> dict:
     state each rank built before (computed from the shapes).  Then the
     ranks serve on their trained blocks (`serve_grid_rank`), held against
     one rank on the grid's final checkpoint (`hold_serve_grid`:
-    ``serve``)."""
+    ``serve``).  ``then`` (argv, layers, ref) is a second run the same
+    rank processes make after the first (`grid_rank`): its results by
+    rank under ``then_ranks``."""
     import tempfile
     import numpy as np
     import torch
@@ -5721,8 +5815,11 @@ def launch_grid_wide(smi: str) -> dict:
                           args=(argv + ["--mesh", spec, "--device", "cuda",
                                         "--ckpt-dir", f"{tmp}/grid"], None,
                                 True, LAUNCH_WIDE_LAYERS, True, f32, ref,
-                                False, True))
-        grid_s = time.perf_counter() - t0
+                                False, True, then))
+        # the wide run's seconds, without the second run that followed it
+        then_s = max(r["then"]["run_s"] if "then" in r else 0.0
+                     for r in ranks)
+        grid_s = time.perf_counter() - t0 - then_s
         written = sorted(p.name for p in Path(f"{tmp}/grid").iterdir())
         t0 = time.perf_counter()
         serve = hold_serve_grid(
@@ -5766,6 +5863,7 @@ def launch_grid_wide(smi: str) -> dict:
                          "launch|grid wide rank 0": ranks[0]["launches"],
                          "launch|grid serve rank 0": serve.pop("launches")},
             "serve": serve,
+            "then_ranks": [r.pop("then", None) for r in ranks],
             "arch": "gemma3-1b", "d_model": cfg.d_model,
             "layers": cfg.n_layers, "vocab": cfg.vocab, "dtype": "float32",
             "logdet_reg": TRAIN_LOGDET,
@@ -5801,6 +5899,251 @@ def launch_grid_wide(smi: str) -> dict:
             "losses": losses, "loss_err_rel": loss_err,
             "gather_all_step": LAUNCH_WIDE_GATHER_ALL,
             "data_only_step": LAUNCH_WIDE_DATA_ONLY, "card": smi}
+
+
+def ssm_bound(cfg) -> float:
+    """(b)'s SSM grid gate: 2 x layers x sqrt(d_inner) x 2^-24 (see
+    LAUNCH_SSM_LAYERS)."""
+    return 2 * cfg.n_layers * cfg.d_inner ** 0.5 * 2.0 ** -24
+
+
+def ssm_decode_sums(cfg, rows: int, batch: int) -> tuple:
+    """(all_sums, their bytes) of a decode step of mamba2 on (b)'s 2x2
+    grid, from the shapes: each layer the conv cache's blocks exchanged
+    over the model line (``rows`` x (W - 1) x convdim), the gated norm's
+    sum of squares (``rows``) and out_proj's partial output (``rows`` x
+    d_model); the vocab-parallel lookup's sum (``rows`` x d_model) and the
+    whole logits' gather (``batch`` x vocab), all f32 -- and the bytes a
+    whole-state gather would add (``rows`` x nh x head_dim x state a
+    layer)."""
+    f32 = 4
+    convdim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    layer = [rows * (cfg.ssm_conv - 1) * convdim * f32, rows * f32,
+             rows * cfg.d_model * f32]
+    whole = [rows * cfg.d_model * f32, batch * cfg.vocab * f32]
+    state = (rows * cfg.nh_ssm * (cfg.d_inner // cfg.nh_ssm)
+             * cfg.ssm_state * f32)
+    return (cfg.n_layers * len(layer) + len(whole),
+            cfg.n_layers * sum(layer) + sum(whole), cfg.n_layers * state)
+
+
+def reordered(gen):
+    """A dispatch mode that moves the result of every contraction and sum
+    it sees (the forward's and the backward's: matrix products, batched
+    products, sums and means) by one rounding, each element times 1 +/-
+    2^-23 with its sign drawn from ``gen`` -- what summing in another
+    order does to such a result.  ``counts`` tallies the results moved
+    with gradients on (the forward) and off (the backward)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    moved = {aten.mm, aten.addmm, aten.bmm, aten.baddbmm, aten.sum,
+             aten.mean}
+
+    class Reordered(TorchDispatchMode):
+        counts = {"forward": 0, "backward": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket in moved
+                    and isinstance(out, torch.Tensor)
+                    and out.is_floating_point()):
+                sign = torch.randint(0, 2, out.shape, generator=gen,
+                                     device=out.device,
+                                     dtype=out.dtype) * 2 - 1
+                out = out * (1 + sign * 2.0 ** -23)
+                self.counts["forward" if torch.is_grad_enabled()
+                            else "backward"] += 1
+            return out
+    return Reordered()
+
+
+def ssm_reference(tmp: str) -> dict:
+    """(b)'s SSM grid, its one-rank part: mamba2-370m at full width,
+    LAUNCH_SSM_LAYERS layers, LAUNCH_WIDE_STEPS steps of
+    LAUNCH_WIDE_SHAPE, f32, no aux, one rank in this process (no
+    checkpoint): its losses and first reduced gradient (saved to an .npz
+    under ``tmp`` for the grid's ranks to hold theirs against), each
+    leaf's largest element (``leaf_max``), and that gradient's
+    sensitivity: the same first gradient from the same parameters again
+    (``base_bitwise``: the same bits), then under LAUNCH_SSM_DRAWS draws
+    of `reordered`, each leaf's largest change over the draws (``sens``)
+    and each draw's (``draws``).  -> those, and ``then``, the (argv,
+    layers, ref) of the grid's run (`grid_rank`), its final checkpoint
+    under ``tmp``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.sharding import layout
+    from repro_torch.train.step import make_grad_fn
+    b, t = LAUNCH_WIDE_SHAPE
+    f32 = torch.float32
+    argv = ["--arch", "mamba2-370m", "--full", "--steps",
+            str(LAUNCH_WIDE_STEPS), "--batch", str(b), "--seq", str(t),
+            "--log-every", "1"]
+    torch.cuda.empty_cache()
+    args = T.parser().parse_args(argv + ["--ckpt-dir", f"{tmp}/ssm_one"])
+    t0 = time.perf_counter()
+    one, losses, stats, first, one_peak, one_launches = _one_rank(
+        args, f32, LAUNCH_SSM_LAYERS, checkpoint=False)
+    one_s = time.perf_counter() - t0
+    cfg = one["params"].cfg
+    del one
+    ref = f"{tmp}/ssm_one_grads.npz"
+    base = first["grads"]
+    np.savez(ref, **{k: g.numpy() for k, g in base.items()})
+    # the first step's gradient again, then under LAUNCH_SSM_DRAWS draws
+    # of `reordered`
+    t0 = time.perf_counter()
+    tcfg = T._tcfg(args)
+    _, state, _, batch_fn, _ = T.build(
+        "mamba2-370m", smoke=False, mesh=T._mesh("1x1", "cuda"), tcfg=tcfg,
+        batch=b, seq=t, layers=LAUNCH_SSM_LAYERS, dtype=f32)
+    grad_fn, batch = make_grad_fn(cfg, tcfg), batch_fn(0)
+    again, _ = grad_fn(state["params"], batch)
+    base_bitwise = all(torch.equal(g.cpu(), base[k])
+                       for k, g in again.items())
+    del again
+    draws, moved_ops = [], []
+    for i in range(LAUNCH_SSM_DRAWS):
+        mode = reordered(torch.Generator(device="cuda").manual_seed(
+            SERVE_GRID_SEED + i))
+        with mode:
+            moved, _ = grad_fn(state["params"], batch)
+        draws.append({k: float((g.cpu() - base[k]).abs().max())
+                      for k, g in moved.items()})
+        moved_ops.append(dict(mode.counts))
+        del moved
+    del state
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "losses": losses, "one_rank_step_s": stats.times,
+            "one_rank_run_s": one_s,
+            "sensitivity_s": time.perf_counter() - t0,
+            "one_rank_peak_mem_bytes": one_peak, "launches": one_launches,
+            "leaf_max": {k: float(g.abs().max()) for k, g in base.items()},
+            "base_bitwise": base_bitwise, "draws": draws,
+            "moved_ops": moved_ops,
+            "sens": {k: max(d[k] for d in draws) for k in base},
+            "shapes": layout.state_shapes(cfg, tcfg),
+            "ckpt": Path(f"{tmp}/ssm_grid/step_{LAUNCH_WIDE_STEPS:08d}"),
+            "then": (argv + ["--mesh", "x".join(map(str, LAUNCH_GRID)),
+                             "--device", "cuda", "--ckpt-dir",
+                             f"{tmp}/ssm_grid"], LAUNCH_SSM_LAYERS, ref)}
+
+
+def ssm_grad_over(errs: dict, one: dict) -> dict:
+    """{leaf: its error (``errs``: a rank's first reduced gradient's
+    largest difference from one rank's, by leaf) over its gate,
+    LAUNCH_SSM_SENS_K x its sensitivity + `ssm_bound` of one rank's
+    largest element of the leaf} (`ssm_reference`'s ``one``): the gate
+    holds where each is at most 1."""
+    tol = ssm_bound(one["cfg"])
+    return {k: e / (LAUNCH_SSM_SENS_K * one["sens"][k]
+                    + tol * one["leaf_max"][k])
+            for k, e in errs.items()}
+
+
+def hold_grid_ssm(ranks, one: dict, smi: str) -> dict:
+    """(b)'s SSM grid against its one-rank part (``one``, `ssm_reference`):
+    the ranks' run (``ranks``: each rank's `grid_rank` result, made in the
+    wide grid's rank processes after their own run) holds within
+    `ssm_bound` each loss (relative) and the served logits and cache
+    blocks (`hold_serve_grid`, against one rank on the grid's
+    checkpoint); each leaf of each rank's first reduced gradient within
+    LAUNCH_SSM_SENS_K x that leaf's measured sensitivity (``one["sens"]``)
+    plus `ssm_bound` of one rank's largest element of the leaf
+    (`ssm_grad_over`), one rank's gradient again bitwise;
+    `hold_grid` with every rank of a model line computing 16 of the 32
+    SSM heads; a decode step's all_sums equal to `ssm_decode_sums`, no
+    state among them; no kernel launched.  -> a step's s, bytes and
+    collectives, prefill s and decode ms, a rank's peaks, a decode step's
+    all_sum bytes beside a state gather's."""
+    b, t = LAUNCH_WIDE_SHAPE
+    cfg, losses = one["cfg"], one["losses"]
+    what = "launch grid ssm"
+    tol = ssm_bound(cfg)
+    t0 = time.perf_counter()
+    serve = hold_serve_grid(ranks, cfg, one["ckpt"], smi, tol, what)
+    serve["one_rank_and_checks_s"] = time.perf_counter() - t0
+    layout_out = hold_grid(ranks, cfg, one["shapes"], what,
+                           kinds=("ssm_heads", "vocab"))
+    msize = LAUNCH_GRID[1]
+    for r in ranks:
+        m = r["coords"]["model"]
+        require(r["shares"].get("ssm_heads") == [
+            (cfg.nh_ssm // msize, cfg.nh_ssm, m * cfg.nh_ssm // msize)],
+            f"{what}: rank {r['coords']} computed the SSM heads "
+            f"{r['shares'].get('ssm_heads')}")
+    gmax = ranks[0]["grad_max"]
+    worst = max(r["grad_err"] for r in ranks)
+    sens = one["sens"]
+    over = {k: max(ssm_grad_over(r["grad_errs"], one)[k] for r in ranks)
+            for k in sens}
+    past = {k: x for k, x in over.items() if not x <= 1}
+    require(not past and one["base_bitwise"],
+            f"{what}: the first reduced gradient off one rank's past "
+            f"LAUNCH_SSM_SENS_K x its sensitivity + {tol:.3g} of its "
+            f"largest element (error over gate): {past}; one rank's "
+            f"gradient again bitwise: {one['base_bitwise']}")
+    require(all(c["backward"] > 0 and c["forward"] > 0
+                for c in one["moved_ops"]),
+            f"{what}: the sensitivity's draws moved {one['moved_ops']}")
+    spread = max(max(d[k] for d in one["draws"])
+                 / max(min(d[k] for d in one["draws"]), tol * gmax)
+                 for k in sens)
+    loss_err = max(max(abs(x - y) / abs(y) for x, y in
+                       zip(r["losses"], losses)) for r in ranks)
+    require(all(len(r["losses"]) == len(losses) == LAUNCH_WIDE_STEPS
+                and all(v == v and abs(v) != float("inf")
+                        for v in r["losses"]) for r in ranks)
+            and loss_err <= tol,
+            f"{what}: losses {[r['losses'] for r in ranks]}, one rank's "
+            f"{losses} (gate {tol:.3g} relative)")
+    count, nbytes, state = ssm_decode_sums(cfg, b // LAUNCH_GRID[0], b)
+    dec = serve["decode_step_collectives"]
+    require((dec["all_sum"], dec["all_sum_bytes"]) == (count, nbytes),
+            f"{what}: a decode step's all_sums {dec}, want {count} of "
+            f"{nbytes} B (no state)")
+    launched = {"launch|grid ssm one rank": one["launches"],
+                "launch|grid ssm rank 0": ranks[0]["launches"],
+                "launch|grid ssm serve rank 0": serve.pop("launches")}
+    require(not any(v for c in launched.values() for v in c.values()),
+            f"{what}: kernels launched {launched}")
+    plan = ranks[0]["plan"]
+    return {"launches": launched, "serve": serve, "arch": "mamba2-370m",
+            "d_model": cfg.d_model, "ssm_heads": cfg.nh_ssm,
+            "ssm_state": cfg.ssm_state, "layers": cfg.n_layers,
+            "dtype": "float32", "shape": [b, t], "steps": LAUNCH_WIDE_STEPS,
+            "grid": "x".join(map(str, LAUNCH_GRID)), "backend": "gloo",
+            "gate": tol, "sens_k": LAUNCH_SSM_SENS_K,
+            "draws": LAUNCH_SSM_DRAWS, "moved_ops": one["moved_ops"],
+            "grad_err_over_gate_max": max(over.values()),
+            "grad_err_over_gate_worst_leaf": max(over, key=over.get),
+            "sensitivity_draw_spread_max": spread,
+            "rank_run_s": [r["run_s"] for r in ranks],
+            "one_rank_run_s": one["one_rank_run_s"],
+            "sensitivity_s": one["sensitivity_s"],
+            "rank_step_s": [r["step_s"] for r in ranks],
+            "one_rank_step_s": one["one_rank_step_s"],
+            "one_rank_peak_mem_bytes": one["one_rank_peak_mem_bytes"],
+            "rank_step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+            "rank_whole_peak_bytes": [r["whole_peak_bytes"] for r in ranks],
+            "broadcasts_per_step": ranks[0]["counts"]["broadcast"],
+            "all_sums_per_step": ranks[0]["counts"]["all_sum"],
+            "bytes_per_step": plan["bytes"] + plan["all_sum_bytes"],
+            "gathered_bytes_per_step": plan["bytes"],
+            "reduced_bytes_per_step": plan["all_sum_bytes"]
+            - plan["model_all_sum_bytes"],
+            "model_all_sums_per_step": plan["model_all_sum"],
+            "model_all_sum_bytes_per_step": plan["model_all_sum_bytes"],
+            "decode_all_sum_bytes": nbytes,
+            "decode_all_sum_bytes_with_state_gathered_computed":
+                nbytes + state,
+            **layout_out, "first_grad_err_of_max": worst / gmax,
+            "first_grad_sensitivity_of_max": max(sens.values()) / gmax,
+            "first_grad_sensitivity_of_leaf_max": max(
+                sens[k] / max(one["leaf_max"][k], 1e-30) for k in sens),
+            "losses": losses, "loss_err_rel": loss_err, "card": smi}
 
 
 def launch_serve(seed: int, smi: str) -> dict:
@@ -5903,8 +6246,9 @@ def launch_dryrun() -> dict:
 def launch_phase(seed: int, smi: str) -> dict:
     """Phase 15: (a) `launch.train` at full width through K1; (b) the 2x2
     grid and elastic restore, at the JAX test's settings and at full
-    width; (c) `launch.serve`; (d) the dry run, which needs no card (meta
-    tensors), in a process of its own beside (a)-(c).
+    width, then the SSM blocks at full width in the wide grid's rank
+    processes; (c) `launch.serve`; (d) the dry run, which needs no card
+    (meta tensors), in a process of its own beside (a)-(c).
     Returns launches by route."""
     import functools
     import multiprocessing
@@ -5926,12 +6270,28 @@ def launch_phase(seed: int, smi: str) -> dict:
         say("launch", part="grid", **grid)
         say("launch", part="grid adafactor",
             **launch_grid_adafactor(smi, *aside))
-        wide = launch_grid_wide(smi)
+        with tempfile.TemporaryDirectory(prefix="repro_torch_ssm_") as tmp:
+            t1 = time.perf_counter()
+            one = ssm_reference(tmp)
+            ssm_s = time.perf_counter() - t1
+            wide = launch_grid_wide(smi, one["then"])
+            t1 = time.perf_counter()
+            ssm = hold_grid_ssm(wide.pop("then_ranks"), one, smi)
+            # what the part adds to the phase: its one-rank part and
+            # checks here, and its run in the ranks after their own
+            ssm["part_s"] = ssm_s + time.perf_counter() - t1 + max(
+                ssm["rank_run_s"])
         launches.update(wide.pop("launches"))
         serve = wide.pop("serve")
         say("launch", part="grid gemma3-1b full width and depth", **wide)
         say("launch", part="grid serve gemma3-1b full width and depth",
             **serve)
+        launches.update(ssm.pop("launches"))
+        ssm_serve = ssm.pop("serve")
+        say("launch", part="grid mamba2-370m full width, SSM heads split",
+            **ssm)
+        say("launch", part="grid serve mamba2-370m full width, SSM heads "
+            "split", **ssm_serve)
         say("launch", part="serve", **launch_serve(seed, smi))
         cells = dryrun.result()
     for cell, rec in cells.items():

@@ -20,17 +20,17 @@ record key takes a torch meaning here, on tensors that hold no storage:
   (`sharding.split`: the statistics of the whole batch and the
   gradients' reduction keep their shapes, nothing is exchanged) and a
   shape-only model split (`sharding.tensor`: rank 0's heads, mlp
-  columns, experts and vocab rows), and the optimizer updates its
-  blocks.  A serving cell runs `sharding.serving`'s ``mesh_prefill`` /
-  ``mesh_decode`` the same way, forward only, on rank 0's rows and its
-  blocks of the caches;
+  columns, experts, vocab rows and SSM heads), and the optimizer
+  updates its blocks.  A serving cell runs `sharding.serving`'s
+  ``mesh_prefill`` / ``mesh_decode`` the same way, forward only, on rank
+  0's rows and its blocks of the caches;
 - ``hlo_flops_global``: the FLOPs `torch.utils.flop_counter` counts over
   that run on the meta device, ``flops_per_device`` (rank 0's share, a
   1/``chips`` share of the work the rules split) times ``chips``, what
   the mesh executes: a module the rules leave whole on the model axis
-  (gemma3-1b's 4 heads on 16, the router, the SSM blocks) is computed
-  alike by every rank of a model line, which ``useful_flops_frac``
-  shows;
+  (gemma3-1b's 4 heads on 16, the router, an SSM block whose heads do
+  not divide it) is computed alike by every rank of a model line, which
+  ``useful_flops_frac`` shows;
 - ``hlo_bytes_global``: the operand and result bytes of every ATen op of
   that run, recorded on meta (`analysis.ir.record`): the eager port runs
   unfused, so this is what its step moves; ``hlo_bytes_per_device``

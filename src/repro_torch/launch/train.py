@@ -14,13 +14,14 @@ runs the same `build` and loop, and rank 0 prints the log.  With no
 ``--mesh`` the run is one rank.  The step on a mesh
 (`sharding.layout.mesh_step`) splits the arithmetic over the data axes
 and over "model": each rank steps its rows of every global microbatch
-on its share of the heads, mlp columns, experts and vocab rows, the
-gradients are reduced over the data line, and each rank's optimizer
-updates its own blocks.  A rank that waits in a collective over a line of the grid for
-longer than ``--collective-timeout`` seconds raises (another rank of the
-line failed in the step), and the ranks restart the step together
-(`ft.run_training`).  `rank_restore` restores a run's checkpoint onto a
-grid of another shape (elastic) and trains on.
+on its share of the heads, mlp columns, experts, vocab rows and SSM
+heads, the gradients are reduced over the data line, and each rank's
+optimizer updates its own blocks.  A rank that waits in a collective
+over a line of the grid for longer than ``--collective-timeout``
+seconds raises (another rank of the line failed in the step), and the
+ranks restart the step together (`ft.run_training`).  `rank_restore`
+restores a run's checkpoint onto a grid of another shape (elastic) and
+trains on.
 """
 from __future__ import annotations
 
@@ -201,8 +202,8 @@ def rank_main(mesh, argv, threads=None, detail=False, layers=None,
     (``counts``) beside `layout.step_plan` (``plan``), the high-water of
     whole parameter bytes alive at once in it (``whole_peak_bytes``,
     ``whole_peak_units``: `sharding.fsdp.watching`), the shares of the
-    heads, mlp columns, experts and vocab rows it computed (``shares``:
-    `sharding.tensor.recording`) and, on a card, its
+    heads, mlp columns, experts, vocab rows and SSM heads it computed
+    (``shares``: `sharding.tensor.recording`) and, on a card, its
     peak allocation (``step_peak_bytes``); of its `build`, the
     high-water of whole parameter bytes alive at once
     (``build_whole_peak_bytes``: `sharding.fsdp.watching`) and, on a card,

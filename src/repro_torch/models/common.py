@@ -148,11 +148,18 @@ def empty_init(device) -> ParamInit:
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm in f32 with a ``(1 + scale)`` gain, cast back to x's dtype."""
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+            n: Optional[int] = None):
+    """RMSNorm in f32 with a ``(1 + scale)`` gain, cast back to x's dtype.
+    With ``n``, ``x`` (and ``scale``) is this rank's share of ``n``
+    channels split over the model line: its sum of squares is summed
+    there (`tensor.sum_model`)."""
     dt = x.dtype
     x = x.float()
-    var = (x * x).mean(dim=-1, keepdim=True)
+    if n is None:
+        var = (x * x).mean(dim=-1, keepdim=True)
+    else:
+        var = tensor.sum_model((x * x).sum(dim=-1, keepdim=True)) / n
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
 

@@ -318,7 +318,7 @@ def sharded(model, shardings: Optional[dict] = None, line=None, wide=None):
     if shardings is None:
         whole = Sharding(None, PartitionSpec())
         shardings = {n: whole for n, _ in model.named_parameters()}
-    modes = tensor.leaf_modes(shardings)
+    modes = tensor.leaf_modes(shardings, model.cfg)
     plan = _Plan(modes, {n: layout.model_block(s) if modes[n] == tensor.SPLIT
                          else s for n, s in shardings.items()}, line, wide)
     made = {}

@@ -32,10 +32,11 @@ axes and over "model", in the order the JAX rules apply them:
   rank), of which the rank keeps its block;
 - and inside a model split (`sharding.tensor`) over the rank's model
   line: the rank computes its q heads (its kv heads where they divide),
-  its mlp columns, its experts and its vocab rows, and the partial sums
-  go over the model line (column-parallel in, row-parallel out); a
-  module whose leaves the rules leave whole there (MoE's router, the SSM
-  blocks) is computed alike on every rank of the line;
+  its mlp columns, its experts, its vocab rows and its SSM heads, and
+  the partial sums go over the model line (column-parallel in,
+  row-parallel out); a module whose leaves the rules leave whole there
+  (MoE's router; an SSM block whose heads do not divide the line) is
+  computed alike on every rank of the line;
 - the clip takes the global norm from the blocks (one all_sum over the
   whole grid of each rank's f64 sum of squares, each element counted by
   one rank), the same on every rank, and the optimizer updates this rank's
@@ -689,7 +690,7 @@ def step_plan(cfg, tcfg, shardings, batch_shardings, params,
     mesh = mesh_of(shardings)
     named = {".".join(p): t for p, t in flat(params).items()}
     psh = {".".join(p): s for p, s in flat(shardings["params"]).items()}
-    modes = tensor.leaf_modes({n: psh[n] for n in named})
+    modes = tensor.leaf_modes({n: psh[n] for n in named}, cfg)
 
     def ways(s):
         return math.prod(_count(axes, s.mesh)

@@ -97,14 +97,19 @@ _NAME_AXES: Dict[str, Tuple[str, ...]] = {
 
 
 # the leaves whose "model" split the port's step computes on, each rank
-# its heads, mlp columns, experts or vocab rows (`sharding.tensor`).  The
-# rules also split MoE's router and the SSM blocks' ``inner`` leaves on
-# "model"; the step gathers those whole over the model line and computes
-# them alike there: every rank routes every token, and the rules'
-# contiguous block of the SSM's concatenated [z | x | B | C | dt]
-# projection is not a set of whole heads
+# its heads, mlp columns, experts, vocab rows or SSM heads
+# (`sharding.tensor`).  The rules also split MoE's router on "model"; the
+# step gathers it whole over the model line and computes it alike there:
+# every rank routes every token.  Of the SSM blocks' ``inner`` leaves
+# only ``out_proj`` is computed on its block (its rows are the rank's
+# heads' where the heads divide the line, `tensor.ssm_splits`); the
+# rules' contiguous block of the concatenated [z | x | B | C | dt]
+# ``in_proj`` (and of the conv over [x | B | C]) is not a set of whole
+# heads, so those are gathered whole and the rank reads its columns
+# (`tensor.leaf_modes`: ``partial``)
 MODEL_PARALLEL = ("embed", "head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-                  "w_gate", "w_up", "w_down", "we_gate", "we_up", "we_down")
+                  "w_gate", "w_up", "w_down", "we_gate", "we_up", "we_down",
+                  "out_proj")
 
 
 def _key(k) -> Optional[str]:

@@ -17,8 +17,8 @@ rank's share, forward only:
   count; decode, one token a row, drops nothing);
 - **its parameters** gathered one unit at a time (`sharding.fsdp`), with
   no gradient and so no reduction;
-- **its model share** (`sharding.tensor`): heads, mlp columns, experts
-  and vocab rows as the split training step computes them; the
+- **its model share** (`sharding.tensor`): heads, mlp columns, experts,
+  vocab rows and SSM heads as the split training step computes them; the
   vocab-parallel logits' blocks, and the rows of the other data ranks,
   are gathered by one all_sum of a zero-padded stack, so every rank
   returns the whole last-token logits (JAX's ``out_shardings=None``);
@@ -50,12 +50,19 @@ ways, and the model code reads this rank's cut of it (`current`):
   bits on every rank.  Prefill computes the whole batch on every data
   rank and keeps its block of S.
 
-The SSM caches, conv (B, W, convdim) and state (B, nh, hp, st), are split
-on "model" by the rules while the SSM blocks run whole on the model line
-(`rules.MODEL_PARALLEL` leaves their ``inner`` leaves out): a decode step
-gathers the blocks over the model line inside the layer (one all_sum of
-a zero-padded stack each), computes alike on every rank, and writes back
-the rank's blocks; prefill keeps the rank's blocks.
+The SSM caches, conv (B, W - 1, convdim) and state (B, nh, hp, st), are
+split on "model" by the rules: the conv by contiguous blocks of its
+channels, the state by its heads.  Where the SSM heads divide the model
+line (`tensor.ssm_splits`) the layer computes the rank's heads, whose
+state is the rank's block: prefill keeps the final state of its heads,
+decode updates its block in place, and the state is never exchanged.
+The conv's blocks do not line up with a rank's heads: decode gathers
+them over the model line (one all_sum of a zero-padded stack a layer,
+`conv_whole`) for the history of its channels, and writes its block
+from the new [x | B | C] columns of that block; prefill keeps its block
+of the last W - 1 tokens, with no exchange.  Where the heads do not
+divide the line the layer runs whole on every rank, and the rules leave
+the state whole too.
 
 On one rank the entry points are `models.prefill` / `models.decode_step`
 themselves.  On a shape-only mesh (no process group: the dry run and
@@ -76,8 +83,8 @@ from repro_torch.core import mesh as core_mesh
 from repro_torch.sharding import fsdp, split
 
 __all__ = ["Cut", "CacheSplit", "current", "cache_split", "cuts",
-           "mesh_prefill", "mesh_decode", "kv_block", "ssm_block",
-           "ssm_whole", "ssm_write", "exchange"]
+           "mesh_prefill", "mesh_decode", "kv_block", "conv_block",
+           "state_block", "conv_whole", "exchange"]
 
 _STATE = types.SimpleNamespace(split=None)
 
@@ -197,40 +204,32 @@ def kv_block(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def ssm_block(cache: dict) -> dict:
-    """A whole SSM cache as this rank keeps it: its block of the conv's
-    channels and of the state's heads."""
+def conv_block(n: int) -> slice:
+    """This rank's block of an SSM conv cache's ``n`` channels (all of
+    them where the rules leave the channels whole)."""
     c = current()
-    if c is None:
-        return cache
-    conv, ssm = cache["conv"], cache["ssm"]
-    if c.conv is not None:
-        conv = conv[..., c.conv.block(conv.shape[-1])]
-    if c.nh is not None:
-        ssm = ssm[:, c.nh.block(ssm.shape[1])]
-    return {"conv": conv, "ssm": ssm}
+    if c is None or c.conv is None:
+        return slice(0, n)
+    return c.conv.block(n)
 
 
-def _whole(t: torch.Tensor, cut: Optional[Cut], dim: int) -> torch.Tensor:
-    if cut is None:
-        return t
-    stack = exchange(t, cut)
-    return torch.cat(stack.unbind(0), dim=dim)
+def state_block(nh: int) -> slice:
+    """This rank's block of an SSM state cache's ``nh`` heads (all of them
+    where the rules leave the heads whole)."""
+    c = current()
+    if c is None or c.nh is None:
+        return slice(0, nh)
+    return c.nh.block(nh)
 
 
-def ssm_whole(cache: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(conv, state) whole over the model line from this rank's blocks
-    (the blocks themselves where nothing splits)."""
-    c = current() or CacheSplit()
-    return _whole(cache["conv"], c.conv, -1), _whole(cache["ssm"], c.nh, 1)
-
-
-def ssm_write(cache: dict, conv: torch.Tensor, ssm: torch.Tensor) -> None:
-    """Write this rank's blocks of a decode step's whole (conv, state)
-    into ``cache`` in place."""
-    mine = ssm_block({"conv": conv, "ssm": ssm})
-    cache["conv"].copy_(mine["conv"])
-    cache["ssm"].copy_(mine["ssm"])
+def conv_whole(conv: torch.Tensor) -> torch.Tensor:
+    """The whole conv cache (B, W - 1, convdim) of this rank's rows from
+    its block: one exchange of the blocks over the model line where the
+    rules split the channels (``conv`` itself where they do not)."""
+    c = current()
+    if c is None or c.conv is None:
+        return conv
+    return torch.cat(exchange(conv, c.conv).unbind(0), dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The model split of a training step: tensor and expert parallel on the
 "model" axis of a mesh -- what GSPMD does to the JAX step's heads, mlp,
-vocab and expert dims on that axis (`repro.sharding.rules`), for a port
-whose ranks are processes.
+vocab, expert and SSM inner dims on that axis (`repro.sharding.rules`),
+for a port whose ranks are processes.
 
 Inside `model_split(line)` each rank of ``line`` (the ranks that differ
 only along "model", `launch.mesh.GridMesh.line`) computes its share of
@@ -28,9 +28,27 @@ a block of (``split``: its gradient is its block's), and an attention's
 k / v projection kept whole while the q heads split (``partial``: each
 rank's q heads read only their kv groups, so each rank's gradient is a
 part, and the unit's reduction sums it over the data and model lines at
-once, `leaf_modes`).  MoE's router and the SSM blocks' ``inner`` leaves
-are gathered whole over the line and computed alike (they are not in
-`rules.MODEL_PARALLEL`).
+once, `leaf_modes`).  MoE's router is gathered whole over the line and
+computed alike (it is not in `rules.MODEL_PARALLEL`).
+
+The SSM blocks (mamba2's, zamba2's) split by their heads where the SSM
+heads (``cfg.nh_ssm``) divide the model line (`ssm_splits`); the rank
+computes heads ``[r nh/M, (r+1) nh/M)``:
+
+- ``out_proj`` is `SPLIT`: its rules block, rows ``[r d_inner/M,
+  (r+1) d_inner/M)``, is the rank's heads' rows; row-parallel, its
+  partial output goes through `from_model`;
+- every other leaf of the SSM module is `PARTIAL`, gathered whole:
+  ``in_proj`` (the rank's product reads its heads' z, x and dt columns
+  and the whole B / C, one group; its input through `to_model`), ``conv_w`` / ``conv_b`` (the depthwise conv on the rank's
+  channels), ``A_log``, ``D``, ``dt_bias`` and the gated norm's
+  ``norm`` scale (sliced to the rank's heads).  The gated RMSNorm spans
+  every rank's heads: each rank sums the squares of its f32 slice and
+  `sum_model` adds the (B, T, 1) sums over the line, one all_sum forward
+  and one backward.
+
+Where the SSM heads do not divide the line, every SSM leaf is `FULL` and
+the layer runs whole on every rank of the line.
 
 The cross-entropy over a vocab-parallel unembedding exchanges each
 rank's logits maximum, its sum of exponentials and its target logit
@@ -58,9 +76,8 @@ from repro_torch.core import mesh as core_mesh
 from repro_torch.sharding import split
 
 __all__ = ["ModelSplit", "model_split", "current", "share", "recording",
-           "to_model",
-           "from_model", "each", "leaf_modes", "SPLIT",
-           "PARTIAL", "FULL"]
+           "to_model", "from_model", "sum_model", "each", "leaf_modes",
+           "ssm_splits", "SPLIT", "PARTIAL", "FULL"]
 
 _STATE = types.SimpleNamespace(split=None)
 
@@ -102,10 +119,10 @@ def current() -> Optional[ModelSplit]:
 
 def share(n_local: int, n_full: int, what: str) -> Optional[int]:
     """The first index of this rank's share of a dim of ``n_full``
-    (``what``: "heads", "kv_heads", "mlp", "experts", "vocab") of which a
-    leaf's block holds ``n_local``, or None when it holds it whole (the
-    module then computes alike on every rank of the line).  Noted for
-    `recording`."""
+    (``what``: "heads", "kv_heads", "mlp", "experts", "vocab",
+    "ssm_heads") of which a leaf's block holds ``n_local``, or None when
+    it holds it whole (the module then computes alike on every rank of
+    the line).  Noted for `recording`."""
     first = None
     if n_local != n_full:
         s = current()
@@ -125,8 +142,8 @@ _RECORDING: list = []
 @contextmanager
 def recording():
     """{what: {(the rank's share, the whole, its first index or None)}}
-    of every `share` asked in its scope: the heads, mlp columns, experts
-    and vocab rows this rank computed."""
+    of every `share` asked in its scope: the heads, mlp columns, experts,
+    vocab rows and SSM heads this rank computed."""
     seen: dict = {}
     _RECORDING.append(seen)
     try:
@@ -196,6 +213,20 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, line):
+        ctx.line = line
+        out = _sum(line, t)
+        # saved for a checkpoint's recomputation, as in `_FromModel`
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(ctx.line, g), None
+
+
 def to_model(t: torch.Tensor) -> torch.Tensor:
     """The input of a column-parallel product: ``t`` itself forward; its
     gradient summed over the model line (one all_sum) backward."""
@@ -215,6 +246,17 @@ def from_model(t: torch.Tensor) -> torch.Tensor:
     return _FromModel.apply(t, s.line)
 
 
+def sum_model(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` summed over the model line, forward (one
+    all_sum, the same bits on every rank) and backward (one all_sum of
+    the ranks' gradients: each rank's ``t`` feeds every rank's sum);
+    ``t`` itself with no split."""
+    s = current()
+    if s is None:
+        return t
+    return _SumModel.apply(t, s.line)
+
+
 def each(t: torch.Tensor) -> torch.Tensor:
     """(ranks, *t.shape): every rank's ``t`` of the model line in rank
     order, the same bits on every rank (`split.stacked`: one all_sum of a
@@ -227,18 +269,42 @@ def each(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def leaf_modes(shardings: Dict[str, object]) -> Dict[str, str]:
-    """{parameter name: `SPLIT` | `PARTIAL` | `FULL`} for a model's
-    parameters laid out by ``shardings`` (by name): `SPLIT` where the spec
-    carries "model" (`layout.carries_model`) and the step computes the
-    leaf on its model block (`rules.MODEL_PARALLEL`); `PARTIAL` for an
-    attention's k / v projection and bias left whole while its ``wq``
-    splits; else `FULL`."""
+def ssm_splits(cfg, msize: int) -> bool:
+    """Whether the split step computes an SSM block of ``cfg`` by its heads
+    on a model line of ``msize`` ranks: the SSM heads divide the line (so
+    the rules' blocks of ``out_proj`` and of the state cache are the
+    rank's heads).  Every rank reads the whole B / C: one group
+    (``ssm_groups`` 1, as in every config) is required."""
+    if msize <= 1 or not cfg.ssm_state or cfg.nh_ssm % msize:
+        return False
+    if cfg.ssm_groups != 1:
+        raise ValueError(f"the SSM heads split on the model line with "
+                         f"ssm_groups=1 only, not {cfg.ssm_groups}")
+    return True
+
+
+def leaf_modes(shardings: Dict[str, object], cfg) -> Dict[str, str]:
+    """{parameter name: `SPLIT` | `PARTIAL` | `FULL`} for the parameters of
+    a model of ``cfg`` laid out by ``shardings`` (by name): `SPLIT` where
+    the spec carries "model" (`layout.carries_model`) and the step
+    computes the leaf on its model block (`rules.MODEL_PARALLEL`);
+    `PARTIAL` for an attention's k / v projection and bias left whole
+    while its ``wq`` splits; an SSM module's leaves by `ssm_splits` (see
+    the module docstring: ``out_proj`` `SPLIT`, the rest `PARTIAL`, or
+    all `FULL`); else `FULL`."""
     from repro_torch.sharding import layout
     from repro_torch.sharding.rules import MODEL_PARALLEL
     out = {}
     for name, sh in shardings.items():
-        leaf = name.rpartition(".")[2]
+        prefix, _, leaf = name.rpartition(".")
+        if prefix.rpartition(".")[2] == "ssm":       # a `models.ssm.SSM`
+            rows = shardings[f"{prefix}.out_proj"]
+            msize = (rows.mesh.shape.get("model", 1)
+                     if rows.mesh is not None else 1)
+            split = ssm_splits(cfg, msize) and layout.carries_model(rows)
+            out[name] = (FULL if not split else
+                         SPLIT if leaf in MODEL_PARALLEL else PARTIAL)
+            continue
         out[name] = (SPLIT if leaf in MODEL_PARALLEL
                      and layout.carries_model(sh) else FULL)
     for name in shardings:

@@ -9,7 +9,9 @@ arguments (``jax.eval_shape`` trees, `repro.sharding.rules` specs on a
 `FakeMesh` of the production shape), computed without compiling.  Their
 broadcasts and wire bytes: every cell runs rank 0's share and gathers
 the parameters only (the optimizer state and the caches never), one
-unit at a time -- a serving cell's once for its forward; a train cell's
+unit at a time -- a serving cell's once for its forward (mamba2-370m's
+decode cell: its SSM layers split by their heads at full size, whole at
+the smoke size's 8 heads); a train cell's
 split step a layer's for its forward and again for its backward, the
 embedding's and the final norm's once; a serving cell's all_sums are
 its model line's partial sums, its caches' exchanges (`_serve_line`),
@@ -19,7 +21,8 @@ all_sums are the nll's exchange over the D ranks of the data axes (D
 f32s), one of every parameter's gradient (its bytes), the global norm's
 (one f64) and the agreement (one f32).  A leaf the rules split on "model"
 where the port's step computes its model block (heads, kv heads, mlp,
-vocab, experts; not the router nor the SSM's inner leaves) is gathered
+vocab, experts, an SSM's out_proj; not the router nor the SSM's other
+leaves) is gathered
 over the data axes only, and its gradient summed at its model block's
 bytes; the model line adds its activations' all_sums (`_model_line`).  The skip record and the ``--out`` / ``--skip-existing`` files of
 the port's CLI equal the JAX CLI's (run in a subprocess: the JAX module
@@ -57,7 +60,8 @@ from repro_torch.models.convert import STACK_DEPTH
 
 from _subproc import SRC
 
-CELLS = [("gemma3-1b", "train_4k", False), ("gemma3-1b", "decode_32k", True)]
+CELLS = [("gemma3-1b", "train_4k", False), ("gemma3-1b", "decode_32k", True),
+         ("mamba2-370m", "decode_32k", False)]
 
 
 class FakeMesh:
@@ -129,7 +133,7 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
             depth = STACK_DEPTH.get(keys[top], 0) if params else 0
             leaves.append((leaf, spec, math.prod(leaf.shape[:depth]),
                            params, depth > 0,
-                           _model_ways(path, leaf, spec, fm)
+                           _model_ways(path, leaf, spec, fm, jcfg)
                            if params else 1))
     train = shape.kind == "train"
     data = math.prod(fm.shape[a] for a in ("pod", "data")
@@ -159,17 +163,22 @@ def jax_cell_bytes(arch, shape_name, multi_pod, smoke=True):
     return arg, count, wire, sums, summed
 
 
-def _model_ways(path, leaf, spec, fm) -> int:
+def _model_ways(path, leaf, spec, fm, jcfg) -> int:
     """How many ways the port's step splits a parameter leaf over its
     model line: the "model" axis where the JAX spec puts it on a dim of
     logical axis heads, kv_heads, mlp, vocab, or expert outside the router
-    (the SSM's inner leaves and the router are gathered whole), else 1."""
+    (the router is gathered whole), or on an SSM ``out_proj``'s inner dim
+    where the SSM heads divide the model axis (its other leaves are
+    gathered whole); else 1."""
     last = getattr(path[-1], "key", None)
+    m = fm.shape["model"]
     for ax, e in zip(JR.logical_axes_for(path, leaf), spec):
         axes = () if e is None else (e if isinstance(e, tuple) else (e,))
         if "model" in axes and (ax in ("heads", "kv_heads", "mlp", "vocab")
-                                or (ax == "expert" and last != "router")):
-            return fm.shape["model"]
+                                or (ax == "expert" and last != "router")
+                                or (last == "out_proj" and ax == "inner"
+                                    and jcfg.nh_ssm % m == 0)):
+            return m
     return 1
 
 
@@ -212,14 +221,30 @@ def _serve_line(jcfg, shape, fm, data) -> tuple:
     - a MoE layer: its expert counts (int64) and gate sums (f32), D x
       experts each, over the data ranks, and its partial output (x);
     - a vocab-parallel embedding's lookup (x), and the whole f32 logits
-      (B, 1, V), gathered over the grid."""
-    assert shape.kind == "decode" and jcfg.family in ("dense", "moe")
+      (B, 1, V), gathered over the grid;
+    - for an SSM arch, each layer: where the conv cache's channels divide
+      M (the rules split them), the conv blocks' exchange (M blocks of b
+      (W - 1) convdim/M); where the SSM heads divide M (the rank computes
+      its heads and keeps their state block), the gated norm's sum of
+      squares (b f32) and out_proj's partial output (x).  The state is
+      never exchanged."""
+    assert shape.kind == "decode" and jcfg.family in ("dense", "moe", "ssm")
     m = fm.shape["model"]
     big_b, s = shape.global_batch, shape.seq_len
     assert big_b % data == 0
-    b, d, h, hd = big_b // data, jcfg.d_model, jcfg.n_heads, jcfg.hd
+    b, d = big_b // data, jcfg.d_model
     act = jnp.dtype(jcfg.dtype).itemsize
     x = b * d * act
+    if jcfg.family == "ssm":
+        d_in = jcfg.ssm_expand * d
+        convdim = d_in + 2 * jcfg.ssm_groups * jcfg.ssm_state
+        layer = [b * (jcfg.ssm_conv - 1) * convdim * act] * (convdim % m == 0)
+        if jcfg.nh_ssm % m == 0:
+            layer += [b * 4, x]
+        sums = (jcfg.n_layers * layer + ([x] if jcfg.vocab % m == 0 else [])
+                + [big_b * jcfg.vocab * 4])
+        return len(sums), sum(sums)
+    h, hd = jcfg.n_heads, jcfg.hd
     attn = []
     if jcfg.n_kv_heads % m and hd % m == 0:
         if h % m == 0:
@@ -272,7 +297,7 @@ def test_chip_smokes_full_cells_hold_the_jax_rules_bytes():
     against byte totals it cannot derive on the card (no JAX there):
     these are the JAX rules' shards of the JAX cells' arguments."""
     cells = _chip_smoke().DRYRUN_CELLS
-    assert len(cells) == 2
+    assert len(cells) == 3
     for arch, shape, multi_pod, _, want in cells:
         assert want == jax_cell_bytes(arch, shape, multi_pod, smoke=False)
 

@@ -1413,6 +1413,40 @@ def test_mesh_decode_on_a_one_rank_grid_on_the_card_is_decode_step(cuda):
     assert pairs and all(torch.equal(x, y) for x, y in pairs)
 
 
+def test_mamba2_mesh_decode_on_a_one_rank_grid_on_the_card_is_decode_step(
+        cuda):
+    """mamba2's decode step (its SSM layers' one-rank path: conv and state
+    caches written in place) through `sharding.serving.mesh_decode` on a
+    one-rank grid on the card is `models.decode_step`: the same logits
+    and caches, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_like
+    from repro_torch.models import model as Mo
+    from repro_torch.sharding import serving
+    from repro_torch.sharding.rules import (Sharding, batch_spec,
+                                            cache_shardings, param_shardings,
+                                            tree_map)
+    cfg = get_config("mamba2-370m", smoke=True).replace(remat=False)
+    model = Mo.init_model(cfg, device=cuda)
+    grid = make_mesh_like("1x1", device=cuda, grid=True)
+    sh = {"params": param_shardings(model, cfg, grid),
+          "caches": tree_map(lambda _, s: Sharding(grid, s), cache_shardings(
+              Mo.cache_specs(cfg, 2, 8), cfg, grid))}
+    bsh = {k: Sharding(grid, s)
+           for k, s in batch_spec(cfg, grid, kind="decode", batch=2).items()}
+    tok = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    outs = []
+    for decode in (Mo.decode_step, serving.mesh_decode(sh, bsh)):
+        with torch.no_grad():
+            _, caches = Mo.prefill(model, {"tokens": tok}, 8)
+            for i in range(2):
+                lg, caches = decode(model, tok[:, i:i + 1], caches, 4 + i)
+            outs.append((lg, caches))
+    assert torch.equal(outs[0][0], outs[1][0])
+    pairs = list(zip(_leaves(outs[0][1]), _leaves(outs[1][1]), strict=True))
+    assert len(pairs) == 2 and all(torch.equal(x, y) for x, y in pairs)
+
+
 def _leaves(t):
     if isinstance(t, dict):
         return [x for v in t.values() for x in _leaves(v)]

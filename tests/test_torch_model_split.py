@@ -9,8 +9,10 @@ vocab of 256 splits, and one case at an odd vocab that stays whole),
 qwen2-moe at 3 experts, which do not divide the model line (their mlp
 columns split instead),
 llama-3.2-vision's cross-attention on image embeddings, zamba2's and
-mamba2's SSM blocks (their leaves gathered whole over the model line and
-computed alike) with zamba2's shared attention block.  llama4's smoke
+mamba2's SSM blocks (each rank its 4 of the 8 SSM heads: ``out_proj``
+row-parallel, the other SSM leaves gathered whole and their gradients
+summed over the model line, the gated norm's sum of squares summed over
+it) with zamba2's shared attention block.  llama4's smoke
 parameters are bf16; here they are f32, as bf16 rounds each rank's
 partial weight gradient far above the gradient gate.
 
@@ -145,6 +147,8 @@ def test_each_rank_of_a_model_line_computes_its_share(runs, grid, name):
         kinds.add("experts")
     if cfg.family == "ssm":
         kinds = {"vocab"}
+    if cfg.ssm_state:
+        kinds.add("ssm_heads")
     for r in (x[name] for x in runs["grids"][grid]):
         m = r["coords"]["model"]
         assert set(r["shares"]) == kinds, (name, r["shares"])

@@ -695,9 +695,9 @@ def mutated_split_step(mesh, spec: str, cases: dict, mutation: str) -> dict:
     if mutation == "partial_unsummed":
         real_modes = tensor.leaf_modes
 
-        def modes(shardings):
+        def modes(shardings, cfg):
             return {k: tensor.FULL if v == tensor.PARTIAL else v
-                    for k, v in real_modes(shardings).items()}
+                    for k, v in real_modes(shardings, cfg).items()}
         tensor.leaf_modes = modes
     elif mutation == "partial_twice":
         real_reduce = fsdp.reduce
@@ -850,11 +850,13 @@ def serve_split(mesh, spec: str, cases: dict) -> dict:
     the prefill and of each step (numpy), its cache blocks after the
     prefill and after the last step (numpy by `layout.flat` path joined
     with dots), each call's collectives (`core.mesh.tallying`) and
-    `layout.serve_plan`'s for a prefill and a step}."""
+    `layout.serve_plan`'s for a prefill and a step, and the shares of the
+    heads, mlp columns, experts, vocab rows and SSM heads it computed
+    (`sharding.tensor.recording`)}."""
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_mesh_like
     from repro_torch.models import model as MM
-    from repro_torch.sharding import hints, layout, serving
+    from repro_torch.sharding import hints, layout, serving, tensor
     from repro_torch.sharding.rules import (Sharding, batch_spec,
                                             cache_shardings, param_shardings,
                                             tree_map)
@@ -881,18 +883,19 @@ def serve_split(mesh, spec: str, cases: dict) -> dict:
         prefill = serving.mesh_prefill(sh, bsh["prefill"])
         decode = serving.mesh_decode(sh, bsh["decode"])
         try:
-            with M.tallying() as seen:
-                logits, caches = prefill(
-                    model, {"tokens": torch.from_numpy(prompt)}, max_len)
-            tallies, got = [dict(seen)], [logits.numpy().copy()]
-            first = blocks(caches)
-            for i in range(fed.shape[1]):
+            with tensor.recording() as shares:
                 with M.tallying() as seen:
-                    logits, caches = decode(
-                        model, torch.from_numpy(fed[:, i:i + 1]), caches,
-                        prompt.shape[1] + i)
-                tallies.append(dict(seen))
-                got.append(logits.numpy().copy())
+                    logits, caches = prefill(
+                        model, {"tokens": torch.from_numpy(prompt)}, max_len)
+                tallies, got = [dict(seen)], [logits.numpy().copy()]
+                first = blocks(caches)
+                for i in range(fed.shape[1]):
+                    with M.tallying() as seen:
+                        logits, caches = decode(
+                            model, torch.from_numpy(fed[:, i:i + 1]), caches,
+                            prompt.shape[1] + i)
+                    tallies.append(dict(seen))
+                    got.append(logits.numpy().copy())
             plans = {kind: layout.serve_plan(cfg, sh, bsh[kind], kind, {
                 "tokens": torch.from_numpy(prompt if kind == "prefill"
                                            else fed[:, :1])}, max_len)
@@ -901,5 +904,7 @@ def serve_split(mesh, spec: str, cases: dict) -> dict:
             hints.configure(cfg, None)
         out[name] = {"coords": grid.coords, "logits": got,
                      "prefill_caches": first, "caches": blocks(caches),
-                     "tallies": tallies, "plans": plans}
+                     "tallies": tallies, "plans": plans,
+                     "shares": {k: sorted(v, key=str)
+                                for k, v in shares.items()}}
     return out

@@ -1,11 +1,13 @@
 """mamba2-370m served on a grid (`repro_torch.sharding.serving`) against
 the JAX package's jitted prefill and decode on a fake-device mesh
 (`_torch_serve_twins`): the rules split its SSM caches on "model" (the
-conv's channels, the state's heads) while its SSM blocks run whole on
-the model line, so a decode step gathers the blocks over the model line
-inside the layer, computes alike and writes back the rank's blocks.
-Smoke config, f32, a 16-token prompt and 3 decode steps of fed tokens;
-held within LOGIT_TOL (of max(1, |JAX's|)), as
+conv's channels, the state's heads), and each rank of a model line
+computes its 4 of the 8 SSM heads, whose state block it keeps: prefill
+keeps its heads' final state, decode updates its block in place and
+never exchanges the state; a decode step gathers the conv's blocks over
+the model line once a layer for its channels' history and writes its
+own block.  Smoke config, f32, a 16-token prompt and 3 decode steps of
+fed tokens; held within LOGIT_TOL (of max(1, |JAX's|)), as
 tests/test_torch_serve_split_jax.py holds gemma3-1b; at a batch of 1 the
 two data ranks hold the same blocks, bitwise."""
 from __future__ import annotations
@@ -45,3 +47,24 @@ def test_each_rank_holds_its_blocks_of_the_ssm_caches(runs):
         for r in (x[name] for x in runs["ranks"][grid]):
             assert r["caches"]["conv"].shape[1:] == (b, 3, 80), grid
             assert r["caches"]["ssm"].shape[1:] == (b, 4, 16, 16), grid
+
+
+@pytest.mark.parametrize("grid,name", RUNS)
+def test_a_decode_step_moves_no_state(runs, grid, name):
+    """Each rank computes its 4 of the 8 SSM heads, and a decode step's
+    all_sums are, each of the 2 layers, the conv blocks' exchange (B_r x
+    3 x 160 f32 in all), the gated norm's sum of squares (B_r f32) and
+    out_proj's partial output (B_r x 64 f32), then the vocab-parallel
+    lookup's sum and the whole logits' gather (B x 256 f32): no state
+    (B_r x 8 x 16 x 16 f32 a layer before)."""
+    dims = GRIDS[grid]
+    big_b = 1 if name.endswith("batch 1") else 4
+    b = big_b if big_b % dims[0] else big_b // dims[0]
+    layer = [b * 3 * 160 * 4, b * 4, b * 64 * 4]
+    want = {"all_sum": 2 * len(layer) + 2,
+            "all_sum_bytes": 2 * sum(layer) + b * 64 * 4 + big_b * 256 * 4}
+    for r in (x[name] for x in runs["ranks"][grid]):
+        plan = r["plans"]["decode"]
+        assert {k: plan[k] for k in want} == want, (grid, name, plan)
+        m = r["coords"]["model"]
+        assert r["shares"]["ssm_heads"] == [(4, 8, 4 * m)], r["shares"]

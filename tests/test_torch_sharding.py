@@ -263,11 +263,15 @@ def test_leaf_modes_read_the_jax_rules_model_axis(arch, mesh):
     """How the split step treats each parameter on the model line
     (`sharding.tensor.leaf_modes`), read off the JAX rules: ``split``
     where the JAX spec puts "model" on a dim whose logical axis is heads,
-    kv_heads, mlp, vocab, or expert outside the router (the SSM's inner
-    leaves and the router stay whole); ``partial`` for an attention's
-    wk / wv / bk / bv left whole where its wq splits; ``full``
-    otherwise.  `layout.model_block` is the JAX spec without "model",
-    and `layout.carries_model` says whether it has "model"."""
+    kv_heads, mlp, vocab, or expert outside the router (the router stays
+    whole); an SSM block's ``out_proj`` where the spec puts "model" on
+    its inner dim and the SSM heads divide the model axis, and then
+    ``partial`` for the SSM block's other leaves (in_proj, conv_w,
+    conv_b, A_log, D, dt_bias, norm), all ``full`` where the heads do
+    not divide it; ``partial`` for an attention's wk / wv / bk / bv left
+    whole where its wq splits; ``full`` otherwise.  `layout.model_block`
+    is the JAX spec without "model", and `layout.carries_model` says
+    whether it has "model"."""
     from repro_torch.sharding import layout, tensor
     from repro_torch.sharding.rules import param_shardings
     fm = MESHES[mesh]
@@ -293,13 +297,19 @@ def test_leaf_modes_read_the_jax_rules_model_axis(arch, mesh):
                                         or (ax == "expert"
                                             and last != "router"))
                 for ax, e in zip(axes[depth:], spec[depth:]))
+            if last == "out_proj":
+                split = cfg.nh_ssm % fm.shape["model"] == 0 and any(
+                    "model" in norm(e) and ax == "inner"
+                    for ax, e in zip(axes[depth:], spec[depth:]))
             want[name] = (split, tuple(spec[depth:]))
-    modes = tensor.leaf_modes(param_shardings(state["params"], cfg, fm))
+    modes = tensor.leaf_modes(param_shardings(state["params"], cfg, fm), cfg)
     assert set(modes) == set(want)
     for name, (split, spec) in want.items():
         prefix, _, last = name.rpartition(".")
         partial = (last in ("wk", "wv", "bk", "bv") and not split
                    and want.get(f"{prefix}.wq", (False,))[0])
+        if prefix.endswith(".ssm") and last != "out_proj":
+            partial = want[f"{prefix}.out_proj"][0]
         assert modes[name] == (tensor.SPLIT if split else tensor.PARTIAL
                                if partial else tensor.FULL), name
     for name, sh in param_shardings(state["params"], cfg, fm).items():
@@ -319,10 +329,16 @@ def test_leaf_modes_read_the_jax_rules_model_axis(arch, mesh):
         assert {"embed", "blocks.0.mlp.w_down"} <= split
         assert modes["blocks.0.attn.wk"] == (
             tensor.PARTIAL if mesh == "2x2" else tensor.FULL)
-    if arch == "mamba2-370m":
-        # the SSM blocks compute alike on the model line (50280 rows do not
-        # divide 16 ways)
-        assert split == ({"embed"} if mesh == "2x2" else set())
+    if arch in ("mamba2-370m", "zamba2-7b"):
+        # every SSM block splits its 32 (112) heads on the model line:
+        # out_proj row-parallel, the rest gathered whole (mamba2's 50280
+        # vocab rows do not divide 16 ways)
+        ssm = {k for k in modes if ".ssm." in k}
+        rows = {k for k in ssm if k.endswith(".out_proj")}
+        assert rows and rows <= split
+        assert {modes[k] for k in ssm - rows} == {tensor.PARTIAL}
+        if arch == "mamba2-370m":
+            assert split == rows | ({"embed"} if mesh == "2x2" else set())
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
